@@ -1,0 +1,316 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port (`bigdl_tpu_torch`) on one NVIDIA GPU.
+
+Run from the root of a checkout:
+
+    python3 chip_smoke.py
+
+Phases:
+1. device: print the card's name and power limit (`nvidia-smi`); no CUDA
+   device is a failure;
+2. build: compile every CUDA kernel of the port from `bigdl_tpu_torch/csrc`
+   with `nvcc` (one process per source, started together);
+3. kernel: hold the flash-attention forward kernel against its plain
+   PyTorch version at the prefill shapes, with stated tolerances, and time
+   it beside the plain version, `scaled_dot_product_attention` (a
+   yardstick only; the port never calls it) and its bound;
+4. generation: serve `TransformerLM(vocab 1024, embed 512, 4 layers,
+   8 heads)` with random weights from a seed through `GenerationEngine`,
+   check every stream, the kernel's launch count, and the greedy tokens
+   against `greedy_decode_reference` on a twin without the kernel.
+
+Prints a `{"kernels": [...]}` line, then as its last line
+`{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_FLOPS = {torch.float32: 67e12,     # f32 on the CUDA cores
+              torch.bfloat16: 989e12}   # bf16 on the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+# |kernel - plain| limits. f32: both sum the same f32 terms in another
+# order (2048 keys), ~1e-6 apart; a wrong mask or guard is off by >1e-2.
+# bf16: O is rounded to bf16 (one ulp at |O| ~ 2 is 7.8e-3); lse stays f32.
+TOL = {torch.float32: {"o": 1e-4, "lse": 1e-4},
+       torch.bfloat16: {"o": 2e-2, "lse": 1e-4}}
+# the greedy-token check compares log-probs instead where the top-2
+# margin is below this
+MARGIN_TOL = 1e-3
+
+KERNEL_ROW = {"name": "flash_attention_fwd", "route": "cuda",
+              "source": "bigdl_tpu_torch/csrc/flash_attention_fwd.cu",
+              "replaces": "bigdl_tpu/ops/attention_kernel.py:186"}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def cuda_ms(fn, iters):
+    """Mean device time of `fn()` over `iters` back-to-back calls, after
+    three warm-up calls, from CUDA events."""
+    for _ in range(3):
+        fn()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def attention_bound(b, h, tq, tk, d, causal, q_offset, k_offset, dtype):
+    """Least time (ms) the card could take for this call, and what bounds
+    it: q, k, v read once, O and lse written once; 4*D operations per
+    unmasked (query, key) pair (QK^T and PV), counted for these inputs."""
+    if causal:
+        rows = np.arange(tq) + q_offset - k_offset + 1
+        pairs = int(np.clip(rows, 0, tk).sum())
+    else:
+        pairs = tq * tk
+    flops = 4.0 * b * h * d * pairs
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = b * h * d * (2 * tq + 2 * tk) * elem + b * h * tq * 4
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_phase(ak):
+    """Kernel vs plain version at the prefill shapes (B=4, H=8, D=64) and
+    a few edge cases. Returns the row for the main-path shape."""
+    cases = [  # name, b, h, tq, tk, d, causal, q_off, k_off, dtype
+        ("causal T=128", 4, 8, 128, 128, 64, True, 0, 0, torch.float32),
+        ("causal T=1000 (ragged)", 4, 8, 1000, 1000, 64, True, 0, 0,
+         torch.float32),
+        ("causal T=2048", 4, 8, 2048, 2048, 64, True, 0, 0, torch.float32),
+        ("non-causal Tq=1000 Tk=1500 (ragged)", 4, 8, 1000, 1500, 64, False,
+         0, 0, torch.float32),
+        ("causal T=2048 bf16", 4, 8, 2048, 2048, 64, True, 0, 0,
+         torch.bfloat16),
+        ("causal k_offset=64: rows 0-63 fully masked", 2, 4, 128, 128, 64,
+         True, 0, 64, torch.float32),
+        ("causal T=512 D=128", 2, 8, 512, 512, 128, True, 0, 0,
+         torch.float32),
+        ("non-causal T=300 D=40", 2, 4, 300, 300, 40, False, 0, 0,
+         torch.float32),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    main_row = None
+    for (name, b, h, tq, tk, d, causal, q_off, k_off, dtype) in cases:
+        q = torch.randn((b, h, tq, d), generator=gen, device="cuda"
+                        ).to(dtype)
+        k, v = (torch.randn((b, h, tk, d), generator=gen, device="cuda"
+                            ).to(dtype) for _ in range(2))
+        kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+        with torch.inference_mode():
+            o, lse = ak.flash_attention_forward(q, k, v, return_lse=True,
+                                                **kw)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = ak.flash_attention_forward_plain(q, k, v, **kw)
+        check(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),
+              f"{name}: non-finite kernel output")
+        err_o = float((o.float() - o_ref.float()).abs().max())
+        err_lse = float((lse - lse_ref).abs().max())
+        tol = TOL[dtype]
+        ok = err_o <= tol["o"] and err_lse <= tol["lse"]
+        if k_off > q_off:
+            dead = k_off - q_off
+            ok = ok and bool((o[:, :, :dead] == 0).all()
+                             and (lse[:, :, :dead] == 0).all())
+        iters = 20 if tq * tk >= 1 << 20 else 50
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: ak.flash_attention_forward(
+                q, k, v, return_lse=True, **kw), iters)
+            plain_ms = cuda_ms(lambda: ak.flash_attention_forward_plain(
+                q, k, v, **kw), iters)
+            library_ms = None
+            if q_off == k_off == 0:
+                library_ms = cuda_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal), iters)
+        bound_ms, bound_by = attention_bound(b, h, tq, tk, d, causal,
+                                             q_off, k_off, dtype)
+        row = {"case": name, "shape": [b, h, tq, tk, d],
+               "dtype": str(dtype).replace("torch.", ""),
+               "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
+               "tol_o": tol["o"], "tol_lse": tol["lse"], "ok": ok,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "share_of_bound": bound_ms / ms}
+        print("kernel case " + json.dumps(row), flush=True)
+        check(ok, f"{name}: kernel disagrees with its plain version "
+                  f"(O {err_o:.3e} > {tol['o']} or lse {err_lse:.3e} > "
+                  f"{tol['lse']}, or a fully masked row is not 0)")
+        if name == "causal T=2048":
+            main_row = {"max_abs_err": err_o, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": library_ms}
+    return main_row
+
+
+def check_tokens(model, twin, prompt, got, greedy_decode_reference):
+    """The engine's greedy tokens against the full-recompute reference on
+    the twin without the kernel. At a step whose reference top-2 margin is
+    below MARGIN_TOL the two paths may rightly pick different tokens:
+    there the two models' log-probs are compared instead, and the check
+    stops (the trajectories may part after a near tie)."""
+    ref = greedy_decode_reference(twin, prompt, len(got))
+    for i, (a, r) in enumerate(zip(got, ref)):
+        if a == r:
+            continue
+        prefix = torch.tensor(np.concatenate([prompt, got[:i]])[None],
+                              device="cuda")
+        with torch.inference_mode():
+            lp_ref = twin(prefix)[0, -1]
+            lp_got = model(prefix)[0, -1]
+        top2 = lp_ref.topk(2).values
+        margin = float(top2[0] - top2[1])
+        err = float((lp_got - lp_ref).abs().max())
+        check(margin < MARGIN_TOL and err < MARGIN_TOL,
+              f"prompt of {prompt.size}: token {i} is {a}, reference {r} "
+              f"(top-2 margin {margin:.2e}, log-prob error {err:.2e})")
+        print(f"prompt of {prompt.size}: near tie at token {i} (margin "
+              f"{margin:.2e}); log-probs agree to {err:.2e}", flush=True)
+        return i
+    return len(got)
+
+
+def generation_phase(ak):
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.serving import (GenerationEngine,
+                                         greedy_decode_reference)
+
+    cfg = dict(vocab_size=1024, embed_dim=512, n_layer=4, n_head=8)
+    model = TransformerLM(**cfg, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+    twin = TransformerLM(**cfg, use_flash=False, device="cuda")
+    twin.load_state_dict(model.state_dict())
+    n_new = 32
+    lengths = [3, 9, 17, 40, 100, 250, 500, 900, 1300, 1900]
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(1, cfg["vocab_size"] + 1, size=n).astype(np.int32)
+               for n in lengths]
+    results = [None] * len(prompts)
+    with GenerationEngine(model, slots=8, max_len=2048, prefill_batch=4,
+                          max_new_tokens=n_new, device="cuda") as eng:
+        t0 = time.perf_counter()
+        shapes = eng.warmup()
+        torch.cuda.synchronize()
+        print(f"warmup: {shapes} shapes in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+
+        def client(i):
+            s = eng.generate(prompts[i], max_new_tokens=n_new)
+            toks = []
+            try:
+                toks = s.result(timeout=600)
+            except Exception as e:  # reported below with the stream status
+                print(f"request {i}: {e!r}", file=sys.stderr)
+            results[i] = (s.status, len(toks), toks)
+
+        # the main path's run: counts start at 0 here and are read after
+        ak.flash_attention_forward.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        launches = ak.flash_attention_forward.launches
+        stats = eng.generation_stats()
+    for i, r in enumerate(results):
+        check(r is not None and r[0] == "ok" and r[1] == n_new,
+              f"request {i} (prompt {lengths[i]}): {r and r[:2]}")
+    check(launches == stats["prefill_batches"] * cfg["n_layer"] > 0,
+          f"flash kernel launches {launches} != prefill batches "
+          f"{stats['prefill_batches']} x {cfg['n_layer']} layers")
+    tokens = sum(r[1] for r in results)
+    gen = {"requests": len(prompts), "tokens": tokens, "wall_s": wall,
+           "tokens_per_sec": tokens / wall,
+           "prefill_batches": stats["prefill_batches"],
+           "prefill_ms_per_batch":
+               1e3 * stats["prefill_s_total"] / stats["prefill_batches"],
+           "decode_steps": stats["decode_steps"],
+           "decode_ms_per_step":
+               1e3 * stats["decode_s_total"] / stats["decode_steps"],
+           "decode_occupancy": stats["decode_occupancy"],
+           "kernel_launches": launches}
+    print("generation " + json.dumps(gen), flush=True)
+
+    for i in (0, len(prompts) - 1):  # shortest and longest prompt
+        n = check_tokens(model, twin, prompts[i], results[i][2],
+                         greedy_decode_reference)
+        print(f"prompt of {lengths[i]}: {n}/{n_new} tokens equal the "
+              "reference", flush=True)
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    print(smi[0], flush=True)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}",
+          flush=True)
+
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import attention_kernel as ak
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.build_kernels()
+    print(f"build: {len(_build.KERNELS)} kernel(s) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name, log in _build.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+
+    # 3. kernel
+    main_row = kernel_phase(ak)
+
+    # 4. generation
+    launches = generation_phase(ak)
+
+    print(json.dumps({"kernels": [{**KERNEL_ROW, "launches": launches,
+                                   **main_row, "status": "ok"}]}),
+          flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

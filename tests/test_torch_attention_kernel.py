@@ -1,0 +1,185 @@
+"""Port parity: `bigdl_tpu_torch.ops.attention_kernel` against
+`bigdl_tpu.ops.attention_kernel`.
+
+The flash forward kernel's plain version (what the port runs on a CPU
+tensor) is held against the JAX Pallas kernel in interpret mode, and the
+router against the JAX router with its Pallas path forced through
+`INTERPRET`. Inputs come from numpy with a fixed seed and go to both
+frameworks. Tolerance: atol 1e-5 in f32, the same online softmax summed in
+another order.
+
+The CUDA kernel itself is held against its plain version on the card by
+`tests/test_torch_cuda.py`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from bigdl_tpu.ops import attention_kernel as jak
+from bigdl_tpu_torch.ops import _build
+from bigdl_tpu_torch.ops import attention_kernel as tak
+
+ATOL = 1e-5
+
+
+def _qkv(b, h, tq, tk, d, seed=0):
+    rs = np.random.RandomState(seed)
+    q = rs.randn(b, h, tq, d).astype(np.float32)
+    k = rs.randn(b, h, tk, d).astype(np.float32)
+    v = rs.randn(b, h, tk, d).astype(np.float32)
+    return q, k, v
+
+
+def _both(*arrays):
+    return ([jnp.asarray(a) for a in arrays],
+            [torch.from_numpy(a) for a in arrays])
+
+
+class TestPlainFlashForwardVsPallas:
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("t,d,block_q,block_k",
+                             [(64, 16, 16, 32), (128, 32, 64, 32)])
+    def test_o_and_lse_match_interpret_kernel(self, causal, t, d, block_q,
+                                              block_k):
+        (jq, jk, jv), (q, k, v) = _both(*_qkv(2, 2, t, t, d, seed=t))
+        o_j, lse_j = jak.flash_attention_forward(
+            jq, jk, jv, causal=causal, block_q=block_q, block_k=block_k,
+            interpret=True, return_lse=True)
+        o_t, lse_t = tak.flash_attention_forward(q, k, v, causal=causal,
+                                                 return_lse=True)
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=ATOL)
+        np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j),
+                                   atol=ATOL)
+
+    def test_explicit_scale(self):
+        (jq, jk, jv), (q, k, v) = _both(*_qkv(1, 2, 32, 32, 16, seed=3))
+        o_j = jak.flash_attention_forward(jq, jk, jv, causal=True,
+                                          sm_scale=0.3, block_q=16,
+                                          block_k=16, interpret=True)
+        o_t = tak.flash_attention_forward(q, k, v, causal=True,
+                                          sm_scale=0.3)
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=ATOL)
+
+
+class TestRouter:
+    @pytest.mark.parametrize("causal,tq,tk", [
+        (True, 64, 64), (False, 64, 64),      # tiled: Pallas interpret
+        (True, 40, 40), (False, 40, 40),      # ragged T
+        (False, 24, 40), (True, 40, 24)])     # Tq != Tk
+    def test_router_matches_jax(self, causal, tq, tk, monkeypatch):
+        monkeypatch.setattr(jak, "INTERPRET", True)
+        (jq, jk, jv), (q, k, v) = _both(*_qkv(2, 2, tq, tk, 16, seed=tq))
+        out_j = jak.flash_attention(jq, jk, jv, causal)
+        out_t = tak.flash_attention(q, k, v, causal)
+        np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
+                                   atol=ATOL)
+
+    def test_router_takes_head_split_views(self):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 16, 16, 8))
+        qt = q.transpose(1, 2).contiguous().transpose(1, 2)  # strided view
+        assert not qt.is_contiguous()
+        torch.testing.assert_close(tak.flash_attention(qt, k, v, True),
+                                   tak.flash_attention(q, k, v, True))
+
+    def test_fully_masked_rows_are_zero_with_zero_lse(self):
+        """Keys placed after every query: rows 0..15 see nothing. The
+        guards give O = 0 and lse = 0 there, as in the JAX kernels."""
+        (jq, jk, jv), (q, k, v) = _both(*_qkv(1, 2, 32, 32, 16, seed=5))
+        o_t, lse_t = tak.flash_attention_forward(
+            q, k, v, causal=True, return_lse=True, k_offset=16)
+        o_j = jak.blockwise_attention(jq, jk, jv, causal=True, k_offset=16,
+                                      block_k=8)
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=ATOL)
+        assert (o_t[:, :, :16] == 0).all() and (lse_t[:, :, :16] == 0).all()
+        assert (lse_t[:, :, 16:] != 0).all()
+
+    def test_naive_fully_masked_row_matches_jax(self):
+        """naive_attention's masked row is a softmax over NEG_INF alone:
+        uniform weights, in both frameworks."""
+        (jq, jk, jv), (q, k, v) = _both(*_qkv(1, 1, 4, 6, 8, seed=6))
+        mask = np.ones((1, 1, 4, 6), bool)
+        mask[0, 0, 1] = False
+        out_j = jak.naive_attention(jq, jk, jv, mask=jnp.asarray(mask))
+        out_t = tak.naive_attention(q, k, v, mask=torch.from_numpy(mask))
+        np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
+                                   atol=ATOL)
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_naive_and_blockwise_agree(self, causal):
+        (jq, jk, jv), (q, k, v) = _both(*_qkv(2, 2, 24, 40, 8, seed=7))
+        ref = np.asarray(jak.naive_attention(jq, jk, jv, causal=causal))
+        naive = tak.naive_attention(q, k, v, causal=causal)
+        block = tak.blockwise_attention(q, k, v, causal=causal, block_k=16)
+        np.testing.assert_allclose(naive.numpy(), ref, atol=ATOL)
+        np.testing.assert_allclose(block.numpy(), ref, atol=ATOL)
+
+    def test_carry_continues_softmax_across_shards(self):
+        (jq, jk, jv), (q, k, v) = _both(*_qkv(1, 2, 32, 32, 8, seed=8))
+        state_t = tak.attention_state_init(q)
+        state_j = jak.attention_state_init(jq)
+        for off in (0, 16):
+            sl = slice(off, off + 16)
+            state_t = tak.blockwise_attention(
+                q, k[:, :, sl], v[:, :, sl], causal=True, k_offset=off,
+                block_k=8, carry=state_t, finish=False)
+            state_j = jak.blockwise_attention(
+                jq, jk[:, :, sl], jv[:, :, sl], causal=True, k_offset=off,
+                block_k=8, carry=state_j, finish=False)
+        for got, want in zip(state_t, state_j):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=1e-4, rtol=1e-5)
+        np.testing.assert_allclose(
+            tak.attention_state_finish(*state_t).numpy(),
+            np.asarray(jak.naive_attention(jq, jk, jv, causal=True)),
+            atol=ATOL)
+
+    def test_bf16_plain_matches_jax_blockwise(self):
+        q, k, v = _qkv(1, 2, 32, 32, 16, seed=9)
+        jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+        tq_, tk_, tv_ = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+        out_t = tak.flash_attention(tq_, tk_, tv_, True)
+        out_j = jak.blockwise_attention(jq, jk, jv, causal=True)
+        assert out_t.dtype == torch.bfloat16
+        # same f32 math on the same bf16 inputs; outputs rounded to bf16
+        np.testing.assert_allclose(out_t.float().numpy(),
+                                   np.asarray(out_j, np.float32), atol=1e-2)
+
+
+class TestWrapper:
+    def test_cpu_tensors_never_count_as_launches(self):
+        before = tak.flash_attention_forward.launches
+        q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 8, 8, 8))
+        tak.flash_attention_forward(q, k, v, causal=True)
+        assert tak.flash_attention_forward.launches == before
+
+    def test_rejects_bad_inputs(self):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 8, 8, 8))
+        with pytest.raises(ValueError):
+            tak.flash_attention_forward(q, k[:, :1], v[:, :1])
+        with pytest.raises(ValueError):
+            tak.flash_attention_forward(q, k.double(), v)
+        with pytest.raises(ValueError):
+            tak.flash_attention_forward(q[0], k[0], v[0])
+        with pytest.raises(NotImplementedError):
+            tak.flash_attention_forward(q.to("meta"), k.to("meta"),
+                                        v.to("meta"))
+
+    def test_build_without_nvcc_raises(self, monkeypatch, tmp_path):
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+        monkeypatch.setenv("PATH", str(tmp_path))
+        monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.build_kernels()
+
+    def test_library_name_follows_the_source(self, monkeypatch, tmp_path):
+        src = tmp_path / "k.cu"
+        src.write_text("// a")
+        monkeypatch.setattr(_build, "CSRC", tmp_path)
+        first = _build._lib_path("k")
+        src.write_text("// b")
+        assert _build._lib_path("k") != first
+        with pytest.raises(FileNotFoundError):
+            _build._lib_path("missing")
