@@ -1,5 +1,9 @@
-"""Carrying weights from the JAX package into the port."""
+"""Carrying weights between the JAX package and the port."""
 
-from bigdl_tpu_torch.interop.jax_params import load_transformer_lm_params
+from bigdl_tpu_torch.interop.jax_params import (load_module_params,
+                                                load_transformer_lm_params,
+                                                module_params_tree,
+                                                module_state)
 
-__all__ = ["load_transformer_lm_params"]
+__all__ = ["load_module_params", "load_transformer_lm_params",
+           "module_params_tree", "module_state"]

@@ -1,12 +1,98 @@
 """Normalization layers (counterpart of `bigdl_tpu/nn/normalization.py`).
 
-Only `LayerNormalization` is ported in this slice.
+Ported: `BatchNormalization`, `SpatialBatchNormalization` and
+`LayerNormalization`.
+
+BatchNorm keeps the reference's semantics exactly (`_stats_scale_shift`,
+shared by the plain tail `forward` and the fused one
+`forward_with_activation`):
+- statistics in f32, also under bf16 input; the normalize runs in f32 and
+  is cast back to the input's dtype;
+- the biased variance normalizes, the unbiased one feeds the running stat;
+- running stats `new = (1 - m) * old + m * batch` (m = `momentum`, 0.1),
+  kept as f32 buffers `mean` and `var` (the JAX state's keys);
+- the affine is folded into `scale = weight * rsqrt(var + eps)` and
+  `shift = bias - mean * scale`, which the fused tail consumes as they are;
+- eval mode normalizes with the running stats.
+`F.batch_norm` is not used: its normalize is another function than the one
+the fused kernel replaces.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 from torch import nn
+
+from bigdl_tpu_torch._device import resolve_device
+from bigdl_tpu_torch.nn.module import Module
+
+
+class BatchNormalization(Module):
+    """BN over the last axis of [B, C] input (reference 1-D BN)."""
+
+    def __init__(self, n_output: int, eps: float = 1e-5,
+                 momentum: float = 0.1, name: Optional[str] = None, *,
+                 device=None):
+        super().__init__(name)
+        device = resolve_device(device)
+        self.n_output = n_output
+        self.eps, self.momentum = eps, momentum
+        self.weight = nn.Parameter(torch.ones(n_output, device=device))
+        self.bias = nn.Parameter(torch.zeros(n_output, device=device))
+        self.register_buffer("mean", torch.zeros(n_output, device=device))
+        self.register_buffer("var", torch.ones(n_output, device=device))
+        self._axes = (0,)  # the axes reduced over; subclasses override
+
+    def _stats_scale_shift(self, x):
+        """(x_f32, scale, shift, out_dtype): the statistics (updating the
+        running stats in training mode) and the folded coefficients, shared
+        by the plain and the fused tails."""
+        out_dtype = x.dtype
+        if x.is_floating_point() and torch.finfo(x.dtype).bits < 32:
+            x = x.float()
+        if self.training:
+            mean = x.mean(self._axes)
+            var = x.var(self._axes, correction=0)
+            n = math.prod(x.shape[a] for a in self._axes)
+            m = self.momentum
+            with torch.no_grad():
+                unbiased = var * n / max(n - 1.0, 1.0)
+                self.mean.copy_((1 - m) * self.mean + m * mean)
+                self.var.copy_((1 - m) * self.var + m * unbiased)
+        else:
+            mean, var = self.mean, self.var
+        scale = self.weight.to(x.dtype) * torch.rsqrt(var + self.eps)
+        shift = self.bias.to(x.dtype) - mean * scale
+        return x, scale, shift, out_dtype
+
+    def forward(self, x):
+        x, scale, shift, out_dtype = self._stats_scale_shift(x)
+        return (x * scale + shift).to(out_dtype)
+
+    def forward_with_activation(self, x, relu: bool = True):
+        """BN + activation as one fused tail (`ops/bn_relu_kernel.py`): on
+        the card one kernel each way instead of a normalize pass and a ReLU
+        pass. Statistics, state updates and the folded coefficients are
+        those of `forward`. The kernel reads x as an [N, C] matrix, so a
+        non-NHWC-contiguous x is made contiguous first."""
+        from bigdl_tpu_torch.ops.bn_relu_kernel import bn_relu
+        if not x.is_contiguous():
+            x = x.contiguous()
+        x, scale, shift, out_dtype = self._stats_scale_shift(x)
+        return bn_relu(x, scale, shift, relu, out_dtype)
+
+
+class SpatialBatchNormalization(BatchNormalization):
+    """BN over the trailing channel axis of NHWC [B, H, W, C] input."""
+
+    def __init__(self, n_output: int, eps: float = 1e-5,
+                 momentum: float = 0.1, name: Optional[str] = None, *,
+                 device=None):
+        super().__init__(n_output, eps, momentum, name, device=device)
+        self._axes = (0, 1, 2)
 
 
 class LayerNormalization(nn.Module):

@@ -1,2 +1,2 @@
-"""Attention ops and the kernels' build helper (counterpart of
-`bigdl_tpu.ops`)."""
+"""Ops with hand-written kernels (attention, the fused BN+ReLU tail) and
+the kernels' build helper (counterpart of `bigdl_tpu.ops`)."""

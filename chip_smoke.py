@@ -17,7 +17,24 @@ Phases:
 4. generation: serve `TransformerLM(vocab 1024, embed 512, 4 layers,
    8 heads)` with random weights from a seed through `GenerationEngine`,
    check every stream, the kernel's launch count, and the greedy tokens
-   against `greedy_decode_reference` on a twin without the kernel.
+   against `greedy_decode_reference` on a twin without the kernel;
+5. BN+ReLU kernels: hold the fused forward and backward kernels against
+   their plain versions at ragged shapes and at the ResNet-50 sites (the
+   stem, N = 128*112*112, C = 64; the last stage, N = 128*7*7, C = 512),
+   for x f32 / out bf16, x f32 / out f32 and x bf16 / out bf16, with and
+   without the ReLU: forward and dx bitwise, dscale/dshift within
+   1e-5 * sum|terms| per channel; time each beside its plain version and
+   its bound;
+6. training: ResNet-50 (1000 classes, s2d stem, full width and depth,
+   random weights from a seed). First an f32 parity pair at b8, 224x224:
+   the model and a twin with the same weights under `fusion_scope(False)`
+   (no kernel) take 3 SGD steps through `DistriOptimizer`; their losses
+   agree to a relative 1e-4 and the model launches each kernel 33 times a
+   step. Then the benchmark configuration (`bigdl_tpu_torch/tools/
+   bench.py`: b128, bf16 compute with f32 masters, SGD momentum 0.9, one
+   resident batch) for 8 warm-up and 24 timed steps, syncing every 8:
+   imgs/s, ms/step, exactly 33 launches of each kernel a step, and a
+   finite loss that falls from the first step to the last.
 
 Prints a `{"kernels": [...]}` line, then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
@@ -50,6 +67,20 @@ MARGIN_TOL = 1e-3
 KERNEL_ROW = {"name": "flash_attention_fwd", "route": "cuda",
               "source": "bigdl_tpu_torch/csrc/flash_attention_fwd.cu",
               "replaces": "bigdl_tpu/ops/attention_kernel.py:186"}
+BN_FWD_ROW = {"name": "bn_relu_fwd", "route": "cuda",
+              "source": "bigdl_tpu_torch/csrc/bn_relu_fwd.cu",
+              "replaces": "bigdl_tpu/ops/bn_relu_kernel.py:75"}
+BN_BWD_ROW = {"name": "bn_relu_bwd", "route": "cuda",
+              "source": "bigdl_tpu_torch/csrc/bn_relu_bwd.cu",
+              "replaces": "bigdl_tpu/ops/bn_relu_kernel.py:118"}
+# dscale/dshift: kernel and plain sum the same f32 terms in another order;
+# the limit per channel is this times the sum of the terms' magnitudes
+BN_SUM_RTOL = 1e-5
+# ResNet-50: the stem's BN and bn1/bn2 of each of the 16 bottlenecks
+BN_SITES = 33
+# f32 kernel-vs-twin losses after 3 steps: the twin differs only in the
+# summation order of dscale/dshift (~1e-7 relative a step)
+PARITY_RTOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -266,6 +297,192 @@ def generation_phase(ak):
     return launches
 
 
+def bn_relu_bound(n, c, x_dtype, y_dtype, backward):
+    """Least time (ms) for one call and what bounds it. Forward: x read,
+    y written, scale/shift read; 3 f32 operations an element (multiply,
+    add, max). Backward: x and g read, dx written, scale/shift read,
+    dscale/dshift written; 7 f32 operations an element (the recomputed
+    multiply-add, the mask, dx, and the two sums)."""
+    xe = torch.tensor([], dtype=x_dtype).element_size()
+    ye = torch.tensor([], dtype=y_dtype).element_size()
+    if backward:
+        nbytes, ops = n * c * (xe + ye + 4) + 4 * c * 4, 7.0 * n * c
+    else:
+        nbytes, ops = n * c * (xe + ye) + 2 * c * 4, 3.0 * n * c
+    t_ops = ops / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bn_relu_phase(bk):
+    """Both BN+ReLU kernels against their plain versions. Returns the rows
+    for the main path's stem site (x f32, y and g bf16, ReLU)."""
+    shapes = [("7x5", 7, 5), ("1x129", 1, 129), ("16x130", 16, 130),
+              ("stem", 128 * 112 * 112, 64), ("last stage", 128 * 7 * 7, 512)]
+    dtypes = [(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+              (torch.bfloat16, torch.bfloat16)]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for label, n, c in shapes:
+        x32 = torch.randn((n, c), generator=gen, device="cuda")
+        scale = torch.rand((c,), generator=gen, device="cuda") + 0.5
+        shift = torch.randn((c,), generator=gen, device="cuda") * 0.5
+        g32 = torch.randn((n, c), generator=gen, device="cuda")
+        for x_dt, y_dt in dtypes:
+            x, g = x32.to(x_dt), g32.to(y_dt)
+            for relu in (True, False):
+                name = (f"{label} [{n}x{c}] x {str(x_dt)[6:]} y "
+                        f"{str(y_dt)[6:]} relu={relu}")
+                y = bk.bn_relu_forward(x, scale, shift, relu, y_dt)
+                dx, ds, db = bk.bn_relu_backward(x, scale, shift, g, relu)
+                torch.cuda.synchronize()
+                y_ref = bk.bn_relu_forward_plain(x, scale, shift, relu, y_dt)
+                dx_ref, ds_ref, db_ref = bk.bn_relu_backward_plain(
+                    x, scale, shift, g, relu)
+                gm = g.float()
+                if relu:
+                    pre = (x * scale + shift).to(y_dt)
+                    gm = torch.where(pre > 0, gm, 0.0)
+                lim_ds = BN_SUM_RTOL * (gm * x.float()).abs().sum(0)
+                lim_db = BN_SUM_RTOL * gm.abs().sum(0)
+                err_y = float((y.float() - y_ref.float()).abs().max())
+                err_dx = float((dx - dx_ref).abs().max())
+                ok = (y.dtype == y_dt and torch.equal(y, y_ref)
+                      and torch.equal(dx, dx_ref)
+                      and bool(((ds - ds_ref).abs() <= lim_ds).all())
+                      and bool(((db - db_ref).abs() <= lim_db).all()))
+                iters = 20 if n * c > 1 << 22 else 50
+                fwd_ms = cuda_ms(lambda: bk.bn_relu_forward(
+                    x, scale, shift, relu, y_dt), iters)
+                fwd_plain_ms = cuda_ms(lambda: bk.bn_relu_forward_plain(
+                    x, scale, shift, relu, y_dt), iters)
+                bwd_ms = cuda_ms(lambda: bk.bn_relu_backward(
+                    x, scale, shift, g, relu), iters)
+                bwd_plain_ms = cuda_ms(lambda: bk.bn_relu_backward_plain(
+                    x, scale, shift, g, relu), iters)
+                fwd_bound = bn_relu_bound(n, c, x_dt, y_dt, False)
+                bwd_bound = bn_relu_bound(n, c, x_dt, y_dt, True)
+                row = {"case": name, "ok": ok, "max_abs_err_y": err_y,
+                       "max_abs_err_dx": err_dx,
+                       "max_abs_err_dscale": float((ds - ds_ref).abs().max()),
+                       "max_abs_err_dshift": float((db - db_ref).abs().max()),
+                       "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
+                       "fwd_bound_ms": fwd_bound[0],
+                       "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
+                       "bwd_bound_ms": bwd_bound[0],
+                       "fwd_share_of_bound": fwd_bound[0] / fwd_ms,
+                       "bwd_share_of_bound": bwd_bound[0] / bwd_ms}
+                print("bn_relu case " + json.dumps(row), flush=True)
+                check(ok, f"{name}: a BN+ReLU kernel disagrees with its "
+                          f"plain version (y {err_y:.3e}, dx {err_dx:.3e}, "
+                          "or dscale/dshift beyond "
+                          f"{BN_SUM_RTOL} * sum|terms|)")
+                if label == "stem" and x_dt == torch.float32 \
+                        and y_dt == torch.bfloat16 and relu:
+                    rows["fwd"] = {"max_abs_err": err_y, "ms": fwd_ms,
+                                   "plain_ms": fwd_plain_ms,
+                                   "bound_ms": fwd_bound[0],
+                                   "bound_by": fwd_bound[1],
+                                   "library_ms": None}
+                    rows["bwd"] = {"max_abs_err": err_dx, "ms": bwd_ms,
+                                   "plain_ms": bwd_plain_ms,
+                                   "bound_ms": bwd_bound[0],
+                                   "bound_by": bwd_bound[1],
+                                   "library_ms": None}
+        del x32, g32, x, g
+    return rows
+
+
+def _reset_bn_counts(bk):
+    bk.bn_relu_forward.launches = 0
+    bk.bn_relu_backward.launches = 0
+    bk.BnReluFunction.g_copies = 0
+
+
+def training_phase(bk):
+    from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, fusion_scope
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
+    from bigdl_tpu_torch.tools.bench import bench_resnet50
+
+    # f32 parity: the model against a twin without the kernel
+    torch.backends.cudnn.deterministic = True
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.rand(8, 224, 224, 3).astype(np.float32))
+    y = torch.from_numpy((rs.randint(0, 1000, size=8) + 1).astype(np.int32))
+    batch = MiniBatch(x.cuda(), y.cuda())
+    model = ResNet50(class_num=1000, s2d_stem=True, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    twin = ResNet50(class_num=1000, s2d_stem=True, device="cuda")
+    twin.load_state_dict(model.state_dict())
+
+    def train3(m):
+        losses = []
+        opt = DistriOptimizer(m, LocalDataSet([batch]), ClassNLLCriterion(),
+                              devices=["cuda"])
+        opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+        opt.set_end_when(max_iteration(3))
+        opt.set_iteration_hook(lambda st: losses.append(st["loss"]))
+        opt.optimize()
+        return losses
+
+    _reset_bn_counts(bk)
+    got = train3(model)
+    launches = (bk.bn_relu_forward.launches, bk.bn_relu_backward.launches)
+    with fusion_scope(False):
+        ref = train3(twin)
+    twin_launches = (bk.bn_relu_forward.launches,
+                     bk.bn_relu_backward.launches)
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+    print("training parity " + json.dumps({
+        "batch": batch.size(), "steps": 3, "dtype": "float32", "losses": got,
+        "twin_losses": ref, "rel_diff": rel, "launches": launches}),
+        flush=True)
+    check(all(np.isfinite(got)) and max(rel) <= PARITY_RTOL,
+          f"f32 losses {got} vs twin {ref}: relative {max(rel):.2e} > "
+          f"{PARITY_RTOL}")
+    check(launches == (3 * BN_SITES, 3 * BN_SITES),
+          f"BN+ReLU launches {launches} != {3 * BN_SITES} each in 3 steps")
+    check(twin_launches == launches, "the twin without fusion launched a "
+                                     "BN+ReLU kernel")
+    del model, twin, batch
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+    # the benchmark configuration: the main path's run
+    warmup, iters, sync = 8, 24, 8
+    torch.cuda.reset_peak_memory_stats()
+    _reset_bn_counts(bk)
+    res = bench_resnet50(batch_size=128, warmup=warmup, iters=iters,
+                         sync=sync, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    steps = warmup + iters
+    launches = {"bn_relu_fwd": bk.bn_relu_forward.launches,
+                "bn_relu_bwd": bk.bn_relu_backward.launches}
+    g_copies = bk.BnReluFunction.g_copies
+    losses = res["losses"]
+    out = {k: res[k] for k in ("imgs_per_sec", "ms_per_step", "batch_size",
+                               "steps", "warmup", "sync", "device")}
+    out.update({"precision": "bfloat16 compute, f32 masters",
+                "loss_first": losses[0], "loss_last": losses[-1],
+                "launches": launches, "launches_per_step": {
+                    k: v / steps for k, v in launches.items()},
+                "g_copies_per_step": g_copies / steps,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    print("training " + json.dumps(out), flush=True)
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"non-finite or missing losses: {losses}")
+    check(losses[-1] < losses[0],
+          f"the loss did not fall: first {losses[0]}, last {losses[-1]}")
+    for k, v in launches.items():
+        check(v == BN_SITES * steps,
+              f"{k} launched {v} times in {steps} steps, not "
+              f"{BN_SITES} x {steps}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -286,6 +503,7 @@ def main() -> int:
 
     from bigdl_tpu_torch.ops import _build
     from bigdl_tpu_torch.ops import attention_kernel as ak
+    from bigdl_tpu_torch.ops import bn_relu_kernel as bk
 
     # 2. build
     t0 = time.perf_counter()
@@ -303,9 +521,18 @@ def main() -> int:
     # 4. generation
     launches = generation_phase(ak)
 
-    print(json.dumps({"kernels": [{**KERNEL_ROW, "launches": launches,
-                                   **main_row, "status": "ok"}]}),
-          flush=True)
+    # 5. BN+ReLU kernels
+    bn_rows = bn_relu_phase(bk)
+
+    # 6. training
+    bn_launches = training_phase(bk)
+
+    print(json.dumps({"kernels": [
+        {**KERNEL_ROW, "launches": launches, **main_row, "status": "ok"},
+        {**BN_FWD_ROW, "launches": bn_launches["bn_relu_fwd"],
+         **bn_rows["fwd"], "status": "ok"},
+        {**BN_BWD_ROW, "launches": bn_launches["bn_relu_bwd"],
+         **bn_rows["bwd"], "status": "ok"}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

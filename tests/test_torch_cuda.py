@@ -1,5 +1,6 @@
-"""The port on the card: the flash forward CUDA kernel against its plain
-version, and the generation engine on CUDA against the CPU.
+"""The port on the card: the flash forward and the BN+ReLU CUDA kernels
+against their plain versions, the generation engine on CUDA against the
+CPU, and a ResNet training step through the kernels against the CPU.
 
 Every test here needs a CUDA device and skips without one. This file
 imports nothing of JAX, so it runs where JAX is not installed:
@@ -8,15 +9,19 @@ imports nothing of JAX, so it runs where JAX is not installed:
 
 Tolerances: f32 atol 1e-4 on O and lse (the same f32 terms summed in
 another order, ~1e-6 apart in practice); bf16 atol 2e-2 on O, which the
-kernel rounds to bf16, and 1e-4 on the f32 lse.
+kernel rounds to bf16, and 1e-4 on the f32 lse. BN+ReLU: forward and
+dx bitwise (the same roundings in the same order); dscale/dshift within
+1e-5 times the sum of the terms' magnitudes per channel (another
+summation order).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from bigdl_tpu_torch.models import TransformerLM
+from bigdl_tpu_torch.models import ResNet, TransformerLM
 from bigdl_tpu_torch.ops import attention_kernel as tak
+from bigdl_tpu_torch.ops import bn_relu_kernel as tbk
 from bigdl_tpu_torch.serving import GenerationEngine, greedy_decode_reference
 
 pytestmark = pytest.mark.cuda
@@ -96,3 +101,79 @@ def test_engine_on_cuda_matches_cpu_reference(cuda_device):
         margins = (top2[:, 0] - top2[:, 1]).tolist()
         n = next((i for i, m in enumerate(margins) if m < 1e-4), len(ref))
         assert toks[:n] == ref[:n]
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("x_dt,y_dt", [(torch.float32, torch.bfloat16),
+                                       (torch.float32, torch.float32),
+                                       (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("n,c", [(7, 5), (1, 129), (16, 130), (2, 12),
+                                 (3000, 64), (200, 512)])
+def test_bn_relu_kernels_match_plain(cuda_device, n, c, x_dt, y_dt, relu):
+    gen = torch.Generator(device=cuda_device).manual_seed(n * c)
+    x = torch.randn((n, c), generator=gen, device=cuda_device).to(x_dt)
+    s = torch.rand((c,), generator=gen, device=cuda_device) + 0.5
+    b = torch.randn((c,), generator=gen, device=cuda_device) * 0.5
+    g = torch.randn((n, c), generator=gen, device=cuda_device).to(y_dt)
+    f0, b0 = tbk.bn_relu_forward.launches, tbk.bn_relu_backward.launches
+    y = tbk.bn_relu_forward(x, s, b, relu, y_dt)
+    dx, ds, db = tbk.bn_relu_backward(x, s, b, g, relu)
+    torch.cuda.synchronize()
+    assert (tbk.bn_relu_forward.launches, tbk.bn_relu_backward.launches) \
+        == (f0 + 1, b0 + 1)
+    assert y.dtype == y_dt and dx.dtype == torch.float32
+    assert torch.equal(y, tbk.bn_relu_forward_plain(x, s, b, relu, y_dt))
+    dx_ref, ds_ref, db_ref = tbk.bn_relu_backward_plain(x, s, b, g, relu)
+    assert torch.equal(dx, dx_ref)
+    gm = g.float()
+    if relu:
+        gm = torch.where((x * s + b).to(y_dt) > 0, gm, 0.0)
+    assert ((ds - ds_ref).abs() <= 1e-5 * (gm * x.float()).abs().sum(0)).all()
+    assert ((db - db_ref).abs() <= 1e-5 * gm.abs().sum(0)).all()
+    # the partial-sum tiling is fixed by (N, C): the same bits every run
+    dx2, ds2, db2 = tbk.bn_relu_backward(x, s, b, g, relu)
+    assert torch.equal(ds, ds2) and torch.equal(db, db2)
+
+
+def test_bn_relu_kernels_reject_strided_input(cuda_device):
+    s = torch.ones(6, device=cuda_device)
+    b = torch.zeros(6, device=cuda_device)
+    x = torch.randn((8, 6), device=cuda_device)
+    strided = torch.randn((6, 8), device=cuda_device).t()  # [8, 6] col-major
+    with pytest.raises(ValueError, match="contiguous"):
+        tbk.bn_relu_forward(strided, s, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbk.bn_relu_backward(x, s, b, strided)
+    # an NCHW-contiguous activation seen as NHWC is not channels_last
+    nhwc = torch.randn((2, 6, 2, 2), device=cuda_device).permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbk.bn_relu(nhwc, s, b)
+    with pytest.raises(ValueError, match="on"):
+        tbk.bn_relu_forward(x, s.cpu(), b)
+
+
+def test_resnet_step_on_cuda_matches_cpu(cuda_device, monkeypatch):
+    """One f32 training-mode forward and backward of CIFAR ResNet-8 through
+    the kernels (4 fused sites) against the same model on the CPU (the
+    plain versions): loss and every gradient agree."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cpu = ResNet(10, depth=8, data_set="cifar10", device="cpu")
+    gpu = ResNet(10, depth=8, data_set="cifar10", device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.rand(4, 16, 16, 3).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 10, size=4).astype(np.int64))
+    f0, b0 = tbk.bn_relu_forward.launches, tbk.bn_relu_backward.launches
+    losses = []
+    for m, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        out = m(x.to(dev))
+        loss = -out.gather(1, y.to(dev)[:, None]).mean()
+        loss.backward()
+        losses.append(loss.item())
+    assert (tbk.bn_relu_forward.launches - f0,
+            tbk.bn_relu_backward.launches - b0) == (4, 4)
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0])
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        torch.testing.assert_close(pg.grad.cpu(), pc.grad, atol=1e-4,
+                                   rtol=1e-3, msg=name)
