@@ -1,6 +1,7 @@
 """Carry JAX parameter trees into the port's models, and back.
 
-`load_transformer_lm_params` fills a `TransformerLM`;
+`load_transformer_lm_params` fills a `TransformerLM` and
+`lm_params_tree` gives its parameters or gradients back;
 `load_module_params` fills any model built from the port's containers
 (the ResNets) from the JAX params tree and BN state, and
 `module_params_tree` / `module_state` give the port's parameters,
@@ -50,6 +51,13 @@ def load_transformer_lm_params(model, tree: Mapping) -> None:
     on a missing or extra key and on a shape mismatch."""
     with torch.no_grad():
         _copy(_targets(model), tree, "")
+
+
+def lm_params_tree(model, grad: bool = False) -> Dict:
+    """The `TransformerLM`'s parameters (or, with `grad=True`, their
+    `.grad`) as the JAX package's tree: nested dicts of f32 numpy arrays.
+    The inverse of `load_transformer_lm_params`, for comparing the two."""
+    return _export(_targets(model), _leaf(grad))
 
 
 # --------------------------------------------------------------------------
@@ -157,16 +165,21 @@ def _export(targets: Mapping, leaf) -> Dict:
     return out
 
 
-def module_params_tree(model, grad: bool = False) -> Dict:
-    """The model's parameters (or, with `grad=True`, their `.grad`) as the
-    JAX package's tree: nested dicts of f32 numpy arrays, conv kernels
-    HWIO. The inverse of `load_module_params`, for comparing the two."""
+def _leaf(grad: bool):
+    """A parameter (or its .grad) as an f32 CPU tensor."""
     def leaf(p):
         t = p.grad if grad else p
         if t is None:
             raise ValueError("a parameter has no .grad")
         return t.detach().float().cpu()
-    return _export(_module_targets(model), leaf)
+    return leaf
+
+
+def module_params_tree(model, grad: bool = False) -> Dict:
+    """The model's parameters (or, with `grad=True`, their `.grad`) as the
+    JAX package's tree: nested dicts of f32 numpy arrays, conv kernels
+    HWIO. The inverse of `load_module_params`, for comparing the two."""
+    return _export(_module_targets(model), _leaf(grad))
 
 
 def module_state(model) -> Dict[Tuple[str, ...], Dict[str, np.ndarray]]:

@@ -2,9 +2,11 @@
 `bigdl_tpu/models/transformer.py`).
 
 Causal LM over 1-based token ids: [B, T] tokens -> [B, T, vocab]
-log-probs. Pre-norm blocks with interleaved RoPE; prefill attention goes
-through the flash forward kernel (`ops/attention_kernel.py`), the
-one-token decode step through `naive_attention` over the KV cache.
+log-probs. Pre-norm blocks with interleaved RoPE. `forward` in training
+mode is the training path: attention through `flash_attention`, whose
+backward runs the flash backward kernels. Prefill attention goes through
+the flash forward kernel (`ops/attention_kernel.py`), the one-token decode
+step through `naive_attention` over the KV cache.
 """
 
 from __future__ import annotations
@@ -25,12 +27,16 @@ class TransformerLM(nn.Module):
     Runs on `device` (default CUDA; pass `device="cpu"` for the CPU).
     Weights are drawn from `generator` (default: seed 0) and are random;
     `interop.jax_params.load_transformer_lm_params` carries trained JAX
-    weights over."""
+    weights over. `dropout` applies in training mode, with bits from
+    `dropout_generator` (a `torch.Generator` on `device`, default the
+    first block's fresh one seeded 0) shared by every block."""
 
     def __init__(self, vocab_size: int, embed_dim: int = 256,
                  n_layer: int = 4, n_head: int = 4, mlp_ratio: int = 4,
-                 max_len: Optional[int] = None, use_flash: bool = True, *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 max_len: Optional[int] = None, use_flash: bool = True,
+                 dropout: float = 0.0, *, device=None,
+                 generator: Optional[torch.Generator] = None,
+                 dropout_generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
         g = default_generator(generator)
@@ -42,11 +48,15 @@ class TransformerLM(nn.Module):
             .to(device))
         self.head = nn.Parameter(
             Xavier()(g, (embed_dim, vocab_size), device=device))
-        self.blocks = nn.ModuleList(
-            TransformerBlock(embed_dim, n_head, mlp_ratio=mlp_ratio,
-                             causal=True, use_rope=True, use_flash=use_flash,
-                             device=device, generator=g)
-            for _ in range(n_layer))
+        blocks = []
+        for _ in range(n_layer):  # every block takes the first's generator
+            blocks.append(TransformerBlock(
+                embed_dim, n_head, mlp_ratio=mlp_ratio, causal=True,
+                use_rope=True, use_flash=use_flash, dropout=dropout,
+                device=device, generator=g,
+                dropout_generator=dropout_generator))
+            dropout_generator = blocks[-1].dropout_generator
+        self.blocks = nn.ModuleList(blocks)
 
     @property
     def device(self) -> torch.device:

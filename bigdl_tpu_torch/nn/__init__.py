@@ -10,7 +10,8 @@ from bigdl_tpu_torch.nn.containers import (CAddTable, ConcatTable, Container,
                                            Identity, Sequential)
 from bigdl_tpu_torch.nn.conv import (SpaceToDepthStemConvolution,
                                      SpatialConvolution)
-from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
+                                          TimeDistributedCriterion)
 from bigdl_tpu_torch.nn.fusion import fusion_enabled, fusion_scope, set_fusion
 from bigdl_tpu_torch.nn.initialization import (MsraFiller, RandomUniform,
                                                Xavier, Zeros)
@@ -29,6 +30,7 @@ __all__ = ["BatchNormalization", "CAddTable", "ClassNLLCriterion",
            "ScaledDotProductAttention", "Sequential",
            "SpaceToDepthStemConvolution", "SpatialAveragePooling",
            "SpatialBatchNormalization", "SpatialConvolution",
-           "SpatialMaxPooling", "TransformerBlock", "Xavier", "Zeros",
+           "SpatialMaxPooling", "TimeDistributedCriterion", "TransformerBlock",
+           "Xavier", "Zeros",
            "cache_commit", "cache_write", "fusion_enabled", "fusion_scope",
            "rope", "set_fusion"]

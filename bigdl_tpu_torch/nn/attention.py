@@ -74,6 +74,15 @@ def cache_commit(cache, new, slot_ids):
     return cache
 
 
+def dropout(x, p: float, generator: torch.Generator):
+    """Inverted dropout: each element kept with probability 1 - p (bits
+    from `generator`, on x's device) and scaled by 1 / (1 - p), the
+    reference's `x * bernoulli(keep) / keep`."""
+    keep = 1.0 - p
+    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return x * kept.to(x.dtype) / keep
+
+
 class ScaledDotProductAttention(nn.Module):
     """attention(q, k, v) with an optional causal mask; q, k, v
     [B, H, T, D]."""
@@ -178,14 +187,22 @@ class MultiHeadAttention(nn.Module):
 
 class TransformerBlock(nn.Module):
     """Pre-norm transformer block: x + MHA(LN(x)); x + MLP(LN(x)), with
-    the tanh-approximated GELU (`jax.nn.gelu`'s default). Inference form:
-    dropout is not ported."""
+    the tanh-approximated GELU (`jax.nn.gelu`'s default).
+
+    `dropout` (training mode only) drops the MLP's hidden activation and
+    scales what it keeps by `1 / keep`, as the reference does. Its bits
+    come from `dropout_generator`, a `torch.Generator` on the block's
+    device (default: a fresh one seeded 0); they are not `jax.random`'s
+    bits, so dropout matches the reference in distribution only."""
 
     def __init__(self, embed_dim: int, n_head: int, mlp_ratio: int = 4,
                  causal: bool = False, use_rope: bool = False,
-                 use_flash: bool = True, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 use_flash: bool = True, dropout: float = 0.0, *,
+                 device=None, generator: Optional[torch.Generator] = None,
+                 dropout_generator: Optional[torch.Generator] = None):
         super().__init__()
+        if not 0.0 <= dropout < 1.0:
+            raise ValueError(f"dropout must be in [0, 1), got {dropout}")
         device = resolve_device(device)
         g = default_generator(generator)
         self.attn = MultiHeadAttention(embed_dim, n_head, causal=causal,
@@ -199,15 +216,25 @@ class TransformerBlock(nn.Module):
         self.b1 = nn.Parameter(torch.zeros(self.hidden, device=device))
         self.w2 = nn.Parameter(xav(g, (self.hidden, self.e), device=device))
         self.b2 = nn.Parameter(torch.zeros(self.e, device=device))
+        self.dropout = dropout
+        self.dropout_generator = dropout_generator
+        if dropout and dropout_generator is None:
+            self.dropout_generator = torch.Generator(device).manual_seed(0)
 
     def _mlp(self, x):
+        """The inference-form MLP tail (no dropout), shared by the
+        incremental step and the prefill."""
         h = self.ln2(x)
         h = F.gelu(h @ self.w1 + self.b1, approximate="tanh")
         return h @ self.w2 + self.b2
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
-        return x + self._mlp(x)
+        if not (self.dropout and self.training):
+            return x + self._mlp(x)
+        h = F.gelu(self.ln2(x) @ self.w1 + self.b1, approximate="tanh")
+        h = dropout(h, self.dropout, self.dropout_generator)
+        return x + (h @ self.w2 + self.b2)
 
     def apply_step(self, x, k_cache, v_cache, positions):
         """One-token block apply: x [B, 1, E] at per-row `positions` [B]

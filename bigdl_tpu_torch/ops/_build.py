@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Every kernel source of the port, by name (the `.cu` file's stem).
-KERNELS = ("flash_attention_fwd", "bn_relu_fwd", "bn_relu_bwd")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv", "bn_relu_fwd", "bn_relu_bwd")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

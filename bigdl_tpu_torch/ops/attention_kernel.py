@@ -1,5 +1,5 @@
 """Attention: online-softmax blockwise attention and the flash-attention
-forward kernel for Hopper.
+kernels for Hopper.
 
 Counterpart of `bigdl_tpu/ops/attention_kernel.py`. Layouts are the same:
 q, k, v are [B, H, T, D].
@@ -12,8 +12,17 @@ q, k, v are [B, H, T, D].
   (O and the per-row logsumexp) on a CUDA tensor; on a CPU tensor its plain
   version `flash_attention_forward_plain`, the same online softmax in
   PyTorch. It never falls back: a CUDA tensor launches the kernel or raises.
-- `flash_attention` — the router the layers call (forward only; the
-  backward kernels are not ported yet).
+- `flash_attention_backward` — dq, dk, dv from the saved O and logsumexp:
+  `delta = rowsum(dO * O)` in PyTorch, then the CUDA kernels
+  `csrc/flash_attention_bwd_dq.cu` (`flash_attention_backward_dq`) and
+  `csrc/flash_attention_bwd_dkv.cu` (`flash_attention_backward_dkv`) on a
+  CUDA tensor, their plain versions `flash_attention_backward_dq_plain` and
+  `flash_attention_backward_dkv_plain` on a CPU tensor.
+  `flash_attention_backward_plain` is the two plain versions together, the
+  reference the kernels are held against.
+- `FlashAttention` — the `torch.autograd.Function` that ties the forward
+  kernel to the two backward kernels; `flash_attention` — the router the
+  layers call.
 """
 
 from __future__ import annotations
@@ -45,6 +54,19 @@ def naive_attention(q, k, v, causal: bool = False,
     return torch.einsum("bhqk,bhkd->bhqd", p, v)
 
 
+def _masked_scores(q, k_blk, sm_scale, causal, q_offset, k_offset):
+    """sm_scale * q k_blk^T, [B, H, Tq, Bk], with the causally masked
+    pairs at NEG_INF. Offsets are the global positions of q[..., 0, :]
+    and k_blk[..., 0, :]."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k_blk) * sm_scale
+    if causal:
+        tq, bk = s.shape[-2], s.shape[-1]
+        gq = torch.arange(tq, device=s.device)[:, None] + q_offset
+        gk = torch.arange(bk, device=s.device)[None, :] + k_offset
+        s = torch.where(gq >= gk, s, NEG_INF)
+    return s
+
+
 def _block_step(q, k_blk, v_blk, acc, m, l, sm_scale, q_offset, k_offset,
                 causal):
     """One online-softmax update of (acc, m, l) with a K/V block.
@@ -52,12 +74,7 @@ def _block_step(q, k_blk, v_blk, acc, m, l, sm_scale, q_offset, k_offset,
     q: [B,H,Tq,D]; k_blk/v_blk: [B,H,Bk,D]; acc: [B,H,Tq,D]; m, l:
     [B,H,Tq] running max / normaliser. Offsets are the global positions of
     q[..., 0, :] and k_blk[..., 0, :] for the causal mask."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k_blk) * sm_scale
-    if causal:
-        tq, bk = s.shape[-2], s.shape[-1]
-        gq = torch.arange(tq, device=s.device)[:, None] + q_offset
-        gk = torch.arange(bk, device=s.device)[None, :] + k_offset
-        s = torch.where(gq >= gk, s, NEG_INF)
+    s = _masked_scores(q, k_blk, sm_scale, causal, q_offset, k_offset)
     m_new = torch.maximum(m, s.amax(dim=-1))
     # fully masked rows (m_new == NEG_INF) shift by 0: exp(s - NEG_INF)
     # would overflow
@@ -123,30 +140,100 @@ def flash_attention_forward_plain(q, k, v, causal: bool = False,
     return (acc / den[..., None]).to(q.dtype), shift + torch.log(den)
 
 
+#: rows of K (dq) or Q (dk, dv) the plain backward takes per block
+_PLAIN_BLOCK = 64
+
+
+def attention_delta(o, do):
+    """delta = rowsum(dO * O) in f32, [B, H, Tq]: the backward's per-row
+    term, a PyTorch reduction outside the kernels (the JAX package leaves
+    it to XLA outside its Pallas kernels)."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def flash_attention_backward_dq_plain(q, k, v, do, lse, delta, causal,
+                                      sm_scale, q_offset, k_offset):
+    """The plain version of the dq kernel: dq over 64-key blocks, all
+    query rows at once; p rebuilt from lse, ds = p * (dO V^T - delta) *
+    scale, dq = sum ds K. f32 math, dq in q's dtype."""
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    dq = torch.zeros_like(qf)
+    for start in range(0, kf.shape[2], _PLAIN_BLOCK):
+        kb = kf[:, :, start:start + _PLAIN_BLOCK]
+        vb = vf[:, :, start:start + _PLAIN_BLOCK]
+        p = torch.exp(_masked_scores(qf, kb, sm_scale, causal, q_offset,
+                                     k_offset + start) - lse[..., None])
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vb)
+        ds = p * (dp - delta[..., None]) * sm_scale
+        dq += torch.einsum("bhqk,bhkd->bhqd", ds, kb)
+    return dq.to(q.dtype)
+
+
+def flash_attention_backward_dkv_plain(q, k, v, do, lse, delta, causal,
+                                       sm_scale, q_offset, k_offset):
+    """The plain version of the dk/dv kernel: dk and dv over 64-query
+    blocks, all key rows at once; dv = sum p^T dO, dk = sum ds^T Q. f32
+    math, dk and dv in k's dtype."""
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for start in range(0, qf.shape[2], _PLAIN_BLOCK):
+        stop = start + _PLAIN_BLOCK
+        qb, dob = qf[:, :, start:stop], dof[:, :, start:stop]
+        p = torch.exp(_masked_scores(qb, kf, sm_scale, causal,
+                                     q_offset + start, k_offset)
+                      - lse[:, :, start:stop, None])
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, dob)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dob, vf)
+        ds = p * (dp - delta[:, :, start:stop, None]) * sm_scale
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qb)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool = False,
+                                   sm_scale: Optional[float] = None,
+                                   q_offset: int = 0, k_offset: int = 0):
+    """The plain PyTorch version of the flash backward kernels: (dq, dk,
+    dv) in the inputs' dtype from q, k, v, the forward's O and f32 lse
+    [B, H, Tq], and dO. Blockwise: dq over 64-key blocks, dk and dv over
+    64-query blocks, each block's p rebuilt as exp(s - lse), so no score
+    matrix wider than one block is built. Masked pairs get p = 0, so a
+    fully masked row (lse = 0) contributes nothing."""
+    sm_scale = sm_scale or q.shape[-1] ** -0.5
+    delta = attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, causal, sm_scale, q_offset, k_offset)
+    return (flash_attention_backward_dq_plain(*args),
+            *flash_attention_backward_dkv_plain(*args))
+
+
 # --------------------------------------------------------------------------
-# The CUDA kernel (csrc/flash_attention_fwd.cu), bound through ctypes
+# The CUDA kernels (csrc/flash_attention_{fwd,bwd_dq,bwd_dkv}.cu), bound
+# through ctypes. Each takes its pointers, then (bh, tq, tk, d, sm_scale,
+# causal, q_offset, k_offset, dtype, stream), and returns a cudaError code.
 # --------------------------------------------------------------------------
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
-_FN = None
+#: tensor pointers each kernel takes
+_N_PTRS = {"flash_attention_fwd": 5, "flash_attention_bwd_dq": 7,
+           "flash_attention_bwd_dkv": 8}
+_FNS = {}
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
+def _kernel_fn(name: str):
+    fns = _FNS.get(name)
+    if fns is None:
         from bigdl_tpu_torch.ops._build import load_kernel
-        lib = load_kernel("flash_attention_fwd")
-        fn = lib.flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_float] + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
+        lib = load_kernel(name)
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * _N_PTRS[name]
+                       + [ctypes.c_int] * 4 + [ctypes.c_float]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        err = lib.flash_attention_fwd_error_string
+        err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        _FN = (fn, err)
-    return _FN
+        fns = _FNS[name] = (fn, err)
+    return fns
 
 
 def _check_inputs(q, k, v):
@@ -162,36 +249,47 @@ def _check_inputs(q, k, v):
         raise ValueError("q, k, v must be on one device")
 
 
-def _launch(q, k, v, causal, sm_scale, q_offset, k_offset):
+def _check_backward_inputs(q, k, v, do, rows):
+    """rows: the [B, H, Tq] f32 tensors (lse, delta), by name."""
+    _check_inputs(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"dO must match q ({q.dtype} {tuple(q.shape)} on "
+                         f"{q.device}), got {do.dtype} {tuple(do.shape)} "
+                         f"on {do.device}")
+    for name, t in rows.items():
+        if t.shape != q.shape[:3] or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be float32 {tuple(q.shape[:3])} "
+                             f"on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _launch(name, tensors, outs, q, tk, causal, sm_scale, q_offset,
+            k_offset):
+    """Launch kernel `name` on `tensors` (inputs) and `outs` (outputs,
+    already allocated), after the checks every kernel shares."""
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the flash forward kernel takes float32 or "
-                        f"bfloat16, got {q.dtype}")
+        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
     b, h, tq, d = q.shape
-    tk = k.shape[2]
     if d > _MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} > {_MAX_HEAD_DIM} is not supported "
-                         "by the flash forward kernel")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("the flash forward kernel takes contiguous q, k, v")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "the flash backward kernels are not ported yet; call the "
-            "forward kernel under torch.no_grad()/inference_mode()")
-    fn, err_str = _kernel_fn()
-    o = torch.empty_like(q)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+                         f"by {name}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous inputs")
+    fn, err_str = _kernel_fn(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  lse.data_ptr(), b * h, tq, tk, d, float(sm_scale),
-                  int(bool(causal)), int(q_offset), int(k_offset),
-                  _DTYPE_CODES[q.dtype], stream)
+        code = fn(*[t.data_ptr() for t in (*tensors, *outs)], b * h, tq, tk,
+                  d, float(sm_scale), int(bool(causal)), int(q_offset),
+                  int(k_offset), _DTYPE_CODES[q.dtype], stream)
     if code != 0:
-        raise RuntimeError("flash_attention_fwd launch failed: "
+        raise RuntimeError(f"{name} launch failed: "
                            f"{err_str(code).decode()} (cudaError {code})")
-    flash_attention_forward.launches += 1
-    return o, lse
+
+
+def _no_device(q, what):
+    return NotImplementedError(
+        f"no flash {what} for device type {q.device.type!r}")
 
 
 def flash_attention_forward(q, k, v, causal: bool = False,
@@ -203,27 +301,144 @@ def flash_attention_forward(q, k, v, causal: bool = False,
     Ragged Tq / Tk need no padding. `return_lse=True` also returns the
     [B, H, Tq] f32 logsumexp. `q_offset` / `k_offset` are the global
     positions of the first query and key (causal mask only).
-    `flash_attention_forward.launches` counts kernel launches."""
+    `flash_attention_forward.launches` counts kernel launches. The kernel
+    records no backward: inputs that require grad go through
+    `flash_attention`."""
     _check_inputs(q, k, v)
     sm_scale = sm_scale or q.shape[-1] ** -0.5
     if q.device.type == "cuda":
-        out, lse = _launch(q, k, v, causal, sm_scale, q_offset, k_offset)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            raise NotImplementedError(
+                "flash_attention_forward records no backward; call "
+                "flash_attention, whose autograd.Function runs the flash "
+                "backward kernels, or call this under torch.no_grad()")
+        b, h, tq, _ = q.shape
+        out = torch.empty_like(q)
+        lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+        _launch("flash_attention_fwd", (q, k, v), (out, lse), q, k.shape[2],
+                causal, sm_scale, q_offset, k_offset)
+        flash_attention_forward.launches += 1
     elif q.device.type == "cpu":
         out, lse = flash_attention_forward_plain(q, k, v, causal, sm_scale,
                                                  q_offset, k_offset)
     else:
-        raise NotImplementedError(
-            f"no flash forward for device type {q.device.type!r}")
+        raise _no_device(q, "forward")
     return (out, lse) if return_lse else out
 
 
 flash_attention_forward.launches = 0
 
 
+def flash_attention_backward_dq(q, k, v, do, lse, delta,
+                                causal: bool = False,
+                                sm_scale: Optional[float] = None,
+                                q_offset: int = 0, k_offset: int = 0):
+    """dq in q's dtype from q, k, v, dO, the forward's f32 lse and
+    `attention_delta(O, dO)` (both [B, H, Tq]): the CUDA kernel
+    `csrc/flash_attention_bwd_dq.cu` on a CUDA tensor, the plain version on
+    a CPU tensor. `flash_attention_backward_dq.launches` counts kernel
+    launches."""
+    _check_backward_inputs(q, k, v, do, {"lse": lse, "delta": delta})
+    sm_scale = sm_scale or q.shape[-1] ** -0.5
+    if q.device.type == "cuda":
+        dq = torch.empty_like(q)
+        _launch("flash_attention_bwd_dq", (q, k, v, do, lse, delta), (dq,),
+                q, k.shape[2], causal, sm_scale, q_offset, k_offset)
+        flash_attention_backward_dq.launches += 1
+        return dq
+    if q.device.type == "cpu":
+        return flash_attention_backward_dq_plain(q, k, v, do, lse, delta,
+                                                 causal, sm_scale, q_offset,
+                                                 k_offset)
+    raise _no_device(q, "backward")
+
+
+flash_attention_backward_dq.launches = 0
+
+
+def flash_attention_backward_dkv(q, k, v, do, lse, delta,
+                                 causal: bool = False,
+                                 sm_scale: Optional[float] = None,
+                                 q_offset: int = 0, k_offset: int = 0):
+    """(dk, dv) in k's dtype, from the same inputs as
+    `flash_attention_backward_dq`: the CUDA kernel
+    `csrc/flash_attention_bwd_dkv.cu` on a CUDA tensor, the plain version
+    on a CPU tensor. `flash_attention_backward_dkv.launches` counts kernel
+    launches."""
+    _check_backward_inputs(q, k, v, do, {"lse": lse, "delta": delta})
+    sm_scale = sm_scale or q.shape[-1] ** -0.5
+    if q.device.type == "cuda":
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        _launch("flash_attention_bwd_dkv", (q, k, v, do, lse, delta),
+                (dk, dv), q, k.shape[2], causal, sm_scale, q_offset,
+                k_offset)
+        flash_attention_backward_dkv.launches += 1
+        return dk, dv
+    if q.device.type == "cpu":
+        return flash_attention_backward_dkv_plain(q, k, v, do, lse, delta,
+                                                  causal, sm_scale, q_offset,
+                                                  k_offset)
+    raise _no_device(q, "backward")
+
+
+flash_attention_backward_dkv.launches = 0
+
+
+def flash_attention_backward(q, k, v, o, lse, do, causal: bool = False,
+                             sm_scale: Optional[float] = None,
+                             q_offset: int = 0, k_offset: int = 0):
+    """(dq, dk, dv) of flash attention from q, k, v, the forward's O and
+    f32 lse [B, H, Tq], and dO: `delta = rowsum(dO * O)` in PyTorch, then
+    `flash_attention_backward_dq` and `flash_attention_backward_dkv` (the
+    kernels on a CUDA tensor, their plain versions on a CPU tensor). Ragged
+    Tq / Tk need no padding; the offsets are the forward's. It never falls
+    back: a CUDA tensor launches both kernels or raises."""
+    if o.shape != q.shape or o.device != q.device:
+        raise ValueError(f"O must have q's shape {tuple(q.shape)} on "
+                         f"{q.device}, got {tuple(o.shape)} on {o.device}")
+    _check_backward_inputs(q, k, v, do, {"lse": lse})
+    delta = attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, causal, sm_scale, q_offset, k_offset)
+    return (flash_attention_backward_dq(*args),
+            *flash_attention_backward_dkv(*args))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward: the forward kernel (O and the
+    f32 logsumexp) under no grad, then the dq and dk/dv kernels from the
+    saved q, k, v, O and lse (never P). Gradients come back in q's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        with torch.no_grad():
+            o, lse = flash_attention_forward(q, k, v, causal, sm_scale,
+                                             return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse,
+                                              do.contiguous(), ctx.causal,
+                                              ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, causal: bool = False,
                     sm_scale: Optional[float] = None):
-    """Flash attention, forward only: the CUDA kernel on a CUDA tensor (q,
-    k, v made contiguous first: the layers hand over head-split views), the
-    plain online-softmax version on a CPU tensor."""
+    """Flash attention, the layers' entry point. With grad on and an input
+    that requires it: `FlashAttention` (forward kernel, then the two
+    backward kernels in the backward pass). Otherwise the forward alone.
+    CUDA tensors run the kernels, CPU tensors their plain versions; q, k,
+    v are made contiguous first (the layers hand over head-split views)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, sm_scale)
     return flash_attention_forward(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal, sm_scale)

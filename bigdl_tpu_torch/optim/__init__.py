@@ -1,16 +1,22 @@
-"""Training (counterpart of `bigdl_tpu.optim`): `SGD`, triggers, metrics,
-`LocalOptimizer` and the single-device `DistriOptimizer`."""
+"""Training (counterpart of `bigdl_tpu.optim`): `SGD`, `Adam`, `AdamW`,
+the learning-rate schedules, triggers, metrics, `LocalOptimizer`, the
+single-device `DistriOptimizer` and the `Optimizer` factory."""
 
 from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
 from bigdl_tpu_torch.optim.local_optimizer import (BaseOptimizer,
                                                    LocalOptimizer)
 from bigdl_tpu_torch.optim.metrics import Metrics, Timer
-from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
-from bigdl_tpu_torch.optim.schedules import Default, LearningRateSchedule
+from bigdl_tpu_torch.optim.optim_method import (SGD, Adam, AdamW,
+                                                OptimMethod)
+from bigdl_tpu_torch.optim.optimizer import Optimizer
+from bigdl_tpu_torch.optim.schedules import (CosineDecay, Default,
+                                             LearningRateSchedule,
+                                             WarmupCosineDecay)
 from bigdl_tpu_torch.optim.trigger import (Trigger, every_epoch, max_epoch,
                                            max_iteration, several_iteration)
 
-__all__ = ["BaseOptimizer", "Default", "DistriOptimizer",
-           "LearningRateSchedule", "LocalOptimizer", "Metrics", "OptimMethod",
-           "SGD", "Timer", "Trigger", "every_epoch", "max_epoch",
-           "max_iteration", "several_iteration"]
+__all__ = ["Adam", "AdamW", "BaseOptimizer", "CosineDecay", "Default",
+           "DistriOptimizer", "LearningRateSchedule", "LocalOptimizer",
+           "Metrics", "OptimMethod", "Optimizer", "SGD", "Timer", "Trigger",
+           "WarmupCosineDecay", "every_epoch", "max_epoch", "max_iteration",
+           "several_iteration"]

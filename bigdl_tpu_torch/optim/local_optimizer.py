@@ -246,7 +246,13 @@ class BaseOptimizer:
 
 class LocalOptimizer(BaseOptimizer):
     """Train on one device (`device`, default CUDA): the model must already
-    be there."""
+    be there. `batch_size` is recorded as the reference records it; the
+    dataset's batches set the size actually trained on."""
+
+    def __init__(self, model: torch.nn.Module, dataset, criterion,
+                 batch_size: int = 32, device=None):
+        super().__init__(model, dataset, criterion, device)
+        self.batch_size = batch_size
 
     def optimize(self) -> torch.nn.Module:
         return self._optimize_impl()

@@ -1,9 +1,11 @@
 """Optimization methods (counterpart of `bigdl_tpu/optim/optim_method.py`).
 
-Ported: the `OptimMethod` base (with the f32-master wrappers) and `SGD`.
+Ported: the `OptimMethod` base (with the f32-master wrappers), `SGD`,
+`Adam` and `AdamW`.
 
 A method works on dicts of tensors keyed by parameter name:
-`init_state(params)` makes the slot state (SGD's velocity), and
+`init_state(params)` makes the slot state (SGD's velocity, Adam's
+moments), and
 `update(grads, opt_state, params, lr)` applies one step. Where the JAX
 package returns new trees, the port updates `params` and `opt_state` IN
 PLACE (under `torch.no_grad`) and returns them, which saves a copy of
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from bigdl_tpu_torch.optim.schedules import Default, LearningRateSchedule
@@ -141,4 +144,80 @@ class SGD(OptimMethod):
                 else:
                     step = g
                 p.sub_(lr * step)
+        return params, opt_state
+
+
+class Adam(OptimMethod):
+    """Adam (reference `Adam`), with bias correction from the step count
+    `t` kept in the slot state and any learning-rate schedule (`Default`,
+    lr / (1 + neval * learning_rate_decay), unless given another):
+        g = grad + weight_decay * p
+        m = beta1 * m + (1 - beta1) * g
+        v = beta2 * v + (1 - beta2) * g * g
+        p = p - lr * (m / (1 - beta1^t)) / (sqrt(v / (1 - beta2^t)) + eps)
+    `weight_decay` here is the L2 term added to the gradient; `AdamW`
+    decouples it."""
+
+    def __init__(self, learning_rate: float = 1e-3,
+                 learning_rate_decay: float = 0.0, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8,
+                 weight_decay: float = 0.0,
+                 learning_rate_schedule: Optional[
+                     LearningRateSchedule] = None):
+        super().__init__(learning_rate, weight_decay)
+        self.learning_rate_decay = learning_rate_decay
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.schedule = learning_rate_schedule or Default()
+
+    def init_state(self, params: Tree):
+        return {"m": {k: torch.zeros_like(p) for k, p in params.items()},
+                "v": {k: torch.zeros_like(p) for k, p in params.items()},
+                "t": 0}
+
+    def current_lr(self) -> float:
+        return self.schedule.compute(self)
+
+    def update(self, grads: Tree, opt_state, params: Tree, lr: float):
+        b1, b2 = self.beta1, self.beta2
+        with torch.no_grad():
+            grads = self._decay(grads, params)
+            t = opt_state["t"] = opt_state["t"] + 1
+            # the bias corrections in f32, as the reference computes them
+            # (1 - 0.999 differs by 1.3e-5 relative between f32 and f64)
+            one, tf = np.float32(1.0), np.float32(t)
+            bc1 = float(one - np.float32(b1) ** tf)
+            bc2 = float(one - np.float32(b2) ** tf)
+            for k, p in params.items():
+                g, m, v = grads[k], opt_state["m"][k], opt_state["v"][k]
+                m.mul_(b1).add_((1 - b1) * g)
+                v.mul_(b2).add_((1 - b2) * g * g)
+                p.sub_(lr * (m / bc1) / ((v / bc2).sqrt() + self.epsilon))
+        return params, opt_state
+
+
+class AdamW(Adam):
+    """Adam with decoupled weight decay: after the Adam step,
+    p = p - lr * weight_decay * p_before, the decay taken from the
+    parameter as it was before the step (reference `AdamW`)."""
+
+    def __init__(self, learning_rate: float = 1e-3,
+                 learning_rate_decay: float = 0.0, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8,
+                 weight_decay: float = 1e-2,
+                 learning_rate_schedule: Optional[
+                     LearningRateSchedule] = None):
+        super().__init__(learning_rate, learning_rate_decay, beta1, beta2,
+                         epsilon, weight_decay=0.0,
+                         learning_rate_schedule=learning_rate_schedule)
+        self.decoupled_weight_decay = weight_decay
+
+    def update(self, grads: Tree, opt_state, params: Tree, lr: float):
+        wd = self.decoupled_weight_decay
+        with torch.no_grad():
+            decay = {k: lr * wd * p for k, p in params.items()} if wd \
+                else {}
+        super().update(grads, opt_state, params, lr)
+        with torch.no_grad():
+            for k, d in decay.items():
+                params[k].sub_(d)
         return params, opt_state

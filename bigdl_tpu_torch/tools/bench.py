@@ -1,20 +1,29 @@
 """Training throughput of the port (counterpart of
-`bigdl_tpu/tools/bench_cli.py` `_framework_throughput` and
-`bench_resnet50`).
+`bigdl_tpu/tools/bench_cli.py` `_framework_throughput`, `bench_resnet50`
+and its transformer-LM block).
 
-The model trains through `DistriOptimizer` with `ClassNLLCriterion`,
-`SGD(learning_rate=0.01, momentum=0.9)` and bf16 compute with f32 masters,
-on ONE synthetic batch from `np.random.RandomState(0)` that is placed on
-the device once and reused every step (the reference's resident batch).
-Steps are queued without waiting and the host syncs every `sync` steps;
-imgs/s is `sync * batch_size` over the median interval between sync
-points after the warm-up. The result also carries every step's loss.
+The model trains through `DistriOptimizer` with `SGD(learning_rate=0.01,
+momentum=0.9)` and bf16 compute with f32 masters, on ONE synthetic batch
+from `np.random.RandomState(0)` that is placed on the device once and
+reused every step (the reference's resident batch). Steps are queued
+without waiting and the host syncs every `sync` steps; the rate is
+`sync * records` over the median interval between sync points after the
+warm-up. The result also carries every step's loss.
 
-    python -m bigdl_tpu_torch.tools.bench             # ResNet-50, b128
-    python -m bigdl_tpu_torch.tools.bench --profile   # device time by kernel
+- ResNet-50: b128 images at 224x224x3, `ClassNLLCriterion`; imgs/s.
+- TransformerLM (`--model lm`): vocab 1024, embed 512, 4 layers, 8 heads,
+  b8 at T=2048, `TimeDistributedCriterion(ClassNLLCriterion())` with the
+  reference's default `size_average=False` (a sum over T, so the loss
+  grows with T and this recipe diverges after a few steps, in the
+  reference as here); tokens/s.
 
-prints one JSON object. The benchmark needs a CUDA device unless called
-with `device="cpu"`; the profile always does.
+    python -m bigdl_tpu_torch.tools.bench                       # ResNet-50
+    python -m bigdl_tpu_torch.tools.bench --model lm            # the LM
+    python -m bigdl_tpu_torch.tools.bench [--model lm] --profile
+
+prints one JSON object. `--profile` gives device time by kind of kernel.
+The benchmark needs a CUDA device unless called with `device="cpu"`; the
+profile always does.
 """
 
 from __future__ import annotations
@@ -29,35 +38,42 @@ import torch
 
 from bigdl_tpu_torch._device import resolve_device
 from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
-from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
+                                          TimeDistributedCriterion)
 from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
 
 
-def _resident_optimizer(model: torch.nn.Module, in_shape: Sequence[int],
-                        n_class: int, batch_size: int,
+def _resident_optimizer(model: torch.nn.Module, x: np.ndarray,
+                        y: np.ndarray, criterion,
                         device: torch.device) -> DistriOptimizer:
-    """The benchmark's optimizer over one synthetic batch placed on
-    `device` once."""
-    rs = np.random.RandomState(0)
-    x = rs.rand(batch_size, *in_shape).astype(np.float32)
-    y = (rs.randint(0, n_class, size=batch_size) + 1).astype(np.int32)
+    """The benchmark's optimizer over one batch (x, y) placed on `device`
+    once."""
     batch = MiniBatch(torch.from_numpy(x).to(device),
                       torch.from_numpy(y).to(device))
-    opt = DistriOptimizer(model, LocalDataSet([batch]), ClassNLLCriterion(),
+    opt = DistriOptimizer(model, LocalDataSet([batch]), criterion,
                           devices=[device])
     opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
     return opt.set_compute_precision("bfloat16")
 
 
-def framework_throughput(model: torch.nn.Module, in_shape: Sequence[int],
-                         n_class: int, batch_size: int, warmup: int,
-                         iters: int, sync: int = 4, device=None) -> Dict:
-    """Train `model` (already on `device`) for `warmup + iters` steps on a
-    resident batch of NHWC `in_shape` images; returns imgs/s, ms/step and
-    the losses. `warmup` and `iters` are rounded to whole sync windows."""
-    device = resolve_device(device)
-    sync = math.gcd(math.gcd(warmup, iters), sync)  # windows tile the run
-    opt = _resident_optimizer(model, in_shape, n_class, batch_size, device)
+def _image_batch(in_shape: Sequence[int], n_class: int, batch_size: int):
+    rs = np.random.RandomState(0)
+    x = rs.rand(batch_size, *in_shape).astype(np.float32)
+    y = (rs.randint(0, n_class, size=batch_size) + 1).astype(np.int32)
+    return x, y
+
+
+def _token_batch(vocab: int, seq: int, batch_size: int):
+    """1-based tokens [B, T+1] from `RandomState(0)`: inputs are the first
+    T, targets the last T (the reference's next-token batch)."""
+    rs = np.random.RandomState(0)
+    toks = rs.randint(1, vocab + 1, (batch_size, seq + 1)).astype(np.int32)
+    return toks[:, :-1], toks[:, 1:]
+
+
+def _timed_run(opt: DistriOptimizer, warmup: int, iters: int, sync: int):
+    """Run `warmup + iters` steps, syncing every `sync`; returns the median
+    sync-window length (s) after the warm-up and every step's loss."""
     opt.set_sync_interval(sync)
     opt.set_end_when(max_iteration(warmup + iters))
     times, losses = [], []
@@ -72,14 +88,50 @@ def framework_throughput(model: torch.nn.Module, in_shape: Sequence[int],
     opt.set_iteration_hook(hook)
     opt.optimize()
     intervals = np.diff(times[warmup // sync - 1:])
-    window_s = float(np.median(intervals))
+    return float(np.median(intervals)), [float(v) for v in losses]
+
+
+def _device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else device.type
+
+
+def framework_throughput(model: torch.nn.Module, in_shape: Sequence[int],
+                         n_class: int, batch_size: int, warmup: int,
+                         iters: int, sync: int = 4, device=None) -> Dict:
+    """Train `model` (already on `device`) for `warmup + iters` steps on a
+    resident batch of NHWC `in_shape` images; returns imgs/s, ms/step and
+    the losses. `warmup` and `iters` are rounded to whole sync windows."""
+    device = resolve_device(device)
+    sync = math.gcd(math.gcd(warmup, iters), sync)  # windows tile the run
+    opt = _resident_optimizer(model, *_image_batch(in_shape, n_class,
+                                                   batch_size),
+                              ClassNLLCriterion(), device)
+    window_s, losses = _timed_run(opt, warmup, iters, sync)
     return {"imgs_per_sec": sync * batch_size / window_s,
             "ms_per_step": 1e3 * window_s / sync,
             "batch_size": batch_size, "steps": warmup + iters,
-            "warmup": warmup, "sync": sync,
-            "losses": [float(v) for v in losses],
-            "device": (torch.cuda.get_device_name(device)
-                       if device.type == "cuda" else device.type)}
+            "warmup": warmup, "sync": sync, "losses": losses,
+            "device": _device_name(device)}
+
+
+def lm_throughput(model: torch.nn.Module, vocab: int, seq: int,
+                  batch_size: int, warmup: int, iters: int, sync: int = 4,
+                  device=None) -> Dict:
+    """Train the `TransformerLM` `model` (already on `device`) for
+    `warmup + iters` steps on a resident batch of `batch_size` sequences
+    of `seq` tokens; returns tokens/s, ms/step and the losses."""
+    device = resolve_device(device)
+    sync = math.gcd(math.gcd(warmup, iters), sync)
+    opt = _resident_optimizer(model, *_token_batch(vocab, seq, batch_size),
+                              TimeDistributedCriterion(ClassNLLCriterion()),
+                              device)
+    window_s, losses = _timed_run(opt, warmup, iters, sync)
+    return {"tokens_per_sec": sync * batch_size * seq / window_s,
+            "ms_per_step": 1e3 * window_s / sync,
+            "batch_size": batch_size, "seq": seq, "steps": warmup + iters,
+            "warmup": warmup, "sync": sync, "losses": losses,
+            "device": _device_name(device)}
 
 
 def bench_resnet50(batch_size: int = 128, warmup: int = 216,
@@ -95,11 +147,36 @@ def bench_resnet50(batch_size: int = 128, warmup: int = 216,
                                 warmup, iters, sync=sync, device=device)
 
 
-#: kernel-name fragments of each kind in `profile_resnet50`, tried in order
+def _lm(vocab: int, device, generator=None):
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    return TransformerLM(vocab, embed_dim=512, n_layer=4, n_head=8,
+                         device=device, generator=generator)
+
+
+def bench_transformer_lm(batch_size: int = 8, seq: int = 2048,
+                         vocab: int = 1024, warmup: int = 12,
+                         iters: int = 36, sync: int = 12, device=None,
+                         generator: Optional[torch.Generator] = None
+                         ) -> Dict:
+    """`TransformerLM(vocab, embed 512, 4 layers, 8 heads)`, random weights
+    from `generator` (default seed 0), trained as `bench_cli.py`'s LM block
+    does (48 steps, sync every 12, timed after the first window)."""
+    device = resolve_device(device)
+    return lm_throughput(_lm(vocab, device, generator), vocab, seq,
+                         batch_size, warmup, iters, sync=sync, device=device)
+
+
+#: kernel-name fragments of each kind in the profiles, tried in order
 _KERNEL_KINDS = (
+    ("flash_attention_fwd (csrc, kernel 1)", ("flash_fwd_kernel",)),
+    ("flash_attention_bwd_dq (csrc, kernel 3)",
+     ("flash_attention_bwd_dq",)),
+    ("flash_attention_bwd_dkv (csrc, kernel 4)",
+     ("flash_attention_bwd_dkv",)),
     ("bn_relu (csrc)", ("bn_relu_fwd", "bn_relu_bwd")),
-    ("convolution", ("conv", "xmma", "gemm", "cudnn", "cutlass", "dgrad",
-                     "wgrad", "fprop")),
+    ("convolution and matmul (cuDNN, cuBLAS)",
+     ("conv", "xmma", "gemm", "nvjet", "cudnn", "cutlass", "dgrad", "wgrad",
+      "fprop")),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
@@ -113,23 +190,15 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def profile_resnet50(batch_size: int = 128, warmup: int = 8, steps: int = 8,
-                     top: int = 15, device=None,
-                     generator: Optional[torch.Generator] = None) -> Dict:
-    """Where the device time of the benchmark configuration goes: after
-    `warmup` steps, `steps` more under `torch.profiler`. Returns the
-    device-busy and idle shares of the profiled wall time (host clock,
-    from a drained device to a drained device), device ms per step by
-    kind of kernel, and the `top` kernels by device time."""
+def _profile(opt: DistriOptimizer, warmup: int, steps: int, top: int,
+             device: torch.device) -> Dict:
+    """Where the device time of `opt`'s training goes: after `warmup`
+    steps, `steps` more under `torch.profiler`. Returns the device-busy
+    and idle shares of the profiled wall time (host clock, from a drained
+    device to a drained device), device ms per step by kind of kernel, and
+    the `top` kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from bigdl_tpu_torch.models.resnet import ResNet50
-    device = resolve_device(device)
-    if device.type != "cuda":
-        raise ValueError("profile_resnet50 measures the CUDA device")
-    model = ResNet50(class_num=1000, s2d_stem=True, device=device,
-                     generator=generator)
-    opt = _resident_optimizer(model, (224, 224, 3), 1000, batch_size, device)
     opt.set_sync_interval(warmup)
     opt.set_end_when(max_iteration(warmup))
     opt.optimize()
@@ -156,7 +225,7 @@ def profile_resnet50(batch_size: int = 128, warmup: int = 8, steps: int = 8,
     for name, (_, ms) in by_name.items():
         kinds[_kind(name)] = kinds.get(_kind(name), 0.0) + ms / steps
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-    return {"batch_size": batch_size, "steps": steps,
+    return {"steps": steps,
             "wall_ms_per_step": wall_ms / steps,
             "device_busy_ms_per_step": busy_ms / steps,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
@@ -171,9 +240,56 @@ def profile_resnet50(batch_size: int = 128, warmup: int = 8, steps: int = 8,
             "device": torch.cuda.get_device_name(device)}
 
 
-if __name__ == "__main__":
-    import sys
-    if "--profile" in sys.argv[1:]:
-        print(json.dumps(profile_resnet50()))
+def _cuda_only(device, what: str) -> torch.device:
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{what} measures the CUDA device")
+    return device
+
+
+def profile_resnet50(batch_size: int = 128, warmup: int = 8, steps: int = 8,
+                     top: int = 15, device=None,
+                     generator: Optional[torch.Generator] = None) -> Dict:
+    """`_profile` of the ResNet-50 benchmark configuration."""
+    from bigdl_tpu_torch.models.resnet import ResNet50
+    device = _cuda_only(device, "profile_resnet50")
+    model = ResNet50(class_num=1000, s2d_stem=True, device=device,
+                     generator=generator)
+    opt = _resident_optimizer(model, *_image_batch((224, 224, 3), 1000,
+                                                   batch_size),
+                              ClassNLLCriterion(), device)
+    return {"batch_size": batch_size,
+            **_profile(opt, warmup, steps, top, device)}
+
+
+def profile_transformer_lm(batch_size: int = 8, seq: int = 2048,
+                           vocab: int = 1024, warmup: int = 4,
+                           steps: int = 4, top: int = 15, device=None,
+                           generator: Optional[torch.Generator] = None
+                           ) -> Dict:
+    """`_profile` of the TransformerLM benchmark configuration."""
+    device = _cuda_only(device, "profile_transformer_lm")
+    opt = _resident_optimizer(_lm(vocab, device, generator),
+                              *_token_batch(vocab, seq, batch_size),
+                              TimeDistributedCriterion(ClassNLLCriterion()),
+                              device)
+    return {"batch_size": batch_size, "seq": seq,
+            **_profile(opt, warmup, steps, top, device)}
+
+
+def main(argv=None) -> None:
+    import argparse
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--model", choices=("resnet50", "lm"), default="resnet50")
+    p.add_argument("--profile", action="store_true",
+                   help="device time by kind of kernel (torch.profiler)")
+    args = p.parse_args(argv)
+    if args.model == "lm":
+        fn = profile_transformer_lm if args.profile else bench_transformer_lm
     else:
-        print(json.dumps(bench_resnet50()))
+        fn = profile_resnet50 if args.profile else bench_resnet50
+    print(json.dumps(fn()))
+
+
+if __name__ == "__main__":
+    main()

@@ -34,7 +34,31 @@ Phases:
    bench.py`: b128, bf16 compute with f32 masters, SGD momentum 0.9, one
    resident batch) for 8 warm-up and 24 timed steps, syncing every 8:
    imgs/s, ms/step, exactly 33 launches of each kernel a step, and a
-   finite loss that falls from the first step to the last.
+   finite loss that falls from the first step to the last;
+7. flash backward kernels: hold the dq and dk/dv kernels against their
+   plain versions (causal T=2048 at B*H=64 in f32 and bf16, ragged
+   T=1000, non-causal Tq=1000 Tk=1500, D=128, rows fully masked through
+   q_offset), per element within 1e-4 * max|plain| in f32 and one bf16
+   ulp (2**-7 * |plain|) more in bf16, and a second launch bitwise equal;
+   kernel 1's O and lse in each case against its plain version with the
+   tolerances of phase 3; time each beside its plain version, its bound
+   and the backward of `scaled_dot_product_attention` (a yardstick only),
+   and kernel 1 at the training shape;
+8. LM training: `TransformerLM(vocab 1024, embed 512, 4 layers, 8 heads)`
+   with random weights from a seed. (a) An f32 parity pair at b2, T=512:
+   the model and a `use_flash=False` twin (no kernel) take 3 SGD steps
+   through `DistriOptimizer` on the averaged per-token loss; their losses
+   agree to a relative 1e-4, each of kernels 1, 3 and 4 launches 12 times
+   and the twin none. (b) The benchmark configuration (`bigdl_tpu_torch/
+   tools/bench.py --model lm`: b8, T=2048, bf16 compute with f32 masters,
+   SGD momentum 0.9 on the loss summed over T, 12 warm-up + 36 timed
+   steps, sync every 12): tokens/s, ms/step, exactly 4 launches of each
+   kernel a step, and a finite first loss within [ln 1024, ln 1024 + 2]
+   per token. The recipe's later losses diverge, in the reference as
+   here, so no fall is required. (c) The example
+   (`bigdl_tpu_torch/tools/transformer_lm.py`) at its defaults: AdamW with
+   warm-up and cosine decay, a train-shard perplexity below 25, and the
+   T=256 eval forward.
 
 Prints a `{"kernels": [...]}` line, then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
@@ -43,6 +67,7 @@ Prints a `{"kernels": [...]}` line, then as its last line
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -73,6 +98,21 @@ BN_FWD_ROW = {"name": "bn_relu_fwd", "route": "cuda",
 BN_BWD_ROW = {"name": "bn_relu_bwd", "route": "cuda",
               "source": "bigdl_tpu_torch/csrc/bn_relu_bwd.cu",
               "replaces": "bigdl_tpu/ops/bn_relu_kernel.py:118"}
+DQ_ROW = {"name": "flash_attention_bwd_dq", "route": "cuda",
+          "source": "bigdl_tpu_torch/csrc/flash_attention_bwd_dq.cu",
+          "replaces": "bigdl_tpu/ops/attention_kernel.py:425"}
+DKV_ROW = {"name": "flash_attention_bwd_dkv", "route": "cuda",
+           "source": "bigdl_tpu_torch/csrc/flash_attention_bwd_dkv.cu",
+           "replaces": "bigdl_tpu/ops/attention_kernel.py:469"}
+# flash backward, per element and gradient: |kernel - plain| <=
+# BWD_RTOL * |plain| + BWD_ATOL * max|plain|. Both sum the same f32 terms
+# in another order (~2e-6 * max|plain| apart at T=2048); in bf16 each
+# also rounds the gradient to nearest, which puts them at most one ulp,
+# 2**-7 * |plain|, apart. That is tighter everywhere than 2e-2 * max|plain|.
+BWD_RTOL = {torch.float32: 0.0, torch.bfloat16: 2 ** -7}
+BWD_ATOL = 1e-4
+# the LM: kernel launches of each of kernels 1, 3 and 4 a training step
+LM_LAYERS = 4
 # dscale/dshift: kernel and plain sum the same f32 terms in another order;
 # the limit per channel is this times the sum of the terms' magnitudes
 BN_SUM_RTOL = 1e-5
@@ -107,22 +147,57 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-def attention_bound(b, h, tq, tk, d, causal, q_offset, k_offset, dtype):
-    """Least time (ms) the card could take for this call, and what bounds
-    it: q, k, v read once, O and lse written once; 4*D operations per
-    unmasked (query, key) pair (QK^T and PV), counted for these inputs."""
-    if causal:
-        rows = np.arange(tq) + q_offset - k_offset + 1
-        pairs = int(np.clip(rows, 0, tk).sum())
-    else:
-        pairs = tq * tk
-    flops = 4.0 * b * h * d * pairs
-    elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = b * h * d * (2 * tq + 2 * tk) * elem + b * h * tq * 4
+def unmasked_pairs(tq, tk, causal, q_offset, k_offset):
+    """(query, key) pairs that attention computes for these inputs."""
+    if not causal:
+        return tq * tk
+    rows = np.arange(tq) + q_offset - k_offset + 1
+    return int(np.clip(rows, 0, tk).sum())
+
+
+def roofline(flops, nbytes, dtype):
+    """(least ms, what bounds it) for `flops` operations in `dtype` and
+    `nbytes` moved, at the card's published peaks."""
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
         ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bound(b, h, tq, tk, d, causal, q_offset, k_offset, dtype):
+    """Least time (ms) the card could take for this call, and what bounds
+    it: q, k, v read once, O and lse written once; 4*D operations per
+    unmasked (query, key) pair (QK^T and PV), counted for these inputs."""
+    pairs = unmasked_pairs(tq, tk, causal, q_offset, k_offset)
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = b * h * d * (2 * tq + 2 * tk) * elem + b * h * tq * 4
+    return roofline(4.0 * b * h * d * pairs, nbytes, dtype)
+
+
+def attention_bwd_bound(kernel, b, h, tq, tk, d, causal, q_offset, k_offset,
+                        dtype):
+    """Least time (ms) of one backward kernel, and what bounds it. dq:
+    q, dO, k, v, lse, delta read once, dq written once; 3 products (S, dP,
+    dQ). dk/dv: q, dO, k, v, lse, delta read once, dk, dv written once; 4
+    products (S, dP, dV, dK). 2*D operations per unmasked pair a product,
+    counted for these inputs."""
+    pairs = unmasked_pairs(tq, tk, causal, q_offset, k_offset)
+    elem = torch.tensor([], dtype=dtype).element_size()
+    rows = 2 * b * h * tq * 4  # lse and delta, f32
+    if kernel == "dq":
+        products, nbytes = 3, b * h * d * (3 * tq + 2 * tk) * elem + rows
+    else:
+        products, nbytes = 4, b * h * d * (2 * tq + 4 * tk) * elem + rows
+    return roofline(2.0 * products * b * h * d * pairs, nbytes, dtype)
+
+
+def bwd_error(got, ref, dtype):
+    """(max |got - ref|, the largest share of its per-element limit) of a
+    flash backward gradient against its plain version."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    lim = BWD_RTOL[dtype] * ref.abs() + BWD_ATOL * ref.abs().max()
+    return float(err.max()), float((err / lim).max())
 
 
 def kernel_phase(ak):
@@ -483,6 +558,249 @@ def training_phase(bk):
     return launches
 
 
+def flash_backward_phase(ak):
+    """Kernels 3 and 4 against their plain versions, and kernel 1 (whose O
+    and lse they take) against its own. Returns the rows for the main
+    path's shape (the LM's attention: B=8, H=8, T=2048, D=64, causal, bf16)
+    and kernel 1's error and time there."""
+    cases = [  # name, b, h, tq, tk, d, causal, q_off, k_off, dtype
+        ("causal T=2048", 8, 8, 2048, 2048, 64, True, 0, 0, torch.float32),
+        ("causal T=2048 bf16 (training shape)", 8, 8, 2048, 2048, 64, True,
+         0, 0, torch.bfloat16),
+        ("causal T=1000 (ragged)", 4, 8, 1000, 1000, 64, True, 0, 0,
+         torch.float32),
+        ("non-causal Tq=1000 Tk=1500 (ragged)", 4, 8, 1000, 1500, 64, False,
+         0, 0, torch.float32),
+        ("causal T=512 D=128", 2, 8, 512, 512, 128, True, 0, 0,
+         torch.float32),
+        ("causal q_offset=-64: rows 0-63 fully masked", 2, 4, 256, 256, 64,
+         True, -64, 0, torch.float32),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = None
+    for (name, b, h, tq, tk, d, causal, q_off, k_off, dtype) in cases:
+        q, do = (torch.randn((b, h, tq, d), generator=gen, device="cuda"
+                             ).to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, h, tk, d), generator=gen, device="cuda"
+                            ).to(dtype) for _ in range(2))
+        kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+        with torch.inference_mode():
+            o, lse = ak.flash_attention_forward(q, k, v, return_lse=True,
+                                                **kw)
+            delta = ak.attention_delta(o, do)
+            args = (q, k, v, do, lse, delta)
+            dq = ak.flash_attention_backward_dq(*args, **kw)
+            dk, dv = ak.flash_attention_backward_dkv(*args, **kw)
+            torch.cuda.synchronize()
+            dq2 = ak.flash_attention_backward_dq(*args, **kw)
+            dk2, dv2 = ak.flash_attention_backward_dkv(*args, **kw)
+            sm = d ** -0.5
+            pargs = (*args, causal, sm, q_off, k_off)
+            ref_dq = ak.flash_attention_backward_dq_plain(*pargs)
+            ref_dk, ref_dv = ak.flash_attention_backward_dkv_plain(*pargs)
+            o_ref, lse_ref = ak.flash_attention_forward_plain(q, k, v, **kw)
+        check(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),
+              f"{name}: non-finite kernel 1 output")
+        err_o = float((o.float() - o_ref.float()).abs().max())
+        err_lse = float((lse - lse_ref).abs().max())
+        fwd_ok = err_o <= TOL[dtype]["o"] and err_lse <= TOL[dtype]["lse"]
+        errs, shares = {}, {}
+        for key, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                              ("dv", dv, ref_dv)):
+            check(got.dtype == dtype and bool(torch.isfinite(got).all()),
+                  f"{name}: {key} is not finite {dtype}")
+            errs[key], shares[key] = bwd_error(got, ref, dtype)
+        bitwise = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                   and torch.equal(dv, dv2))
+        ok = fwd_ok and bitwise and all(v <= 1 for v in shares.values())
+        if k_off > q_off:
+            ok = ok and bool((dq[:, :, :k_off - q_off] == 0).all())
+        iters = 10 if tq * tk >= 1 << 20 else 30
+        with torch.inference_mode():
+            dq_ms = cuda_ms(lambda: ak.flash_attention_backward_dq(
+                *args, **kw), iters)
+            dkv_ms = cuda_ms(lambda: ak.flash_attention_backward_dkv(
+                *args, **kw), iters)
+            bwd_ms = cuda_ms(lambda: ak.flash_attention_backward(
+                q, k, v, o, lse, do, **kw), iters)
+            dq_plain_ms = cuda_ms(
+                lambda: ak.flash_attention_backward_dq_plain(*pargs), iters)
+            dkv_plain_ms = cuda_ms(
+                lambda: ak.flash_attention_backward_dkv_plain(*pargs), iters)
+            fwd_ms = cuda_ms(lambda: ak.flash_attention_forward(
+                q, k, v, return_lse=True, **kw), iters)
+        library_ms = None
+        if q_off == k_off == 0:  # SDPA's backward, the yardstick for 3+4
+            qg, kg, vg = (x.detach().clone().requires_grad_()
+                          for x in (q, k, v))
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=causal)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, (qg, kg, vg), do, retain_graph=True), iters)
+            del out, qg, kg, vg
+        dq_bound = attention_bwd_bound("dq", b, h, tq, tk, d, causal, q_off,
+                                       k_off, dtype)
+        dkv_bound = attention_bwd_bound("dkv", b, h, tq, tk, d, causal,
+                                        q_off, k_off, dtype)
+        fwd_bound = attention_bound(b, h, tq, tk, d, causal, q_off, k_off,
+                                    dtype)
+        row = {"case": name, "shape": [b, h, tq, tk, d],
+               "dtype": str(dtype).replace("torch.", ""), "ok": ok,
+               "fwd_max_abs_err_o": err_o, "fwd_max_abs_err_lse": err_lse,
+               "fwd_tol_o": TOL[dtype]["o"], "fwd_tol_lse": TOL[dtype]["lse"],
+               "bitwise_repeat": bitwise, "max_abs_err": errs,
+               "max_share_of_limit": shares, "rtol": BWD_RTOL[dtype],
+               "atol_of_max": BWD_ATOL, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+               "backward_ms": bwd_ms, "dq_plain_ms": dq_plain_ms,
+               "dkv_plain_ms": dkv_plain_ms,
+               "sdpa_backward_ms": library_ms,
+               "dq_bound_ms": dq_bound[0], "dkv_bound_ms": dkv_bound[0],
+               "dq_share_of_bound": dq_bound[0] / dq_ms,
+               "dkv_share_of_bound": dkv_bound[0] / dkv_ms,
+               "fwd_ms": fwd_ms, "fwd_bound_ms": fwd_bound[0]}
+        print("flash backward case " + json.dumps(row), flush=True)
+        check(ok, f"{name}: kernel 1 disagrees with its plain version (O "
+                  f"{err_o:.3e} > {TOL[dtype]['o']} or lse {err_lse:.3e} > "
+                  f"{TOL[dtype]['lse']}), a flash backward kernel disagrees "
+                  f"with its plain version (share of the per-element limit "
+                  f"{shares} > 1), is not bitwise repeatable, or a fully "
+                  "masked row's dq is not 0")
+        if dtype == torch.bfloat16 and tq == 2048:
+            lib = {"library_ms": library_ms,
+                   "library_call": "scaled_dot_product_attention backward "
+                                   "(dq, dk, dv together)",
+                   "backward_ms": bwd_ms}
+            rows = {
+                "dq": {"max_abs_err": errs["dq"], "ms": dq_ms,
+                       "plain_ms": dq_plain_ms, "bound_ms": dq_bound[0],
+                       "bound_by": dq_bound[1], **lib},
+                "dkv": {"max_abs_err": max(errs["dk"], errs["dv"]),
+                        "ms": dkv_ms, "plain_ms": dkv_plain_ms,
+                        "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1],
+                        **lib},
+                "fwd_training_shape": {"max_abs_err": err_o,
+                                       "max_abs_err_lse": err_lse,
+                                       "ms": fwd_ms,
+                                       "bound_ms": fwd_bound[0],
+                                       "bound_by": fwd_bound[1]}}
+        del q, k, v, do, o, lse, delta, args, dq, dk, dv, dq2, dk2, dv2, \
+            o_ref, lse_ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+LM_CFG = dict(vocab_size=1024, embed_dim=512, n_layer=LM_LAYERS, n_head=8)
+
+
+def _flash_counts(ak):
+    return (ak.flash_attention_forward.launches,
+            ak.flash_attention_backward_dq.launches,
+            ak.flash_attention_backward_dkv.launches)
+
+
+def _reset_flash_counts(ak):
+    ak.flash_attention_forward.launches = 0
+    ak.flash_attention_backward_dq.launches = 0
+    ak.flash_attention_backward_dkv.launches = 0
+
+
+def lm_training_phase(ak):
+    from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
+    from bigdl_tpu_torch.tools import transformer_lm
+    from bigdl_tpu_torch.tools.bench import bench_transformer_lm
+
+    # (a) f32 parity: the model against a twin without the kernels
+    rs = np.random.RandomState(0)
+    toks = rs.randint(1, LM_CFG["vocab_size"] + 1, (2, 513)).astype(np.int32)
+    batch = MiniBatch(torch.from_numpy(toks[:, :-1]).cuda(),
+                      torch.from_numpy(toks[:, 1:]).cuda())
+    model = TransformerLM(**LM_CFG, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+    twin = TransformerLM(**LM_CFG, use_flash=False, device="cuda")
+    twin.load_state_dict(model.state_dict())
+
+    def train3(m):
+        losses = []
+        opt = DistriOptimizer(m, LocalDataSet([batch]),
+                              TimeDistributedCriterion(ClassNLLCriterion(),
+                                                       size_average=True),
+                              devices=["cuda"])
+        opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+        opt.set_end_when(max_iteration(3))
+        opt.set_iteration_hook(lambda st: losses.append(st["loss"]))
+        opt.optimize()
+        return losses
+
+    _reset_flash_counts(ak)
+    got = train3(model)
+    launches = _flash_counts(ak)
+    ref = train3(twin)
+    twin_launches = tuple(a - b for a, b in zip(_flash_counts(ak),
+                                                launches))
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+    print("lm training parity " + json.dumps({
+        "batch": 2, "seq": 512, "steps": 3, "dtype": "float32",
+        "losses": got, "twin_losses": ref, "rel_diff": rel,
+        "launches_fwd_dq_dkv": launches,
+        "twin_launches": twin_launches}), flush=True)
+    check(all(np.isfinite(got)) and max(rel) <= PARITY_RTOL,
+          f"f32 LM losses {got} vs twin {ref}: relative {max(rel):.2e} > "
+          f"{PARITY_RTOL}")
+    check(launches == (3 * LM_LAYERS,) * 3,
+          f"flash launches (fwd, dq, dkv) {launches} != {3 * LM_LAYERS} "
+          "each in 3 steps")
+    check(twin_launches == (0, 0, 0), "the use_flash=False twin launched a "
+                                      "flash kernel")
+    del model, twin, batch
+    torch.cuda.empty_cache()
+
+    # (b) the benchmark configuration: the main path's run
+    warmup, iters, sync, seq = 12, 36, 12, 2048
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts(ak)
+    res = bench_transformer_lm(batch_size=8, seq=seq, vocab=1024,
+                               warmup=warmup, iters=iters, sync=sync,
+                               device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    counts = _flash_counts(ak)
+    steps = warmup + iters
+    losses = res["losses"]
+    launches = dict(zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv"), counts))
+    out = {k: res[k] for k in ("tokens_per_sec", "ms_per_step", "batch_size",
+                               "seq", "steps", "warmup", "sync", "device")}
+    out.update({"precision": "bfloat16 compute, f32 masters",
+                "loss_per_token_first": losses[0] / seq,
+                "synced_losses": {i + 1: losses[i]
+                                  for i in range(sync - 1, steps, sync)},
+                "losses_every_step": losses,
+                "launches": launches, "launches_per_step": {
+                    k: v / steps for k, v in launches.items()},
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    print("lm training " + json.dumps(out), flush=True)
+    check(len(losses) == steps, f"{len(losses)} losses for {steps} steps")
+    lo = math.log(LM_CFG["vocab_size"])
+    check(math.isfinite(losses[0]) and lo <= losses[0] / seq <= lo + 2,
+          f"first loss per token {losses[0] / seq} outside "
+          f"[{lo:.3f}, {lo + 2:.3f}]")
+    for k, v in launches.items():
+        check(v == LM_LAYERS * steps,
+              f"{k} launched {v} times in {steps} steps, not "
+              f"{LM_LAYERS} x {steps}")
+
+    # (c) the example recipe at its defaults
+    t0 = time.perf_counter()
+    ppl = transformer_lm.main([])
+    print(f"lm example: perplexity {ppl:.3f} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(math.isfinite(ppl) and ppl < 25,
+          f"the example's train-shard perplexity {ppl} is not below 25")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -527,8 +845,20 @@ def main() -> int:
     # 6. training
     bn_launches = training_phase(bk)
 
+    # 7. flash backward kernels
+    bwd_rows = flash_backward_phase(ak)
+
+    # 8. LM training
+    lm_launches = lm_training_phase(ak)
+
     print(json.dumps({"kernels": [
-        {**KERNEL_ROW, "launches": launches, **main_row, "status": "ok"},
+        {**KERNEL_ROW, "launches": launches, **main_row, "status": "ok",
+         "launches_lm_training": lm_launches["flash_attention_fwd"],
+         "training_shape": bwd_rows["fwd_training_shape"]},
+        {**DQ_ROW, "launches": lm_launches["flash_attention_bwd_dq"],
+         **bwd_rows["dq"], "status": "ok"},
+        {**DKV_ROW, "launches": lm_launches["flash_attention_bwd_dkv"],
+         **bwd_rows["dkv"], "status": "ok"},
         {**BN_FWD_ROW, "launches": bn_launches["bn_relu_fwd"],
          **bn_rows["fwd"], "status": "ok"},
         {**BN_BWD_ROW, "launches": bn_launches["bn_relu_bwd"],

@@ -1,6 +1,7 @@
-"""The port on the card: the flash forward and the BN+ReLU CUDA kernels
-against their plain versions, the generation engine on CUDA against the
-CPU, and a ResNet training step through the kernels against the CPU.
+"""The port on the card: the flash forward, the flash backward (dq and
+dk/dv) and the BN+ReLU CUDA kernels against their plain versions, the
+generation engine on CUDA against the CPU, a ResNet training step through
+the kernels against the CPU, and an LM training step's kernel launches.
 
 Every test here needs a CUDA device and skips without one. This file
 imports nothing of JAX, so it runs where JAX is not installed:
@@ -12,7 +13,10 @@ another order, ~1e-6 apart in practice); bf16 atol 2e-2 on O, which the
 kernel rounds to bf16, and 1e-4 on the f32 lse. BN+ReLU: forward and
 dx bitwise (the same roundings in the same order); dscale/dshift within
 1e-5 times the sum of the terms' magnitudes per channel (another
-summation order).
+summation order). Flash backward, per element: |kernel - plain| <=
+1e-4 * max|plain| in f32 (another summation order), plus 2**-7 * |plain|
+in bf16 (each rounds the gradient to nearest bf16, at most one ulp
+apart); a second launch gives the same bits.
 """
 
 import numpy as np
@@ -177,3 +181,79 @@ def test_resnet_step_on_cuda_matches_cpu(cuda_device, monkeypatch):
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         torch.testing.assert_close(pg.grad.cpu(), pc.grad, atol=1e-4,
                                    rtol=1e-3, msg=name)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 0.0),
+                                        (torch.bfloat16, 2 ** -7)])
+@pytest.mark.parametrize("causal,tq,tk,d,q_offset", [
+    (True, 128, 128, 64, 0), (True, 1000, 1000, 64, 0),
+    (False, 1000, 1500, 64, 0), (True, 256, 256, 128, 0),
+    (False, 100, 70, 40, 0), (True, 256, 256, 64, -64)])
+def test_flash_backward_kernels_match_plain(cuda_device, dtype, rtol, causal,
+                                            tq, tk, d, q_offset):
+    gen = torch.Generator(device=cuda_device).manual_seed(tq + tk + d)
+    q, do = (torch.randn((2, 4, tq, d), generator=gen, device=cuda_device
+                         ).to(dtype) for _ in range(2))
+    k, v = (torch.randn((2, 4, tk, d), generator=gen, device=cuda_device
+                        ).to(dtype) for _ in range(2))
+    kw = dict(causal=causal, q_offset=q_offset)
+    o, lse = tak.flash_attention_forward(q, k, v, return_lse=True, **kw)
+    delta = tak.attention_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    before = (tak.flash_attention_backward_dq.launches,
+              tak.flash_attention_backward_dkv.launches)
+    got = (tak.flash_attention_backward_dq(*args, **kw),
+           *tak.flash_attention_backward_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    assert (tak.flash_attention_backward_dq.launches,
+            tak.flash_attention_backward_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    pargs = (*args, causal, d ** -0.5, q_offset, 0)
+    want = (tak.flash_attention_backward_dq_plain(*pargs),
+            *tak.flash_attention_backward_dkv_plain(*pargs))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        w = w.float()
+        lim = rtol * w.abs() + 1e-4 * w.abs().max()
+        assert bool(((g.float() - w).abs() <= lim).all())
+    if q_offset < 0:  # rows before the first key see nothing: dq = 0
+        assert (got[0][:, :, :-q_offset] == 0).all()
+    # each block owns its rows and sums in a fixed order: the same bits
+    again = (tak.flash_attention_backward_dq(*args, **kw),
+             *tak.flash_attention_backward_dkv(*args, **kw))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_function_matches_naive_autograd(cuda_device, causal):
+    """The autograd.Function (kernels 1, 3, 4) against naive attention
+    through autograd, f32 at a tiny shape; dO reaches the Function
+    non-contiguous (the loss reads O through a transpose)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    base = [torch.randn((2, 3, 37, 16), generator=gen, device=cuda_device)
+            for _ in range(3)]
+    w = torch.randn((2, 37, 3, 16), generator=gen, device=cuda_device)
+    grads = []
+    for fn in (tak.flash_attention, tak.naive_attention):
+        xs = [x.clone().requires_grad_() for x in base]
+        (fn(*xs, causal).transpose(1, 2) * w).sum().backward()
+        grads.append([x.grad for x in xs])
+    for g, want in zip(*grads):
+        torch.testing.assert_close(g, want, atol=1e-5, rtol=1e-4)
+
+
+def test_lm_training_step_launches_each_kernel_once_a_layer(cuda_device):
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    model = TransformerLM(64, embed_dim=64, n_layer=2, n_head=4,
+                          device=cuda_device)
+    x = torch.randint(1, 65, (2, 100), device=cuda_device)
+    y = torch.randint(1, 65, (2, 100), device=cuda_device)
+    counters = (tak.flash_attention_forward, tak.flash_attention_backward_dq,
+                tak.flash_attention_backward_dkv)
+    before = [f.launches for f in counters]
+    loss = TimeDistributedCriterion(ClassNLLCriterion())(model(x), y)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 2]
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
