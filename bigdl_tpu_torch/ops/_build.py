@@ -5,8 +5,9 @@ interface and is compiled by `nvcc` for Hopper (`sm_90a`) into its own
 shared library, loaded with `ctypes`. Nothing includes PyTorch's headers,
 so a build takes seconds, not minutes. Builds happen at first use, into
 `build/kernels/` at the root of the checkout; a library's file name
-carries a hash of its source and flags, so an edited source is never
-served by a stale build.
+carries a hash of its source, of every shared header (`csrc/*.cuh`) and of
+the flags, so an edited source or header is never served by a stale
+build.
 
 `build_kernels()` starts one `nvcc` per source at once and waits for all
 of them (what a cold start does); `load_kernel(name)` builds one on
@@ -31,8 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Every kernel source of the port, by name (the `.cu` file's stem).
-KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv", "bn_relu_fwd", "bn_relu_bwd")
+KERNELS = ("flash_attention_fwd", "flash_attention_carry",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "bn_relu_fwd", "bn_relu_bwd")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -57,8 +59,11 @@ def _lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(f"no kernel source {src}")
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

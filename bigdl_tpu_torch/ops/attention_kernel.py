@@ -12,6 +12,12 @@ q, k, v are [B, H, T, D].
   (O and the per-row logsumexp) on a CUDA tensor; on a CPU tensor its plain
   version `flash_attention_forward_plain`, the same online softmax in
   PyTorch. It never falls back: a CUDA tensor launches the kernel or raises.
+- `flash_attention_carry` — one ring-attention hop: continue a carried
+  (acc, m, l) with one K/V shard at global offsets, the CUDA kernel
+  `csrc/flash_attention_carry.cu` on a CUDA tensor, its plain version
+  `flash_attention_carry_plain` (`blockwise_attention(..., carry=carry,
+  finish=False)`) on a CPU tensor. Kernel 1 and this kernel share one tile
+  loop (`csrc/flash_attention_tile.cuh`).
 - `flash_attention_backward` — dq, dk, dv from the saved O and logsumexp:
   `delta = rowsum(dO * O)` in PyTorch, then the CUDA kernels
   `csrc/flash_attention_bwd_dq.cu` (`flash_attention_backward_dq`) and
@@ -205,17 +211,29 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool = False,
             *flash_attention_backward_dkv_plain(*args))
 
 
+def flash_attention_carry_plain(q, k, v, carry, causal: bool = False,
+                                sm_scale: Optional[float] = None,
+                                q_offset: int = 0, k_offset: int = 0):
+    """The plain PyTorch version of the carry kernel: the carried f32
+    (acc [B, H, Tq, D], m, l [B, H, Tq]) continued with k, v
+    [B, H, Tk, D], returned unnormalised."""
+    return blockwise_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                               q_offset=q_offset, k_offset=k_offset,
+                               carry=carry, finish=False)
+
+
 # --------------------------------------------------------------------------
-# The CUDA kernels (csrc/flash_attention_{fwd,bwd_dq,bwd_dkv}.cu), bound
-# through ctypes. Each takes its pointers, then (bh, tq, tk, d, sm_scale,
-# causal, q_offset, k_offset, dtype, stream), and returns a cudaError code.
+# The CUDA kernels (csrc/flash_attention_{fwd,carry,bwd_dq,bwd_dkv}.cu),
+# bound through ctypes. Each takes its pointers, then (bh, tq, tk, d,
+# sm_scale, causal, q_offset, k_offset, dtype, stream), and returns a
+# cudaError code.
 # --------------------------------------------------------------------------
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
 #: tensor pointers each kernel takes
-_N_PTRS = {"flash_attention_fwd": 5, "flash_attention_bwd_dq": 7,
-           "flash_attention_bwd_dkv": 8}
+_N_PTRS = {"flash_attention_fwd": 5, "flash_attention_carry": 9,
+           "flash_attention_bwd_dq": 7, "flash_attention_bwd_dkv": 8}
 _FNS = {}
 
 
@@ -328,6 +346,65 @@ def flash_attention_forward(q, k, v, causal: bool = False,
 
 
 flash_attention_forward.launches = 0
+
+
+def _check_carry(q, carry):
+    if len(carry) != 3:
+        raise ValueError("carry must be (acc, m, l)")
+    for name, t, shape in zip(("acc", "m", "l"), carry,
+                              (q.shape, q.shape[:3], q.shape[:3])):
+        if t.shape != shape or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError(f"carry {name} must be float32 {tuple(shape)} "
+                             f"on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def flash_attention_carry(q, k, v, carry, causal: bool = False,
+                          sm_scale: Optional[float] = None,
+                          q_offset: int = 0, k_offset: int = 0,
+                          inplace: bool = False):
+    """One ring-attention hop: continue the online softmax carried in
+    `carry` = (acc [B, H, Tq, D], m, l [B, H, Tq], f32, as
+    `attention_state_init` makes them) with k, v [B, H, Tk, D] and return
+    the updated (acc, m, l), unnormalised; `attention_state_finish`
+    normalises after the last hop. `q_offset` / `k_offset` are the global
+    positions of the first query and key (causal mask only). The CUDA
+    kernel `csrc/flash_attention_carry.cu` on a CUDA tensor, its plain
+    version on a CPU tensor; `flash_attention_carry.launches` counts
+    kernel launches. Any shape is taken (ragged Tq / Tk are masked in the
+    kernel): a CUDA tensor launches the kernel or raises. `inplace=True`
+    writes the result into the carry's own tensors and returns them. The
+    kernel records no backward (ring attention recomputes through the
+    plain ring instead)."""
+    _check_inputs(q, k, v)
+    _check_carry(q, carry)
+    sm_scale = sm_scale or q.shape[-1] ** -0.5
+    if q.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v, *carry)):
+            raise NotImplementedError(
+                "flash_attention_carry records no backward; ring attention "
+                "differentiates through its plain ring, or call this under "
+                "torch.no_grad()")
+        outs = carry if inplace else tuple(torch.empty_like(t)
+                                           for t in carry)
+        _launch("flash_attention_carry", (q, k, v, *carry), outs, q,
+                k.shape[2], causal, sm_scale, q_offset, k_offset)
+        flash_attention_carry.launches += 1
+        return tuple(outs)
+    if q.device.type == "cpu":
+        outs = flash_attention_carry_plain(q, k, v, carry, causal, sm_scale,
+                                           q_offset, k_offset)
+        if inplace:
+            for t, new in zip(carry, outs):
+                t.copy_(new)
+            return tuple(carry)
+        return outs
+    raise _no_device(q, "carry")
+
+
+flash_attention_carry.launches = 0
 
 
 def flash_attention_backward_dq(q, k, v, do, lse, delta,

@@ -1,6 +1,7 @@
 """Training throughput of the port (counterpart of
 `bigdl_tpu/tools/bench_cli.py` `_framework_throughput`, `bench_resnet50`
-and its transformer-LM block).
+and its transformer-LM block), and its long-context attention figures
+(`bench_attention`).
 
 The model trains through `DistriOptimizer` with `SGD(learning_rate=0.01,
 momentum=0.9)` and bf16 compute with f32 masters, on ONE synthetic batch
@@ -20,6 +21,7 @@ warm-up. The result also carries every step's loss.
     python -m bigdl_tpu_torch.tools.bench                       # ResNet-50
     python -m bigdl_tpu_torch.tools.bench --model lm            # the LM
     python -m bigdl_tpu_torch.tools.bench [--model lm] --profile
+    python -m bigdl_tpu_torch.tools.bench --model attention [--profile]
 
 prints one JSON object. `--profile` gives device time by kind of kernel.
 The benchmark needs a CUDA device unless called with `device="cpu"`; the
@@ -166,9 +168,115 @@ def bench_transformer_lm(batch_size: int = 8, seq: int = 2048,
                          batch_size, warmup, iters, sync=sync, device=device)
 
 
+def _median_ms(fn, reps: int, device: torch.device) -> float:
+    """Median time of one call of `fn` over `reps` calls after one
+    warm-up: CUDA events around each call on a CUDA device, the host clock
+    elsewhere."""
+    fn()
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            start, stop = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+            fn()
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def _sp_mesh(device: torch.device, length: int):
+    """The sequence-parallel mesh of the attention figures: every CUDA
+    device when there are two or more, else 4 shards on `device`; and the
+    sequence length, `length` rounded down to a multiple of 2n."""
+    from bigdl_tpu_torch.parallel import build_mesh
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 0
+    devices = ([torch.device("cuda", i) for i in range(n_dev)]
+               if n_dev >= 2 else [device] * 4)
+    n = len(devices)
+    return build_mesh(data=n, devices=devices), {
+        "seq": max(1, length // (2 * n)) * 2 * n, "shards": n,
+        "mesh": [str(x) for x in devices], "one_device": n_dev < 2}
+
+
+def bench_attention(device=None, lengths: Sequence[int] = (8192, 16384),
+                    naive_max: int = 8192, ring_len: int = 8192,
+                    reps: int = 10,
+                    generator: Optional[torch.Generator] = None) -> Dict:
+    """The long-context attention figures of `bench_cli.py`'s
+    `bench_attention` (its LM block is `--model lm` here), at B=1, H=8,
+    D=64, bf16, causal: the flash forward (kernel 1) and forward plus
+    backward (kernels 1, 3, 4; gradients for q, k and v) at each of
+    `lengths`, naive attention at lengths up to `naive_max`, and ring
+    against zigzag sequence parallelism (kernel 2) at
+    `ring_len // 2n * 2n` over a mesh of every CUDA device when there are
+    two or more, else of 4 shards on the one device. TFLOP/s use the
+    reference's counts: causal forward 2*B*H*T^2*D*2/2, forward plus
+    backward 7*B*H*T^2*D*2/2."""
+    from bigdl_tpu_torch.ops.attention_kernel import (flash_attention,
+                                                      flash_attention_forward,
+                                                      naive_attention)
+    from bigdl_tpu_torch.parallel import make_sequence_parallel_attention
+    device = resolve_device(device)
+    gen = generator or torch.Generator().manual_seed(0)
+    b, h, d, dtype = 1, 8, 64, torch.bfloat16
+
+    def qkv(t):
+        return [torch.randn((b, h, t, d), generator=gen).to(device, dtype)
+                for _ in range(3)]
+
+    def fwd_flops(t):
+        return 2 * b * h * t * t * d * 2 / 2
+
+    def tflops(fl, ms):
+        return fl / (ms * 1e-3) / 1e12
+
+    out = {"batch": b, "heads": h, "head_dim": d, "dtype": "bfloat16",
+           "causal": True, "reps": reps, "device": _device_name(device),
+           "timer": "cuda_events" if device.type == "cuda"
+           else "host_clock", "flash": [], "flash_fwd_bwd": [], "naive": []}
+    for t in lengths:
+        q, k, v = qkv(t)
+        with torch.no_grad():
+            ms = _median_ms(lambda: flash_attention_forward(
+                q, k, v, causal=True), reps, device)
+        out["flash"].append({"seq": t, "ms": ms,
+                             "tflops": tflops(fwd_flops(t), ms)})
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        ms_bwd = _median_ms(lambda: torch.autograd.grad(
+            flash_attention(qg, kg, vg, True).float().sum(), (qg, kg, vg)),
+            reps, device)
+        out["flash_fwd_bwd"].append({"seq": t, "ms": ms_bwd, "tflops":
+                                     tflops(3.5 * fwd_flops(t), ms_bwd)})
+        del qg, kg, vg
+        if t <= naive_max:
+            with torch.no_grad():
+                nms = _median_ms(lambda: naive_attention(
+                    q, k, v, causal=True), reps, device)
+            out["naive"].append({"seq": t, "ms": nms,
+                                 "tflops": tflops(fwd_flops(t), nms),
+                                 "flash_speedup": nms / ms})
+
+    mesh, sp = _sp_mesh(device, ring_len)
+    q, k, v = qkv(sp["seq"])
+    for scheme in ("ring", "zigzag"):
+        fn = make_sequence_parallel_attention(mesh, scheme, causal=True)
+        with torch.no_grad():
+            ms = _median_ms(lambda: fn(q, k, v), reps, device)
+        sp[scheme] = {"ms": ms, "tflops": tflops(fwd_flops(sp["seq"]), ms)}
+    out["sequence_parallel"] = sp
+    return out
+
+
 #: kernel-name fragments of each kind in the profiles, tried in order
 _KERNEL_KINDS = (
     ("flash_attention_fwd (csrc, kernel 1)", ("flash_fwd_kernel",)),
+    ("flash_attention_carry (csrc, kernel 2)", ("flash_carry_kernel",)),
     ("flash_attention_bwd_dq (csrc, kernel 3)",
      ("flash_attention_bwd_dq",)),
     ("flash_attention_bwd_dkv (csrc, kernel 4)",
@@ -197,18 +305,24 @@ def _profile(opt: DistriOptimizer, warmup: int, steps: int, top: int,
     and idle shares of the profiled wall time (host clock, from a drained
     device to a drained device), device ms per step by kind of kernel, and
     the `top` kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     opt.set_sync_interval(warmup)
     opt.set_end_when(max_iteration(warmup))
     opt.optimize()
     torch.cuda.synchronize(device)
     opt.set_sync_interval(steps)
     opt.set_end_when(max_iteration(warmup + steps))
+    return _profiled(opt.optimize, steps, top, device)
+
+
+def _profiled(run, steps: int, top: int, device: torch.device) -> Dict:
+    """Run `run()` (`steps` steps, the device drained before) under
+    `torch.profiler` and summarise where its device time goes."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        opt.optimize()
+        run()
         torch.cuda.synchronize(device)
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name: Dict[str, list] = {}
@@ -277,14 +391,41 @@ def profile_transformer_lm(batch_size: int = 8, seq: int = 2048,
             **_profile(opt, warmup, steps, top, device)}
 
 
+def profile_attention(seq: int = 8192, calls: int = 4, top: int = 8,
+                      device=None,
+                      generator: Optional[torch.Generator] = None) -> Dict:
+    """`_profiled` of ring, zigzag and Ulysses attention at
+    `bench_attention`'s sequence-parallel shape (B=1, H=8, D=64, bf16,
+    causal, its mesh): `calls` calls of each after one warm-up call; a
+    "step" in the summary is one call."""
+    from bigdl_tpu_torch.parallel import make_sequence_parallel_attention
+    device = _cuda_only(device, "profile_attention")
+    gen = generator or torch.Generator().manual_seed(0)
+    mesh, out = _sp_mesh(device, seq)
+    q, k, v = (torch.randn((1, 8, out["seq"], 64), generator=gen)
+               .to(device, torch.bfloat16) for _ in range(3))
+    for scheme in ("ring", "zigzag", "ulysses"):
+        fn = make_sequence_parallel_attention(mesh, scheme, causal=True)
+        with torch.no_grad():
+            fn(q, k, v)
+            torch.cuda.synchronize(device)
+            out[scheme] = _profiled(
+                lambda: [fn(q, k, v) for _ in range(calls)], calls, top,
+                device)
+    return out
+
+
 def main(argv=None) -> None:
     import argparse
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--model", choices=("resnet50", "lm"), default="resnet50")
+    p.add_argument("--model", choices=("resnet50", "lm", "attention"),
+                   default="resnet50")
     p.add_argument("--profile", action="store_true",
                    help="device time by kind of kernel (torch.profiler)")
     args = p.parse_args(argv)
-    if args.model == "lm":
+    if args.model == "attention":
+        fn = profile_attention if args.profile else bench_attention
+    elif args.model == "lm":
         fn = profile_transformer_lm if args.profile else bench_transformer_lm
     else:
         fn = profile_resnet50 if args.profile else bench_resnet50

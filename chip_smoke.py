@@ -58,7 +58,27 @@ Phases:
    here, so no fall is required. (c) The example
    (`bigdl_tpu_torch/tools/transformer_lm.py`) at its defaults: AdamW with
    warm-up and cosine decay, a train-shard perplexity below 25, and the
-   T=256 eval forward.
+   T=256 eval forward;
+9. sequence parallelism: (a) hold the flash carry kernel (kernel 2, one
+   ring hop) against its plain version in f32 and bf16 at D = 64, 128 and
+   40: a two-hop continuation that, finished, matches kernel 1 over the
+   whole K/V, ragged Tq/Tk, a diagonal hop, a hop wholly in the queries'
+   past (equal bits to causal=False), a hop wholly in their future (the
+   carry passes through bitwise), rows still fully masked (m = NEG_INF,
+   l = 0 in and out), and a second launch (equal bits): acc within
+   1e-5 * max|plain|, m and l within 1e-5 * max(|plain|, 1); time it at
+   the full-width hop shapes (the ring's B1 H8 T=2048 D64 bf16 diagonal
+   and below-diagonal hops, zigzag's T=1024 chunk) beside its plain
+   version and its bound. (b) Ring, zigzag and Ulysses through
+   `make_sequence_parallel_attention`, causal, B1 H8 T=8192 D64 bf16, over
+   a mesh of every card (4 shards on the one card when there is one):
+   each within one bf16 ulp of kernel 1 over the whole sequence
+   (|d| <= 2**-7 |ref| + 1e-4 max|ref|), kernel 2 launched n^2, n(2n+1)
+   and 0 times a call; timed beside kernel 1 and
+   `scaled_dot_product_attention` (a yardstick only) over the whole
+   sequence. (c) Ring and zigzag gradients of sum(out**2) for q, k and v,
+   f32, T=2048, against `flash_attention` (kernels 1, 3, 4) on the whole
+   sequence, within 1e-4 * max|ref|.
 
 Prints a `{"kernels": [...]}` line, then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
@@ -101,6 +121,9 @@ BN_BWD_ROW = {"name": "bn_relu_bwd", "route": "cuda",
 DQ_ROW = {"name": "flash_attention_bwd_dq", "route": "cuda",
           "source": "bigdl_tpu_torch/csrc/flash_attention_bwd_dq.cu",
           "replaces": "bigdl_tpu/ops/attention_kernel.py:425"}
+CARRY_ROW = {"name": "flash_attention_carry", "route": "cuda",
+             "source": "bigdl_tpu_torch/csrc/flash_attention_carry.cu",
+             "replaces": "bigdl_tpu/ops/attention_kernel.py:277"}
 DKV_ROW = {"name": "flash_attention_bwd_dkv", "route": "cuda",
            "source": "bigdl_tpu_torch/csrc/flash_attention_bwd_dkv.cu",
            "replaces": "bigdl_tpu/ops/attention_kernel.py:469"}
@@ -121,6 +144,16 @@ BN_SITES = 33
 # f32 kernel-vs-twin losses after 3 steps: the twin differs only in the
 # summation order of dscale/dshift (~1e-7 relative a step)
 PARITY_RTOL = 1e-4
+# kernel 2 against its plain version: acc within CARRY_TOL * max|plain|,
+# m and l within CARRY_TOL * max(|plain|, 1) per element. Both sum the same
+# f32 terms (from the same inputs, in bf16 rounded once before either sees
+# them) in another order; a wrong map or guard is off by far more.
+CARRY_TOL = 1e-5
+# sequence parallelism at full width against kernel 1 on the whole
+# sequence, per element: one bf16 ulp of |ref| plus SP_ATOL * max|ref|;
+# gradients (f32): SP_GRAD_ATOL * max|ref|
+SP_ATOL = 1e-4
+SP_GRAD_ATOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -629,7 +662,7 @@ def flash_backward_phase(ak):
                 lambda: ak.flash_attention_backward_dkv_plain(*pargs), iters)
             fwd_ms = cuda_ms(lambda: ak.flash_attention_forward(
                 q, k, v, return_lse=True, **kw), iters)
-        library_ms = None
+        library_ms = fwd_library_ms = None
         if q_off == k_off == 0:  # SDPA's backward, the yardstick for 3+4
             qg, kg, vg = (x.detach().clone().requires_grad_()
                           for x in (q, k, v))
@@ -638,6 +671,10 @@ def flash_backward_phase(ak):
             library_ms = cuda_ms(lambda: torch.autograd.grad(
                 out, (qg, kg, vg), do, retain_graph=True), iters)
             del out, qg, kg, vg
+            with torch.inference_mode():  # and its forward, for kernel 1
+                fwd_library_ms = cuda_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal), iters)
         dq_bound = attention_bwd_bound("dq", b, h, tq, tk, d, causal, q_off,
                                        k_off, dtype)
         dkv_bound = attention_bwd_bound("dkv", b, h, tq, tk, d, causal,
@@ -657,7 +694,8 @@ def flash_backward_phase(ak):
                "dq_bound_ms": dq_bound[0], "dkv_bound_ms": dkv_bound[0],
                "dq_share_of_bound": dq_bound[0] / dq_ms,
                "dkv_share_of_bound": dkv_bound[0] / dkv_ms,
-               "fwd_ms": fwd_ms, "fwd_bound_ms": fwd_bound[0]}
+               "fwd_ms": fwd_ms, "fwd_bound_ms": fwd_bound[0],
+               "sdpa_forward_ms": fwd_library_ms}
         print("flash backward case " + json.dumps(row), flush=True)
         check(ok, f"{name}: kernel 1 disagrees with its plain version (O "
                   f"{err_o:.3e} > {TOL[dtype]['o']} or lse {err_lse:.3e} > "
@@ -682,7 +720,8 @@ def flash_backward_phase(ak):
                                        "max_abs_err_lse": err_lse,
                                        "ms": fwd_ms,
                                        "bound_ms": fwd_bound[0],
-                                       "bound_by": fwd_bound[1]}}
+                                       "bound_by": fwd_bound[1],
+                                       "library_ms": fwd_library_ms}}
         del q, k, v, do, o, lse, delta, args, dq, dk, dv, dq2, dk2, dv2, \
             o_ref, lse_ref
     torch.cuda.empty_cache()
@@ -801,6 +840,284 @@ def lm_training_phase(ak):
     return launches
 
 
+def carry_bound(b, h, tq, tk, d, causal, q_offset, k_offset, dtype):
+    """Least time (ms) of one ring hop and what bounds it: q, k, v read
+    once, the f32 carry (acc, m, l) read once and written once; 4*D
+    operations per unmasked (query, key) pair, counted for these
+    inputs."""
+    pairs = unmasked_pairs(tq, tk, causal, q_offset, k_offset)
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = b * h * d * (tq + 2 * tk) * elem \
+        + 2 * b * h * tq * (d + 2) * 4
+    return roofline(4.0 * b * h * d * pairs, nbytes, dtype)
+
+
+def carry_error(got, want):
+    """(max |acc - plain|, the largest share of the per-element limit over
+    acc, m and l) of a carry against its plain version."""
+    shares = []
+    err_acc = float((got[0] - want[0]).abs().max())
+    shares.append(err_acc / (CARRY_TOL * float(want[0].abs().max())))
+    for a, b in zip(got[1:], want[1:]):
+        lim = CARRY_TOL * b.abs().clamp(min=1.0)
+        shares.append(float(((a - b).abs() / lim).max()))
+    return err_acc, max(shares)
+
+
+def _random_carry(ak, q, k0, v0, masked_rows=0):
+    """A carried (acc, m, l) from the plain hop over k0, v0 (non-causal),
+    with the first `masked_rows` rows still fully masked."""
+    acc, m, l = ak.flash_attention_carry_plain(
+        q, k0, v0, ak.attention_state_init(q))
+    acc[:, :, :masked_rows] = 0
+    m[:, :, :masked_rows] = ak.NEG_INF
+    l[:, :, :masked_rows] = 0
+    return acc, m, l
+
+
+def carry_phase(ak):
+    """9(a): kernel 2 against its plain version, then timed at the
+    full-width hop shapes. Returns the row for the ring's below-diagonal
+    hop, the hop that most of a causal ring's work runs in."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 128, 40):
+            tag = f"{str(dtype)[6:]} D={d}"
+            q, k, v, k0, v0 = (rand(2, 4, 384, d, dtype=dtype)
+                               for _ in range(5))
+            # a two-hop continuation from a fresh state, finished, against
+            # kernel 1 over the whole K/V
+            with torch.inference_mode():
+                state = ak.attention_state_init(q)
+                shares, bitwise = [], True
+                for k_off in (0, 192):
+                    sl = slice(k_off, k_off + 192)
+                    ks, vs = k[:, :, sl].contiguous(), v[:, :, sl].contiguous()
+                    kw = dict(causal=True, k_offset=k_off)
+                    got = ak.flash_attention_carry(q, ks, vs, state, **kw)
+                    again = ak.flash_attention_carry(q, ks, vs, state, **kw)
+                    torch.cuda.synchronize()
+                    want = ak.flash_attention_carry_plain(q, ks, vs, state,
+                                                          **kw)
+                    shares.append(carry_error(got, want)[1])
+                    bitwise &= all(torch.equal(a, b)
+                                   for a, b in zip(got, again))
+                    state = got
+                fin = ak.attention_state_finish(*state).to(dtype)
+                o1 = ak.flash_attention_forward(q, k, v, causal=True)
+            err_o = float((fin.float() - o1.float()).abs().max())
+            lim_o = 1e-5 * float(o1.float().abs().max())
+            if dtype == torch.bfloat16:  # both round to bf16: one ulp
+                lim_o += 2 ** -7 * float(o1.float().abs().max())
+            row = {"case": f"two-hop continuation {tag}",
+                   "max_share_of_limit": max(shares),
+                   "bitwise_repeat": bitwise,
+                   "finished_vs_kernel1_max_abs_err": err_o,
+                   "finished_bitwise_equal_kernel1": torch.equal(fin, o1)}
+            print("carry case " + json.dumps(row), flush=True)
+            check(max(shares) <= 1 and bitwise and err_o <= lim_o,
+                  f"carry {tag}: continuation disagrees with its plain "
+                  f"version (share {max(shares):.3f}), is not bitwise "
+                  f"repeatable, or finished differs from kernel 1 by "
+                  f"{err_o:.3e} > {lim_o:.3e}")
+
+            cases = [  # name, tq, tk, causal, q_off, k_off, masked rows
+                ("ragged Tq=200 Tk=136", 200, 136, True, 300, 200, 0),
+                ("diagonal", 256, 256, True, 256, 256, 0),
+                ("rows still fully masked", 128, 128, True, 0, 16, 32),
+                ("non-causal ragged", 100, 70, False, 0, 0, 0)]
+            for name, tq, tk, causal, q_off, k_off, masked in cases:
+                q, k, v, k0, v0 = (rand(2, 4, t, d, dtype=dtype) for t in
+                                   (tq, tk, tk, tk, tk))
+                kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+                with torch.inference_mode():
+                    carry = _random_carry(ak, q, k0, v0, masked)
+                    got = ak.flash_attention_carry(q, k, v, carry, **kw)
+                    again = ak.flash_attention_carry(q, k, v, carry, **kw)
+                    torch.cuda.synchronize()
+                    want = ak.flash_attention_carry_plain(q, k, v, carry,
+                                                          **kw)
+                err, share = carry_error(got, want)
+                bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+                ok = share <= 1 and bitwise
+                if masked:  # rows 0-15 see no key here either
+                    ok = ok and bool((got[1][:, :, :16] == ak.NEG_INF).all()
+                                     and (got[2][:, :, :16] == 0).all()
+                                     and (got[0][:, :, :16] == 0).all())
+                row = {"case": f"{name} {tag}", "max_abs_err_acc": err,
+                       "max_share_of_limit": share,
+                       "bitwise_repeat": bitwise, "ok": ok}
+                print("carry case " + json.dumps(row), flush=True)
+                check(ok, f"carry {name} {tag}: disagrees with its plain "
+                          f"version (share {share:.3f} of the limit), is "
+                          "not bitwise repeatable, or a masked row moved")
+
+            # wholly in the past (causal equals non-causal, bitwise) and
+            # wholly in the future (the carry passes through, bitwise)
+            q, k, v, k0, v0 = (rand(2, 4, 192, d, dtype=dtype)
+                               for _ in range(5))
+            with torch.inference_mode():
+                carry = _random_carry(ak, q, k0, v0)
+                past = ak.flash_attention_carry(q, k, v, carry, causal=True,
+                                                q_offset=192, k_offset=0)
+                full = ak.flash_attention_carry(q, k, v, carry, causal=False)
+                future = ak.flash_attention_carry(q, k, v, carry,
+                                                  causal=True, q_offset=0,
+                                                  k_offset=192)
+                torch.cuda.synchronize()
+            ok_past = all(torch.equal(a, b) for a, b in zip(past, full))
+            ok_future = all(torch.equal(a, b) for a, b in zip(future, carry))
+            print("carry case " + json.dumps({
+                "case": f"past and future shards {tag}",
+                "past_equals_non_causal_bitwise": ok_past,
+                "future_passes_through_bitwise": ok_future}), flush=True)
+            check(ok_past and ok_future,
+                  f"carry {tag}: a past shard differs from causal=False or "
+                  "a future shard did not pass the carry through bitwise")
+
+    # timing at the full-width hop shapes (B1 H8 D64 bf16)
+    hops = [("ring below-diagonal hop", 2048, 2048, 0),
+            ("ring diagonal hop", 2048, 2048, 2048),
+            ("zigzag chunk (q_high vs A)", 1024, 1024 * 6, 1024)]
+    main_row = None
+    for name, t, q_off, k_off in hops:
+        causal = "zigzag" not in name
+        q, k, v = (rand(1, 8, t, 64, dtype=torch.bfloat16)
+                   for _ in range(3))
+        kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+        with torch.inference_mode():
+            carry = _random_carry(ak, q, *(rand(1, 8, t, 64,
+                                                dtype=torch.bfloat16)
+                                           for _ in range(2)))
+            got = ak.flash_attention_carry(q, k, v, carry, **kw)
+            torch.cuda.synchronize()
+            want = ak.flash_attention_carry_plain(q, k, v, carry, **kw)
+            err, share = carry_error(got, want)
+            ms = cuda_ms(lambda: ak.flash_attention_carry(q, k, v, carry,
+                                                          **kw), 20)
+            plain_ms = cuda_ms(lambda: ak.flash_attention_carry_plain(
+                q, k, v, carry, **kw), 20)
+        bound_ms, bound_by = carry_bound(1, 8, t, t, 64, causal, q_off,
+                                         k_off, torch.bfloat16)
+        row = {"case": name, "shape": [1, 8, t, t, 64], "dtype": "bfloat16",
+               "q_offset": q_off, "k_offset": k_off, "causal": causal,
+               "max_abs_err": err, "max_share_of_limit": share, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "share_of_bound": bound_ms / ms}
+        print("carry timing " + json.dumps(row), flush=True)
+        check(share <= 1, f"carry {name}: disagrees with its plain version "
+                          f"(share {share:.3f} of the limit)")
+        if main_row is None:
+            main_row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None, "hop_shape": name}
+        else:
+            main_row.setdefault("other_hops", []).append(
+                {"case": name, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms})
+    return main_row
+
+
+def sp_mesh_devices():
+    """Every card when there are two or more, else 4 shards on the one."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * 4
+
+
+def sequence_parallel_phase(ak):
+    """9(b) and 9(c). Returns kernel 2's launches in the full-width run."""
+    from bigdl_tpu_torch.parallel import (build_mesh,
+                                          make_sequence_parallel_attention)
+    devices = sp_mesh_devices()
+    n = len(devices)
+    mesh = build_mesh(data=n, devices=devices)
+    want_launches = {"ring": n * n, "zigzag": n * (2 * n + 1), "ulysses": 0}
+    fns = {s: make_sequence_parallel_attention(mesh, s, causal=True)
+           for s in ("ring", "zigzag", "ulysses")}
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    t = 8192
+    q, k, v = (torch.randn((1, 8, t, 64), generator=gen, device="cuda"
+                           ).to(torch.bfloat16) for _ in range(3))
+    with torch.inference_mode():
+        ref = ak.flash_attention_forward(q, k, v, causal=True).float()
+    lim = 2 ** -7 * ref.abs() + SP_ATOL * ref.abs().max()
+
+    # the main path's run: counts start at 0 here and are read after
+    _reset_flash_counts(ak)
+    ak.flash_attention_carry.launches = 0
+    outs, launches = {}, {}
+    with torch.inference_mode():
+        for scheme, fn in fns.items():
+            before = ak.flash_attention_carry.launches
+            outs[scheme] = fn(q, k, v)
+            torch.cuda.synchronize()
+            launches[scheme] = ak.flash_attention_carry.launches - before
+    total = ak.flash_attention_carry.launches
+    other = _flash_counts(ak)
+    check(other == (0, 0, 0), f"the sequence-parallel run launched kernels "
+                              f"1, 3, 4 {other} times")
+    rows = {}
+    with torch.inference_mode():
+        k1_ms = cuda_ms(lambda: ak.flash_attention_forward(q, k, v,
+                                                           causal=True), 10)
+        sdpa_ms = cuda_ms(lambda: torch.nn.functional
+                          .scaled_dot_product_attention(q, k, v,
+                                                        is_causal=True), 10)
+        for scheme, fn in fns.items():
+            out = outs[scheme]
+            ok_shape = out.shape == q.shape and out.dtype == q.dtype
+            err = (out.float() - ref).abs()
+            share = float((err / lim).max())
+            rows[scheme] = {"launches": launches[scheme],
+                            "max_abs_err": float(err.max()),
+                            "max_share_of_limit": share,
+                            "ms": cuda_ms(lambda: fn(q, k, v), 5)}
+            check(ok_shape and bool(torch.isfinite(out).all()),
+                  f"{scheme}: output {out.dtype} {tuple(out.shape)} is not "
+                  "finite bf16 of q's shape")
+            check(share <= 1, f"{scheme}: {share:.3f} of the limit from "
+                              "kernel 1 over the whole sequence")
+            check(launches[scheme] == want_launches[scheme],
+                  f"{scheme}: kernel 2 launched {launches[scheme]} times, "
+                  f"not {want_launches[scheme]}")
+    print("sequence parallel " + json.dumps({
+        "shape": [1, 8, t, 64], "dtype": "bfloat16", "causal": True,
+        "shards": n, "mesh": [str(x) for x in devices],
+        "kernel1_ms": k1_ms, "sdpa_ms": sdpa_ms, "schemes": rows,
+        "carry_launches": total}), flush=True)
+    del q, k, v, ref, lim, outs
+
+    # 9(c): gradients, f32 at T=2048, against kernels 1, 3 and 4
+    t = 2048
+    base = [torch.randn((1, 8, t, 64), generator=gen, device="cuda")
+            for _ in range(3)]
+    ref_in = [x.clone().requires_grad_() for x in base]
+    (ak.flash_attention(*ref_in, True) ** 2).sum().backward()
+    grads = {}
+    for scheme in ("ring", "zigzag"):
+        xs = [x.clone().requires_grad_() for x in base]
+        (fns[scheme](*xs) ** 2).sum().backward()
+        shares = {}
+        for name, x, r in zip("qkv", xs, ref_in):
+            shares[f"d{name}"] = float((x.grad - r.grad).abs().max()
+                                       / (SP_GRAD_ATOL * r.grad.abs().max()))
+        grads[scheme] = shares
+        check(max(shares.values()) <= 1,
+              f"{scheme} gradients differ from flash_attention's: "
+              f"{shares} of the limit")
+    print("sequence parallel gradients " + json.dumps({
+        "shape": [1, 8, t, 64], "dtype": "float32",
+        "max_share_of_limit": grads}), flush=True)
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -851,10 +1168,16 @@ def main() -> int:
     # 8. LM training
     lm_launches = lm_training_phase(ak)
 
+    # 9. sequence parallelism
+    carry_row = carry_phase(ak)
+    carry_launches = sequence_parallel_phase(ak)
+
     print(json.dumps({"kernels": [
         {**KERNEL_ROW, "launches": launches, **main_row, "status": "ok",
          "launches_lm_training": lm_launches["flash_attention_fwd"],
          "training_shape": bwd_rows["fwd_training_shape"]},
+        {**CARRY_ROW, "launches": carry_launches, **carry_row,
+         "status": "ok"},
         {**DQ_ROW, "launches": lm_launches["flash_attention_bwd_dq"],
          **bwd_rows["dq"], "status": "ok"},
         {**DKV_ROW, "launches": lm_launches["flash_attention_bwd_dkv"],

@@ -1,7 +1,9 @@
-"""The port on the card: the flash forward, the flash backward (dq and
-dk/dv) and the BN+ReLU CUDA kernels against their plain versions, the
-generation engine on CUDA against the CPU, a ResNet training step through
-the kernels against the CPU, and an LM training step's kernel launches.
+"""The port on the card: the flash forward, the flash carry (the ring
+hop), the flash backward (dq and dk/dv) and the BN+ReLU CUDA kernels
+against their plain versions, the generation engine on CUDA against the
+CPU, a ResNet training step through the kernels against the CPU, an LM
+training step's kernel launches, and ring, zigzag and Ulysses attention
+over 4 shards on one card against kernel 1.
 
 Every test here needs a CUDA device and skips without one. This file
 imports nothing of JAX, so it runs where JAX is not installed:
@@ -16,7 +18,11 @@ dx bitwise (the same roundings in the same order); dscale/dshift within
 summation order). Flash backward, per element: |kernel - plain| <=
 1e-4 * max|plain| in f32 (another summation order), plus 2**-7 * |plain|
 in bf16 (each rounds the gradient to nearest bf16, at most one ulp
-apart); a second launch gives the same bits.
+apart); a second launch gives the same bits. Flash carry: acc within
+1e-5 * max|plain|, m and l within 1e-5 * max(|plain|, 1) (f32 math in
+both, another summation order); a shard wholly in the queries' future
+passes the carry through bitwise. Sequence parallel: per element 1e-4 *
+max|ref| of kernel 1 on the whole sequence, plus one bf16 ulp in bf16.
 """
 
 import numpy as np
@@ -257,3 +263,134 @@ def test_lm_training_step_launches_each_kernel_once_a_layer(cuda_device):
     assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 2]
     assert all(bool(torch.isfinite(p.grad).all())
                for p in model.parameters())
+
+
+# kernel 2 against its plain version: acc within CARRY_TOL * max|plain|,
+# m and l within CARRY_TOL * max(|plain|, 1) per element. Both sum the
+# same f32 terms in another order; in bf16 the inputs are rounded once,
+# the same way, before either sees them.
+CARRY_TOL = 1e-5
+
+
+def _random_carry(q, k0, v0, masked_rows=0):
+    """A carried (acc, m, l): the plain hop over keys k0, v0 (non-causal),
+    with the first `masked_rows` rows still fully masked."""
+    acc, m, l = tak.flash_attention_carry_plain(
+        q, k0, v0, tak.attention_state_init(q))
+    acc[:, :, :masked_rows] = 0
+    m[:, :, :masked_rows] = tak.NEG_INF
+    l[:, :, :masked_rows] = 0
+    return acc, m, l
+
+
+def _assert_carry_close(got, want):
+    acc, m, l = got
+    r_acc, r_m, r_l = want
+    assert float((acc - r_acc).abs().max()) <= \
+        CARRY_TOL * float(r_acc.abs().max())
+    for a, b in ((m, r_m), (l, r_l)):
+        assert bool(((a - b).abs() <= CARRY_TOL * b.abs().clamp(min=1)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq,tk,d,causal,q_offset,k_offset,masked", [
+    (256, 256, 64, True, 256, 256, 0),     # diagonal hop
+    (256, 256, 64, True, 512, 0, 0),       # below the diagonal
+    (200, 136, 64, True, 300, 200, 0),     # ragged Tq / Tk
+    (128, 128, 128, True, 0, 16, 32),      # rows still fully masked
+    (100, 70, 40, False, 0, 0, 0)])        # padded head dim
+def test_carry_kernel_matches_plain(cuda_device, dtype, tq, tk, d, causal,
+                                    q_offset, k_offset, masked):
+    gen = torch.Generator(device=cuda_device).manual_seed(tq + tk + d)
+    q = torch.randn((2, 4, tq, d), generator=gen, device=cuda_device)
+    k, v, k0, v0 = (torch.randn((2, 4, tk, d), generator=gen,
+                                device=cuda_device) for _ in range(4))
+    q, k, v, k0, v0 = (x.to(dtype) for x in (q, k, v, k0, v0))
+    carry = _random_carry(q, k0, v0, masked)
+    kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset)
+    before = tak.flash_attention_carry.launches
+    got = tak.flash_attention_carry(q, k, v, carry, **kw)
+    torch.cuda.synchronize()
+    assert tak.flash_attention_carry.launches == before + 1
+    _assert_carry_close(got, tak.flash_attention_carry_plain(q, k, v, carry,
+                                                            **kw))
+    if masked:  # rows 0-15 see no key in this hop either: still masked
+        assert (got[1][:, :, :16] == tak.NEG_INF).all()
+        assert (got[2][:, :, :16] == 0).all()
+        assert (got[0][:, :, :16] == 0).all()
+    again = tak.flash_attention_carry(q, k, v, carry, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # in place: the outputs are the carry's own tensors
+    inplace = tak.flash_attention_carry(q, k, v, carry, inplace=True, **kw)
+    assert all(a is b for a, b in zip(inplace, carry))
+    assert all(torch.equal(a, b) for a, b in zip(carry, got))
+
+
+def test_carry_kernel_passes_a_future_shard_through_bitwise(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v, k0, v0 = (torch.randn((2, 4, 192, 64), generator=gen,
+                                   device=cuda_device) for _ in range(5))
+    carry = _random_carry(q, k0, v0)
+    # queries 0..191 against keys 192..383: wholly in their future
+    got = tak.flash_attention_carry(q, k, v, carry, causal=True,
+                                    q_offset=0, k_offset=192)
+    assert all(torch.equal(a, b) for a, b in zip(got, carry))
+    # wholly in the past: causal=True equals causal=False
+    past = tak.flash_attention_carry(q, k, v, carry, causal=True,
+                                     q_offset=192, k_offset=0)
+    full = tak.flash_attention_carry(q, k, v, carry, causal=False)
+    assert all(torch.equal(a, b) for a, b in zip(past, full))
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 1e-4)])
+def test_two_carry_hops_equal_kernel_one(cuda_device, dtype, atol):
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    q, k, v = (torch.randn((2, 4, 384, 64), generator=gen,
+                           device=cuda_device).to(dtype) for _ in range(3))
+    state = tak.attention_state_init(q)
+    for k_off in (0, 192):
+        sl = slice(k_off, k_off + 192)
+        state = tak.flash_attention_carry(
+            q, k[:, :, sl].contiguous(), v[:, :, sl].contiguous(), state,
+            causal=True, k_offset=k_off)
+    out = tak.attention_state_finish(*state)
+    want = tak.flash_attention_forward(q.float(), k.float(), v.float(),
+                                       causal=True)
+    torch.testing.assert_close(out, want, atol=atol, rtol=0)
+
+
+def test_carry_kernel_rejects_what_it_does_not_take(cuda_device):
+    q = torch.randn((1, 2, 16, 32), device=cuda_device)
+    carry = tak.attention_state_init(q)
+    with pytest.raises(NotImplementedError, match="backward"):
+        tak.flash_attention_carry(q.clone().requires_grad_(), q, q, carry)
+    wide = torch.randn((1, 2, 16, 160), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        tak.flash_attention_carry(wide, wide, wide,
+                                  tak.attention_state_init(wide))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sequence_parallel_on_one_card_matches_kernel_one(cuda_device,
+                                                          dtype):
+    """Ring, zigzag and Ulysses over 4 shards on one card against kernel 1
+    over the whole sequence; kernel 2 launches n^2 = 16 times for the
+    ring, n(2n+1) = 36 for zigzag and never for Ulysses."""
+    from bigdl_tpu_torch.parallel import (build_mesh,
+                                          make_sequence_parallel_attention)
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    q, k, v = (torch.randn((1, 4, 512, 64), generator=gen,
+                           device=cuda_device).to(dtype) for _ in range(3))
+    want = tak.flash_attention_forward(q, k, v, causal=True).float()
+    mesh = build_mesh(data=4, devices=[cuda_device] * 4)
+    for scheme, launches in (("ring", 16), ("zigzag", 36), ("ulysses", 0)):
+        before = tak.flash_attention_carry.launches
+        out = make_sequence_parallel_attention(mesh, scheme,
+                                               causal=True)(q, k, v)
+        torch.cuda.synchronize()
+        assert tak.flash_attention_carry.launches - before == launches
+        assert out.dtype == dtype and out.device == q.device
+        lim = (2 ** -7 if dtype == torch.bfloat16 else 0) * want.abs() \
+            + 1e-4 * want.abs().max()
+        assert bool(((out.float() - want).abs() <= lim).all()), scheme
