@@ -1,6 +1,7 @@
 """Convolution layers (counterpart of `bigdl_tpu/nn/conv.py`).
 
-Ported: `SpatialConvolution` and `SpaceToDepthStemConvolution`.
+Ported: `SpatialConvolution` and `SpaceToDepthStemConvolution` (with the
+route to the stem kernel, `ops/stem_kernel.py`).
 
 Layout. Like the JAX package, the layers take and return NHWC tensors.
 The weight is stored OIHW (PyTorch's layout; the carry from the JAX HWIO
@@ -19,6 +20,7 @@ leaves its convolutions to the compiler, outside any Pallas kernel.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -29,8 +31,13 @@ from bigdl_tpu_torch._device import resolve_device
 from bigdl_tpu_torch.nn.initialization import (InitializationMethod, Xavier,
                                                Zeros, default_generator)
 from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.ops.stem_kernel import stem_conv
 
 PadT = Union[int, str]
+
+#: the environment switch that routes `SpaceToDepthStemConvolution` to the
+#: stem kernel, under the reference's name
+STEM_ENV = "BIGDL_TPU_PALLAS_STEM"
 
 
 def _same(pad) -> bool:
@@ -93,23 +100,55 @@ class SpatialConvolution(Module):
         return self._conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
+def space_to_depth(x):
+    """The 2x2 space-to-depth of an NHWC tensor with even H and W:
+    [B, H, W, C] -> [B, H/2, W/2, 4C], channel order (h_offset, w_offset,
+    c), contiguous."""
+    b, h, w, c = x.shape
+    return (x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(b, h // 2, w // 2, 4 * c).contiguous())
+
+
+def s2d_kernel(w_oihw):
+    """An OIHW k x k weight re-blocked for the space-to-depth input: HWIO,
+    the front of H and W zero-padded to an even k + 1, then tap
+    (2i+a, 2j+b, c) moved to (i, j, a*2C + b*C + c): [kt, kt, 4C, O] with
+    kt = (k + 1) / 2, contiguous."""
+    o, c, k, _ = w_oihw.shape
+    kt = (k + 1) // 2
+    wk = F.pad(w_oihw.permute(2, 3, 1, 0), (0, 0, 0, 0, 1, 0, 1, 0))
+    return (wk.reshape(kt, 2, kt, 2, c, o).permute(0, 2, 1, 3, 4, 5)
+            .reshape(kt, kt, 4 * c, o).contiguous())
+
+
 class SpaceToDepthStemConvolution(SpatialConvolution):
     """The stride-2 k x k stem (k % 4 == 3, pad (k-1)//2, no groups) of
     `bigdl_tpu/nn/conv.py:121`, with the same parameter tree as the plain
     stem.
 
-    The reference restates the convolution as a stride-1 convolution over
-    a 2x2 space-to-depth input, a tiling trick for the TPU's matrix unit.
-    The function is the plain stride-2 convolution with the same weights,
-    which is what the port computes, for even and odd H/W alike (the
-    reference's own fallback for odd sizes). The reference's Pallas stem
-    kernel is off unless `BIGDL_TPU_PALLAS_STEM` is set, so it is not on
-    this path."""
+    The reference restates the convolution as a stride-1 kt x kt
+    convolution (kt = (k+1)/2) over the 2x2 space-to-depth input (4 * C_in
+    channels), and with `pallas_stem` (or `BIGDL_TPU_PALLAS_STEM`) runs it
+    through its Pallas stem kernel. The port routes as the reference does
+    (`bigdl_tpu/nn/conv.py:166-210`):
+
+    - odd H or W: the plain stride-2 convolution (the reference's fallback);
+    - `pallas_stem=True`: the space-to-depth restatement through
+      `ops/stem_kernel.py` `stem_conv` (the CUDA stem kernel on a CUDA
+      tensor, its plain version on a CPU tensor; the plain convolution's
+      gradients);
+    - `pallas_stem=False`: the plain stride-2 convolution (cuDNN on the
+      card), which is the same function;
+    - `pallas_stem=None` (default): `BIGDL_TPU_PALLAS_STEM` read at each
+      forward; "1", "true" or "yes" means `stem_conv`, anything else the
+      plain convolution.
+    """
 
     def __init__(self, n_input_plane: int, n_output_plane: int,
                  kernel: int = 7, with_bias: bool = False,
                  weight_init: Optional[InitializationMethod] = None,
                  bias_init: Optional[InitializationMethod] = None,
+                 pallas_stem: Optional[bool] = None,
                  name: Optional[str] = None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         if kernel % 4 != 3:
@@ -120,3 +159,18 @@ class SpaceToDepthStemConvolution(SpatialConvolution):
                          pad_w=pad, pad_h=pad, with_bias=with_bias,
                          weight_init=weight_init, bias_init=bias_init,
                          name=name, device=device, generator=generator)
+        self.pallas_stem = pallas_stem
+
+    def uses_stem_kernel(self) -> bool:
+        """Whether an even-sized input goes through `stem_conv`."""
+        if self.pallas_stem is not None:
+            return bool(self.pallas_stem)
+        return os.environ.get(STEM_ENV, "").lower() in ("1", "true", "yes")
+
+    def forward(self, x):
+        if x.shape[1] % 2 or x.shape[2] % 2 or not self.uses_stem_kernel():
+            return super().forward(x)
+        kt = (self.kh + 1) // 2
+        front = (self.pad_h + 1) // 2
+        return stem_conv(space_to_depth(x), s2d_kernel(self.weight),
+                         self.bias, front, kt - 1 - front)

@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Every kernel source of the port, by name (the `.cu` file's stem).
 KERNELS = ("flash_attention_fwd", "flash_attention_carry",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "bn_relu_fwd", "bn_relu_bwd")
+           "bn_relu_fwd", "bn_relu_bwd", "stem_conv")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

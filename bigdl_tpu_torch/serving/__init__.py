@@ -1,7 +1,8 @@
 """Serving (counterpart of `bigdl_tpu.serving`): continuous-batching
-generation over `TransformerLM`."""
+generation over `TransformerLM` and the micro-batching `InferenceEngine`."""
 
 from bigdl_tpu_torch.serving.engine import (EngineClosedError,
+                                            InferenceEngine,
                                             QueueFullError, ServingEngine,
                                             ServingError,
                                             ServingTimeoutError,
@@ -11,7 +12,8 @@ from bigdl_tpu_torch.serving.generation import (GenerationEngine,
                                                 default_seq_buckets,
                                                 greedy_decode_reference)
 
-__all__ = ["EngineClosedError", "GenerationEngine", "QueueFullError",
+__all__ = ["EngineClosedError", "GenerationEngine", "InferenceEngine",
+           "QueueFullError",
            "ServingEngine", "ServingError", "ServingTimeoutError",
            "TokenStream", "default_buckets",
            "default_seq_buckets", "greedy_decode_reference"]

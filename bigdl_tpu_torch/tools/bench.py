@@ -22,6 +22,12 @@ warm-up. The result also carries every step's loss.
     python -m bigdl_tpu_torch.tools.bench --model lm            # the LM
     python -m bigdl_tpu_torch.tools.bench [--model lm] --profile
     python -m bigdl_tpu_torch.tools.bench --model attention [--profile]
+    python -m bigdl_tpu_torch.tools.bench --model serve [--profile]
+
+`--model serve` times one b32 forward of the served ResNet-50
+(`LocalPredictor` over `ResNet50(class_num=1000, s2d_stem=True)`, f32,
+TF32 off) with the stem kernel off and on; with `--profile`, the device
+time by kind of kernel with it on.
 
 prints one JSON object. `--profile` gives device time by kind of kernel.
 The benchmark needs a CUDA device unless called with `device="cpu"`; the
@@ -30,8 +36,10 @@ profile always does.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import time
 from typing import Dict, Optional, Sequence
 
@@ -40,6 +48,7 @@ import torch
 
 from bigdl_tpu_torch._device import resolve_device
 from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+from bigdl_tpu_torch.nn.conv import STEM_ENV
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
                                           TimeDistributedCriterion)
 from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
@@ -282,6 +291,7 @@ _KERNEL_KINDS = (
     ("flash_attention_bwd_dkv (csrc, kernel 4)",
      ("flash_attention_bwd_dkv",)),
     ("bn_relu (csrc)", ("bn_relu_fwd", "bn_relu_bwd")),
+    ("stem_conv (csrc, kernel 5)", ("stem_conv_kernel",)),
     ("convolution and matmul (cuDNN, cuBLAS)",
      ("conv", "xmma", "gemm", "nvjet", "cudnn", "cutlass", "dgrad", "wgrad",
       "fprop")),
@@ -376,6 +386,72 @@ def profile_resnet50(batch_size: int = 128, warmup: int = 8, steps: int = 8,
             **_profile(opt, warmup, steps, top, device)}
 
 
+def _served_resnet50(batch_size: int, device: torch.device,
+                     generator: Optional[torch.Generator]):
+    """The served configuration: `ResNet50(class_num=1000, s2d_stem=True)`
+    through a `LocalPredictor` (the converted copy: 52 BNs folded, the
+    stem's kept), and one b`batch_size` image batch on `device`."""
+    from bigdl_tpu_torch.models.resnet import ResNet50
+    from bigdl_tpu_torch.optim.predictor import LocalPredictor
+    model = ResNet50(class_num=1000, s2d_stem=True, device=device,
+                     generator=generator)
+    pred = LocalPredictor(model, batch_size=batch_size, device=device)
+    x, _ = _image_batch((224, 224, 3), 1000, batch_size)
+    return pred, torch.from_numpy(x).to(device)
+
+
+@contextlib.contextmanager
+def _serving_settings(stem_kernel: bool):
+    """f32 convolutions without TF32, and the stem switch set or unset,
+    for the block; both restored after."""
+    saved = (os.environ.pop(STEM_ENV, None), torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    if stem_kernel:
+        os.environ[STEM_ENV] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(STEM_ENV, None)
+        if saved[0] is not None:
+            os.environ[STEM_ENV] = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]
+
+
+def bench_resnet50_serving(batch_size: int = 32, reps: int = 20,
+                           device=None,
+                           generator: Optional[torch.Generator] = None
+                           ) -> Dict:
+    """Median ms of one forward of the served ResNet-50 (f32, TF32 off)
+    with the stem switch unset (cuDNN stem) and set (the stem kernel)."""
+    device = resolve_device(device)
+    pred, x = _served_resnet50(batch_size, device, generator)
+    out = {"batch_size": batch_size, "reps": reps,
+           "device": _device_name(device),
+           "timer": "cuda_events" if device.type == "cuda"
+           else "host_clock"}
+    for label, on in (("cudnn_stem_ms", False), ("stem_kernel_ms", True)):
+        with _serving_settings(on):
+            out[label] = _median_ms(lambda: pred._forward(x), reps, device)
+    return out
+
+
+def profile_resnet50_serving(batch_size: int = 32, forwards: int = 8,
+                             top: int = 15, device=None,
+                             generator: Optional[torch.Generator] = None
+                             ) -> Dict:
+    """`_profiled` of the served ResNet-50 with the stem kernel on (f32,
+    TF32 off): `forwards` forwards after one warm-up; a "step" in the
+    summary is one forward."""
+    device = _cuda_only(device, "profile_resnet50_serving")
+    pred, x = _served_resnet50(batch_size, device, generator)
+    with _serving_settings(True):
+        pred._forward(x)
+        torch.cuda.synchronize(device)
+        return {"batch_size": batch_size, **_profiled(
+            lambda: [pred._forward(x) for _ in range(forwards)], forwards,
+            top, device)}
+
+
 def profile_transformer_lm(batch_size: int = 8, seq: int = 2048,
                            vocab: int = 1024, warmup: int = 4,
                            steps: int = 4, top: int = 15, device=None,
@@ -418,13 +494,16 @@ def profile_attention(seq: int = 8192, calls: int = 4, top: int = 8,
 def main(argv=None) -> None:
     import argparse
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--model", choices=("resnet50", "lm", "attention"),
-                   default="resnet50")
+    p.add_argument("--model", choices=("resnet50", "serve", "lm",
+                                       "attention"), default="resnet50")
     p.add_argument("--profile", action="store_true",
                    help="device time by kind of kernel (torch.profiler)")
     args = p.parse_args(argv)
     if args.model == "attention":
         fn = profile_attention if args.profile else bench_attention
+    elif args.model == "serve":
+        fn = profile_resnet50_serving if args.profile \
+            else bench_resnet50_serving
     elif args.model == "lm":
         fn = profile_transformer_lm if args.profile else bench_transformer_lm
     else:

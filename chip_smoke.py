@@ -78,7 +78,36 @@ Phases:
    `scaled_dot_product_attention` (a yardstick only) over the whole
    sequence. (c) Ring and zigzag gradients of sum(out**2) for q, k and v,
    f32, T=2048, against `flash_attention` (kernels 1, 3, 4) on the whole
-   sequence, within 1e-4 * max|ref|.
+   sequence, within 1e-4 * max|ref|;
+10. the space-to-depth stem (kernel 5). (a) Hold the stem kernel against
+   its plain version in f32 and bf16, with and without the bias, for
+   k = 3, 7, 11 and C_in = 1, 3 at a ragged x2 of 113x115 (a 226x230
+   input), and at the served (b32, x2 [32, 112, 112, 12], O = 64, f32)
+   and training (b128, bf16) shapes: per element within 1e-5 *
+   max|plain|, plus one bf16 ulp (2**-7 * |plain|) in bf16, and a second
+   launch bitwise equal; time it at the two full-width shapes beside its
+   plain version, its bound and both cuDNN forms of the same function
+   (`F.conv2d` 7x7/s2 on the channels_last image; the 4x4 stride-1
+   convolution over the pre-padded 12-channel x2), yardsticks only.
+   (b) Serve `ResNet50(class_num=1000, s2d_stem=True)` (224x224x3, random
+   weights from seed 0, f32, TF32 off) through
+   `InferenceEngine(max_batch_size=32, max_wait_ms=2)` with
+   `BIGDL_TPU_PALLAS_STEM=1`, after `warmup`: a burst of 96 requests and a
+   closed loop of 8 clients x 8 requests. Every request resolves, each row
+   is within 1e-4 * max|twin row| of a `LocalPredictor` twin with the
+   cuDNN stem and the same argmax wherever the twin's top-2 margin exceeds
+   1e-3, and kernels 5 and 6 each launch exactly once a batch dispatched
+   plus once a warm-up bucket; with the switch unset kernel 5 launches
+   never. Requests/s, latency percentiles, batch-size p50, bucket hit
+   rate, and the device ms of one b32 forward with kernel 5's share.
+   (c) A plain-stem `ResNet50()` (randomized BN state) through
+   `LocalPredictor` at b8: 0 BNs left, an s2d stem with a bias, outputs
+   within 1e-4 * max|ref| of the unconverted model in eval mode, kernel 5
+   once a batch. (d) Phase 6's f32 parity pair with the switch set against
+   a twin with it unset (losses within a relative 1e-4, kernel 5 once a
+   step), then `tools/ab_stem.py`: the stem micro-benchmark (b128 bf16)
+   and a short full loop (8 warm-up + 24 timed steps) with and without
+   kernel 5.
 
 Prints a `{"kernels": [...]}` line, then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
@@ -88,6 +117,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -154,6 +184,27 @@ CARRY_TOL = 1e-5
 # gradients (f32): SP_GRAD_ATOL * max|ref|
 SP_ATOL = 1e-4
 SP_GRAD_ATOL = 1e-4
+STEM_ROW = {"name": "stem_conv", "route": "cuda",
+            "source": "bigdl_tpu_torch/csrc/stem_conv.cu",
+            "replaces": "bigdl_tpu/ops/stem_kernel.py:61"}
+# the stem kernel against its plain version, per element: STEM_ATOL *
+# max|plain|, plus one bf16 ulp (2**-7 * |plain|) in bf16. Both sum the
+# same f32 products (k*k*C_in of them) in another order, ~1e-7 apart; a
+# wrong tap, pad or guard is off by far more.
+STEM_ATOL = 1e-5
+# served ResNet-50 rows against the cuDNN-stem twin, per element:
+# SERVE_ATOL * max|twin row| (the stem's f32 sums in another order,
+# carried through 53 layers); the argmax must agree wherever the twin's
+# top-2 margin exceeds MARGIN_TOL
+SERVE_ATOL = 1e-4
+STEM_ENV = "BIGDL_TPU_PALLAS_STEM"
+# the served configuration: images, engine batch, burst size, closed-loop
+# clients x requests each
+SERVE_HW = 224
+SERVE_BATCH = 32
+SERVE_BURST = 96
+SERVE_CLIENTS = 8
+SERVE_PER_CLIENT = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -1118,6 +1169,352 @@ def sequence_parallel_phase(ak):
     return total
 
 
+def stem_bound(b, h2, w2, k, cin, n_out, dtype, with_bias):
+    """Least time (ms) of one stem call and what bounds it: x2, wk and the
+    bias read once, the output written once; 2 * k*k*C_in operations an
+    output element (the function's own count: the s2d GEMM's zero-padded
+    kernel does kt*kt*4*C_in, 64/49 more at k = 7)."""
+    kt = (k + 1) // 2
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (b * h2 * w2 * 4 * cin + kt * kt * 4 * cin * n_out
+              + b * h2 * w2 * n_out) * elem + (4 * n_out if with_bias else 0)
+    return roofline(2.0 * b * h2 * w2 * k * k * cin * n_out, nbytes, dtype)
+
+
+def stem_kernel_phase(sk):
+    """10(a): kernel 5 against its plain version; times at the served and
+    training shapes. Returns the row for the served shape."""
+    from bigdl_tpu_torch.nn.conv import s2d_kernel, space_to_depth
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = [(f"ragged 113x115 k={k} C_in={cin} {str(dt)[6:]} "
+              f"bias={bias}", 2, 226, 230, cin, k, 64, dt, bias)
+             for k in (3, 7, 11) for cin in (1, 3)
+             for dt in (torch.float32, torch.bfloat16)
+             for bias in (False, True)]
+    cases += [("served", SERVE_BATCH, SERVE_HW, SERVE_HW, 3, 7, 64,
+               torch.float32, False),
+              ("served with bias", SERVE_BATCH, SERVE_HW, SERVE_HW, 3, 7, 64,
+               torch.float32, True),
+              ("training", 128, SERVE_HW, SERVE_HW, 3, 7, 64,
+               torch.bfloat16, False)]
+    rows = {}
+    for name, b, h, w, cin, k, n_out, dt, with_bias in cases:
+        kt, pad = (k + 1) // 2, (k - 1) // 2
+        front = (pad + 1) // 2
+        x = torch.rand((b, h, w, cin), generator=gen, device="cuda").to(dt)
+        w_oihw = (torch.randn((n_out, cin, k, k), generator=gen,
+                              device="cuda") * 0.2).to(dt)
+        bias = torch.randn((n_out,), generator=gen, device="cuda") \
+            if with_bias else None
+        x2, wk = space_to_depth(x), s2d_kernel(w_oihw)
+        out = sk.stem_conv_forward(x2, wk, bias, front, kt - 1 - front)
+        again = sk.stem_conv_forward(x2, wk, bias, front, kt - 1 - front)
+        torch.cuda.synchronize()
+        ref = sk.stem_conv_forward_plain(x2, wk, bias, front,
+                                         kt - 1 - front).float()
+        err = (out.float() - ref).abs()
+        lim = (2 ** -7 if dt == torch.bfloat16 else 0) * ref.abs() \
+            + STEM_ATOL * ref.abs().max()
+        share = float((err / lim).max())
+        bitwise = torch.equal(out, again)
+        row = {"case": name, "x2": list(x2.shape), "k": k, "O": n_out,
+               "dtype": str(dt)[6:], "max_abs_err": float(err.max()),
+               "max_share_of_limit": share, "second_launch_equal": bitwise}
+        if name in ("served", "training"):
+            iters = 20
+            row["ms"] = cuda_ms(lambda: sk.stem_conv_forward(
+                x2, wk, bias, front, kt - 1 - front), iters)
+            row["plain_ms"] = cuda_ms(lambda: sk.stem_conv_forward_plain(
+                x2, wk, bias, front, kt - 1 - front), iters)
+            bound = stem_bound(b, h // 2, w // 2, k, cin, n_out, dt,
+                               with_bias)
+            row["bound_ms"], row["bound_by"] = bound
+            row["function_ops"] = 2 * b * (h // 2) * (w // 2) * k * k \
+                * cin * n_out
+            row["s2d_gemm_ops"] = 2 * b * (h // 2) * (w // 2) * kt * kt \
+                * 4 * cin * n_out
+            x_nchw = x.permute(0, 3, 1, 2)  # channels_last, no copy
+            row["library_ms"] = cuda_ms(lambda: F.conv2d(
+                x_nchw, w_oihw, bias, 2, pad), iters)
+            xp = F.pad(x2, (0, 0, front, kt - 1 - front, front,
+                            kt - 1 - front)).permute(0, 3, 1, 2)
+            wk_oihw = wk.permute(3, 2, 0, 1).contiguous()
+            row["library_s2d_ms"] = cuda_ms(lambda: F.conv2d(
+                xp, wk_oihw, bias), iters)
+            # the cuDNN 7x7/s2 convolution computes the same function
+            lib = F.conv2d(x_nchw, w_oihw, bias, 2, pad).permute(
+                0, 2, 3, 1).float()
+            row["max_abs_diff_cudnn"] = float((out.float() - lib).abs().max())
+            rows[name] = row
+        print("stem case " + json.dumps(row), flush=True)
+        check(share <= 1 and bitwise,
+              f"{name}: the stem kernel disagrees with its plain version "
+              f"({share:.3f} of the limit) or a second launch differs "
+              f"(equal: {bitwise})")
+        del x, x2, out, again, ref, err, lim
+    torch.cuda.empty_cache()
+    served = rows["served"]
+    training = rows["training"]
+    return {"max_abs_err": served["max_abs_err"], "ms": served["ms"],
+            "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
+            "bound_by": served["bound_by"],
+            "library_ms": served["library_ms"],
+            "library_s2d_ms": served["library_s2d_ms"],
+            "training_shape": {k: training[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_s2d_ms")}}
+
+
+def _stem_counts(sk, bk):
+    return sk.stem_conv_forward.launches, bk.bn_relu_forward.launches
+
+
+def _reset_stem_counts(sk, bk):
+    sk.stem_conv_forward.launches = 0
+    bk.bn_relu_forward.launches = 0
+
+
+def _check_rows(got, ref, label):
+    """Served rows against the twin's: per element within SERVE_ATOL *
+    max|twin row|, argmax equal wherever the top-2 margin is clear."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    check(got.shape == ref.shape and np.isfinite(got).all(),
+          f"{label}: rows {got.shape} vs {ref.shape}, or not finite")
+    lim = SERVE_ATOL * np.abs(ref).max(axis=1, keepdims=True)
+    share = float((np.abs(got - ref) / lim).max())
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > MARGIN_TOL
+    same = np.argmax(got, 1)[clear] == np.argmax(ref, 1)[clear]
+    check(share <= 1 and bool(same.all()),
+          f"{label}: rows differ from the cuDNN-stem twin ({share:.3f} of "
+          f"the limit) or an argmax differs ({int((~same).sum())} rows)")
+    return share, int(clear.sum())
+
+
+def _serve(model, images, ref, traffic, sk, bk):
+    """One traffic through a fresh engine with the stem switch set; the
+    counts are read around warm-up plus traffic. Returns the launches."""
+    from bigdl_tpu_torch.serving import InferenceEngine
+    n = len(images)
+    got = [None] * n
+    with InferenceEngine(model, max_batch_size=SERVE_BATCH, max_wait_ms=2.0,
+                         device="cuda") as eng:
+        _reset_stem_counts(sk, bk)
+        eng.warmup(images[0])
+        t0 = time.perf_counter()
+        if traffic == "burst":
+            futs = [eng.submit(images[i]) for i in range(n)]
+            for i, f in enumerate(futs):
+                got[i] = f.result(300)
+        else:
+            def client(c):
+                for j in range(SERVE_PER_CLIENT):
+                    i = c * SERVE_PER_CLIENT + j
+                    got[i] = eng.predict(images[i], timeout=300)
+
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(SERVE_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = _stem_counts(sk, bk)
+        stats = eng.stats()
+        buckets = len(eng.buckets)
+    check(all(g is not None for g in got),
+          f"{traffic}: {sum(g is None for g in got)} requests unresolved")
+    share, clear = _check_rows(np.stack(got), ref[:n], traffic)
+    want = stats["batches"] + buckets
+    out = {"traffic": traffic, "requests": n, "wall_s": wall,
+           "requests_per_sec": n / wall,
+           **{k: stats.get(k) for k in (
+               "latency_ms_p50", "latency_ms_p95", "latency_ms_p99",
+               "queue_wait_ms_p50", "batch_size_p50", "bucket_hit_rate",
+               "batches", "completed", "failed", "timed_out")},
+           "warmup_buckets": buckets,
+           "launches": {"stem_conv": launches[0],
+                        "bn_relu_fwd": launches[1]},
+           "max_share_of_limit": share, "argmax_rows_checked": clear}
+    print("stem serving " + json.dumps(out), flush=True)
+    check(stats["completed"] == n and stats["failed"] == 0,
+          f"{traffic}: completed {stats['completed']} of {n}")
+    check(launches == (want, want),
+          f"{traffic}: launches (stem, BN+ReLU) {launches} != batches "
+          f"{stats['batches']} + warm-up buckets {buckets} each")
+    return launches[0]
+
+
+def _randomize_bn_state(model, seed):
+    """BN gammas U(0.5, 1.5) (U(0.05, 0.15) where zero-initialized), betas
+    N(0, 0.1), running means N(0, 0.1), variances U(0.5, 1.5): the init's
+    1 / 0 / 0 / 1 would make every fold the identity."""
+    from bigdl_tpu_torch.nn import BatchNormalization
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNormalization):
+                n = m.n_output
+                scale = 1.0 if bool(m.weight.any()) else 0.1
+                m.weight.copy_((torch.rand(n, generator=gen) + 0.5) * scale)
+                m.bias.copy_(torch.randn(n, generator=gen) * 0.1)
+                m.mean.copy_(torch.randn(n, generator=gen) * 0.1)
+                m.var.copy_(torch.rand(n, generator=gen) + 0.5)
+
+
+def stem_serving_phase(sk, bk, stem_ms):
+    """10(b) and 10(c). Returns kernel 5's launches on the serving path."""
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.nn import BatchNormalization
+    from bigdl_tpu_torch.nn import SpaceToDepthStemConvolution as S2D
+    from bigdl_tpu_torch.optim import LocalPredictor
+
+    n = max(SERVE_BURST, SERVE_CLIENTS * SERVE_PER_CLIENT)
+    images = np.random.RandomState(0).rand(
+        n, SERVE_HW, SERVE_HW, 3).astype(np.float32)
+    model = ResNet50(class_num=1000, s2d_stem=True, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    os.environ.pop(STEM_ENV, None)
+    twin = LocalPredictor(model, batch_size=SERVE_BATCH, device="cuda")
+    twin.model.get_submodule("0_conv1").pallas_stem = False
+    ref = np.stack(twin.predict(images))
+    bns = sum(isinstance(m, BatchNormalization) for m in twin.model.modules())
+    check(bns == 1, f"the served model kept {bns} BNs, not the stem's one")
+
+    # with the switch unset, kernel 5 never launches
+    off = LocalPredictor(model, batch_size=SERVE_BATCH, device="cuda")
+    _reset_stem_counts(sk, bk)
+    off.predict(images[:SERVE_BATCH])
+    check(_stem_counts(sk, bk) == (0, 1),
+          f"switch unset: (stem, BN+ReLU) launches {_stem_counts(sk, bk)} "
+          "!= (0, 1)")
+
+    os.environ[STEM_ENV] = "1"
+    try:
+        launches = 0
+        for traffic in ("burst", "closed loop"):
+            m = SERVE_BURST if traffic == "burst" \
+                else SERVE_CLIENTS * SERVE_PER_CLIENT
+            launches += _serve(model, images[:m], ref, traffic, sk, bk)
+        # device time of one b32 forward, and kernel 5's share of it
+        on = LocalPredictor(model, batch_size=SERVE_BATCH, device="cuda")
+        x = torch.from_numpy(images[:SERVE_BATCH]).cuda()
+        fwd_ms = cuda_ms(lambda: on._forward(x), 10)
+        twin_fwd_ms = cuda_ms(lambda: twin._forward(x), 10)
+        print("stem serving forward " + json.dumps({
+            "batch": SERVE_BATCH, "forward_ms": fwd_ms,
+            "cudnn_stem_forward_ms": twin_fwd_ms, "stem_kernel_ms": stem_ms,
+            "stem_kernel_share": stem_ms / fwd_ms}), flush=True)
+
+        # 10(c): the plain stem, all 53 BNs folded, the s2d stem with a bias
+        plain = ResNet50(class_num=1000, device="cuda",
+                         generator=torch.Generator().manual_seed(1))
+        _randomize_bn_state(plain, 2)
+        x8 = torch.from_numpy(images[:8]).cuda()
+        with torch.inference_mode():
+            want = plain.eval()(x8).cpu().numpy()
+        sk.stem_conv_forward.launches = 0
+        pred = LocalPredictor(plain, batch_size=8, device="cuda")
+        got = np.stack(pred.predict(images[:8]))
+        stem = pred.model.get_submodule("0_conv1")
+        left = sum(isinstance(m, BatchNormalization)
+                   for m in pred.model.modules())
+        err = float(np.abs(got - want).max())
+        plain_out = {"batch": 8, "bns_left": left,
+                     "stem": type(stem).__name__,
+                     "stem_bias": stem.bias is not None,
+                     "max_abs_err": err,
+                     "limit": SERVE_ATOL * float(np.abs(want).max()),
+                     "launches": sk.stem_conv_forward.launches}
+        print("stem plain-stem branch " + json.dumps(plain_out), flush=True)
+        check(left == 0 and type(stem) is S2D and stem.bias is not None,
+              f"plain stem: {left} BNs left, stem {type(stem).__name__}, "
+              f"bias {stem.bias is not None}")
+        check(err <= plain_out["limit"] and np.isfinite(got).all(),
+              f"plain stem: converted outputs off by {err:.3e}")
+        check(plain_out["launches"] == 1,
+              f"plain stem: kernel 5 launched {plain_out['launches']} "
+              "times for one batch")
+    finally:
+        os.environ.pop(STEM_ENV, None)
+    del model, twin, off, on, plain, pred
+    torch.cuda.empty_cache()
+    return launches
+
+
+def stem_training_phase(sk):
+    """10(d): training with the stem kernel."""
+    from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
+    from bigdl_tpu_torch.tools import ab_stem
+
+    torch.backends.cudnn.deterministic = True
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.rand(8, 224, 224, 3).astype(np.float32))
+    y = torch.from_numpy((rs.randint(0, 1000, size=8) + 1).astype(np.int32))
+    batch = MiniBatch(x.cuda(), y.cuda())
+    model = ResNet50(class_num=1000, s2d_stem=True, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    twin = ResNet50(class_num=1000, s2d_stem=True, device="cuda")
+    twin.load_state_dict(model.state_dict())
+
+    def train3(m):
+        losses = []
+        opt = DistriOptimizer(m, LocalDataSet([batch]), ClassNLLCriterion(),
+                              devices=["cuda"])
+        opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+        opt.set_end_when(max_iteration(3))
+        opt.set_iteration_hook(lambda st: losses.append(st["loss"]))
+        opt.optimize()
+        return losses
+
+    try:
+        os.environ[STEM_ENV] = "1"
+        sk.stem_conv_forward.launches = 0
+        got = train3(model)
+        launches = sk.stem_conv_forward.launches
+    finally:
+        os.environ.pop(STEM_ENV, None)
+    ref = train3(twin)
+    twin_launches = sk.stem_conv_forward.launches - launches
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+    print("stem training parity " + json.dumps({
+        "batch": 8, "steps": 3, "dtype": "float32", "losses": got,
+        "twin_losses": ref, "rel_diff": rel, "launches": launches,
+        "twin_launches": twin_launches}), flush=True)
+    check(all(np.isfinite(got)) and max(rel) <= PARITY_RTOL,
+          f"stem kernel f32 losses {got} vs twin {ref}: relative "
+          f"{max(rel):.2e} > {PARITY_RTOL}")
+    check(launches == 3 and twin_launches == 0,
+          f"stem kernel launches {launches} (3 expected) and "
+          f"{twin_launches} in the twin (0 expected)")
+    del model, twin, batch
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+    micro = ab_stem.stem_micro(device="cuda")
+    print("stem ab micro " + json.dumps(micro), flush=True)
+    check(micro["kernel_launches"] > 0, "the micro-benchmark launched no "
+                                        "stem kernel")
+    loop = ab_stem.full_loop(warmup=8, iters=24, device="cuda")
+    print("stem ab loop " + json.dumps(loop), flush=True)
+    for label, want in (("cudnn", 0), ("kernel", 32)):
+        res = loop[label]
+        check(res["stem_kernel_launches"] == want
+              and np.isfinite(res["loss_last"]),
+              f"ab loop {label}: {res['stem_kernel_launches']} stem kernel "
+              f"launches (want {want}), last loss {res['loss_last']}")
+    # the same weights and batch: the first bf16 losses differ only by the
+    # stem's roundings
+    first = (loop["cudnn"]["loss_first"], loop["kernel"]["loss_first"])
+    check(abs(first[0] - first[1]) <= 1e-2 * abs(first[0]),
+          f"ab loop first losses {first} differ by more than 1%")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1139,6 +1536,7 @@ def main() -> int:
     from bigdl_tpu_torch.ops import _build
     from bigdl_tpu_torch.ops import attention_kernel as ak
     from bigdl_tpu_torch.ops import bn_relu_kernel as bk
+    from bigdl_tpu_torch.ops import stem_kernel as sk
 
     # 2. build
     t0 = time.perf_counter()
@@ -1172,6 +1570,11 @@ def main() -> int:
     carry_row = carry_phase(ak)
     carry_launches = sequence_parallel_phase(ak)
 
+    # 10. the space-to-depth stem
+    stem_row = stem_kernel_phase(sk)
+    stem_launches = stem_serving_phase(sk, bk, stem_row["ms"])
+    stem_training_phase(sk)
+
     print(json.dumps({"kernels": [
         {**KERNEL_ROW, "launches": launches, **main_row, "status": "ok",
          "launches_lm_training": lm_launches["flash_attention_fwd"],
@@ -1185,7 +1588,9 @@ def main() -> int:
         {**BN_FWD_ROW, "launches": bn_launches["bn_relu_fwd"],
          **bn_rows["fwd"], "status": "ok"},
         {**BN_BWD_ROW, "launches": bn_launches["bn_relu_bwd"],
-         **bn_rows["bwd"], "status": "ok"}]}), flush=True)
+         **bn_rows["bwd"], "status": "ok"},
+        {**STEM_ROW, "launches": stem_launches, **stem_row,
+         "status": "ok"}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

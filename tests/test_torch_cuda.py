@@ -1,9 +1,10 @@
 """The port on the card: the flash forward, the flash carry (the ring
-hop), the flash backward (dq and dk/dv) and the BN+ReLU CUDA kernels
-against their plain versions, the generation engine on CUDA against the
-CPU, a ResNet training step through the kernels against the CPU, an LM
-training step's kernel launches, and ring, zigzag and Ulysses attention
-over 4 shards on one card against kernel 1.
+hop), the flash backward (dq and dk/dv), the BN+ReLU and the
+space-to-depth stem CUDA kernels against their plain versions, the
+stem layer's kernel route against its cuDNN route, the generation engine
+on CUDA against the CPU, a ResNet training step through the kernels
+against the CPU, an LM training step's kernel launches, and ring, zigzag
+and Ulysses attention over 4 shards on one card against kernel 1.
 
 Every test here needs a CUDA device and skips without one. This file
 imports nothing of JAX, so it runs where JAX is not installed:
@@ -23,6 +24,10 @@ apart); a second launch gives the same bits. Flash carry: acc within
 both, another summation order); a shard wholly in the queries' future
 passes the carry through bitwise. Sequence parallel: per element 1e-4 *
 max|ref| of kernel 1 on the whole sequence, plus one bf16 ulp in bf16.
+Stem (kernel 5): per element 1e-5 * max|plain| in f32 (the same f32
+products summed in another order), plus one bf16 ulp, 2**-7 * |plain|, in
+bf16 (each rounds its f32 sum to nearest); a second launch gives the same
+bits.
 """
 
 import numpy as np
@@ -32,6 +37,7 @@ import torch
 from bigdl_tpu_torch.models import ResNet, TransformerLM
 from bigdl_tpu_torch.ops import attention_kernel as tak
 from bigdl_tpu_torch.ops import bn_relu_kernel as tbk
+from bigdl_tpu_torch.ops import stem_kernel as tsk
 from bigdl_tpu_torch.serving import GenerationEngine, greedy_decode_reference
 
 pytestmark = pytest.mark.cuda
@@ -394,3 +400,89 @@ def test_sequence_parallel_on_one_card_matches_kernel_one(cuda_device,
         lim = (2 ** -7 if dtype == torch.bfloat16 else 0) * want.abs() \
             + 1e-4 * want.abs().max()
         assert bool(((out.float() - want).abs() <= lim).all()), scheme
+
+
+def _stem_inputs(device, b, h2, w2, cin, n_out, k, dtype, with_bias, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    kt = (k + 1) // 2
+    front = ((k - 1) // 2 + 1) // 2
+    x2 = torch.randn((b, h2, w2, 4 * cin), generator=gen, device=device)
+    wk = torch.randn((kt, kt, 4 * cin, n_out), generator=gen,
+                     device=device) * 0.2
+    bias = torch.randn((n_out,), generator=gen, device=device) \
+        if with_bias else None
+    return x2.to(dtype), wk.to(dtype), bias, front, kt - 1 - front
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,cin,n_out", [(3, 1, 64), (3, 3, 64), (7, 1, 64),
+                                         (7, 3, 64), (11, 1, 64),
+                                         (11, 3, 64), (7, 3, 72), (7, 4, 3)])
+def test_stem_kernel_matches_plain(cuda_device, k, cin, n_out, dtype,
+                                   with_bias):
+    """Ragged x2 (an input of 226x230), partial channel chunks (O = 72)
+    and O % 4 != 0 (O = 3)."""
+    x2, wk, bias, front, rear = _stem_inputs(
+        cuda_device, 2, 113, 115, cin, n_out, k, dtype, with_bias, k + cin)
+    before = tsk.stem_conv_forward.launches
+    out = tsk.stem_conv_forward(x2, wk, bias, front, rear)
+    again = tsk.stem_conv_forward(x2, wk, bias, front, rear)
+    torch.cuda.synchronize()
+    assert tsk.stem_conv_forward.launches == before + 2
+    assert out.dtype == dtype and out.shape == (2, 113, 115, n_out)
+    assert torch.equal(out, again)
+    ref = tsk.stem_conv_forward_plain(x2, wk, bias, front, rear).float()
+    lim = (2 ** -7 if dtype == torch.bfloat16 else 0) * ref.abs() \
+        + 1e-5 * ref.abs().max()
+    assert bool(((out.float() - ref).abs() <= lim).all())
+
+
+def test_stem_kernel_rejects_what_it_does_not_take(cuda_device):
+    x2 = torch.zeros((1, 8, 8, 20), device=cuda_device)
+    with pytest.raises(ValueError, match="C2 <= 16"):
+        tsk.stem_conv_forward(x2, torch.zeros((4, 4, 20, 8),
+                                              device=cuda_device), None, 2, 1)
+    x2 = torch.zeros((1, 8, 8, 12), device=cuda_device)
+    with pytest.raises(ValueError, match="kt in"):
+        tsk.stem_conv_forward(x2, torch.zeros((3, 3, 12, 8),
+                                              device=cuda_device), None, 1, 1)
+    with pytest.raises(ValueError, match="on"):
+        tsk.stem_conv_forward(x2, torch.zeros((4, 4, 12, 8)), None, 2, 1)
+
+
+def test_stem_layer_on_cuda_runs_the_kernel_never_the_plain(cuda_device,
+                                                            monkeypatch):
+    """The layer with `pallas_stem=True` on a CUDA tensor launches the
+    kernel once a forward and never calls the plain version; its output
+    and gradients match the cuDNN stride-2 route (`pallas_stem=False`)."""
+    from bigdl_tpu_torch.nn import SpaceToDepthStemConvolution
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    calls = {"n": 0}
+
+    def refuse(*a, **kw):
+        calls["n"] += 1
+        raise AssertionError("the plain stem ran on a CUDA tensor")
+    monkeypatch.setattr(tsk, "stem_conv_forward_plain", refuse)
+    kernel = SpaceToDepthStemConvolution(3, 64, 7, with_bias=True,
+                                         pallas_stem=True,
+                                         device=cuda_device)
+    cudnn = SpaceToDepthStemConvolution(3, 64, 7, with_bias=True,
+                                        pallas_stem=False,
+                                        device=cuda_device)
+    cudnn.load_state_dict(kernel.state_dict())
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.rand((4, 64, 64, 3), generator=gen, device=cuda_device)
+    w = torch.randn((4, 32, 32, 64), generator=gen, device=cuda_device)
+    grads = []
+    for m in (kernel, cudnn):
+        before = tsk.stem_conv_forward.launches
+        xg = x.clone().requires_grad_()
+        out = m(xg)
+        (out * w).sum().backward()
+        grads.append((out.detach(), xg.grad, m.weight.grad, m.bias.grad))
+        assert tsk.stem_conv_forward.launches - before == int(m is kernel)
+    assert calls["n"] == 0
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
