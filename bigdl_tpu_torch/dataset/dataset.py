@@ -40,13 +40,15 @@ class AbstractDataSet:
 
 class LocalDataSet(AbstractDataSet):
     """`data(train=False)`: the items once, in order. `data(train=True)`:
-    an endless stream, each pass a permutation of the items."""
+    an endless stream, each pass a permutation of the items, drawn from
+    `generator` (default: a torch generator seeded with `seed`; the
+    permutations are torch's, not the reference's numpy ones)."""
 
-    def __init__(self, items: Sequence,
+    def __init__(self, items: Sequence, seed: int = 1, *,
                  generator: Optional[torch.Generator] = None):
         self.items = list(items)
         self._g = generator if generator is not None \
-            else torch.Generator().manual_seed(1)
+            else torch.Generator().manual_seed(seed)
 
     def data(self, train: bool) -> Iterator:
         if not train:
@@ -87,9 +89,9 @@ class _TransformedDataSet(AbstractDataSet):
 class DataSet:
     @staticmethod
     def from_arrays(features: np.ndarray, labels: Optional[np.ndarray] = None,
-                    generator: Optional[torch.Generator] = None
+                    *, generator: Optional[torch.Generator] = None
                     ) -> LocalDataSet:
         """One `Sample` per row of `features` (and `labels`)."""
         return LocalDataSet(
             [Sample(features[i], None if labels is None else labels[i])
-             for i in range(len(features))], generator)
+             for i in range(len(features))], generator=generator)

@@ -14,9 +14,16 @@ from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample
 
 class SampleToMiniBatch:
     """Group Samples into MiniBatches of `batch_size`; the last, partial
-    batch is dropped only with `drop_remainder`."""
+    batch is dropped only with `drop_remainder`. The reference's
+    `feature_padding` / `label_padding` (padding ragged samples to one
+    shape) are not ported and raise."""
 
-    def __init__(self, batch_size: int, drop_remainder: bool = False):
+    def __init__(self, batch_size: int, feature_padding=None,
+                 label_padding=None, drop_remainder: bool = False):
+        if feature_padding is not None or label_padding is not None:
+            raise NotImplementedError(
+                "SampleToMiniBatch feature_padding / label_padding are not "
+                "ported: samples must share one shape")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.batch_size = batch_size

@@ -123,11 +123,12 @@ def _drop_inference_noise(ir: IRGraph):
 
 def _fold_pair(prev, bn):
     """Fold `bn` into `prev` (a conv with an OIHW weight or a Linear with an
-    [in, out] weight), in float64."""
+    [in, out] weight), in float64. A BN without the affine folds as gamma
+    1, beta 0."""
     with torch.no_grad():
-        gamma = bn.weight.detach().double()
-        beta = bn.bias.detach().double()
+        gamma = 1.0 if bn.weight is None else bn.weight.detach().double()
         g = gamma / torch.sqrt(bn.var.double() + bn.eps)
+        beta = 0.0 if bn.bias is None else bn.bias.detach().double()
         w = prev.weight.detach().double()
         if w.dim() == 4:                  # conv OIHW: scale O
             w2 = w * g.reshape(-1, 1, 1, 1)

@@ -122,13 +122,18 @@ _IMAGENET_CFG = {
 
 def ResNet(class_num: int = 1000, depth: int = 50, shortcut_type: str = "B",
            data_set: str = "ImageNet", zero_gamma: bool = True,
-           s2d_stem: bool = False, *, device=None,
+           remat: bool = False, s2d_stem: bool = False, *, device=None,
            generator: Optional[torch.Generator] = None) -> nn.Sequential:
     """[B, H, W, 3] NHWC images -> [B, class_num] log-probabilities, on
     `device` (default CUDA; `device="cpu"` for the CPU), weights drawn from
     `generator` (default seed 0). `s2d_stem=True` builds the stem as
     `SpaceToDepthStemConvolution` (same parameters and function as the
-    plain 7x7/s2 stem)."""
+    plain 7x7/s2 stem). The reference's `remat=True` (activation
+    recomputation per residual block) is not ported and raises."""
+    if remat:
+        raise NotImplementedError(
+            "ResNet(remat=True) is not ported: the port stores every "
+            "block's activations")
     b = _Builder(device, generator)
     if data_set.lower() in ("cifar10", "cifar-10"):
         return _cifar_resnet(class_num, depth, shortcut_type,

@@ -30,7 +30,7 @@ from torch import nn
 from bigdl_tpu_torch._device import resolve_device
 from bigdl_tpu_torch.nn.initialization import (InitializationMethod, Xavier,
                                                Zeros, default_generator)
-from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.nn.module import Module, check_nhwc
 from bigdl_tpu_torch.ops.stem_kernel import stem_conv
 
 PadT = Union[int, str]
@@ -64,8 +64,9 @@ class SpatialConvolution(Module):
                  n_group: int = 1, with_bias: bool = True,
                  weight_init: Optional[InitializationMethod] = None,
                  bias_init: Optional[InitializationMethod] = None,
-                 name: Optional[str] = None, *,
+                 data_format: str = "NHWC", name: Optional[str] = None, *,
                  device=None, generator: Optional[torch.Generator] = None):
+        check_nhwc(data_format, type(self).__name__)
         super().__init__(name)
         if _same(pad_h) != _same(pad_w):
             raise ValueError("SAME padding must be set on both pad_h and "

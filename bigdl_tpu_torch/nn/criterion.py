@@ -13,22 +13,26 @@ from torch import nn
 class ClassNLLCriterion(nn.Module):
     """Negative log-likelihood over log-probabilities `[..., C]` (pair
     with `LogSoftMax`) and class targets, 1-based unless `zero_based`.
-    `weights` rescales each class; with `size_average` the loss is the
-    mean (weighted: the sum over the sum of the picked weights), else the
-    sum."""
+    With `logProbAsInput=False` the input is probabilities, taken as
+    `log(p + 1e-8)` first, as the reference does. `weights` rescales each
+    class; with `size_average` the loss is the mean (weighted: the sum
+    over the sum of the picked weights), else the sum."""
 
     def __init__(self, weights=None, size_average: bool = True,
-                 zero_based: bool = False):
+                 logProbAsInput: bool = True, zero_based: bool = False):
         super().__init__()
         self.weights = None if weights is None \
             else torch.as_tensor(weights, dtype=torch.float32)
         self.size_average = size_average
+        self.log_prob = logProbAsInput
         self.zero_based = zero_based
 
     def losses(self, output, target):
         """The loss of each group of rows at once: `output` [G, N, C]
         log-probs and `target` [G, N] classes give the [G] losses that
         `forward` would give for each group g of N rows."""
+        if not self.log_prob:
+            output = torch.log(output + 1e-8)
         t = torch.as_tensor(target, device=output.device).long()
         if not self.zero_based:
             t = t - 1

@@ -22,3 +22,13 @@ class Module(nn.Module):
     def __init__(self, name: Optional[str] = None):
         super().__init__()
         self.name = name or type(self).__name__
+
+
+def check_nhwc(data_format: str, layer: str) -> None:
+    """The port's spatial layers take NHWC only; the reference's
+    `data_format="NCHW"` (a transpose around the NHWC layer) is not
+    ported and raises rather than being dropped."""
+    if data_format != "NHWC":
+        raise NotImplementedError(
+            f"{layer}(data_format={data_format!r}) is not ported: the port's "
+            "spatial layers take NHWC input")

@@ -1,6 +1,6 @@
 """Normalization layers (counterpart of `bigdl_tpu/nn/normalization.py`).
 
-Ported: `BatchNormalization`, `SpatialBatchNormalization` and
+Ported: `BatchNormalization`, `SpatialBatchNormalization` (NHWC) and
 `LayerNormalization`.
 
 BatchNorm keeps the reference's semantics exactly (`_stats_scale_shift`,
@@ -13,6 +13,8 @@ shared by the plain tail `forward` and the fused one
   kept as f32 buffers `mean` and `var` (the JAX state's keys);
 - the affine is folded into `scale = weight * rsqrt(var + eps)` and
   `shift = bias - mean * scale`, which the fused tail consumes as they are;
+  with `affine=False` there is no weight and no bias, and `scale =
+  rsqrt(var + eps)`, `shift = -mean * scale`;
 - eval mode normalizes with the running stats.
 `F.batch_norm` is not used: its normalize is another function than the one
 the fused kernel replaces.
@@ -27,21 +29,25 @@ import torch
 from torch import nn
 
 from bigdl_tpu_torch._device import resolve_device
-from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.nn.module import Module, check_nhwc
 
 
 class BatchNormalization(Module):
     """BN over the last axis of [B, C] input (reference 1-D BN)."""
 
     def __init__(self, n_output: int, eps: float = 1e-5,
-                 momentum: float = 0.1, name: Optional[str] = None, *,
-                 device=None):
+                 momentum: float = 0.1, affine: bool = True,
+                 name: Optional[str] = None, *, device=None):
         super().__init__(name)
         device = resolve_device(device)
         self.n_output = n_output
-        self.eps, self.momentum = eps, momentum
-        self.weight = nn.Parameter(torch.ones(n_output, device=device))
-        self.bias = nn.Parameter(torch.zeros(n_output, device=device))
+        self.eps, self.momentum, self.affine = eps, momentum, affine
+        if affine:
+            self.weight = nn.Parameter(torch.ones(n_output, device=device))
+            self.bias = nn.Parameter(torch.zeros(n_output, device=device))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
         self.register_buffer("mean", torch.zeros(n_output, device=device))
         self.register_buffer("var", torch.ones(n_output, device=device))
         self._axes = (0,)  # the axes reduced over; subclasses override
@@ -64,8 +70,12 @@ class BatchNormalization(Module):
                 self.var.copy_((1 - m) * self.var + m * unbiased)
         else:
             mean, var = self.mean, self.var
-        scale = self.weight.to(x.dtype) * torch.rsqrt(var + self.eps)
-        shift = self.bias.to(x.dtype) - mean * scale
+        inv = torch.rsqrt(var + self.eps)
+        if self.affine:
+            scale = self.weight.to(x.dtype) * inv
+            shift = self.bias.to(x.dtype) - mean * scale
+        else:
+            scale, shift = inv, -mean * inv
         return x, scale, shift, out_dtype
 
     def forward(self, x):
@@ -86,21 +96,26 @@ class BatchNormalization(Module):
 
 
 class SpatialBatchNormalization(BatchNormalization):
-    """BN over the trailing channel axis of NHWC [B, H, W, C] input."""
+    """BN over the trailing channel axis of NHWC [B, H, W, C] input;
+    `data_format="NCHW"` is not ported."""
 
     def __init__(self, n_output: int, eps: float = 1e-5,
-                 momentum: float = 0.1, name: Optional[str] = None, *,
+                 momentum: float = 0.1, affine: bool = True,
+                 data_format: str = "NHWC", name: Optional[str] = None, *,
                  device=None):
-        super().__init__(n_output, eps, momentum, name, device=device)
+        check_nhwc(data_format, type(self).__name__)
+        super().__init__(n_output, eps, momentum, affine, name,
+                         device=device)
         self._axes = (0, 1, 2)
 
 
-class LayerNormalization(nn.Module):
+class LayerNormalization(Module):
     """Layer norm over the last axis with population variance:
     `(x - mean) * rsqrt(var + eps) * weight + bias`."""
 
-    def __init__(self, hidden_size: int, eps: float = 1e-5, device=None):
-        super().__init__()
+    def __init__(self, hidden_size: int, eps: float = 1e-5,
+                 name: Optional[str] = None, *, device=None):
+        super().__init__(name)
         self.hidden_size, self.eps = hidden_size, eps
         self.weight = nn.Parameter(torch.ones(hidden_size, device=device))
         self.bias = nn.Parameter(torch.zeros(hidden_size, device=device))

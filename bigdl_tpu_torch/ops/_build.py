@@ -12,6 +12,8 @@ build.
 `build_kernels()` starts one `nvcc` per source at once and waits for all
 of them (what a cold start does); `load_kernel(name)` builds one on
 demand and caches the loaded library for the life of the process.
+`build_log(name)` is nvcc's report for the current build (ptxas's
+registers and spills per kernel), kept beside the library.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ KERNELS = ("flash_attention_fwd", "flash_attention_carry",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-#: nvcc's output (ptxas register/spill report) per built kernel
+#: nvcc's output (ptxas register/spill report) per kernel built here
 build_logs: Dict[str, str] = {}
 
 
@@ -88,7 +90,15 @@ def _finish(name: str, proc: subprocess.Popen) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: no process ever loads a partial file
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the current build of kernel `name`, built if
+    needed (also when an earlier process built it)."""
+    path = build_kernels([name])[0]
+    return build_logs.get(name) or path.with_suffix(".log").read_text()
 
 
 def build_kernels(names: Sequence[str] = KERNELS) -> List[Path]:

@@ -312,7 +312,7 @@ def _no_device(q, what):
 
 def flash_attention_forward(q, k, v, causal: bool = False,
                             sm_scale: Optional[float] = None,
-                            return_lse: bool = False, q_offset: int = 0,
+                            return_lse: bool = False, *, q_offset: int = 0,
                             k_offset: int = 0):
     """Flash-attention forward over q [B, H, Tq, D] and k, v [B, H, Tk, D]:
     the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.
@@ -362,7 +362,7 @@ def _check_carry(q, carry):
 
 def flash_attention_carry(q, k, v, carry, causal: bool = False,
                           sm_scale: Optional[float] = None,
-                          q_offset: int = 0, k_offset: int = 0,
+                          q_offset: int = 0, k_offset: int = 0, *,
                           inplace: bool = False):
     """One ring-attention hop: continue the online softmax carried in
     `carry` = (acc [B, H, Tq, D], m, l [B, H, Tq], f32, as
@@ -462,21 +462,24 @@ def flash_attention_backward_dkv(q, k, v, do, lse, delta,
 flash_attention_backward_dkv.launches = 0
 
 
-def flash_attention_backward(q, k, v, o, lse, do, causal: bool = False,
-                             sm_scale: Optional[float] = None,
+def flash_attention_backward(q, k, v, out, lse, g, causal: bool = False,
+                             sm_scale: Optional[float] = None, *,
                              q_offset: int = 0, k_offset: int = 0):
-    """(dq, dk, dv) of flash attention from q, k, v, the forward's O and
-    f32 lse [B, H, Tq], and dO: `delta = rowsum(dO * O)` in PyTorch, then
-    `flash_attention_backward_dq` and `flash_attention_backward_dkv` (the
-    kernels on a CUDA tensor, their plain versions on a CPU tensor). Ragged
-    Tq / Tk need no padding; the offsets are the forward's. It never falls
-    back: a CUDA tensor launches both kernels or raises."""
-    if o.shape != q.shape or o.device != q.device:
-        raise ValueError(f"O must have q's shape {tuple(q.shape)} on "
-                         f"{q.device}, got {tuple(o.shape)} on {o.device}")
-    _check_backward_inputs(q, k, v, do, {"lse": lse})
-    delta = attention_delta(o, do)
-    args = (q, k, v, do, lse, delta, causal, sm_scale, q_offset, k_offset)
+    """(dq, dk, dv) of flash attention from q, k, v, the forward's output
+    `out` and f32 lse [B, H, Tq], and the output's gradient `g`: `delta =
+    rowsum(g * out)` in PyTorch, then `flash_attention_backward_dq` and
+    `flash_attention_backward_dkv` (the kernels on a CUDA tensor, their
+    plain versions on a CPU tensor). Ragged Tq / Tk need no padding; the
+    offsets are the forward's. It never falls back: a CUDA tensor launches
+    both kernels or raises. On the card, bf16 inputs run on the tensor
+    cores and f32 inputs on the CUDA cores (see the kernels' sources)."""
+    if out.shape != q.shape or out.device != q.device:
+        raise ValueError(f"out must have q's shape {tuple(q.shape)} on "
+                         f"{q.device}, got {tuple(out.shape)} on "
+                         f"{out.device}")
+    _check_backward_inputs(q, k, v, g, {"lse": lse})
+    delta = attention_delta(out, g)
+    args = (q, k, v, g, lse, delta, causal, sm_scale, q_offset, k_offset)
     return (flash_attention_backward_dq(*args),
             *flash_attention_backward_dkv(*args))
 

@@ -21,18 +21,23 @@ from bigdl_tpu_torch.optim.local_optimizer import BaseOptimizer
 
 
 class DistriOptimizer(BaseOptimizer):
-    """Data-parallel SGD over `devices` (default: the one CUDA device);
-    only a single device is supported yet."""
+    """Data-parallel SGD over the devices of `mesh` (the reference's
+    parameter) or `devices` (default: the one CUDA device); only a single
+    device is supported yet."""
 
     def __init__(self, model: torch.nn.Module, dataset, criterion,
-                 devices: Optional[Sequence] = None):
+                 mesh=None, *, devices: Optional[Sequence] = None):
+        if mesh is not None:
+            if devices is not None:
+                raise ValueError("pass mesh or devices, not both")
+            devices = list(mesh.devices.ravel())
         devices = [resolve_device(d) for d in (devices or [None])]
         if len(devices) != 1:
             raise NotImplementedError(
                 f"DistriOptimizer over {len(devices)} devices is not ported "
                 "yet (ROADMAP.md queue 1 item 6, multi-GPU data parallel); "
                 "pass one device")
-        super().__init__(model, dataset, criterion, devices[0])
+        super().__init__(model, dataset, criterion, device=devices[0])
         self.devices = devices
 
     def _log_suffix(self) -> str:

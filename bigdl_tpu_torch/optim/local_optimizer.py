@@ -72,7 +72,7 @@ def _cast_floats(x, dtype: torch.dtype):
 class BaseOptimizer:
     """Shared training-loop machinery of the local and distributed loops."""
 
-    def __init__(self, model: torch.nn.Module, dataset, criterion,
+    def __init__(self, model: torch.nn.Module, dataset, criterion, *,
                  device=None):
         self.model = model
         self.dataset = dataset
@@ -250,8 +250,8 @@ class LocalOptimizer(BaseOptimizer):
     dataset's batches set the size actually trained on."""
 
     def __init__(self, model: torch.nn.Module, dataset, criterion,
-                 batch_size: int = 32, device=None):
-        super().__init__(model, dataset, criterion, device)
+                 batch_size: int = 32, *, device=None):
+        super().__init__(model, dataset, criterion, device=device)
         self.batch_size = batch_size
 
     def optimize(self) -> torch.nn.Module:

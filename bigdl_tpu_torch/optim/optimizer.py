@@ -25,7 +25,7 @@ from bigdl_tpu_torch.optim.local_optimizer import (BaseOptimizer,
 
 def Optimizer(model: torch.nn.Module, training_set, criterion,
               batch_size: int = 32, local: Optional[bool] = None,
-              drop_remainder: Optional[bool] = None,
+              drop_remainder: Optional[bool] = None, *,
               device=None) -> BaseOptimizer:
     """The optimizer for `model` (already on `device`, default CUDA) over
     `training_set`: an `AbstractDataSet`, a pair of numpy arrays
@@ -64,4 +64,5 @@ def _as_batched_dataset(training_set, batch_size: int,
     first = next(iter(base.data(train=False)), None)
     if isinstance(first, MiniBatch):
         return base
-    return base.transform(SampleToMiniBatch(batch_size, drop_remainder))
+    return base.transform(
+        SampleToMiniBatch(batch_size, drop_remainder=drop_remainder))

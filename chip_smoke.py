@@ -9,7 +9,11 @@ Phases:
 1. device: print the card's name and power limit (`nvidia-smi`); no CUDA
    device is a failure;
 2. build: compile every CUDA kernel of the port from `bigdl_tpu_torch/csrc`
-   with `nvcc` (one process per source, started together);
+   with `nvcc` (one process per source, started together); for kernels 3-4
+   (the flash backward) print each compiled kernel's registers and spill
+   bytes (ptxas) and its HMMA instructions (`cuobjdump -sass`), and check
+   that the bf16 design has HMMA at both head-dim widths and spills
+   nothing at D <= 64;
 3. kernel: hold the flash-attention forward kernel against its plain
    PyTorch version at the prefill shapes, with stated tolerances, and time
    it beside the plain version, `scaled_dot_product_attention` (a
@@ -36,10 +40,12 @@ Phases:
    imgs/s, ms/step, exactly 33 launches of each kernel a step, and a
    finite loss that falls from the first step to the last;
 7. flash backward kernels: hold the dq and dk/dv kernels against their
-   plain versions (causal T=2048 at B*H=64 in f32 and bf16, ragged
-   T=1000, non-causal Tq=1000 Tk=1500, D=128, rows fully masked through
-   q_offset), per element within 1e-4 * max|plain| in f32 and one bf16
-   ulp (2**-7 * |plain|) more in bf16, and a second launch bitwise equal;
+   plain versions (causal T=2048 at B*H=64, ragged T=1000, non-causal
+   Tq=1000 Tk=1500, D=128, rows fully masked through q_offset, each in
+   f32, which runs on the CUDA cores, and in bf16, which runs on the
+   tensor cores), per element within 1e-4 * max|plain| in f32 and one
+   bf16 ulp (2**-7 * |plain|) more in bf16, and a second launch bitwise
+   equal;
    kernel 1's O and lse in each case against its plain version with the
    tolerances of phase 3; time each beside its plain version, its bound
    and the backward of `scaled_dot_product_attention` (a yardstick only),
@@ -118,6 +124,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -164,6 +171,10 @@ DKV_ROW = {"name": "flash_attention_bwd_dkv", "route": "cuda",
 # 2**-7 * |plain|, apart. That is tighter everywhere than 2e-2 * max|plain|.
 BWD_RTOL = {torch.float32: 0.0, torch.bfloat16: 2 ** -7}
 BWD_ATOL = 1e-4
+# which design of kernels 3-4 a dtype runs (the .cu files' entry points
+# dispatch by dtype): bf16 on the tensor cores, f32 on the CUDA cores
+BWD_DESIGN = {torch.float32: "cuda_cores_f32", torch.bfloat16: "tensor_cores"}
+BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # the LM: kernel launches of each of kernels 1, 3 and 4 a training step
 LM_LAYERS = 4
 # dscale/dshift: kernel and plain sum the same f32 terms in another order;
@@ -642,23 +653,86 @@ def training_phase(bk):
     return launches
 
 
+def _kernel_label(mangled):
+    """"tensor_cores DMAX=64" and the like, from a backward kernel's
+    mangled name (`..._tc_kernelILi64E...` is the bf16 design)."""
+    dmax = re.search(r"ILi(\d+)E", mangled)
+    design = "tensor_cores" if "_tc_kernel" in mangled else "cuda_cores_f32"
+    return f"{design} DMAX={dmax.group(1)}" if dmax else mangled
+
+
+def backward_build_report(_build, name):
+    """Per kernel of library `name`: ptxas's registers and spill bytes
+    (nvcc -Xptxas -v) and the HMMA instructions in its SASS
+    (cuobjdump -sass)."""
+    out, label = {}, None
+    for line in _build.build_log(name).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            label = _kernel_label(m.group(1))
+            out.setdefault(label, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and label:
+            out[label].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and label:
+            out[label]["registers"] = int(m[1])
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(_build.build_kernels([name])[0])],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    label = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            label = _kernel_label(m.group(1))
+            out.setdefault(label, {})["hmma"] = 0
+        elif label and re.search(r"\bHMMA\b", line):
+            out[label]["hmma"] += 1
+    return out
+
+
+def backward_build_phase(_build):
+    """The bf16 design of kernels 3-4 runs on the tensor cores (HMMA in
+    its SASS) and, at D <= 64 (the LM's), spills nothing."""
+    report = {name: backward_build_report(_build, name)
+              for name in BWD_KERNELS}
+    print("backward kernels build " + json.dumps(report), flush=True)
+    for name, kernels in report.items():
+        for dmax in (64, 128):
+            tc = kernels.get(f"tensor_cores DMAX={dmax}", {})
+            check(tc.get("hmma", 0) > 0,
+                  f"{name}: no HMMA instruction in the bf16 kernel at DMAX "
+                  f"{dmax}: {tc}")
+        tc = kernels["tensor_cores DMAX=64"]
+        check(tc.get("spill_stores") == tc.get("spill_loads") == 0,
+              f"{name}: the bf16 kernel at D <= 64 spills: {tc}")
+    return report
+
+
 def flash_backward_phase(ak):
     """Kernels 3 and 4 against their plain versions, and kernel 1 (whose O
     and lse they take) against its own. Returns the rows for the main
     path's shape (the LM's attention: B=8, H=8, T=2048, D=64, causal, bf16)
     and kernel 1's error and time there."""
+    shapes = [  # name, b, h, tq, tk, d, causal, q_off, k_off
+        ("causal T=1000 (ragged)", 4, 8, 1000, 1000, 64, True, 0, 0),
+        ("non-causal Tq=1000 Tk=1500 (ragged)", 4, 8, 1000, 1500, 64, False,
+         0, 0),
+        ("causal T=512 D=128", 2, 8, 512, 512, 128, True, 0, 0),
+        ("causal q_offset=-64: rows 0-63 fully masked", 2, 4, 256, 256, 64,
+         True, -64, 0),
+    ]
     cases = [  # name, b, h, tq, tk, d, causal, q_off, k_off, dtype
         ("causal T=2048", 8, 8, 2048, 2048, 64, True, 0, 0, torch.float32),
         ("causal T=2048 bf16 (training shape)", 8, 8, 2048, 2048, 64, True,
          0, 0, torch.bfloat16),
-        ("causal T=1000 (ragged)", 4, 8, 1000, 1000, 64, True, 0, 0,
-         torch.float32),
-        ("non-causal Tq=1000 Tk=1500 (ragged)", 4, 8, 1000, 1500, 64, False,
-         0, 0, torch.float32),
-        ("causal T=512 D=128", 2, 8, 512, 512, 128, True, 0, 0,
-         torch.float32),
-        ("causal q_offset=-64: rows 0-63 fully masked", 2, 4, 256, 256, 64,
-         True, -64, 0, torch.float32),
+        *((name + (" bf16" if dtype == torch.bfloat16 else ""), *shape,
+           dtype)
+          for dtype in (torch.float32, torch.bfloat16)
+          for name, *shape in shapes),
     ]
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = None
@@ -733,7 +807,8 @@ def flash_backward_phase(ak):
         fwd_bound = attention_bound(b, h, tq, tk, d, causal, q_off, k_off,
                                     dtype)
         row = {"case": name, "shape": [b, h, tq, tk, d],
-               "dtype": str(dtype).replace("torch.", ""), "ok": ok,
+               "dtype": str(dtype).replace("torch.", ""),
+               "design": BWD_DESIGN[dtype], "ok": ok,
                "fwd_max_abs_err_o": err_o, "fwd_max_abs_err_lse": err_lse,
                "fwd_tol_o": TOL[dtype]["o"], "fwd_tol_lse": TOL[dtype]["lse"],
                "bitwise_repeat": bitwise, "max_abs_err": errs,
@@ -1547,6 +1622,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    bwd_build = backward_build_phase(_build)
 
     # 3. kernel
     main_row = kernel_phase(ak)
@@ -1582,9 +1658,11 @@ def main() -> int:
         {**CARRY_ROW, "launches": carry_launches, **carry_row,
          "status": "ok"},
         {**DQ_ROW, "launches": lm_launches["flash_attention_bwd_dq"],
-         **bwd_rows["dq"], "status": "ok"},
+         **bwd_rows["dq"], "build": bwd_build["flash_attention_bwd_dq"],
+         "status": "ok"},
         {**DKV_ROW, "launches": lm_launches["flash_attention_bwd_dkv"],
-         **bwd_rows["dkv"], "status": "ok"},
+         **bwd_rows["dkv"], "build": bwd_build["flash_attention_bwd_dkv"],
+         "status": "ok"},
         {**BN_FWD_ROW, "launches": bn_launches["bn_relu_fwd"],
          **bn_rows["fwd"], "status": "ok"},
         {**BN_BWD_ROW, "launches": bn_launches["bn_relu_bwd"],

@@ -19,7 +19,8 @@ dx bitwise (the same roundings in the same order); dscale/dshift within
 summation order). Flash backward, per element: |kernel - plain| <=
 1e-4 * max|plain| in f32 (another summation order), plus 2**-7 * |plain|
 in bf16 (each rounds the gradient to nearest bf16, at most one ulp
-apart); a second launch gives the same bits. Flash carry: acc within
+apart; bf16 runs on the tensor cores with P and dS split into bf16 hi +
+lo, f32 on the CUDA cores); a second launch gives the same bits. Flash carry: acc within
 1e-5 * max|plain|, m and l within 1e-5 * max(|plain|, 1) (f32 math in
 both, another summation order); a shard wholly in the queries' future
 passes the carry through bitwise. Sequence parallel: per element 1e-4 *
@@ -200,7 +201,8 @@ def test_resnet_step_on_cuda_matches_cpu(cuda_device, monkeypatch):
 @pytest.mark.parametrize("causal,tq,tk,d,q_offset", [
     (True, 128, 128, 64, 0), (True, 1000, 1000, 64, 0),
     (False, 1000, 1500, 64, 0), (True, 256, 256, 128, 0),
-    (False, 100, 70, 40, 0), (True, 256, 256, 64, -64)])
+    (False, 100, 70, 40, 0), (True, 256, 256, 64, -64),
+    (True, 2048, 2048, 64, 0), (True, 100, 70, 36, 0)])
 def test_flash_backward_kernels_match_plain(cuda_device, dtype, rtol, causal,
                                             tq, tk, d, q_offset):
     gen = torch.Generator(device=cuda_device).manual_seed(tq + tk + d)
@@ -234,6 +236,32 @@ def test_flash_backward_kernels_match_plain(cuda_device, dtype, rtol, causal,
     again = (tak.flash_attention_backward_dq(*args, **kw),
              *tak.flash_attention_backward_dkv(*args, **kw))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_backward_kernels_take_unaligned_rows(cuda_device):
+    """bf16 inputs and outputs that start 2 bytes past a 16-byte boundary
+    (contiguous views into a larger buffer) take the kernels' element-wise
+    copies: the same bits as the 16-byte copies of aligned tensors."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    shape = (2, 4, 200, 64)
+    n = np.prod(shape)
+    aligned = [torch.randn(shape, generator=gen, device=cuda_device
+                           ).bfloat16() for _ in range(4)]
+    shifted = []
+    for x in aligned:
+        buf = torch.empty(n + 1, dtype=torch.bfloat16, device=cuda_device)
+        buf[1:].copy_(x.reshape(-1))
+        shifted.append(buf[1:].view(shape))
+    assert all(x.data_ptr() % 16 == 2 for x in shifted)
+    outs = []
+    for q, k, v, do in (aligned, shifted):
+        o, lse = tak.flash_attention_forward(q, k, v, True, return_lse=True)
+        delta = tak.attention_delta(o, do)
+        outs.append((tak.flash_attention_backward_dq(
+            q, k, v, do, lse, delta, True),
+            *tak.flash_attention_backward_dkv(q, k, v, do, lse, delta,
+                                              True)))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -173,3 +173,63 @@ def test_backward_rejects_bad_inputs():
                tak.flash_attention_backward_dkv):
         with pytest.raises(NotImplementedError, match="meta"):
             fn(*meta)
+
+
+def _bf16_round(x):
+    return x.bfloat16().float()
+
+
+def _emulate_tensor_core_backward(q, k, v, do, lse, delta, sm_scale, split):
+    """The arithmetic of the bf16 kernels 3-4 (csrc/flash_attention_bwd_
+    {dq,dkv}.cu), causal: bf16 operands, f32 sums; P and dS are f32 and
+    enter their products as bf16 hi + bf16 lo (`split`) or rounded once
+    to bf16 (not `split`). Gradients rounded to bf16 at the end."""
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    tq, tk = q.shape[2], k.shape[2]
+    seen = torch.arange(tq)[:, None] >= torch.arange(tk)[None, :]
+    s = qf @ kf.transpose(-1, -2)
+    p = torch.where(seen, torch.exp(s * sm_scale - lse[..., None]), 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None]) * sm_scale
+
+    def times(a, b):  # a @ b with a in bf16 (hi + lo, or hi alone)
+        hi = _bf16_round(a)
+        return hi @ b + (_bf16_round(a - hi) @ b if split else 0.0)
+
+    dq = times(ds, kf)
+    dk = times(ds.transpose(-1, -2), qf)
+    dv = times(p.transpose(-1, -2), dof)
+    return tuple(g.bfloat16() for g in (dq, dk, dv))
+
+
+def _share_of_limit(got, want):
+    """The largest share of chip_smoke.py phase 7's per-element limit,
+    |got - want| <= 2**-7 |want| + 1e-4 max|want|, that `got` takes."""
+    got, want = got.float(), want.float()
+    lim = 2 ** -7 * want.abs() + 1e-4 * want.abs().max()
+    return float(((got - want).abs() / lim).max())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_bf16_arithmetic_meets_the_kernel_limit(seed):
+    """Why kernels 3-4 split P and dS into two bf16 halves: at B2 H4 T256
+    D64 causal (bf16 inputs from numpy), the emulated split stays within
+    the per-element limit that holds the kernels to their plain versions
+    on the card; one bf16 rounding of P and dS breaks it (PERF.md records
+    both shares; run with -s to print them)."""
+    q, k, v, do = (torch.from_numpy(a).bfloat16()
+                   for a in _arrays(2, 4, 256, 256, 64, seed))
+    o, lse = tak.flash_attention_forward_plain(q, k, v, True)
+    delta = tak.attention_delta(o, do)
+    sm = 64 ** -0.5
+    args = (q, k, v, do, lse, delta, True, sm, 0, 0)
+    want = (tak.flash_attention_backward_dq_plain(*args),
+            *tak.flash_attention_backward_dkv_plain(*args))
+    shares = {}
+    for split in (True, False):
+        got = _emulate_tensor_core_backward(q, k, v, do, lse, delta, sm,
+                                            split)
+        shares[split] = [_share_of_limit(g, w) for g, w in zip(got, want)]
+    print(f"seed {seed}: share of the limit (dq, dk, dv): split hi+lo "
+          f"{shares[True]}, rounded once {shares[False]}")
+    assert max(shares[True]) <= 1.0
+    assert max(shares[False]) > 1.0

@@ -311,8 +311,8 @@ def test_local_dataset_order_comes_from_its_generator():
     items = list(range(6))
 
     def first_pass(seed):
-        it = LocalDataSet(items, torch.Generator().manual_seed(seed)).data(
-            train=True)
+        it = LocalDataSet(items, generator=torch.Generator().manual_seed(
+            seed)).data(train=True)
         return [next(it) for _ in items]
 
     assert first_pass(3) == first_pass(3)
