@@ -75,7 +75,6 @@
 namespace {
 
 constexpr int kBlockK = 64;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // ------------------------------------------------------------- bf16 ---
 
@@ -92,31 +91,6 @@ constexpr size_t tc_smem_bytes() {
   constexpr int BQ = kTcBlockQ<DMAX>;
   return sizeof(__nv_bfloat16) * (DMAX + 8) * (2 * kBlockK + 4 * BQ) +
          sizeof(float) * 4 * BQ;
-}
-
-// rows row0 .. row0 + R - 1 of a [n, d] bf16 matrix into a [R][DMAX + 8]
-// tile; rows >= n and columns >= d become 0
-template <int R, int DMAX>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int row0, int n, int d, bool vec) {
-  constexpr int LD = DMAX + 8;
-  if (vec) {  // d % 8 == 0 and src 16-byte aligned
-    constexpr int kChunks = DMAX / 8;
-    for (int i = threadIdx.x; i < R * kChunks; i += kTcThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      const bool ok = row0 + r < n && c < d;
-      cp_async_16(dst + r * LD + c,
-                  ok ? src + (int64_t)(row0 + r) * d + c : src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * DMAX; i += kTcThreads) {
-      const int r = i / DMAX, c = i % DMAX;
-      dst[r * LD + c] = row0 + r < n && c < d
-                            ? src[(int64_t)(row0 + r) * d + c]
-                            : __float2bfloat16(0.f);
-    }
-  }
 }
 
 template <int DMAX>
@@ -169,8 +143,8 @@ flash_attention_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   // the Q/dO tile qt, with its lse and delta, into stage st
   auto load_q_tile = [&](int qt, int st) {
     const int q0 = qt * BQ;
-    load_rows<BQ, DMAX>(sQ + st * BQ * LD, qb, q0, tq, d, vec);
-    load_rows<BQ, DMAX>(sdO + st * BQ * LD, dob, q0, tq, d, vec);
+    load_rows<BQ, DMAX, kTcThreads>(sQ + st * BQ * LD, qb, q0, tq, d, vec);
+    load_rows<BQ, DMAX, kTcThreads>(sdO + st * BQ * LD, dob, q0, tq, d, vec);
     if (tid < 2 * BQ) {
       const int i = tid % BQ;
       const bool ok = q0 + i < tq;
@@ -180,8 +154,8 @@ flash_attention_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  load_rows<kBlockK, DMAX>(sK, kb, k0, tk, d, vec);
-  load_rows<kBlockK, DMAX>(sV, vb, k0, tk, d, vec);
+  load_rows<kBlockK, DMAX, kTcThreads>(sK, kb, k0, tk, d, vec);
+  load_rows<kBlockK, DMAX, kTcThreads>(sV, vb, k0, tk, d, vec);
   if (qt_start < n_qb) load_q_tile(qt_start, 0);
   cp_async_commit();
 
@@ -556,10 +530,6 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
       static_cast<float*>(dk), static_cast<float*>(dv), tq, tk, d, sm_scale,
       causal, q_offset, k_offset);
   return cudaGetLastError();
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace

@@ -72,7 +72,6 @@ namespace {
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 128;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // ------------------------------------------------------------- bf16 ---
 
@@ -80,31 +79,6 @@ template <int DMAX>
 constexpr size_t tc_smem_bytes() {
   // Q, dO: [kBlockQ][DMAX + 8]; K, V: 2 stages of [kBlockK][DMAX + 8]
   return sizeof(__nv_bfloat16) * (DMAX + 8) * (2 * kBlockQ + 4 * kBlockK);
-}
-
-// rows row0 .. row0 + R - 1 of a [n, d] bf16 matrix into a [R][DMAX + 8]
-// tile; rows >= n and columns >= d become 0
-template <int R, int DMAX>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int row0, int n, int d, bool vec) {
-  constexpr int LD = DMAX + 8;
-  if (vec) {  // d % 8 == 0 and src 16-byte aligned
-    constexpr int kChunks = DMAX / 8;
-    for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      const bool ok = row0 + r < n && c < d;
-      cp_async_16(dst + r * LD + c,
-                  ok ? src + (int64_t)(row0 + r) * d + c : src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * DMAX; i += kThreads) {
-      const int r = i / DMAX, c = i % DMAX;
-      dst[r * LD + c] = row0 + r < n && c < d
-                            ? src[(int64_t)(row0 + r) * d + c]
-                            : __float2bfloat16(0.f);
-    }
-  }
 }
 
 template <int DMAX>
@@ -165,11 +139,11 @@ flash_attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  load_rows<kBlockQ, DMAX>(sQ, qb, q0, tq, d, vec);
-  load_rows<kBlockQ, DMAX>(sdO, dob, q0, tq, d, vec);
+  load_rows<kBlockQ, DMAX, kThreads>(sQ, qb, q0, tq, d, vec);
+  load_rows<kBlockQ, DMAX, kThreads>(sdO, dob, q0, tq, d, vec);
   if (n_kb > 0) {
-    load_rows<kBlockK, DMAX>(sK, kb, 0, tk, d, vec);
-    load_rows<kBlockK, DMAX>(sV, vb, 0, tk, d, vec);
+    load_rows<kBlockK, DMAX, kThreads>(sK, kb, 0, tk, d, vec);
+    load_rows<kBlockK, DMAX, kThreads>(sV, vb, 0, tk, d, vec);
   }
   cp_async_commit();
 
@@ -186,9 +160,9 @@ flash_attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int kt = 0; kt < n_kb; ++kt) {
     const int stage = kt & 1;
     if (kt + 1 < n_kb) {  // the next tile's copy overlaps this tile
-      load_rows<kBlockK, DMAX>(sK + (stage ^ 1) * kBlockK * LD, kb,
+      load_rows<kBlockK, DMAX, kThreads>(sK + (stage ^ 1) * kBlockK * LD, kb,
                                (kt + 1) * kBlockK, tk, d, vec);
-      load_rows<kBlockK, DMAX>(sV + (stage ^ 1) * kBlockK * LD, vb,
+      load_rows<kBlockK, DMAX, kThreads>(sV + (stage ^ 1) * kBlockK * LD, vb,
                                (kt + 1) * kBlockK, tk, d, vec);
     }
     cp_async_commit();
@@ -481,10 +455,6 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
       static_cast<float*>(dq), tq, tk, d, sm_scale, causal, q_offset,
       k_offset);
   return cudaGetLastError();
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace

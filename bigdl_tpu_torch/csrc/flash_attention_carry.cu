@@ -14,25 +14,26 @@
 // arguments, as the TPU kernel takes them as data.
 //
 // Design. The tile loop is `flash_tile<T, DMAX, true>` in
-// flash_attention_tile.cuh, the same code as kernel 1's: the two kernels
-// cannot drift apart. A block loads its rows' carried acc, m and l with
-// the map it stores them with (row ty * kRows + i, column tx + 8 * j), so
-// the outputs may alias the inputs and the ring updates its carry in
-// place. When the causal bound leaves no K tile (the shard lies wholly in
-// the queries' future) the carry passes through bit for bit, as the TPU
-// kernel's n_needed = 0 leaves it. A row still fully masked keeps
-// m = NEG_INF and l = 0: the old sums are scaled by 0 while the carried m
-// is NEG_INF, and the shift is 0 while the new m is. Unlike the TPU
-// wrapper, nothing falls back to the blockwise XLA step: ragged Tq and Tk
-// are masked here, and any head dim up to 128 is taken.
+// flash_attention_tile.cuh, the same code as kernel 1's f32 design: the two
+// cannot drift apart (kernel 1's bf16 design runs on the tensor cores; this
+// kernel does not, in either dtype). A block loads its rows' carried acc, m
+// and l with the map it stores them with (row ty * kRows + i, column tx + 8 *
+// j), so the outputs may alias the inputs and the ring updates its carry in
+// place. When the causal bound leaves no K tile (the shard lies wholly in the
+// queries' future) the carry passes through bit for bit, as the TPU kernel's
+// n_needed = 0 leaves it. A row still fully masked keeps m = NEG_INF and l =
+// 0: the old sums are scaled by 0 while the carried m is NEG_INF, and the
+// shift is 0 while the new m is. Unlike the TPU wrapper, nothing falls back
+// to the blockwise XLA step: ragged Tq and Tk are masked here, and any head
+// dim up to 128 is taken.
 //
 // What bounds it. At the ring's hop shape (B*H = 8, Tq = Tk = 2048,
 // D = 64, bf16) a below-diagonal hop is 8.6e9 operations against 15 MB of
 // traffic (q, k, v read; acc, m, l read and written): the tensor cores'
 // rate bounds it (8.7 us at 989 TFLOP/s), not the memory (4.5 us at
-// 3.35 TB/s). This first version, like kernel 1, does the products as f32
-// FMAs on the CUDA cores out of shared memory; its time is recorded
-// against the bound in PERF.md.
+// 3.35 TB/s). This first version, like kernel 1's f32 design, does the
+// products as f32 FMAs on the CUDA cores out of shared memory; its time is
+// recorded against the bound in PERF.md.
 
 #include "flash_attention_tile.cuh"
 

@@ -1,5 +1,6 @@
-// The flash-attention tile loop shared by the dense forward
-// (flash_attention_fwd.cu, kernel 1) and the ring hop
+// The flash-attention tile loop shared by the dense forward's f32 design
+// (flash_attention_fwd.cu, kernel 1; its bf16 design runs its own loop on
+// the tensor cores) and the ring hop in both dtypes
 // (flash_attention_carry.cu, kernel 2): one online-softmax update of a
 // 64-row q tile's (acc, m, l) with every 64-row K/V tile it can see.
 //

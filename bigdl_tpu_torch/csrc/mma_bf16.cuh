@@ -1,16 +1,21 @@
 // Warp-level bf16 tensor-core helpers for Hopper (sm_90a), shared by the
-// flash-attention kernels that run their products on the tensor cores
-// (flash_attention_bwd_dq.cu and flash_attention_bwd_dkv.cu):
+// kernels whose bf16 design runs its products on the tensor cores: the
+// flash-attention forward and backward (flash_attention_fwd.cu,
+// flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu) and the
+// space-to-depth stem (stem_conv.cu):
 //
 //   ldmatrix_x4 / ldmatrix_x4_trans   four 8x8 b16 matrices from shared
 //                                     memory into the mma fragment layout
 //   mma_bf16_16816                    D += A B, m16n8k16, bf16 in, f32 out
-//   cp_async_16 / cp_async_4          asynchronous global -> shared copies
+//   cp_async_16 / _8 / _4             asynchronous global -> shared copies
 //                                     that zero-fill when the source is
 //                                     out of range; commit / wait
 //   split_bf16x2, c_to_a_split        f32 -> bf16 hi + bf16 lo, and two
 //                                     m16n8 f32 accumulator tiles repacked
 //                                     into one m16k16 A fragment (hi, lo)
+//   load_rows, aligned16              rows of a [n, d] bf16 matrix into a
+//                                     padded shared tile (the flash
+//                                     kernels' operand loads)
 //
 // Fragment layout of mma.m16n8k16 (lane = 4 * g + t, g = lane / 4,
 // t = lane % 4; each 32-bit register holds two bf16, the lower column in
@@ -78,6 +83,14 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                : "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
 }
 
+// 8 bytes global -> shared, asynchronously; zeros when !valid.
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(valid ? 8 : 0));
+}
+
 // 4 bytes global -> shared, asynchronously; zeros when !valid.
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src,
                                            bool valid) {
@@ -120,6 +133,40 @@ __device__ __forceinline__ void c_to_a_split(const float (&c0)[4],
   split_bf16x2(c0[2], c0[3], hi[1], lo[1]);
   split_bf16x2(c1[0], c1[1], hi[2], lo[2]);
   split_bf16x2(c1[2], c1[3], hi[3], lo[3]);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// rows row0 .. row0 + R - 1 of a [n, d] bf16 matrix into a [R][DMAX + 8]
+// shared tile, by a block of THREADS threads; rows >= n and columns >= d
+// become 0. 16-byte cp.async copies when `vec` (d % 8 == 0 and src
+// 16-byte aligned; the caller commits and waits), element copies
+// otherwise.
+template <int R, int DMAX, int THREADS>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          int row0, int n, int d, bool vec) {
+  constexpr int LD = DMAX + 8;
+  if (vec) {
+    constexpr int kChunks = DMAX / 8;
+    for (int i = threadIdx.x; i < R * kChunks; i += THREADS) {
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const bool ok = row0 + r < n && c < d;
+      cp_async_16(dst + r * LD + c,
+                  ok ? src + (int64_t)(row0 + r) * d + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * DMAX; i += THREADS) {
+      const int r = i / DMAX, c = i % DMAX;
+      dst[r * LD + c] = row0 + r < n && c < d
+                            ? src[(int64_t)(row0 + r) * d + c]
+                            : __float2bfloat16(0.f);
+    }
+  }
 }
 
 }  // namespace

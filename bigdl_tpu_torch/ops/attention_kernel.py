@@ -9,15 +9,16 @@ q, k, v are [B, H, T, D].
   carrying (acc, row_max, row_sum); `attention_state_init` /
   `attention_state_finish` expose the carry.
 - `flash_attention_forward` — the CUDA kernel `csrc/flash_attention_fwd.cu`
-  (O and the per-row logsumexp) on a CUDA tensor; on a CPU tensor its plain
-  version `flash_attention_forward_plain`, the same online softmax in
-  PyTorch. It never falls back: a CUDA tensor launches the kernel or raises.
+  (O and the per-row logsumexp; bf16 on the tensor cores, f32 on the CUDA
+  cores) on a CUDA tensor; on a CPU tensor its plain version
+  `flash_attention_forward_plain`, the same online softmax in PyTorch. It
+  never falls back: a CUDA tensor launches the kernel or raises.
 - `flash_attention_carry` — one ring-attention hop: continue a carried
   (acc, m, l) with one K/V shard at global offsets, the CUDA kernel
   `csrc/flash_attention_carry.cu` on a CUDA tensor, its plain version
   `flash_attention_carry_plain` (`blockwise_attention(..., carry=carry,
-  finish=False)`) on a CPU tensor. Kernel 1 and this kernel share one tile
-  loop (`csrc/flash_attention_tile.cuh`).
+  finish=False)`) on a CPU tensor. This kernel and kernel 1's f32 design
+  share one tile loop (`csrc/flash_attention_tile.cuh`, CUDA cores).
 - `flash_attention_backward` — dq, dk, dv from the saved O and logsumexp:
   `delta = rowsum(dO * O)` in PyTorch, then the CUDA kernels
   `csrc/flash_attention_bwd_dq.cu` (`flash_attention_backward_dq`) and

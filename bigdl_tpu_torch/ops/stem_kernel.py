@@ -15,7 +15,9 @@ runs in f32; the output takes x2's dtype. For ResNet-50: x2
 [b, 112, 112, 12], kt = 4, O = 64, pads 2 / 1.
 
 - `stem_conv_forward`: the CUDA kernel `csrc/stem_conv.cu` on a CUDA
-  tensor, its plain version `stem_conv_forward_plain` on a CPU tensor. It
+  tensor (bf16 x2 and wk with O % 8 == 0 on the tensor cores, anything
+  else on the CUDA cores), its plain version `stem_conv_forward_plain` on
+  a CPU tensor. It
   never falls back: a CUDA tensor launches the kernel or raises. It counts
   its launches (`.launches`).
 - `StemConvFunction`: the `torch.autograd.Function` around it, the

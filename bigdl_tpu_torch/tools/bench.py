@@ -284,14 +284,16 @@ def bench_attention(device=None, lengths: Sequence[int] = (8192, 16384),
 
 #: kernel-name fragments of each kind in the profiles, tried in order
 _KERNEL_KINDS = (
-    ("flash_attention_fwd (csrc, kernel 1)", ("flash_fwd_kernel",)),
+    ("flash_attention_fwd (csrc, kernel 1)",
+     ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
     ("flash_attention_carry (csrc, kernel 2)", ("flash_carry_kernel",)),
     ("flash_attention_bwd_dq (csrc, kernel 3)",
      ("flash_attention_bwd_dq",)),
     ("flash_attention_bwd_dkv (csrc, kernel 4)",
      ("flash_attention_bwd_dkv",)),
     ("bn_relu (csrc)", ("bn_relu_fwd", "bn_relu_bwd")),
-    ("stem_conv (csrc, kernel 5)", ("stem_conv_kernel",)),
+    ("stem_conv (csrc, kernel 5)", ("stem_conv_kernel",
+                                    "stem_conv_tc_kernel")),
     ("convolution and matmul (cuDNN, cuBLAS)",
      ("conv", "xmma", "gemm", "nvjet", "cudnn", "cutlass", "dgrad", "wgrad",
       "fprop")),

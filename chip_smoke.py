@@ -9,13 +9,20 @@ Phases:
 1. device: print the card's name and power limit (`nvidia-smi`); no CUDA
    device is a failure;
 2. build: compile every CUDA kernel of the port from `bigdl_tpu_torch/csrc`
-   with `nvcc` (one process per source, started together); for kernels 3-4
-   (the flash backward) print each compiled kernel's registers and spill
-   bytes (ptxas) and its HMMA instructions (`cuobjdump -sass`), and check
-   that the bf16 design has HMMA at both head-dim widths and spills
-   nothing at D <= 64;
+   with `nvcc` (one process per source, started together); for the
+   kernels with a bf16 tensor-core design beside the CUDA-core one (1, the
+   flash forward; 3-4, the flash backward; 5, the stem) print each
+   compiled kernel's registers and spill bytes (ptxas) and its HMMA
+   instructions (`cuobjdump -sass`), and check that the bf16 design has
+   HMMA at every compiled width (DMAX 64 and 128; the stem's KT 2, 4, 6),
+   spills nothing at D <= 64 (the stem: KT = 4), and that no CUDA-core
+   kernel has HMMA;
 3. kernel: hold the flash-attention forward kernel against its plain
-   PyTorch version at the prefill shapes, with stated tolerances, and time
+   PyTorch version at the prefill shapes and edge cases (ragged, fully
+   masked rows through k_offset, D = 128, non-causal D = 40), each in f32
+   (the CUDA-core design) and bf16 (the tensor-core design), and bf16
+   inputs 2 bytes past a 16-byte boundary (the same bits as aligned
+   ones), with stated tolerances and a second launch bitwise equal; time
    it beside the plain version, `scaled_dot_product_attention` (a
    yardstick only; the port never calls it) and its bound;
 4. generation: serve `TransformerLM(vocab 1024, embed 512, 4 layers,
@@ -80,7 +87,7 @@ Phases:
    a mesh of every card (4 shards on the one card when there is one):
    each within one bf16 ulp of kernel 1 over the whole sequence
    (|d| <= 2**-7 |ref| + 1e-4 max|ref|), kernel 2 launched n^2, n(2n+1)
-   and 0 times a call; timed beside kernel 1 and
+   and 0 times a call; timed beside kernel 1 (with its bound) and
    `scaled_dot_product_attention` (a yardstick only) over the whole
    sequence. (c) Ring and zigzag gradients of sum(out**2) for q, k and v,
    f32, T=2048, against `flash_attention` (kernels 1, 3, 4) on the whole
@@ -115,7 +122,8 @@ Phases:
    and a short full loop (8 warm-up + 24 timed steps) with and without
    kernel 5.
 
-Prints a `{"kernels": [...]}` line, then as its last line
+Prints a `{"kernels": [...]}` line (each row with the `design` its main
+measure ran: `tensor_cores` or `cuda_cores_f32`), then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
 """
 
@@ -171,10 +179,13 @@ DKV_ROW = {"name": "flash_attention_bwd_dkv", "route": "cuda",
 # 2**-7 * |plain|, apart. That is tighter everywhere than 2e-2 * max|plain|.
 BWD_RTOL = {torch.float32: 0.0, torch.bfloat16: 2 ** -7}
 BWD_ATOL = 1e-4
-# which design of kernels 3-4 a dtype runs (the .cu files' entry points
-# dispatch by dtype): bf16 on the tensor cores, f32 on the CUDA cores
-BWD_DESIGN = {torch.float32: "cuda_cores_f32", torch.bfloat16: "tensor_cores"}
-BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# which design of kernels 1, 3 and 4 a dtype runs (the .cu files' entry
+# points dispatch by dtype): bf16 on the tensor cores, f32 on the CUDA
+# cores. Kernel 2 and kernels 6-7 have only the CUDA-core design.
+DESIGN = {torch.float32: "cuda_cores_f32", torch.bfloat16: "tensor_cores"}
+# the kernels with a bf16 tensor-core design beside a CUDA-core one
+TC_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv", "stem_conv")
 # the LM: kernel launches of each of kernels 1, 3 and 4 a training step
 LM_LAYERS = 4
 # dscale/dshift: kernel and plain sum the same f32 terms in another order;
@@ -295,36 +306,65 @@ def bwd_error(got, ref, dtype):
     return float(err.max()), float((err / lim).max())
 
 
+def _offset_view(x):
+    """x's values in a contiguous view that starts 2 bytes past a 16-byte
+    boundary (a bf16 buffer one element longer)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:].copy_(x.reshape(-1))
+    out = buf[1:].view(x.shape)
+    check(out.data_ptr() % 16 == 2, "the offset view is not 2 bytes past "
+                                    "a 16-byte boundary")
+    return out
+
+
 def kernel_phase(ak):
     """Kernel vs plain version at the prefill shapes (B=4, H=8, D=64) and
-    a few edge cases. Returns the row for the main-path shape."""
-    cases = [  # name, b, h, tq, tk, d, causal, q_off, k_off, dtype
-        ("causal T=128", 4, 8, 128, 128, 64, True, 0, 0, torch.float32),
-        ("causal T=1000 (ragged)", 4, 8, 1000, 1000, 64, True, 0, 0,
-         torch.float32),
-        ("causal T=2048", 4, 8, 2048, 2048, 64, True, 0, 0, torch.float32),
+    a few edge cases, each in f32 (the CUDA-core design) and bf16 (the
+    tensor-core design), and bf16 inputs 2 bytes past a 16-byte boundary
+    (the element-copy path: the same bits as the aligned inputs). Every
+    case also launches twice and wants the same bits. Returns the row for
+    the main-path shape."""
+    shapes = [  # name, b, h, tq, tk, d, causal, q_off, k_off
+        ("causal T=128", 4, 8, 128, 128, 64, True, 0, 0),
+        ("causal T=1000 (ragged)", 4, 8, 1000, 1000, 64, True, 0, 0),
+        ("causal T=2048", 4, 8, 2048, 2048, 64, True, 0, 0),
         ("non-causal Tq=1000 Tk=1500 (ragged)", 4, 8, 1000, 1500, 64, False,
-         0, 0, torch.float32),
-        ("causal T=2048 bf16", 4, 8, 2048, 2048, 64, True, 0, 0,
-         torch.bfloat16),
+         0, 0),
         ("causal k_offset=64: rows 0-63 fully masked", 2, 4, 128, 128, 64,
-         True, 0, 64, torch.float32),
-        ("causal T=512 D=128", 2, 8, 512, 512, 128, True, 0, 0,
-         torch.float32),
-        ("non-causal T=300 D=40", 2, 4, 300, 300, 40, False, 0, 0,
-         torch.float32),
+         True, 0, 64),
+        ("causal T=512 D=128", 2, 8, 512, 512, 128, True, 0, 0),
+        ("non-causal T=300 D=40", 2, 4, 300, 300, 40, False, 0, 0),
     ]
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [  # name, b, h, tq, tk, d, causal, q_off, k_off, dtype, offset
+        (name + (" bf16" if dtype == torch.bfloat16 else ""), *shape, dtype,
+         False)
+        for dtype in (torch.float32, torch.bfloat16)
+        for name, *shape in shapes]
+    cases += [("causal T=1000 bf16, inputs 2 bytes past 16-byte alignment",
+               4, 8, 1000, 1000, 64, True, 0, 0, torch.bfloat16, True),
+              ("non-causal T=300 D=40 bf16, inputs 2 bytes past 16-byte "
+               "alignment", 2, 4, 300, 300, 40, False, 0, 0, torch.bfloat16,
+               True)]
     main_row = None
-    for (name, b, h, tq, tk, d, causal, q_off, k_off, dtype) in cases:
+    for (name, b, h, tq, tk, d, causal, q_off, k_off, dtype,
+         offset) in cases:
+        # the same seed for a shape in every dtype and alignment
+        gen = torch.Generator(device="cuda").manual_seed(tq * 7 + tk + d)
         q = torch.randn((b, h, tq, d), generator=gen, device="cuda"
                         ).to(dtype)
         k, v = (torch.randn((b, h, tk, d), generator=gen, device="cuda"
                             ).to(dtype) for _ in range(2))
         kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+        aligned = None
         with torch.inference_mode():
+            if offset:
+                aligned = ak.flash_attention_forward(q, k, v,
+                                                     return_lse=True, **kw)
+                q, k, v = (_offset_view(x) for x in (q, k, v))
             o, lse = ak.flash_attention_forward(q, k, v, return_lse=True,
                                                 **kw)
+            o2, lse2 = ak.flash_attention_forward(q, k, v, return_lse=True,
+                                                  **kw)
             torch.cuda.synchronize()
             o_ref, lse_ref = ak.flash_attention_forward_plain(q, k, v, **kw)
         check(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),
@@ -332,7 +372,11 @@ def kernel_phase(ak):
         err_o = float((o.float() - o_ref.float()).abs().max())
         err_lse = float((lse - lse_ref).abs().max())
         tol = TOL[dtype]
-        ok = err_o <= tol["o"] and err_lse <= tol["lse"]
+        bitwise = torch.equal(o, o2) and torch.equal(lse, lse2)
+        ok = err_o <= tol["o"] and err_lse <= tol["lse"] and bitwise
+        if aligned is not None:
+            ok = ok and torch.equal(o, aligned[0]) \
+                and torch.equal(lse, aligned[1])
         if k_off > q_off:
             dead = k_off - q_off
             ok = ok and bool((o[:, :, :dead] == 0).all()
@@ -352,19 +396,28 @@ def kernel_phase(ak):
                                              q_off, k_off, dtype)
         row = {"case": name, "shape": [b, h, tq, tk, d],
                "dtype": str(dtype).replace("torch.", ""),
+               "design": DESIGN[dtype],
                "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
-               "tol_o": tol["o"], "tol_lse": tol["lse"], "ok": ok,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "share_of_bound": bound_ms / ms}
+               "tol_o": tol["o"], "tol_lse": tol["lse"],
+               "bitwise_repeat": bitwise,
+               "equal_to_aligned": None if aligned is None else bool(
+                   torch.equal(o, aligned[0])
+                   and torch.equal(lse, aligned[1])),
+               "ok": ok, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "share_of_bound": bound_ms / ms}
         print("kernel case " + json.dumps(row), flush=True)
         check(ok, f"{name}: kernel disagrees with its plain version "
                   f"(O {err_o:.3e} > {tol['o']} or lse {err_lse:.3e} > "
-                  f"{tol['lse']}, or a fully masked row is not 0)")
+                  f"{tol['lse']}), a second launch or the aligned inputs "
+                  "give other bits, or a fully masked row is not 0")
         if name == "causal T=2048":
             main_row = {"max_abs_err": err_o, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": library_ms}
+                        "bound_by": bound_by, "library_ms": library_ms,
+                        "design": DESIGN[dtype]}
+        del q, k, v, o, o2, lse, lse2, o_ref, lse_ref, aligned
+    torch.cuda.empty_cache()
     return main_row
 
 
@@ -654,14 +707,26 @@ def training_phase(bk):
 
 
 def _kernel_label(mangled):
-    """"tensor_cores DMAX=64" and the like, from a backward kernel's
-    mangled name (`..._tc_kernelILi64E...` is the bf16 design)."""
-    dmax = re.search(r"ILi(\d+)E", mangled)
+    """"tensor_cores DMAX=64", "cuda_cores_f32 KT=4 x=f32 w=bf16" and the
+    like, from a kernel's mangled name: `_tc_kernel` is a bf16
+    tensor-core design; the flash kernels take DMAX, the stem kernels KT
+    (and the CUDA-core stem kernels x's and wk's types)."""
+    m = re.search(r"kernelI(\w*?)Li(\d+)E", mangled)
+    if not m:
+        return mangled
     design = "tensor_cores" if "_tc_kernel" in mangled else "cuda_cores_f32"
-    return f"{design} DMAX={dmax.group(1)}" if dmax else mangled
+    label = f"{design} {'KT' if 'stem' in mangled else 'DMAX'}={m[2]}"
+    types = []
+    for tok in re.findall(r"13__nv_bfloat16|f|S\d*_", m[1]):
+        # S<n>_ names a type seen before: here always the previous one
+        types.append(types[-1] if tok.startswith("S") else
+                     "f32" if tok == "f" else "bf16")
+    if len(types) == 2:
+        label += f" x={types[0]} w={types[1]}"
+    return label
 
 
-def backward_build_report(_build, name):
+def build_report(_build, name):
     """Per kernel of library `name`: ptxas's registers and spill bytes
     (nvcc -Xptxas -v) and the HMMA instructions in its SASS
     (cuobjdump -sass)."""
@@ -694,21 +759,26 @@ def backward_build_report(_build, name):
     return out
 
 
-def backward_build_phase(_build):
-    """The bf16 design of kernels 3-4 runs on the tensor cores (HMMA in
-    its SASS) and, at D <= 64 (the LM's), spills nothing."""
-    report = {name: backward_build_report(_build, name)
-              for name in BWD_KERNELS}
-    print("backward kernels build " + json.dumps(report), flush=True)
+def build_phase(_build):
+    """The bf16 designs of kernels 1, 3, 4 and 5 run on the tensor cores
+    (HMMA in their SASS) and spill nothing at the main paths' widths
+    (D <= 64; the stem's KT = 4); the CUDA-core designs have no HMMA."""
+    report = {name: build_report(_build, name) for name in TC_KERNELS}
+    print("tensor-core kernels build " + json.dumps(report), flush=True)
     for name, kernels in report.items():
-        for dmax in (64, 128):
-            tc = kernels.get(f"tensor_cores DMAX={dmax}", {})
+        key, sizes, main = (("KT", (2, 4, 6), 4) if name == "stem_conv"
+                            else ("DMAX", (64, 128), 64))
+        for size in sizes:
+            tc = kernels.get(f"tensor_cores {key}={size}", {})
             check(tc.get("hmma", 0) > 0,
-                  f"{name}: no HMMA instruction in the bf16 kernel at DMAX "
-                  f"{dmax}: {tc}")
-        tc = kernels["tensor_cores DMAX=64"]
+                  f"{name}: no HMMA instruction in the bf16 kernel at "
+                  f"{key} {size}: {tc}")
+        tc = kernels[f"tensor_cores {key}={main}"]
         check(tc.get("spill_stores") == tc.get("spill_loads") == 0,
-              f"{name}: the bf16 kernel at D <= 64 spills: {tc}")
+              f"{name}: the bf16 kernel at {key} {main} spills: {tc}")
+        for label, k in kernels.items():
+            check(not label.startswith("cuda_cores") or k.get("hmma") == 0,
+                  f"{name}: the CUDA-core kernel {label} has HMMA: {k}")
     return report
 
 
@@ -787,6 +857,8 @@ def flash_backward_phase(ak):
                 lambda: ak.flash_attention_backward_dkv_plain(*pargs), iters)
             fwd_ms = cuda_ms(lambda: ak.flash_attention_forward(
                 q, k, v, return_lse=True, **kw), iters)
+            fwd_plain_ms = cuda_ms(lambda: ak.flash_attention_forward_plain(
+                q, k, v, **kw), iters)
         library_ms = fwd_library_ms = None
         if q_off == k_off == 0:  # SDPA's backward, the yardstick for 3+4
             qg, kg, vg = (x.detach().clone().requires_grad_()
@@ -808,7 +880,7 @@ def flash_backward_phase(ak):
                                     dtype)
         row = {"case": name, "shape": [b, h, tq, tk, d],
                "dtype": str(dtype).replace("torch.", ""),
-               "design": BWD_DESIGN[dtype], "ok": ok,
+               "design": DESIGN[dtype], "ok": ok,
                "fwd_max_abs_err_o": err_o, "fwd_max_abs_err_lse": err_lse,
                "fwd_tol_o": TOL[dtype]["o"], "fwd_tol_lse": TOL[dtype]["lse"],
                "bitwise_repeat": bitwise, "max_abs_err": errs,
@@ -820,7 +892,8 @@ def flash_backward_phase(ak):
                "dq_bound_ms": dq_bound[0], "dkv_bound_ms": dkv_bound[0],
                "dq_share_of_bound": dq_bound[0] / dq_ms,
                "dkv_share_of_bound": dkv_bound[0] / dkv_ms,
-               "fwd_ms": fwd_ms, "fwd_bound_ms": fwd_bound[0],
+               "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
+               "fwd_bound_ms": fwd_bound[0],
                "sdpa_forward_ms": fwd_library_ms}
         print("flash backward case " + json.dumps(row), flush=True)
         check(ok, f"{name}: kernel 1 disagrees with its plain version (O "
@@ -845,6 +918,7 @@ def flash_backward_phase(ak):
                 "fwd_training_shape": {"max_abs_err": err_o,
                                        "max_abs_err_lse": err_lse,
                                        "ms": fwd_ms,
+                                       "plain_ms": fwd_plain_ms,
                                        "bound_ms": fwd_bound[0],
                                        "bound_by": fwd_bound[1],
                                        "library_ms": fwd_library_ms}}
@@ -1157,7 +1231,8 @@ def sp_mesh_devices():
 
 
 def sequence_parallel_phase(ak):
-    """9(b) and 9(c). Returns kernel 2's launches in the full-width run."""
+    """9(b) and 9(c). Returns kernel 2's launches in the full-width run
+    and kernel 1's row at the long-context shape."""
     from bigdl_tpu_torch.parallel import (build_mesh,
                                           make_sequence_parallel_attention)
     devices = sp_mesh_devices()
@@ -1192,6 +1267,8 @@ def sequence_parallel_phase(ak):
     with torch.inference_mode():
         k1_ms = cuda_ms(lambda: ak.flash_attention_forward(q, k, v,
                                                            causal=True), 10)
+        k1_plain_ms = cuda_ms(lambda: ak.flash_attention_forward_plain(
+            q, k, v, causal=True), 3)
         sdpa_ms = cuda_ms(lambda: torch.nn.functional
                           .scaled_dot_product_attention(q, k, v,
                                                         is_causal=True), 10)
@@ -1212,10 +1289,16 @@ def sequence_parallel_phase(ak):
             check(launches[scheme] == want_launches[scheme],
                   f"{scheme}: kernel 2 launched {launches[scheme]} times, "
                   f"not {want_launches[scheme]}")
+    k1_bound = attention_bound(1, 8, t, t, 64, True, 0, 0, torch.bfloat16)
+    k1_row = {"shape": [1, 8, t, t, 64], "design": DESIGN[torch.bfloat16],
+              "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+              "bound_by": k1_bound[1],
+              "library_ms": sdpa_ms}
     print("sequence parallel " + json.dumps({
         "shape": [1, 8, t, 64], "dtype": "bfloat16", "causal": True,
         "shards": n, "mesh": [str(x) for x in devices],
-        "kernel1_ms": k1_ms, "sdpa_ms": sdpa_ms, "schemes": rows,
+        "kernel1_ms": k1_ms, "kernel1_bound_ms": k1_bound[0],
+        "sdpa_ms": sdpa_ms, "schemes": rows,
         "carry_launches": total}), flush=True)
     del q, k, v, ref, lim, outs
 
@@ -1241,7 +1324,7 @@ def sequence_parallel_phase(ak):
         "shape": [1, 8, t, 64], "dtype": "float32",
         "max_share_of_limit": grads}), flush=True)
     torch.cuda.empty_cache()
-    return total
+    return total, k1_row
 
 
 def stem_bound(b, h2, w2, k, cin, n_out, dtype, with_bias):
@@ -1254,6 +1337,14 @@ def stem_bound(b, h2, w2, k, cin, n_out, dtype, with_bias):
     nbytes = (b * h2 * w2 * 4 * cin + kt * kt * 4 * cin * n_out
               + b * h2 * w2 * n_out) * elem + (4 * n_out if with_bias else 0)
     return roofline(2.0 * b * h2 * w2 * k * k * cin * n_out, nbytes, dtype)
+
+
+def stem_design(x_dtype, w_dtype, n_out):
+    """Which design of kernel 5 runs (csrc/stem_conv.cu's entry point
+    dispatches by dtype and O): bf16 x2 and wk with O % 8 == 0 on the
+    tensor cores, everything else on the CUDA cores."""
+    tc = x_dtype == w_dtype == torch.bfloat16 and n_out % 8 == 0
+    return "tensor_cores" if tc else "cuda_cores_f32"
 
 
 def stem_kernel_phase(sk):
@@ -1294,7 +1385,8 @@ def stem_kernel_phase(sk):
         share = float((err / lim).max())
         bitwise = torch.equal(out, again)
         row = {"case": name, "x2": list(x2.shape), "k": k, "O": n_out,
-               "dtype": str(dt)[6:], "max_abs_err": float(err.max()),
+               "dtype": str(dt)[6:], "design": stem_design(dt, dt, n_out),
+               "max_abs_err": float(err.max()),
                "max_share_of_limit": share, "second_launch_equal": bitwise}
         if name in ("served", "training"):
             iters = 20
@@ -1331,14 +1423,10 @@ def stem_kernel_phase(sk):
     torch.cuda.empty_cache()
     served = rows["served"]
     training = rows["training"]
-    return {"max_abs_err": served["max_abs_err"], "ms": served["ms"],
-            "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
-            "bound_by": served["bound_by"],
-            "library_ms": served["library_ms"],
-            "library_s2d_ms": served["library_s2d_ms"],
-            "training_shape": {k: training[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "library_s2d_ms")}}
+    keys = ("design", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_s2d_ms")
+    return {**{k: served[k] for k in keys},
+            "training_shape": {k: training[k] for k in keys}}
 
 
 def _stem_counts(sk, bk):
@@ -1622,7 +1710,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-    bwd_build = backward_build_phase(_build)
+    tc_build = build_phase(_build)
 
     # 3. kernel
     main_row = kernel_phase(ak)
@@ -1644,7 +1732,7 @@ def main() -> int:
 
     # 9. sequence parallelism
     carry_row = carry_phase(ak)
-    carry_launches = sequence_parallel_phase(ak)
+    carry_launches, long_context = sequence_parallel_phase(ak)
 
     # 10. the space-to-depth stem
     stem_row = stem_kernel_phase(sk)
@@ -1654,21 +1742,24 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {**KERNEL_ROW, "launches": launches, **main_row, "status": "ok",
          "launches_lm_training": lm_launches["flash_attention_fwd"],
-         "training_shape": bwd_rows["fwd_training_shape"]},
+         "training_shape": {**bwd_rows["fwd_training_shape"],
+                            "design": DESIGN[torch.bfloat16]},
+         "long_context_shape": long_context,
+         "build": tc_build["flash_attention_fwd"]},
         {**CARRY_ROW, "launches": carry_launches, **carry_row,
-         "status": "ok"},
+         "design": "cuda_cores_f32", "status": "ok"},
         {**DQ_ROW, "launches": lm_launches["flash_attention_bwd_dq"],
-         **bwd_rows["dq"], "build": bwd_build["flash_attention_bwd_dq"],
-         "status": "ok"},
+         **bwd_rows["dq"], "design": DESIGN[torch.bfloat16],
+         "build": tc_build["flash_attention_bwd_dq"], "status": "ok"},
         {**DKV_ROW, "launches": lm_launches["flash_attention_bwd_dkv"],
-         **bwd_rows["dkv"], "build": bwd_build["flash_attention_bwd_dkv"],
-         "status": "ok"},
+         **bwd_rows["dkv"], "design": DESIGN[torch.bfloat16],
+         "build": tc_build["flash_attention_bwd_dkv"], "status": "ok"},
         {**BN_FWD_ROW, "launches": bn_launches["bn_relu_fwd"],
-         **bn_rows["fwd"], "status": "ok"},
+         **bn_rows["fwd"], "design": "cuda_cores_f32", "status": "ok"},
         {**BN_BWD_ROW, "launches": bn_launches["bn_relu_bwd"],
-         **bn_rows["bwd"], "status": "ok"},
+         **bn_rows["bwd"], "design": "cuda_cores_f32", "status": "ok"},
         {**STEM_ROW, "launches": stem_launches, **stem_row,
-         "status": "ok"}]}), flush=True)
+         "build": tc_build["stem_conv"], "status": "ok"}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

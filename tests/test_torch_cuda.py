@@ -28,7 +28,9 @@ max|ref| of kernel 1 on the whole sequence, plus one bf16 ulp in bf16.
 Stem (kernel 5): per element 1e-5 * max|plain| in f32 (the same f32
 products summed in another order), plus one bf16 ulp, 2**-7 * |plain|, in
 bf16 (each rounds its f32 sum to nearest); a second launch gives the same
-bits.
+bits. Kernels 1 and 5 in bf16 (with O % 8 == 0 for kernel 5) run their
+tensor-core designs, in f32 their CUDA-core ones; bf16 inputs 2 bytes past
+a 16-byte boundary take element-wise copies and give the same bits.
 """
 
 import numpy as np
@@ -57,7 +59,8 @@ def cuda_device():
 @pytest.mark.parametrize("causal,tq,tk,d,k_offset", [
     (True, 128, 128, 64, 0), (True, 1000, 1000, 64, 0),
     (False, 1000, 1500, 64, 0), (True, 256, 256, 128, 0),
-    (False, 100, 70, 40, 0), (True, 128, 128, 64, 64)])
+    (False, 100, 70, 40, 0), (True, 128, 128, 64, 64),
+    (True, 100, 70, 36, 0)])
 def test_kernel_matches_plain(cuda_device, dtype, atol_o, causal, tq, tk,
                               d, k_offset):
     gen = torch.Generator(device=cuda_device).manual_seed(tq + d)
@@ -77,6 +80,53 @@ def test_kernel_matches_plain(cuda_device, dtype, atol_o, causal, tq, tk,
     if k_offset:  # rows before the first key see nothing: O = 0, lse = 0
         assert (o[:, :, :k_offset] == 0).all()
         assert (lse[:, :, :k_offset] == 0).all()
+
+
+def _offset_view(x):
+    """x's values in a contiguous view 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:].copy_(x.reshape(-1))
+    out = buf[1:].view(x.shape)
+    assert out.data_ptr() % 16 == 2
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,tq,tk,d,k_offset", [
+    (True, 1000, 1000, 64, 0), (False, 300, 300, 40, 0),
+    (True, 256, 256, 128, 0), (True, 128, 128, 64, 64)])
+def test_kernel_second_launch_is_bitwise_equal(cuda_device, dtype, causal,
+                                               tq, tk, d, k_offset):
+    """Each block owns its rows and sums in a fixed order (no atomics), in
+    both designs: the same bits on every launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(tq + tk + d)
+    q = torch.randn((2, 4, tq, d), generator=gen, device=cuda_device)
+    k, v = (torch.randn((2, 4, tk, d), generator=gen, device=cuda_device)
+            for _ in range(2))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    kw = dict(causal=causal, return_lse=True, k_offset=k_offset)
+    first = tak.flash_attention_forward(q, k, v, **kw)
+    again = tak.flash_attention_forward(q, k, v, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("causal,t,d", [(True, 200, 64), (False, 300, 40),
+                                        (True, 130, 128)])
+def test_kernel_takes_unaligned_rows(cuda_device, causal, t, d):
+    """bf16 q, k, v that start 2 bytes past a 16-byte boundary (contiguous
+    views into a larger buffer) take the tensor-core design's element-wise
+    copies: the same bits as the 16-byte copies of aligned tensors."""
+    gen = torch.Generator(device=cuda_device).manual_seed(t + d)
+    aligned = [torch.randn((2, 4, t, d), generator=gen, device=cuda_device
+                           ).bfloat16() for _ in range(3)]
+    shifted = [_offset_view(x) for x in aligned]
+    outs = [tak.flash_attention_forward(*xs, causal, return_lse=True)
+            for xs in (aligned, shifted)]
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    o_ref, lse_ref = tak.flash_attention_forward_plain(*aligned, causal)
+    torch.testing.assert_close(outs[1][0].float(), o_ref.float(), atol=2e-2,
+                               rtol=0)
+    torch.testing.assert_close(outs[1][1], lse_ref, atol=1e-4, rtol=0)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
@@ -463,6 +513,27 @@ def test_stem_kernel_matches_plain(cuda_device, k, cin, n_out, dtype,
     ref = tsk.stem_conv_forward_plain(x2, wk, bias, front, rear).float()
     lim = (2 ** -7 if dtype == torch.bfloat16 else 0) * ref.abs() \
         + 1e-5 * ref.abs().max()
+    assert bool(((out.float() - ref).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("cin", [1, 3])
+def test_stem_tensor_core_design_at_resnet_width(cuda_device, cin,
+                                                 with_bias):
+    """bf16 x2 and wk with O = 64 run the tensor-core design: at
+    ResNet-50's x2 of 112x112 (k = 7), within one bf16 ulp plus 1e-5 *
+    max|plain| of the plain version, the same bits on a second launch, and
+    the same bits from an x2 2 bytes past a 16-byte boundary (the
+    element-wise halo copies)."""
+    x2, wk, bias, front, rear = _stem_inputs(
+        cuda_device, 4, 112, 112, cin, 64, 7, torch.bfloat16, with_bias,
+        40 + cin)
+    out = tsk.stem_conv_forward(x2, wk, bias, front, rear)
+    again = tsk.stem_conv_forward(x2, wk, bias, front, rear)
+    shifted = tsk.stem_conv_forward(_offset_view(x2), wk, bias, front, rear)
+    assert torch.equal(out, again) and torch.equal(out, shifted)
+    ref = tsk.stem_conv_forward_plain(x2, wk, bias, front, rear).float()
+    lim = 2 ** -7 * ref.abs() + 1e-5 * ref.abs().max()
     assert bool(((out.float() - ref).abs() <= lim).all())
 
 

@@ -238,3 +238,76 @@ def test_serving_bench_on_the_cpu(monkeypatch):
     assert out["timer"] == "host_clock" and out["device"] == "cpu"
     assert out["cudnn_stem_ms"] > 0 and out["stem_kernel_ms"] > 0
     assert "BIGDL_TPU_PALLAS_STEM" not in os.environ
+
+
+def _emulate_tensor_core_stem(x2, wk, bias, front, rear):
+    """The arithmetic of kernel 5's bf16 design (csrc/stem_conv.cu): the
+    implicit GEMM with C2 zero-padded to 16, K in tap-major order, one
+    16-deep step (f32 accumulation) a (dy, dx) tap; the bias added in f32
+    and one rounding to bf16."""
+    b, h, w, c2 = x2.shape
+    kt, n_out = wk.shape[0], wk.shape[3]
+    xp = torch.nn.functional.pad(x2.float(), (0, 16 - c2, front, rear,
+                                              front, rear))
+    wp = torch.zeros((kt, kt, 16, n_out))
+    wp[:, :, :c2] = wk.float()
+    acc = torch.zeros((b, h, w, n_out))
+    for dy in range(kt):
+        for dx in range(kt):
+            acc = acc + xp[:, dy:dy + h, dx:dx + w] @ wp[dy, dx]
+    if bias is not None:
+        acc = acc + bias.float()
+    return acc.bfloat16()
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("cin", [1, 3])
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_tensor_core_stem_arithmetic_meets_the_kernel_limit(monkeypatch, k,
+                                                            cin, with_bias):
+    """Kernel 5's bf16 design, emulated at a ragged x2 of 113x115 (bf16
+    inputs from numpy), against the plain version and against the JAX
+    Pallas stem (`INTERPRET` set) on the same inputs: per element within
+    phase 10(a)'s bf16 limit, 2**-7 |ref| + 1e-5 max|ref| (both round an
+    f32 sum of the same exact products to bf16, summed in another
+    order)."""
+    monkeypatch.setattr(jsk, "INTERPRET", True)
+    kt, front, rear = _pads(k)
+    rs = np.random.RandomState(k * 10 + cin)
+    x2 = rs.rand(1, 113, 115, 4 * cin).astype(np.float32)
+    wk = (rs.randn(kt, kt, 4 * cin, 64) * 0.2).astype(np.float32)
+    bias = rs.randn(64).astype(np.float32) if with_bias else None
+    tx2, twk = (torch.from_numpy(a).bfloat16() for a in (x2, wk))
+    tb = None if bias is None else torch.from_numpy(bias)
+    got = _emulate_tensor_core_stem(tx2, twk, tb, front, rear).float()
+    plain = tsk.stem_conv_forward_plain(tx2, twk, tb, front, rear)
+    jax_out = jsk.stem_conv_forward(
+        jnp.asarray(x2, jnp.bfloat16), jnp.asarray(wk, jnp.bfloat16),
+        None if bias is None else jnp.asarray(bias), front, rear)
+    assert plain.dtype == torch.bfloat16 and jax_out.dtype == jnp.bfloat16
+    for ref in (plain.float(), torch.from_numpy(np.asarray(jax_out,
+                                                           np.float32))):
+        lim = 2 ** -7 * ref.abs() + 1e-5 * ref.abs().max()
+        assert bool(((got - ref).abs() <= lim).all())
+
+
+def test_bf16_training_hands_the_stem_kernel_bf16_weights(monkeypatch):
+    """The bf16 training path (the benchmark's `set_compute_precision(
+    "bfloat16")`: the model runs on bf16 copies of its f32 masters) calls
+    the stem kernel's wrapper with bf16 x2 and bf16 wk and O = 64, the
+    inputs that run its tensor-core design on the card."""
+    from bigdl_tpu_torch.models.resnet import ResNet
+    from bigdl_tpu_torch.tools import bench
+    seen = []
+    wrapped = tsk.stem_conv_forward
+
+    def record(x2, wk, bias, front, rear):
+        seen.append((x2.dtype, wk.dtype, wk.shape[3]))
+        return wrapped(x2, wk, bias, front, rear)
+    monkeypatch.setattr(tsk, "stem_conv_forward", record)
+    monkeypatch.setenv("BIGDL_TPU_PALLAS_STEM", "1")
+    model = ResNet(class_num=10, depth=18, s2d_stem=True, device="cpu")
+    out = bench.framework_throughput(model, (32, 32, 3), 10, batch_size=2,
+                                     warmup=1, iters=1, sync=1, device="cpu")
+    assert np.isfinite(out["losses"]).all()
+    assert seen == [(torch.bfloat16, torch.bfloat16, 64)] * 2
