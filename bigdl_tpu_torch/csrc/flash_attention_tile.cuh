@@ -1,16 +1,18 @@
-// The flash-attention tile loop shared by the dense forward's f32 design
-// (flash_attention_fwd.cu, kernel 1; its bf16 design runs its own loop on
-// the tensor cores) and the ring hop in both dtypes
-// (flash_attention_carry.cu, kernel 2): one online-softmax update of a
-// 64-row q tile's (acc, m, l) with every 64-row K/V tile it can see.
+// The flash-attention tile loop of the f32 design, shared by the dense
+// forward (flash_attention_fwd.cu, kernel 1) and the ring hop
+// (flash_attention_carry.cu, kernel 2) for f32 inputs: one online-softmax
+// update of a 64-row q tile's (acc, m, l) with every 64-row K/V tile it can
+// see, as f32 FMAs on the CUDA cores. Both kernels' bf16 inputs run the
+// tensor-core loop of flash_attention_tc_tile.cuh instead; f32 has no
+// relative limit against the plain version, which bf16 operands (or TF32)
+// do not meet.
 //
 // This is the port's form of the JAX package's rule that the dense and
 // carry kernels share one block update (`_kernel_block_update` in
 // bigdl_tpu/ops/attention_kernel.py): both kernels run `flash_tile` below,
 // and differ only in where (acc, m, l) start and where they go.
 //   kCarry = false: fresh (acc = 0, m = NEG_INF, l = 0); O = acc / l (l = 0
-//                   divides by 1) in the input's dtype and the f32
-//                   logsumexp are written.
+//                   divides by 1) and the logsumexp are written.
 //   kCarry = true:  the carried f32 (acc, m, l) are loaded; the
 //                   unnormalised (acc, m, l) are written back, no O and no
 //                   logsumexp. The outputs may alias the inputs: a block
@@ -48,15 +50,6 @@ constexpr int kCols = kBlockK / 8;         // score columns per thread
 constexpr float kNegInf = -1e30f;          // NEG_INF of the JAX package
 constexpr float kHalfNegInf = -0.5e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 __device__ __forceinline__ float row_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -75,9 +68,11 @@ constexpr size_t smem_bytes() {
                           kBlockK * DMAX + kBlockQ * (kBlockK + 1));
 }
 
-// q is [bh, tq, d], k and v [bh, tk, d] in T; acc [bh, tq, d], m, l and
-// lse [bh, tq] in f32; o like q. All contiguous. Offsets are the global
-// positions of the first query and key (causal mask only).
+// The arguments of both designs' tile loops (T: float here, bf16 in
+// flash_attention_tc_tile.cuh). q is [bh, tq, d], k and v [bh, tk, d] in
+// T; acc [bh, tq, d], m, l and lse [bh, tq] in f32; o like q. All
+// contiguous. Offsets are the global positions of the first query and key
+// (causal mask only).
 template <typename T>
 struct TileArgs {
   const T* q;
@@ -96,8 +91,8 @@ struct TileArgs {
   int causal, q_offset, k_offset;
 };
 
-template <typename T, int DMAX, bool kCarry>
-__device__ __forceinline__ void flash_tile(const TileArgs<T>& a) {
+template <int DMAX, bool kCarry>
+__device__ __forceinline__ void flash_tile(const TileArgs<float>& a) {
   constexpr int QS = DMAX + 1;     // padded rows: conflict-free column reads
   constexpr int PS = kBlockK + 1;
   constexpr int OC = DMAX / 8;     // output columns per thread
@@ -115,14 +110,14 @@ __device__ __forceinline__ void flash_tile(const TileArgs<T>& a) {
   const int tx = tid & 7;
   const int64_t bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
-  const T* __restrict__ qb = a.q + bh * tq * d;
-  const T* __restrict__ kb = a.k + bh * tk * d;
-  const T* __restrict__ vb = a.v + bh * tk * d;
+  const float* __restrict__ qb = a.q + bh * tq * d;
+  const float* __restrict__ kb = a.k + bh * tk * d;
+  const float* __restrict__ vb = a.v + bh * tk * d;
 
   for (int idx = tid; idx < kBlockQ * DMAX; idx += kThreads) {
     const int r = idx / DMAX, c = idx % DMAX;
     float x = 0.f;
-    if (q0 + r < tq && c < d) x = to_f32(qb[(int64_t)(q0 + r) * d + c]);
+    if (q0 + r < tq && c < d) x = qb[(int64_t)(q0 + r) * d + c];
     sQ[r * QS + c] = x;
   }
 
@@ -168,8 +163,8 @@ __device__ __forceinline__ void flash_tile(const TileArgs<T>& a) {
       float kx = 0.f, vx = 0.f;
       if (k0 + r < tk && c < d) {
         const int64_t off = (int64_t)(k0 + r) * d + c;
-        kx = to_f32(kb[off]);
-        vx = to_f32(vb[off]);
+        kx = kb[off];
+        vx = vb[off];
       }
       sK[r * QS + c] = kx;
       sV[r * DMAX + c] = vx;
@@ -259,11 +254,11 @@ __device__ __forceinline__ void flash_tile(const TileArgs<T>& a) {
       }
     } else {
       const float den = l[i] == 0.f ? 1.f : l[i];
-      T* orow = a.o + r * d;
+      float* orow = a.o + r * d;
 #pragma unroll
       for (int j = 0; j < OC; ++j) {
         const int col = tx + 8 * j;
-        if (col < d) store(orow + col, acc[i][j] / den);
+        if (col < d) orow[col] = acc[i][j] / den;
       }
       if (tx == 0) {
         const float shift = m[i] <= kHalfNegInf ? 0.f : m[i];
@@ -280,11 +275,11 @@ inline bool tile_shape_ok(int bh, int tq, int tk, int d) {
          (tq + kBlockQ - 1) / kBlockQ <= 65535;
 }
 
-// Launch `kernel` (a __global__ wrapper of flash_tile<T, DMAX, ...>) over
+// Launch `kernel` (a __global__ wrapper of flash_tile<DMAX, ...>) over
 // the (bh, q tile) grid with its dynamic shared memory.
-template <typename T, int DMAX>
-cudaError_t launch_tile(void (*kernel)(const TileArgs<T>), const TileArgs<T>& a,
-                        int bh, cudaStream_t stream) {
+template <int DMAX>
+cudaError_t launch_tile(void (*kernel)(const TileArgs<float>),
+                        const TileArgs<float>& a, int bh, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DMAX>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

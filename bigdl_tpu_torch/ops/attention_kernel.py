@@ -371,10 +371,11 @@ def flash_attention_carry(q, k, v, carry, causal: bool = False,
     the updated (acc, m, l), unnormalised; `attention_state_finish`
     normalises after the last hop. `q_offset` / `k_offset` are the global
     positions of the first query and key (causal mask only). The CUDA
-    kernel `csrc/flash_attention_carry.cu` on a CUDA tensor, its plain
-    version on a CPU tensor; `flash_attention_carry.launches` counts
-    kernel launches. Any shape is taken (ragged Tq / Tk are masked in the
-    kernel): a CUDA tensor launches the kernel or raises. `inplace=True`
+    kernel `csrc/flash_attention_carry.cu` on a CUDA tensor (bf16 on the
+    tensor cores, f32 on the CUDA cores), its plain version on a CPU
+    tensor; `flash_attention_carry.launches` counts kernel launches. Any
+    shape is taken (ragged Tq / Tk are masked in the kernel): a CUDA
+    tensor launches the kernel or raises. `inplace=True`
     writes the result into the carry's own tensors and returns them. The
     kernel records no backward (ring attention recomputes through the
     plain ring instead)."""

@@ -286,7 +286,8 @@ def bench_attention(device=None, lengths: Sequence[int] = (8192, 16384),
 _KERNEL_KINDS = (
     ("flash_attention_fwd (csrc, kernel 1)",
      ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
-    ("flash_attention_carry (csrc, kernel 2)", ("flash_carry_kernel",)),
+    ("flash_attention_carry (csrc, kernel 2)",
+     ("flash_carry_kernel", "flash_carry_tc_kernel")),
     ("flash_attention_bwd_dq (csrc, kernel 3)",
      ("flash_attention_bwd_dq",)),
     ("flash_attention_bwd_dkv (csrc, kernel 4)",
@@ -469,13 +470,30 @@ def profile_transformer_lm(batch_size: int = 8, seq: int = 2048,
             **_profile(opt, warmup, steps, top, device)}
 
 
+def _launch_us(run, part: str, device: torch.device) -> list:
+    """Device time (us) of each launch of the kernels whose name contains
+    `part` during one `run()`, in launch order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize(device)
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and part in e.name),
+                    key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() for e in events]
+
+
 def profile_attention(seq: int = 8192, calls: int = 4, top: int = 8,
                       device=None,
                       generator: Optional[torch.Generator] = None) -> Dict:
     """`_profiled` of ring, zigzag and Ulysses attention at
     `bench_attention`'s sequence-parallel shape (B=1, H=8, D=64, bf16,
     causal, its mesh): `calls` calls of each after one warm-up call; a
-    "step" in the summary is one call."""
+    "step" in the summary is one call. For ring and zigzag also the
+    device time of each kernel-2 launch (one hop) of one more call, in
+    launch order."""
     from bigdl_tpu_torch.parallel import make_sequence_parallel_attention
     device = _cuda_only(device, "profile_attention")
     gen = generator or torch.Generator().manual_seed(0)
@@ -490,6 +508,9 @@ def profile_attention(seq: int = 8192, calls: int = 4, top: int = 8,
             out[scheme] = _profiled(
                 lambda: [fn(q, k, v) for _ in range(calls)], calls, top,
                 device)
+            if scheme != "ulysses":
+                out[scheme]["kernel2_launch_us"] = _launch_us(
+                    lambda: fn(q, k, v), "flash_carry", device)
     return out
 
 

@@ -191,28 +191,32 @@ def _bf16_round(x):
     return x.bfloat16().float()
 
 
-def _emulate_tensor_core_forward(q, k, v, sm_scale, split, block_k=64):
-    """The arithmetic of kernel 1's bf16 design (csrc/flash_attention_fwd
-    .cu), causal: bf16 operands; S = Q K^T summed in f32 in 16-deep steps;
-    the online softmax over 64-key tiles in f32, in log2 units; acc += P V
-    in 16-key steps with P as bf16 hi + bf16 lo (`split`) or rounded once
-    to bf16 (not `split`); O = acc / l rounded to bf16, lse in f32."""
+LOG2E = 1.4426950408889634
+
+
+def _tensor_core_loop(q, k, v, acc, m, l, sm_scale, split, causal=True,
+                      q_offset=0, k_offset=0, block_k=64):
+    """The arithmetic of the bf16 loop that kernels 1 and 2 share
+    (csrc/flash_attention_tc_tile.cuh) on a state (acc, m, l), m in log2
+    units: bf16 operands; S = Q K^T summed in f32 in 16-deep steps; the
+    online softmax over 64-key tiles in f32, in log2 units; acc += P V in
+    16-key steps with P as bf16 hi + bf16 lo (`split`) or rounded once to
+    bf16 (not `split`). A key tile that a row cannot see leaves its state
+    exactly as it was, so the kernel's causal tile skipping needs no
+    emulation."""
     qf, kf, vf = (x.float() for x in (q, k, v))
-    b, h, t, d = q.shape
-    log2e = 1.4426950408889634
+    d = q.shape[-1]
     neg = tak.NEG_INF
-    m = torch.full((b, h, t), neg)
-    l = torch.zeros((b, h, t))
-    acc = torch.zeros((b, h, t, d))
-    rows = torch.arange(t)[:, None]
-    for k0 in range(0, t, block_k):
+    rows = torch.arange(q.shape[2])[:, None] + q_offset
+    for k0 in range(0, kf.shape[2], block_k):
         kb, vb = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
-        s = torch.zeros((b, h, t, kb.shape[2]))
+        s = torch.zeros(q.shape[:3] + (kb.shape[2],))
         for c in range(0, d, 16):
             s = s + qf[..., c:c + 16] @ kb[..., c:c + 16].transpose(-1, -2)
-        x = s * (sm_scale * log2e)
-        x = torch.where(rows >= torch.arange(k0, k0 + kb.shape[2])[None],
-                        x, neg)
+        x = s * (sm_scale * LOG2E)
+        if causal:
+            cols = torch.arange(k0, k0 + kb.shape[2])[None] + k_offset
+            x = torch.where(rows >= cols, x, neg)
         mx = torch.maximum(m, x.amax(-1))
         shift = torch.where(mx <= neg / 2, 0.0, mx)
         scale_old = torch.where(m <= neg / 2, 0.0, torch.exp2(m - shift))
@@ -226,10 +230,40 @@ def _emulate_tensor_core_forward(q, k, v, sm_scale, split, block_k=64):
             if split:
                 acc = acc + lo[..., c:c + 16] @ vb[:, :, c:c + 16]
         m = mx
+    return acc, m, l
+
+
+def _emulate_tensor_core_forward(q, k, v, sm_scale, split):
+    """Kernel 1's bf16 design (csrc/flash_attention_fwd.cu), causal, from
+    a fresh state: O = acc / l rounded to bf16, lse in f32."""
+    acc, m, l = _tensor_core_loop(q, k, v, *tak.attention_state_init(
+        q.float()), sm_scale, split)
     den = torch.where(l == 0, 1.0, l)
-    shift = torch.where(m <= neg / 2, 0.0, m)
+    shift = torch.where(m <= tak.NEG_INF / 2, 0.0, m)
     return (acc / den[..., None]).bfloat16(), shift * math.log(2) \
         + torch.log(den)
+
+
+def _emulate_tensor_core_carry(q, k, v, carry, sm_scale, split, causal,
+                               q_offset, k_offset):
+    """Kernel 2's bf16 design (csrc/flash_attention_carry.cu): the loop
+    continued from a carried (acc, m, l) whose m is in natural-log units,
+    converted to log2 units on load and back on store (NEG_INF kept
+    exact); a 64-row q tile that sees no key of the shard passes the
+    carry through untouched."""
+    neg = tak.NEG_INF
+    acc, m, l = (x.clone() for x in carry)
+    m2 = torch.where(m <= neg / 2, neg, m * LOG2E)
+    acc2, m2, l2 = _tensor_core_loop(q, k, v, acc, m2, l, sm_scale, split,
+                                     causal, q_offset, k_offset)
+    m_out = torch.where(m2 <= neg / 2, neg, m2 * math.log(2))
+    for q0 in range(0, q.shape[2], 64):
+        if causal and q_offset + q0 + 63 < k_offset:
+            continue  # n_kb == 0: the carry stays as it came
+        sl = slice(q0, q0 + 64)
+        acc[:, :, sl], m[:, :, sl], l[:, :, sl] = (
+            acc2[:, :, sl], m_out[:, :, sl], l2[:, :, sl])
+    return acc, m, l
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -260,11 +294,91 @@ def test_forward_split_bf16_arithmetic_meets_the_kernel_limits(seed):
     assert shares[False][2] > 1.0
 
 
+CARRY_TOL = 1e-5
+
+
+def _carry_shares(got, want):
+    """Shares of phase 9(a)'s limit (acc within CARRY_TOL * max|plain|, m
+    and l within CARRY_TOL * max(|plain|, 1) per element)."""
+    shares = [float((got[0] - want[0]).abs().max()
+                    / (CARRY_TOL * want[0].abs().max()))]
+    for a, b in zip(got[1:], want[1:]):
+        shares.append(float(((a - b).abs()
+                             / (CARRY_TOL * b.abs().clamp(min=1))).max()))
+    return shares
+
+
+def _bf16_carry_case(b, h, tq, tk, d, masked_rows, seed):
+    """bf16 q, k, v and a carry from the plain non-causal hop over other
+    keys, with the first `masked_rows` rows still fully masked."""
+    q, k0, v0 = (torch.from_numpy(a).bfloat16()
+                 for a in _qkv(b, h, tq, tk, d, seed=seed))
+    _, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(b, h, tq, tk, d, seed=seed + 100))
+    acc, m, l = tak.flash_attention_carry_plain(q, k0, v0,
+                                                tak.attention_state_init(q))
+    acc[:, :, :masked_rows] = 0
+    m[:, :, :masked_rows] = tak.NEG_INF
+    l[:, :, :masked_rows] = 0
+    return q, k, v, (acc, m, l)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name,tq,tk,q_offset,k_offset,masked", [
+    ("below the diagonal", 384, 192, 0, 192, 0),
+    ("diagonal", 256, 256, 256, 256, 0),
+    ("rows still fully masked", 128, 128, 0, 16, 32)])
+def test_carry_split_bf16_arithmetic_meets_the_carry_limit(
+        seed, name, tq, tk, q_offset, k_offset, masked):
+    """Why kernel 2's bf16 design splits P into two bf16 halves, as kernel
+    1's does: on a carried (acc, m, l), causal at B2 H4 D64 (bf16 inputs
+    from numpy), the emulated split stays within phase 9(a)'s carry limit
+    against the plain version on acc, m and l; P rounded once to bf16
+    does not. Rows that see no key in this hop and came in fully masked
+    leave as (NEG_INF, 0, 0) exactly. (PERF.md records the shares; run
+    with -s to print them.)"""
+    q, k, v, carry = _bf16_carry_case(2, 4, tq, tk, 64, masked, seed)
+    kw = dict(causal=True, q_offset=q_offset, k_offset=k_offset)
+    want = tak.flash_attention_carry_plain(q, k, v, carry,
+                                           sm_scale=64 ** -0.5, **kw)
+    shares = {}
+    for split in (True, False):
+        got = _emulate_tensor_core_carry(q, k, v, carry, 64 ** -0.5, split,
+                                         **kw)
+        shares[split] = _carry_shares(got, want)
+        if masked:  # rows 0-15 see no key here either
+            assert (got[1][:, :, :16] == tak.NEG_INF).all()
+            assert (got[2][:, :, :16] == 0).all()
+            assert (got[0][:, :, :16] == 0).all()
+    print(f"{name}, seed {seed}: share of the carry limit (acc, m, l): "
+          f"split hi+lo {shares[True]}, rounded once {shares[False]}")
+    assert max(shares[True]) <= 1.0
+    assert shares[False][0] > 1.0
+
+
+def test_carry_emulation_passes_a_future_shard_through_bitwise():
+    """A shard wholly in the queries' future: no q tile sees a key, so the
+    carry comes back bit for bit. m's trip through log2 units would not
+    give it back: that is why the kernel skips the trip there."""
+    q, k, v, carry = _bf16_carry_case(2, 4, 192, 192, 64, 0, seed=2)
+    got = _emulate_tensor_core_carry(q, k, v, carry, 64 ** -0.5, True,
+                                     causal=True, q_offset=0, k_offset=192)
+    assert all(torch.equal(a, b) for a, b in zip(got, carry))
+    m = carry[1]
+    assert not torch.equal(m * LOG2E * math.log(2), m)
+
+
 @pytest.mark.parametrize("name,kind", [
-    ("void (anonymous namespace)::flash_fwd_tc_kernel<64>(__nv_bfloat16 "
-     "const*, __nv_bfloat16 const*", "flash_attention_fwd (csrc, kernel 1)"),
+    ("void (anonymous namespace)::flash_fwd_tc_kernel<64>((anonymous "
+     "namespace)::TileArgs<__nv_bfloat16>, int)",
+     "flash_attention_fwd (csrc, kernel 1)"),
     ("void (anonymous namespace)::flash_fwd_kernel<64>((anonymous "
      "namespace)::TileArgs<float>)", "flash_attention_fwd (csrc, kernel 1)"),
+    ("void (anonymous namespace)::flash_carry_tc_kernel<64>((anonymous "
+     "namespace)::TileArgs<__nv_bfloat16>, int)",
+     "flash_attention_carry (csrc, kernel 2)"),
+    ("void (anonymous namespace)::flash_carry_kernel<64>((anonymous "
+     "namespace)::TileArgs<float>)", "flash_attention_carry (csrc, kernel 2)"),
     ("void (anonymous namespace)::flash_attention_bwd_dq_tc_kernel<64>(",
      "flash_attention_bwd_dq (csrc, kernel 3)"),
     ("void (anonymous namespace)::stem_conv_tc_kernel<4>(__nv_bfloat16 "

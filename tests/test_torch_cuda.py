@@ -22,8 +22,9 @@ in bf16 (each rounds the gradient to nearest bf16, at most one ulp
 apart; bf16 runs on the tensor cores with P and dS split into bf16 hi +
 lo, f32 on the CUDA cores); a second launch gives the same bits. Flash carry: acc within
 1e-5 * max|plain|, m and l within 1e-5 * max(|plain|, 1) (f32 math in
-both, another summation order); a shard wholly in the queries' future
-passes the carry through bitwise. Sequence parallel: per element 1e-4 *
+both, another summation order; bf16 runs on the tensor cores with P split
+into bf16 hi + lo, f32 on the CUDA cores); a shard wholly in the queries'
+future passes the carry through bitwise. Sequence parallel: per element 1e-4 *
 max|ref| of kernel 1 on the whole sequence, plus one bf16 ulp in bf16.
 Stem (kernel 5): per element 1e-5 * max|plain| in f32 (the same f32
 products summed in another order), plus one bf16 ulp, 2**-7 * |plain|, in
@@ -350,9 +351,11 @@ def test_lm_training_step_launches_each_kernel_once_a_layer(cuda_device):
 
 
 # kernel 2 against its plain version: acc within CARRY_TOL * max|plain|,
-# m and l within CARRY_TOL * max(|plain|, 1) per element. Both sum the
-# same f32 terms in another order; in bf16 the inputs are rounded once,
-# the same way, before either sees them.
+# m and l within CARRY_TOL * max(|plain|, 1) per element. In f32 both sum
+# the same f32 terms in another order; in bf16 both take S as exact
+# products summed in f32, and the kernel carries P as bf16 hi + lo
+# (0.12-0.19 of this limit in the CPU emulation of
+# tests/test_torch_attention_kernel.py).
 CARRY_TOL = 1e-5
 
 
@@ -380,6 +383,7 @@ def _assert_carry_close(got, want):
 @pytest.mark.parametrize("tq,tk,d,causal,q_offset,k_offset,masked", [
     (256, 256, 64, True, 256, 256, 0),     # diagonal hop
     (256, 256, 64, True, 512, 0, 0),       # below the diagonal
+    (2048, 2048, 64, True, 2048, 0, 0),    # the ring's hop, B*H = 8 as B1 H8
     (200, 136, 64, True, 300, 200, 0),     # ragged Tq / Tk
     (128, 128, 128, True, 0, 16, 32),      # rows still fully masked
     (100, 70, 40, False, 0, 0, 0)])        # padded head dim
@@ -424,6 +428,29 @@ def test_carry_kernel_passes_a_future_shard_through_bitwise(cuda_device):
                                      q_offset=192, k_offset=0)
     full = tak.flash_attention_carry(q, k, v, carry, causal=False)
     assert all(torch.equal(a, b) for a, b in zip(past, full))
+
+
+@pytest.mark.parametrize("dtype,kernel,other", [
+    (torch.bfloat16, "flash_carry_tc_kernel<", "flash_carry_kernel<"),
+    (torch.float32, "flash_carry_kernel<", "flash_carry_tc_kernel<")])
+def test_carry_hop_runs_its_dtypes_design(cuda_device, dtype, kernel,
+                                          other):
+    """A bf16 hop launches the tensor-core kernel and an f32 hop the
+    CUDA-core one, by the names the profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    q, k, v = (torch.randn((1, 8, 256, 64), generator=gen,
+                           device=cuda_device).to(dtype) for _ in range(3))
+    carry = tak.attention_state_init(q)
+    tak.flash_attention_carry(q, k, v, carry, causal=True)  # builds
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tak.flash_attention_carry(q, k, v, carry, causal=True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any(kernel in n for n in names), names
+    assert not any(other in n for n in names), names
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
