@@ -5,8 +5,10 @@ list of items (Samples, or MiniBatches for the optimizers), and
 `DataSet.from_arrays`. Training iteration loops forever, each pass in a
 fresh random order, as the reference's does; the order comes from an
 explicit `torch.Generator` (seed 1 by default), so it is not the
-reference's numpy order. The checkpoint cursor and the distributed
-(per-host shard) dataset are not ported.
+reference's numpy order. The checkpoint cursor (`position`, `cursor`,
+`restore_cursor`) is the reference's, with the torch generator's state in
+place of numpy's. The distributed (per-host shard) dataset is not
+ported.
 """
 
 from __future__ import annotations
@@ -42,13 +44,30 @@ class LocalDataSet(AbstractDataSet):
     """`data(train=False)`: the items once, in order. `data(train=True)`:
     an endless stream, each pass a permutation of the items, drawn from
     `generator` (default: a torch generator seeded with `seed`; the
-    permutations are torch's, not the reference's numpy ones)."""
+    permutations are torch's, not the reference's numpy ones).
+
+    It carries the reference's restorable iteration cursor: the
+    generator's state and the item order are kept at the start of each
+    training pass, and an epoch-boundary `shuffle()` that lands mid-pass
+    records its stream position. `cursor()` captures that and
+    `restore_cursor()` reproduces the exact item stream, so a resumed run
+    continues mid-epoch at the next untrained item."""
 
     def __init__(self, items: Sequence, seed: int = 1, *,
                  generator: Optional[torch.Generator] = None):
         self.items = list(items)
         self._g = generator if generator is not None \
             else torch.Generator().manual_seed(seed)
+        # cursor bookkeeping: `_order` maps positions to original item
+        # indices; `_pass_*` describe the current training pass
+        self._order = list(range(len(self.items)))
+        self._pass_counter = 0
+        self._pass_rng_state = None
+        self._pass_order = None
+        self._pass_served = 0
+        self._pass_shuffles: list = []
+        self._replay_shuffles = None  # armed by restore_cursor
+        self._skip_items = 0          # armed by restore_cursor
 
     def data(self, train: bool) -> Iterator:
         if not train:
@@ -56,9 +75,32 @@ class LocalDataSet(AbstractDataSet):
 
         def looped():
             while True:
-                for i in torch.randperm(len(self.items),
-                                        generator=self._g).tolist():
+                self._pass_counter += 1
+                self._pass_rng_state = self._g.get_state()
+                self._pass_order = list(self._order)
+                self._pass_shuffles = []
+                self._pass_served = 0
+                idx = torch.randperm(len(self.items),
+                                     generator=self._g).tolist()
+                # after restore_cursor: replay the original run's mid-pass
+                # shuffles at their positions and drop the items it had
+                # already trained on
+                replay = self._replay_shuffles
+                self._replay_shuffles = None
+                skip = self._skip_items
+                self._skip_items = 0
+                for i in idx:
+                    while replay and replay[0] <= self._pass_served:
+                        replay.pop(0)
+                        self.shuffle()
+                    self._pass_served += 1
+                    if skip > 0:
+                        skip -= 1
+                        continue
                     yield self.items[i]
+                while replay:
+                    replay.pop(0)
+                    self.shuffle()
 
         return looped()
 
@@ -69,6 +111,74 @@ class LocalDataSet(AbstractDataSet):
         """Reorder the items in place (the epoch-boundary shuffle)."""
         idx = torch.randperm(len(self.items), generator=self._g).tolist()
         self.items = [self.items[i] for i in idx]
+        self._order = [self._order[i] for i in idx]
+        if self._pass_rng_state is not None:
+            self._pass_shuffles.append(self._pass_served)
+
+    def position(self) -> dict:
+        """The training stream's position: the pass, and the items of it
+        served so far."""
+        return {"pass": self._pass_counter, "served": self._pass_served}
+
+    def cursor(self, position: Optional[dict] = None) -> dict:
+        """The training stream at `position` (a `position()` sample;
+        default: now), for a checkpoint: the current pass's starting
+        generator state (as a numpy uint8 array) and item order, its
+        mid-pass shuffle positions, and the items of it consumed. Raises
+        `ValueError` for a position outside the current pass."""
+        n = len(self.items)
+        if position is None:
+            position = self.position()
+        if self._pass_rng_state is None:  # no training pass started yet
+            return {"version": 2, "generator": "torch", "n_items": n,
+                    "pass_rng_state": self._g.get_state().numpy(),
+                    "pass_order": list(self._order),
+                    "shuffles_at": [], "skip": 0}
+        if position["pass"] == self._pass_counter:
+            skip = int(position["served"])
+        elif position["pass"] == self._pass_counter - 1 and \
+                position["served"] >= n:
+            skip = 0  # on the previous pass's end: this pass from item 0
+        else:
+            raise ValueError(
+                f"position {position} does not fall in the current pass "
+                f"({self._pass_counter})")
+        return {"version": 2, "generator": "torch", "n_items": n,
+                "pass_rng_state": self._pass_rng_state.numpy(),
+                "pass_order": list(self._pass_order),
+                "shuffles_at": list(self._pass_shuffles), "skip": skip}
+
+    def restore_cursor(self, cur: dict):
+        """Rewind to a `cursor()` snapshot: item order and generator back
+        to the pass start, its shuffles armed for replay, the trained
+        items skipped. Call before the first training pull. Raises
+        `ValueError` for a cursor of another dataset, or one that holds a
+        numpy generator state (the reference's), which a torch generator
+        cannot continue."""
+        if cur.get("generator") != "torch":
+            raise ValueError("the cursor holds a numpy RandomState (the "
+                             "reference's); this dataset permutes with a "
+                             "torch generator")
+        order = list(cur["pass_order"])
+        if cur.get("n_items") != len(self.items) or \
+                sorted(order) != list(range(len(self.items))):
+            raise ValueError(
+                f"cursor does not match this dataset: cursor has "
+                f"{cur.get('n_items')} items, dataset has "
+                f"{len(self.items)}")
+        original = [None] * len(self.items)
+        for pos, oi in enumerate(self._order):
+            original[oi] = self.items[pos]
+        self.items = [original[oi] for oi in order]
+        self._order = order
+        self._g.set_state(torch.from_numpy(
+            np.array(cur["pass_rng_state"], dtype=np.uint8)))
+        self._replay_shuffles = list(cur.get("shuffles_at") or [])
+        self._skip_items = int(cur.get("skip", 0))
+        self._pass_rng_state = None
+        self._pass_order = None
+        self._pass_served = 0
+        self._pass_shuffles = []
 
 
 class _TransformedDataSet(AbstractDataSet):
@@ -84,6 +194,15 @@ class _TransformedDataSet(AbstractDataSet):
 
     def shuffle(self):
         self.base.shuffle()
+
+    def position(self) -> dict:
+        return self.base.position()
+
+    def cursor(self, position: Optional[dict] = None) -> dict:
+        return self.base.cursor(position=position)
+
+    def restore_cursor(self, cur: dict):
+        return self.base.restore_cursor(cur)
 
 
 class DataSet:

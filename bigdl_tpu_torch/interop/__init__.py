@@ -2,10 +2,15 @@
 
 from bigdl_tpu_torch.interop.jax_params import (lm_params_tree,
                                                 load_module_params,
+                                                load_params,
                                                 load_transformer_lm_params,
                                                 module_params_tree,
-                                                module_state)
+                                                module_state,
+                                                named_from_tree,
+                                                params_tree,
+                                                tree_from_named)
 
-__all__ = ["lm_params_tree", "load_module_params",
+__all__ = ["lm_params_tree", "load_module_params", "load_params",
            "load_transformer_lm_params", "module_params_tree",
-           "module_state"]
+           "module_state", "named_from_tree", "params_tree",
+           "tree_from_named"]

@@ -5,7 +5,11 @@
 `load_module_params` fills any model built from the port's containers
 (the ResNets) from the JAX params tree and BN state, and
 `module_params_tree` / `module_state` give the port's parameters,
-gradients and running stats back in the JAX layout.
+gradients and running stats back in the JAX layout. `params_tree` and
+`load_params` pick the right one of the two for a model, and
+`tree_from_named` / `named_from_tree` carry any tensors keyed by the
+port's parameter names (an optimizer's slots) to the JAX layout and back:
+checkpoints go through these four.
 
 The trees are the JAX package's nested dicts, with their leaves converted
 by the caller to numpy arrays (`np.asarray`), so nothing here needs JAX.
@@ -187,3 +191,81 @@ def module_state(model) -> Dict[Tuple[str, ...], Dict[str, np.ndarray]]:
     return {path: {"mean": bn.mean.detach().cpu().numpy(),
                    "var": bn.var.detach().cpu().numpy()}
             for path, bn in _bn_modules(model).items()}
+
+
+# --------------------------------------------------------------------------
+# Any model, and trees keyed by parameter name (checkpoints)
+# --------------------------------------------------------------------------
+
+def _is_lm(model) -> bool:
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    return isinstance(model, TransformerLM)
+
+
+def _tree_targets(model) -> Dict:
+    return _targets(model) if _is_lm(model) else _module_targets(model)
+
+
+def params_tree(model) -> Dict:
+    """The model's parameters in the JAX layout: `lm_params_tree` for a
+    `TransformerLM`, `module_params_tree` for a container model."""
+    return lm_params_tree(model) if _is_lm(model) \
+        else module_params_tree(model)
+
+
+def load_params(model, params: Mapping,
+                state: Optional[Mapping] = None) -> None:
+    """Fill `model` in place from a JAX-layout params tree (and, for a
+    container model, the BN state; a `TransformerLM` has none)."""
+    if _is_lm(model):
+        if state:
+            raise KeyError(f"a TransformerLM has no BN state, got "
+                           f"{sorted(state)[:3]}")
+        load_transformer_lm_params(model, params)
+    else:
+        load_module_params(model, params, state)
+
+
+def _param_names(model) -> Dict[int, str]:
+    return {id(p): n for n, p in model.named_parameters()}
+
+
+def tree_from_named(model, named: Mapping[str, torch.Tensor]) -> Dict:
+    """Tensors keyed by the model's parameter names (for example an
+    optimizer's velocity), as the JAX-layout tree of f32 numpy arrays: the
+    layout `params_tree` gives, empty subtrees included."""
+    names = _param_names(model)
+    return _export(_tree_targets(model),
+                   lambda p: named[names[id(p)]].detach().float().cpu())
+
+
+def named_from_tree(model, tree: Mapping) -> Dict:
+    """The inverse of `tree_from_named`: a JAX-layout tree as tensors keyed
+    by parameter name, each on its parameter's device in the tree's
+    dtype. Raises on a missing key or a shape mismatch."""
+    names = _param_names(model)
+    out = {}
+
+    def walk(targets, node, path):
+        for key, dst in targets.items():
+            where = f"{path}.{key}" if path else key
+            if isinstance(dst, Mapping):
+                walk(dst, node[key], where)
+                continue
+            conv = isinstance(dst, _HwioToOihw)
+            p = dst.param if conv else dst
+            t = torch.tensor(np.asarray(node[key]))
+            if conv:
+                t = t.permute(3, 2, 0, 1).contiguous()
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{where}: tree shape {tuple(t.shape)} != "
+                                 f"parameter shape {tuple(p.shape)}")
+            out[names[id(p)]] = t.to(p.device)
+
+    walk(_tree_targets(model), tree, "")
+    return out
+
+
+def tree_keys(model) -> set:
+    """The top-level keys of the model's JAX-layout tree."""
+    return set(_tree_targets(model))

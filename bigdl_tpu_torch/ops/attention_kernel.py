@@ -30,6 +30,11 @@ q, k, v are [B, H, T, D].
 - `FlashAttention` — the `torch.autograd.Function` that ties the forward
   kernel to the two backward kernels; `flash_attention` — the router the
   layers call.
+
+Each kernel's launch (or, on the CPU, its plain version) counts
+`attention_flops` in `observability.costs.count_flops`; inside a count,
+a wrapper given `meta` tensors only counts and returns empty outputs of
+the right shapes, so a count can run on shapes alone.
 """
 
 from __future__ import annotations
@@ -37,7 +42,10 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+from bigdl_tpu_torch.observability import costs
 
 NEG_INF = -1e30
 
@@ -306,6 +314,31 @@ def _launch(name, tensors, outs, q, tk, causal, sm_scale, q_offset,
                            f"{err_str(code).decode()} (cudaError {code})")
 
 
+def unmasked_pairs(tq: int, tk: int, causal: bool, q_offset: int = 0,
+                   k_offset: int = 0) -> int:
+    """(query, key) pairs that attention computes: every pair without
+    `causal`, else those with key position <= query position."""
+    if not causal:
+        return tq * tk
+    rows = np.arange(tq, dtype=np.int64) + (q_offset - k_offset + 1)
+    return int(np.clip(rows, 0, tk).sum())
+
+
+#: D-length products a kernel takes per unmasked pair: S and P V in the
+#: forward and the ring hop; S, dP and dQ in dq; S, dP, dV and dK in dk/dv
+PRODUCTS = {"flash_attention_fwd": 2, "flash_attention_carry": 2,
+            "flash_attention_bwd_dq": 3, "flash_attention_bwd_dkv": 4}
+
+
+def attention_flops(name: str, q, tk: int, causal: bool, q_offset: int = 0,
+                    k_offset: int = 0) -> int:
+    """FLOPs of one launch of kernel `name` over q [B, H, Tq, D] and Tk
+    keys: 2*D a product per unmasked pair, for every (batch, head)."""
+    b, h, tq, d = q.shape
+    return 2 * PRODUCTS[name] * b * h * d * unmasked_pairs(
+        tq, tk, causal, q_offset, k_offset)
+
+
 def _no_device(q, what):
     return NotImplementedError(
         f"no flash {what} for device type {q.device.type!r}")
@@ -325,7 +358,16 @@ def flash_attention_forward(q, k, v, causal: bool = False,
     `flash_attention`."""
     _check_inputs(q, k, v)
     sm_scale = sm_scale or q.shape[-1] ** -0.5
-    if q.device.type == "cuda":
+
+    def flops():
+        return attention_flops("flash_attention_fwd", q, k.shape[2], causal,
+                               q_offset, k_offset)
+
+    if q.device.type == "meta" and costs.counting():
+        costs.tally_kernel(flops)
+        out, lse = torch.empty_like(q), q.new_empty(q.shape[:3],
+                                                    dtype=torch.float32)
+    elif q.device.type == "cuda":
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             raise NotImplementedError(
@@ -338,9 +380,11 @@ def flash_attention_forward(q, k, v, causal: bool = False,
         _launch("flash_attention_fwd", (q, k, v), (out, lse), q, k.shape[2],
                 causal, sm_scale, q_offset, k_offset)
         flash_attention_forward.launches += 1
+        costs.tally_kernel(flops)
     elif q.device.type == "cpu":
-        out, lse = flash_attention_forward_plain(q, k, v, causal, sm_scale,
-                                                 q_offset, k_offset)
+        out, lse = costs.plain_route(flops, flash_attention_forward_plain,
+                                     q, k, v, causal, sm_scale, q_offset,
+                                     k_offset)
     else:
         raise _no_device(q, "forward")
     return (out, lse) if return_lse else out
@@ -382,6 +426,15 @@ def flash_attention_carry(q, k, v, carry, causal: bool = False,
     _check_inputs(q, k, v)
     _check_carry(q, carry)
     sm_scale = sm_scale or q.shape[-1] ** -0.5
+
+    def flops():
+        return attention_flops("flash_attention_carry", q, k.shape[2],
+                               causal, q_offset, k_offset)
+
+    if q.device.type == "meta" and costs.counting():
+        costs.tally_kernel(flops)
+        return tuple(carry) if inplace else tuple(torch.empty_like(t)
+                                                  for t in carry)
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v, *carry)):
@@ -394,10 +447,11 @@ def flash_attention_carry(q, k, v, carry, causal: bool = False,
         _launch("flash_attention_carry", (q, k, v, *carry), outs, q,
                 k.shape[2], causal, sm_scale, q_offset, k_offset)
         flash_attention_carry.launches += 1
+        costs.tally_kernel(flops)
         return tuple(outs)
     if q.device.type == "cpu":
-        outs = flash_attention_carry_plain(q, k, v, carry, causal, sm_scale,
-                                           q_offset, k_offset)
+        outs = costs.plain_route(flops, flash_attention_carry_plain, q, k, v,
+                                 carry, causal, sm_scale, q_offset, k_offset)
         if inplace:
             for t, new in zip(carry, outs):
                 t.copy_(new)
@@ -420,16 +474,25 @@ def flash_attention_backward_dq(q, k, v, do, lse, delta,
     launches."""
     _check_backward_inputs(q, k, v, do, {"lse": lse, "delta": delta})
     sm_scale = sm_scale or q.shape[-1] ** -0.5
+
+    def flops():
+        return attention_flops("flash_attention_bwd_dq", q, k.shape[2],
+                               causal, q_offset, k_offset)
+
+    if q.device.type == "meta" and costs.counting():
+        costs.tally_kernel(flops)
+        return torch.empty_like(q)
     if q.device.type == "cuda":
         dq = torch.empty_like(q)
         _launch("flash_attention_bwd_dq", (q, k, v, do, lse, delta), (dq,),
                 q, k.shape[2], causal, sm_scale, q_offset, k_offset)
         flash_attention_backward_dq.launches += 1
+        costs.tally_kernel(flops)
         return dq
     if q.device.type == "cpu":
-        return flash_attention_backward_dq_plain(q, k, v, do, lse, delta,
-                                                 causal, sm_scale, q_offset,
-                                                 k_offset)
+        return costs.plain_route(flops, flash_attention_backward_dq_plain, q,
+                                 k, v, do, lse, delta, causal, sm_scale,
+                                 q_offset, k_offset)
     raise _no_device(q, "backward")
 
 
@@ -447,17 +510,26 @@ def flash_attention_backward_dkv(q, k, v, do, lse, delta,
     launches."""
     _check_backward_inputs(q, k, v, do, {"lse": lse, "delta": delta})
     sm_scale = sm_scale or q.shape[-1] ** -0.5
+
+    def flops():
+        return attention_flops("flash_attention_bwd_dkv", q, k.shape[2],
+                               causal, q_offset, k_offset)
+
+    if q.device.type == "meta" and costs.counting():
+        costs.tally_kernel(flops)
+        return torch.empty_like(k), torch.empty_like(v)
     if q.device.type == "cuda":
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         _launch("flash_attention_bwd_dkv", (q, k, v, do, lse, delta),
                 (dk, dv), q, k.shape[2], causal, sm_scale, q_offset,
                 k_offset)
         flash_attention_backward_dkv.launches += 1
+        costs.tally_kernel(flops)
         return dk, dv
     if q.device.type == "cpu":
-        return flash_attention_backward_dkv_plain(q, k, v, do, lse, delta,
-                                                  causal, sm_scale, q_offset,
-                                                  k_offset)
+        return costs.plain_route(flops, flash_attention_backward_dkv_plain,
+                                 q, k, v, do, lse, delta, causal, sm_scale,
+                                 q_offset, k_offset)
     raise _no_device(q, "backward")
 
 

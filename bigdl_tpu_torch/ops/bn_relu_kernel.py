@@ -26,6 +26,10 @@ unfused expression, the mask `pre > 0` giving the same zero at 0.
 Both kernels take x as the f32 upcast the BN layer hands over
 (`_stats_scale_shift`), so a bf16 activation is read as f32 here; reading
 the bf16 activation directly is a later optimisation.
+
+Each launch (or, on the CPU, plain version) counts `bn_relu_flops` in
+`observability.costs.count_flops`; inside a count, a `meta` tensor only
+counts.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+
+from bigdl_tpu_torch.observability import costs
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,6 +67,13 @@ def bn_relu_backward_plain(x2, scale, shift, g2, relu: bool = True):
                                                   device=g2.device))
     g32 = g2.float()
     return g32 * scale, (g32 * x2).sum(0), g32.sum(0)
+
+
+def bn_relu_flops(n: int, c: int, backward: bool) -> int:
+    """FLOPs of one launch over [N, C]: 3 an element forward (multiply,
+    add, max), 7 backward (the recomputed multiply-add, the mask, dx and
+    the two sums)."""
+    return (7 if backward else 3) * n * c
 
 
 def bwd_tile_rows(n: int, c: int) -> int:
@@ -146,16 +159,25 @@ def bn_relu_forward(x2, scale, shift, relu: bool = True, out_dtype=None):
     if out_dtype not in _DTYPE_CODES:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got "
                         f"{out_dtype}")
+    n, c = x2.shape
+
+    def flops():
+        return bn_relu_flops(n, c, backward=False)
+
     if x2.device.type == "cpu":
-        return bn_relu_forward_plain(x2, scale, shift, relu, out_dtype)
+        return costs.plain_route(flops, bn_relu_forward_plain, x2, scale,
+                                 shift, relu, out_dtype)
+    if x2.device.type == "meta" and costs.counting():
+        costs.tally_kernel(flops)
+        return x2.new_empty((n, c), dtype=out_dtype)
     if x2.device.type != "cuda":
         raise NotImplementedError(
             f"no bn_relu forward for device type {x2.device.type!r}")
-    n, c = x2.shape
     y2 = torch.empty((n, c), dtype=out_dtype, device=x2.device)
     _run("bn_relu_fwd", [x2, scale, shift, y2, n, c, _DTYPE_CODES[x2.dtype],
                          _DTYPE_CODES[out_dtype], int(bool(relu))])
     bn_relu_forward.launches += 1
+    costs.tally_kernel(flops)
     return y2
 
 
@@ -175,12 +197,21 @@ def bn_relu_backward(x2, scale, shift, g2, relu: bool = True
     if g2.shape[0] != x2.shape[0] or g2.device != x2.device:
         raise ValueError(f"g {tuple(g2.shape)} on {g2.device} does not "
                          f"match x {tuple(x2.shape)} on {x2.device}")
+    n, c = x2.shape
+
+    def flops():
+        return bn_relu_flops(n, c, backward=True)
+
     if x2.device.type == "cpu":
-        return bn_relu_backward_plain(x2, scale, shift, g2, relu)
+        return costs.plain_route(flops, bn_relu_backward_plain, x2, scale,
+                                 shift, g2, relu)
+    if x2.device.type == "meta" and costs.counting():
+        costs.tally_kernel(flops)
+        return (x2.new_empty((n, c), dtype=torch.float32),
+                scale.new_empty((c,)), scale.new_empty((c,)))
     if x2.device.type != "cuda":
         raise NotImplementedError(
             f"no bn_relu backward for device type {x2.device.type!r}")
-    n, c = x2.shape
     tile_n = bwd_tile_rows(n, c)
     n_tiles = -(-n // tile_n)
     dx = torch.empty((n, c), dtype=torch.float32, device=x2.device)
@@ -190,6 +221,7 @@ def bn_relu_backward(x2, scale, shift, g2, relu: bool = True
                          tile_n, _DTYPE_CODES[x2.dtype],
                          _DTYPE_CODES[g2.dtype], int(bool(relu))])
     bn_relu_backward.launches += 1
+    costs.tally_kernel(flops)
     ds, db = torch.sum(parts, dim=1)
     return dx, ds, db
 

@@ -40,6 +40,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from bigdl_tpu_torch.observability import costs
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: what the kernel takes: C2 = 4 * C_in channels (C_in <= 4, the
@@ -120,6 +122,16 @@ def _check(x2, wk, bias, pad_front: int, pad_rear: int):
                          f"{tuple(bias.shape)} on {bias.device}")
 
 
+def stem_flops(x2, wk) -> int:
+    """FLOPs of one launch: 2*k*k*C_in an output element, the count of
+    the k x k convolution the s2d GEMM restates (k = 2*kt - 1, C_in =
+    C2 / 4; the GEMM's zero-padded taps are not counted)."""
+    b, h, w, c2 = x2.shape
+    kt, n_out = wk.shape[0], wk.shape[3]
+    k = 2 * kt - 1
+    return 2 * k * k * (c2 // 4) * b * h * w * n_out
+
+
 def stem_conv_forward(x2, wk, bias, pad_front: int, pad_rear: int):
     """The stem convolution over x2 [B, H2, W2, C2] (f32 or bf16,
     contiguous) with wk [kt, kt, C2, O] (f32 or bf16, contiguous) and
@@ -128,8 +140,16 @@ def stem_conv_forward(x2, wk, bias, pad_front: int, pad_rear: int):
     raises on anything else. `stem_conv_forward.launches` counts kernel
     launches."""
     _check(x2, wk, bias, pad_front, pad_rear)
+
+    def flops():
+        return stem_flops(x2, wk)
+
     if x2.device.type == "cpu":
-        return stem_conv_forward_plain(x2, wk, bias, pad_front, pad_rear)
+        return costs.plain_route(flops, stem_conv_forward_plain, x2, wk, bias,
+                                 pad_front, pad_rear)
+    if x2.device.type == "meta" and costs.counting():
+        costs.tally_kernel(flops)
+        return x2.new_empty((*x2.shape[:3], wk.shape[3]))
     if x2.device.type != "cuda":
         raise NotImplementedError(
             f"no stem convolution for device type {x2.device.type!r}")
@@ -152,6 +172,7 @@ def stem_conv_forward(x2, wk, bias, pad_front: int, pad_rear: int):
         raise RuntimeError(f"stem_conv launch failed: "
                            f"{err_str(code).decode()} (cudaError {code})")
     stem_conv_forward.launches += 1
+    costs.tally_kernel(flops)
     return out
 
 

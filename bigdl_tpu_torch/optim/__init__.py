@@ -1,9 +1,12 @@
 """Training and batch inference (counterpart of `bigdl_tpu.optim`): `SGD`,
-`Adam`, `AdamW`, the learning-rate schedules, triggers, metrics,
-`LocalOptimizer`, the single-device `DistriOptimizer`, the `Optimizer`
-factory, and `LocalPredictor`."""
+`Adam`, `AdamW`, the learning-rate schedules, triggers, metrics, the
+regularizers, the validation methods and `Evaluator`, `LocalOptimizer`,
+the single-device `DistriOptimizer`, the `Optimizer` factory, and
+`LocalPredictor`."""
 
 from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
+from bigdl_tpu_torch.optim.evaluator import (DistriValidator, Evaluator,
+                                             LocalValidator)
 from bigdl_tpu_torch.optim.local_optimizer import (BaseOptimizer,
                                                    LocalOptimizer)
 from bigdl_tpu_torch.optim.metrics import Metrics, Timer
@@ -11,15 +14,32 @@ from bigdl_tpu_torch.optim.optim_method import (SGD, Adam, AdamW,
                                                 OptimMethod)
 from bigdl_tpu_torch.optim.optimizer import Optimizer
 from bigdl_tpu_torch.optim.predictor import LocalPredictor, Predictor
+from bigdl_tpu_torch.optim.regularizer import (L1L2Regularizer,
+                                               L1Regularizer, L2Regularizer,
+                                               Regularizer)
 from bigdl_tpu_torch.optim.schedules import (CosineDecay, Default,
                                              LearningRateSchedule,
                                              WarmupCosineDecay)
-from bigdl_tpu_torch.optim.trigger import (Trigger, every_epoch, max_epoch,
-                                           max_iteration, several_iteration)
+from bigdl_tpu_torch.optim.trigger import (Trigger, and_, every_epoch,
+                                           max_epoch, max_iteration,
+                                           max_score, min_loss, or_,
+                                           several_iteration)
+from bigdl_tpu_torch.optim.validation import (MAE, NDCG, AccuracyResult,
+                                              ContiguousResult, HitRatio,
+                                              Loss, LossResult,
+                                              Top1Accuracy, Top5Accuracy,
+                                              TreeNNAccuracy,
+                                              ValidationMethod,
+                                              ValidationResult)
 
-__all__ = ["Adam", "AdamW", "BaseOptimizer", "CosineDecay", "Default",
-           "DistriOptimizer", "LearningRateSchedule", "LocalOptimizer",
-           "LocalPredictor", "Metrics", "OptimMethod", "Optimizer",
-           "Predictor", "SGD", "Timer", "Trigger",
-           "WarmupCosineDecay", "every_epoch", "max_epoch", "max_iteration",
-           "several_iteration"]
+__all__ = ["AccuracyResult", "Adam", "AdamW", "BaseOptimizer",
+           "ContiguousResult", "CosineDecay", "Default", "DistriOptimizer",
+           "DistriValidator", "Evaluator", "HitRatio", "L1L2Regularizer",
+           "L1Regularizer", "L2Regularizer", "LearningRateSchedule",
+           "LocalOptimizer", "LocalPredictor", "LocalValidator", "Loss",
+           "LossResult", "MAE", "Metrics", "NDCG", "OptimMethod",
+           "Optimizer", "Predictor", "Regularizer", "SGD", "Timer",
+           "Top1Accuracy", "Top5Accuracy", "TreeNNAccuracy", "Trigger",
+           "ValidationMethod", "ValidationResult", "WarmupCosineDecay",
+           "and_", "every_epoch", "max_epoch", "max_iteration", "max_score",
+           "min_loss", "or_", "several_iteration"]

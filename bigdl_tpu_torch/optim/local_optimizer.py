@@ -2,14 +2,15 @@
 `bigdl_tpu/optim/local_optimizer.py`).
 
 `BaseOptimizer` holds what the local and the distributed loops share: the
-fluent setters, the train step and the training loop (end trigger, learning
-rate schedule, loss sync every `sync_interval` steps, throughput over sync
-windows, epoch bookkeeping, the iteration hook). `LocalOptimizer` trains on
-one device.
+fluent setters (with the reference's camelCase aliases), the train step
+and the training loop (end trigger, learning rate schedule, loss sync
+every `sync_interval` steps, throughput over sync windows, epoch
+bookkeeping, validation, checkpoints, the iteration hook).
+`LocalOptimizer` trains on one device.
 
 The step is the reference's `_build_step` on one device, eager: forward in
-training mode, `ClassNLLCriterion`-style loss, `torch.autograd.grad` over
-the parameters, the optimizer's in-place update. Under
+training mode, the criterion's loss, `torch.autograd.grad` over the
+parameters, gradient clipping, the optimizer's in-place update. Under
 `set_compute_precision("bfloat16")` it is the reference's mixed precision,
 written out rather than `torch.autocast`: the f32 parameters stay the
 autograd leaves (the masters); the model runs on bf16 copies of them and
@@ -18,18 +19,38 @@ differentiated function so the gradients arrive in f32; BN statistics and
 running stats stay f32 (the BN layer upcasts); the loss is taken on the
 model's output upcast to f32.
 
-Not ported (not on this path; `ROADMAP.md` lists them): validation,
-checkpoints and resume, gradient clipping, gradient accumulation,
-telemetry and tracing, summaries, NaN/step guards, prefetch, preemption,
-graph optimisation, and the donation the JAX step uses (the port updates
-in place instead).
+- `set_gradient_accumulation(steps)` splits each batch into `steps`
+  micro-batches, as the reference's scan does: each micro-batch's forward
+  sees its own BN batch statistics and updates the running stats, and the
+  gradients and losses are averaged before one update. The reference's
+  `LocalOptimizer` ignores the setting (only its distributed step reads
+  it); here both loops honour it.
+- Clipping, as the reference's: constant clipping of each gradient
+  element first, then the global L2 norm taken in f32.
+- `set_validation`: the model in eval mode over the validation set every
+  time the trigger fires, each method's results summed over the batches;
+  the first method's score goes into the state's "score".
+- `set_checkpoint` / `resume_from_latest_checkpoint`: the reference's
+  format v2 (`serialization/checkpoint.py`), parameters, BN state and
+  optimizer slots carried to the JAX tree layout through
+  `interop.jax_params`; resume restores them, the counters and the data
+  cursor.
+- The `train.step` fault site fires before every step.
+
+Not ported (`ROADMAP.md` lists them): telemetry and tracing, summaries,
+NaN/step guards, prefetch, preemption, graph optimisation, sharded
+checkpoints, per-submodule methods (`set_optim_methods`), and the donation
+the JAX step uses (the port updates in place instead, and keeps a host
+snapshot of the model at the start of each run so that a failed run can
+put it back).
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,6 +60,8 @@ from bigdl_tpu_torch._device import resolve_device
 from bigdl_tpu_torch.optim.metrics import Metrics, Timer
 from bigdl_tpu_torch.optim.optim_method import OptimMethod, SGD
 from bigdl_tpu_torch.optim.trigger import Trigger, every_epoch
+from bigdl_tpu_torch.optim.validation import ValidationMethod
+from bigdl_tpu_torch.resilience import faults
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
@@ -69,6 +92,21 @@ def _cast_floats(x, dtype: torch.dtype):
     return x
 
 
+def _micro_batches(x, steps: int):
+    """x (a tensor, a list of them, or None) split along its first axis
+    into `steps` equal micro-batches, in order."""
+    if x is None:
+        return [None] * steps
+    if isinstance(x, (list, tuple)):
+        return [list(parts) for parts in
+                zip(*(_micro_batches(v, steps) for v in x))]
+    if x.shape[0] % steps:
+        raise ValueError(f"gradient accumulation over {steps} micro-batches "
+                         f"needs a batch size divisible by {steps}, got "
+                         f"{x.shape[0]}")
+    return list(x.reshape(steps, x.shape[0] // steps, *x.shape[1:]))
+
+
 class BaseOptimizer:
     """Shared training-loop machinery of the local and distributed loops."""
 
@@ -80,6 +118,17 @@ class BaseOptimizer:
         self.device = resolve_device(device)
         self.optim_method: OptimMethod = SGD()
         self.end_trigger: Trigger = every_epoch()
+        self.checkpoint_trigger: Optional[Trigger] = None
+        self.checkpoint_path: Optional[str] = None
+        self.checkpoint_keep_last_n: Optional[int] = None
+        self.overwrite_checkpoint = True
+        self.validation_trigger: Optional[Trigger] = None
+        self.validation_dataset = None
+        self.validation_methods: List[ValidationMethod] = []
+        self.validation_batch_size = 32
+        self.grad_clip_norm: Optional[float] = None
+        self.grad_clip_const: Optional[tuple] = None
+        self.grad_accum_steps: int = 1
         self.metrics = Metrics()
         self.compute_precision: Optional[str] = None
         self.sync_interval: int = 1
@@ -87,14 +136,89 @@ class BaseOptimizer:
         #: the newest step's loss as a 0-d tensor on the device, read
         #: without a sync (the loop state's "loss" is the last synced one)
         self.last_loss: Optional[torch.Tensor] = None
+        # resume: what resume_from_latest_checkpoint loaded for the next
+        # optimize()
+        self._resume_slots = None
+        self._resume_cursor = None
+        self._resumed = False
+        # stream positions behind the data cursor of a checkpoint
+        self._cursor_prev_pos = self._cursor_last_pos = None
+        # host copy of the model's tensors at the start of a run
+        self._pristine: Optional[Dict[str, torch.Tensor]] = None
 
     # fluent setters
+    def set_gradient_accumulation(self, steps: int):
+        """Split each batch into `steps` micro-batches and average their
+        gradients before one update (the batch size must divide
+        evenly)."""
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        self.grad_accum_steps = int(steps)
+        return self
+
     def set_optim_method(self, method: OptimMethod):
         self.optim_method = method
         return self
 
+    setOptimMethod = set_optim_method
+
     def set_end_when(self, trigger: Trigger):
         self.end_trigger = trigger
+        return self
+
+    setEndWhen = set_end_when
+
+    def set_checkpoint(self, path: str, trigger: Trigger,
+                       sharded: bool = False,
+                       keep_last_n: Optional[int] = None):
+        """Checkpoint to `path` (local or `memory://`) every time `trigger`
+        fires, tagged `iter<neval>`; `keep_last_n` prunes the oldest valid
+        checkpoints after each save. `sharded=True` (the reference's orbax
+        format) is not ported and raises."""
+        if sharded:
+            raise NotImplementedError(
+                "sharded (orbax) checkpoints are not ported; use the "
+                "default format v2")
+        if keep_last_n is not None and keep_last_n < 1:
+            raise ValueError(
+                f"keep_last_n must be >= 1, got {keep_last_n}")
+        self.checkpoint_path = path
+        self.checkpoint_trigger = trigger
+        self.checkpoint_keep_last_n = keep_last_n
+        return self
+
+    setCheckpoint = set_checkpoint
+
+    def set_validation(self, trigger: Trigger, dataset,
+                       methods: Sequence[ValidationMethod],
+                       batch_size: Optional[int] = None):
+        """Validate on `dataset` (Samples, batched by `batch_size`, default
+        32, or MiniBatches) with `methods` every time `trigger` fires."""
+        self.validation_trigger = trigger
+        self.validation_dataset = dataset
+        self.validation_methods = list(methods)
+        self.validation_batch_size = batch_size or 32
+        return self
+
+    setValidation = set_validation
+
+    def set_gradient_clipping_by_l2_norm(self, clip_norm: float):
+        """Scale the gradients by min(1, clip_norm / global L2 norm)."""
+        self.grad_clip_norm = clip_norm
+        return self
+
+    setGradientClippingByl2Norm = set_gradient_clipping_by_l2_norm
+
+    def set_constant_gradient_clipping(self, min_v: float, max_v: float):
+        """Clamp every gradient element into [min_v, max_v]."""
+        self.grad_clip_const = (min_v, max_v)
+        return self
+
+    setConstantGradientClipping = set_constant_gradient_clipping
+
+    def disable_gradient_clipping(self):
+        self.grad_clip_norm = None
+        self.grad_clip_const = None
         return self
 
     def set_compute_precision(self, precision: Optional[str]):
@@ -124,6 +248,200 @@ class BaseOptimizer:
     def _mixed_bf16(self) -> bool:
         return self.compute_precision == "bfloat16"
 
+    # -- checkpoints and resume --------------------------------------------
+
+    def resume_from_latest_checkpoint(self) -> bool:
+        """Load the newest valid checkpoint under the checkpoint path
+        (digests verified; a corrupt one is quarantined and the next older
+        one taken) into the model and the optimization method before
+        `optimize()`: parameters, BN running stats, optimizer slots,
+        counters and the data cursor. False when there is nothing to
+        resume from."""
+        from bigdl_tpu_torch.interop.jax_params import load_params
+        from bigdl_tpu_torch.serialization.checkpoint import (
+            load_latest_valid, restore_optim_method)
+        if self.checkpoint_path is None:
+            return False
+        got = load_latest_valid(self.checkpoint_path)
+        if got is None:
+            return False
+        _, params, mstate, oblob = got
+        load_params(self.model, params, mstate)
+        restore_optim_method(self.optim_method, oblob)
+        if oblob.get("slots") is not None:
+            self._resume_slots = self._slots_from_tree(oblob["slots"])
+        self._resume_cursor = oblob.get("cursor")
+        self._resumed = True
+        return True
+
+    def _slots_tree(self, opt_state):
+        """The optimizer state in the reference's layout: every dict keyed
+        by the parameter names becomes the JAX-layout tree, a step count
+        an int32 array."""
+        from bigdl_tpu_torch.interop.jax_params import tree_from_named
+        names = {n for n, _ in self.model.named_parameters()}
+
+        def conv(node):
+            if isinstance(node, dict):
+                if node and set(node) == names:
+                    return tree_from_named(self.model, node)
+                return {k: conv(v) for k, v in node.items()}
+            if isinstance(node, int) and not isinstance(node, bool):
+                return np.asarray(node, dtype=np.int32)
+            return node
+
+        return conv(opt_state)
+
+    def _slots_from_tree(self, slots):
+        """The inverse of `_slots_tree`: tensors on the parameters'
+        devices keyed by parameter name, step counts as ints."""
+        from bigdl_tpu_torch.interop.jax_params import (named_from_tree,
+                                                        tree_keys)
+        keys = tree_keys(self.model)
+
+        def conv(node):
+            if isinstance(node, dict):
+                if node and set(node) == keys:
+                    return named_from_tree(self.model, node)
+                return {k: conv(v) for k, v in node.items()}
+            if isinstance(node, np.ndarray) and node.ndim == 0 \
+                    and np.issubdtype(node.dtype, np.integer):
+                return int(node)
+            return node
+
+        return conv(slots)
+
+    def _save_checkpoint(self, opt_state, tag: str):
+        from bigdl_tpu_torch.interop.jax_params import (module_state,
+                                                        params_tree)
+        from bigdl_tpu_torch.serialization.checkpoint import save_checkpoint
+        save_checkpoint(self.checkpoint_path, self.model,
+                        params_tree(self.model), module_state(self.model),
+                        self.optim_method,
+                        opt_slots=self._slots_tree(opt_state), tag=tag,
+                        overwrite=self.overwrite_checkpoint,
+                        keep_last_n=self.checkpoint_keep_last_n,
+                        cursor=self._data_cursor())
+
+    def _data_cursor(self):
+        """The dataset's cursor at the last trained batch (one pull behind
+        the loop's lookahead), or None when the dataset has none or the
+        capture fails: a checkpoint never fails over its cursor."""
+        cur = getattr(self.dataset, "cursor", None)
+        if cur is None:
+            return None
+        try:
+            return cur(position=self._cursor_prev_pos)
+        except Exception as e:
+            logger.warning("data cursor capture failed (%r); checkpoint "
+                           "saved without one", e)
+            return None
+
+    def _init_cursor_positions(self):
+        """Anchor the position trackers before a run's first pull."""
+        pos = getattr(self.dataset, "position", None)
+        p = pos() if pos is not None else None
+        self._cursor_prev_pos = self._cursor_last_pos = p
+
+    def _note_pull(self):
+        """After a pull: the previous position points at the last trained
+        batch, the one a checkpoint's cursor must name."""
+        pos = getattr(self.dataset, "position", None)
+        if pos is None:
+            return
+        self._cursor_prev_pos = self._cursor_last_pos
+        self._cursor_last_pos = pos()
+
+    def _fast_forward_data(self, data_iter, loop_state):
+        """Put a resumed run's data stream where the checkpoint left it.
+        With a cursor, the dataset rewinds itself to the next untrained
+        item. Without one (or when the dataset cannot take it, as a
+        reference checkpoint's numpy cursor), the reference's fallback:
+        completed epochs replay as whole passes, each followed by the
+        boundary shuffle the original run made after its one-batch
+        lookahead, then the records of the current epoch are skipped."""
+        cold_resume, self._resumed = self._resumed, False
+        cursor, self._resume_cursor = self._resume_cursor, None
+        if cold_resume and cursor is not None \
+                and hasattr(self.dataset, "restore_cursor"):
+            try:
+                self.dataset.restore_cursor(cursor)
+            except Exception as e:
+                logger.warning("data cursor restore failed (%r); falling "
+                               "back to full-pass replay", e)
+            else:
+                return data_iter
+        epochs_done = max(0, loop_state.get("epoch", 0)) if cold_resume \
+            else 0
+        pass_items = self.dataset.size()
+        pending = None  # the boundary lookahead batch, not yet credited
+        for _ in range(epochs_done):
+            seen = pending.size() if pending is not None else 0
+            while seen < pass_items:
+                b = next(data_iter, None)
+                if b is None:
+                    return data_iter
+                seen += b.size()
+            pending = next(data_iter, None)
+            self.dataset.shuffle()
+        already = loop_state.get("recordsProcessedThisEpoch", 0)
+        skipped = pending.size() if pending is not None else 0
+        if pending is not None and skipped > already:
+            return itertools.chain([pending], data_iter)
+        while skipped < already:
+            b = next(data_iter, None)
+            if b is None:
+                break
+            skipped += b.size()
+        return data_iter
+
+    # -- validation ---------------------------------------------------------
+
+    def _validation_batches(self):
+        """MiniBatches of the validation set, whether it holds Samples or
+        batches."""
+        from bigdl_tpu_torch.dataset.sample import Sample
+        from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
+        data = self.validation_dataset
+        it = iter(data.data(train=False) if hasattr(data, "data") else data)
+        first = next(it, None)
+        if first is None:
+            return
+        chained = itertools.chain([first], it)
+        if isinstance(first, Sample):
+            yield from SampleToMiniBatch(self.validation_batch_size)(chained)
+        else:
+            yield from chained
+
+    def _validate(self, loop_state):
+        """Run the validation methods when the trigger fires: the model in
+        eval mode, results summed over the batches and logged, the first
+        one's score into `loop_state["score"]`."""
+        if not (self.validation_trigger and self.validation_dataset
+                and self.validation_trigger(loop_state)):
+            return None
+        results = [None] * len(self.validation_methods)
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                for batch in self._validation_batches():
+                    x = _to_device(batch.get_input(), self.device)
+                    y = _to_device(batch.get_target(), self.device)
+                    out = self.model(x)
+                    for i, m in enumerate(self.validation_methods):
+                        r = m.apply(out, y)
+                        results[i] = r if results[i] is None \
+                            else results[i] + r
+        finally:
+            self.model.train()
+        for m, r in zip(self.validation_methods, results):
+            logger.info(f"{m!r} is {r!r}")
+        if results and results[0] is not None:
+            loop_state["score"] = results[0].result()[0]
+        return results
+
+    # -- the step and the loop ---------------------------------------------
+
     class _SyncWindow:
         """Throughput over the span between two device-drained points,
         counting only the dispatch and device part of each iteration
@@ -149,19 +467,35 @@ class BaseOptimizer:
             self.records, self.iters = 0, 0
             self.t0 = time.perf_counter()
 
+    def _clip_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Constant clipping first, then the global L2 norm (f32)."""
+        if self.grad_clip_const is not None:
+            lo, hi = self.grad_clip_const
+            grads = [g.clamp(lo, hi) for g in grads]
+        if self.grad_clip_norm is not None:
+            total = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+            scale = torch.clamp(self.grad_clip_norm / (total + 1e-12),
+                                max=1.0)
+            grads = [g * scale for g in grads]
+        return grads
+
     def _build_step(self):
         """step(opt_state, x, y, lr) -> the loss (a 0-d device tensor, not
         synced). Updates the parameters and the optimizer state in place;
-        the BN layers update their running stats during the forward."""
+        the BN layers update their running stats during the forward(s)."""
         model, criterion = self.model, self.criterion
         optim = self.optim_method
         mixed = self._mixed_bf16
+        accum = self.grad_accum_steps
+        clip = self.grad_clip_const is not None \
+            or self.grad_clip_norm is not None
         params = dict(model.named_parameters())
         leaves = list(params.values())
 
-        def step(opt_state, x, y, lr):
-            model.train()
+        def loss_and_grads(x, y):
             if mixed:
+                # the bf16 copies per forward: each backward frees its
+                # graph, the casts included
                 low = {k: p.to(torch.bfloat16) for k, p in params.items()
                        if p.is_floating_point()}
                 out = functional_call(model, low,
@@ -172,14 +506,52 @@ class BaseOptimizer:
             loss = criterion(out, y)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
+            return loss.detach(), list(grads)
+
+        def step(opt_state, x, y, lr):
+            model.train()
+            if accum > 1:
+                # the micro-batches in order, their gradients and losses
+                # summed, then averaged (the reference's scan)
+                g_sum, l_sum = None, None
+                for mx, my in zip(_micro_batches(x, accum),
+                                  _micro_batches(y, accum)):
+                    loss, grads = loss_and_grads(mx, my)
+                    g_sum = grads if g_sum is None else \
+                        [a + b for a, b in zip(g_sum, grads)]
+                    l_sum = loss if l_sum is None else l_sum + loss
+                grads = [g / accum for g in g_sum]
+                loss = l_sum / accum
+            else:
+                loss, grads = loss_and_grads(x, y)
+            if clip:
+                grads = self._clip_grads(grads)
             optim.update_with_masters(dict(zip(params, grads)), opt_state,
                                       params, lr)
-            return loss.detach()
+            return loss
 
         return step
 
     def _log_suffix(self) -> str:
         return ""
+
+    def _keeps_snapshot(self) -> bool:
+        """Whether a run takes the start-of-run snapshot (a host copy of
+        every parameter and buffer, one transfer each): `LocalOptimizer`
+        always, as a failed run puts the model back."""
+        return True
+
+    def _snapshot(self):
+        """A host copy of the model's parameters and buffers, taken at the
+        start of a run."""
+        self._pristine = {k: v.detach().to("cpu", copy=True)
+                          for k, v in self.model.state_dict().items()}
+
+    def _restore_pristine(self):
+        """Put the start-of-run snapshot back: the steps update in place,
+        so a run that fails mid-step leaves the model half updated."""
+        if self._pristine is not None:
+            self.model.load_state_dict(self._pristine)
 
     def _optimize_impl(self):
         params = dict(self.model.named_parameters())
@@ -187,11 +559,18 @@ class BaseOptimizer:
         if bad:
             raise ValueError(f"the model's parameters {bad[:3]} are not on "
                              f"the optimizer's device {self.device}")
-        opt_state = self.optim_method.init_state_with_masters(params)
+        if self._keeps_snapshot():
+            self._snapshot()
+        if self._resume_slots is not None:
+            opt_state, self._resume_slots = self._resume_slots, None
+        else:
+            opt_state = self.optim_method.init_state_with_masters(params)
         step = self._build_step()
         loop_state = self.optim_method.state
         epoch_size = self.dataset.size()
-        data_iter = self.dataset.data(train=True)
+        data_iter = self._fast_forward_data(self.dataset.data(train=True),
+                                            loop_state)
+        self._init_cursor_positions()
 
         def fetch_and_place():
             """The next batch, its inputs and targets on the device."""
@@ -201,6 +580,7 @@ class BaseOptimizer:
                     logger.warning("training data stream exhausted before "
                                    "the end trigger fired; stopping early")
                     return None
+                self._note_pull()
                 return (batch, _to_device(batch.get_input(), self.device),
                         _to_device(batch.get_target(), self.device))
 
@@ -211,6 +591,7 @@ class BaseOptimizer:
         pending = fetch_and_place()
         while pending is not None and not self.end_trigger(loop_state):
             batch, x, y = pending
+            faults.fire("train.step", step=loop_state["neval"] + 1)
             lr = self.optim_method.current_lr()
             loss = self.last_loss = step(opt_state, x, y, lr)
             pending = fetch_and_place()  # queued while the step runs
@@ -234,6 +615,12 @@ class BaseOptimizer:
                 loop_state["epoch"] += 1
                 loop_state["recordsProcessedThisEpoch"] = 0
                 self.dataset.shuffle()
+            self._validate(loop_state)
+            if self.checkpoint_trigger is not None \
+                    and self.checkpoint_trigger(loop_state):
+                with Timer(self.metrics, "checkpoint time"):
+                    self._save_checkpoint(opt_state,
+                                          tag=f"iter{loop_state['neval']}")
             if self.iteration_hook is not None:
                 self.iteration_hook(loop_state)
             if do_sync:
@@ -247,7 +634,8 @@ class BaseOptimizer:
 class LocalOptimizer(BaseOptimizer):
     """Train on one device (`device`, default CUDA): the model must already
     be there. `batch_size` is recorded as the reference records it; the
-    dataset's batches set the size actually trained on."""
+    dataset's batches set the size actually trained on. A run that fails
+    puts the model back as it was at the run's start."""
 
     def __init__(self, model: torch.nn.Module, dataset, criterion,
                  batch_size: int = 32, *, device=None):
@@ -255,4 +643,9 @@ class LocalOptimizer(BaseOptimizer):
         self.batch_size = batch_size
 
     def optimize(self) -> torch.nn.Module:
-        return self._optimize_impl()
+        self._pristine = None
+        try:
+            return self._optimize_impl()
+        except BaseException:
+            self._restore_pristine()
+            raise

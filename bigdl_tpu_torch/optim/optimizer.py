@@ -3,7 +3,11 @@
 `Optimizer(model, training_set, criterion, batch_size)` batches the
 training set and picks the loop, as the reference does: `LocalOptimizer`
 on one device, `DistriOptimizer` over several (which raises for now:
-multi-GPU data parallel is `ROADMAP.md` queue 1 item 6).
+multi-GPU data parallel is `ROADMAP.md` queue 1 item 3). `local=False`
+takes `DistriOptimizer` on one device. Further keywords (the retry
+settings `retry_times`, `retry_interval_s`, `retry_policy`) go to
+`DistriOptimizer`, as in the reference; where the reference's
+`LocalOptimizer` drops them, the port raises.
 """
 
 from __future__ import annotations
@@ -26,13 +30,15 @@ from bigdl_tpu_torch.optim.local_optimizer import (BaseOptimizer,
 def Optimizer(model: torch.nn.Module, training_set, criterion,
               batch_size: int = 32, local: Optional[bool] = None,
               drop_remainder: Optional[bool] = None, *,
-              device=None) -> BaseOptimizer:
+              device=None, **kw) -> BaseOptimizer:
     """The optimizer for `model` (already on `device`, default CUDA) over
     `training_set`: an `AbstractDataSet`, a pair of numpy arrays
     (features, labels) or a list of `Sample`s, batched by `batch_size`
     unless its items are already MiniBatches. `local=None` picks
     `LocalOptimizer` when one device is visible (the CPU, or a single
-    card) and `DistriOptimizer` over all the cards otherwise."""
+    card) and `DistriOptimizer` over all the cards otherwise; with
+    `local=False` on one device, `DistriOptimizer` on it. `kw` goes to
+    `DistriOptimizer`."""
     device = resolve_device(device)
     devices = [device]
     if device.type == "cuda":
@@ -44,9 +50,12 @@ def Optimizer(model: torch.nn.Module, training_set, criterion,
         drop_remainder = not local  # equal shards per step across devices
     dataset = _as_batched_dataset(training_set, batch_size, drop_remainder)
     if local:
+        if kw:
+            raise TypeError(f"{sorted(kw)} apply to DistriOptimizer; "
+                            "LocalOptimizer takes none (pass local=False)")
         return LocalOptimizer(model, dataset, criterion,
                               batch_size=batch_size, device=device)
-    return DistriOptimizer(model, dataset, criterion, devices=devices)
+    return DistriOptimizer(model, dataset, criterion, devices=devices, **kw)
 
 
 def _as_batched_dataset(training_set, batch_size: int,

@@ -29,6 +29,14 @@ warm-up. The result also carries every step's loss.
 TF32 off) with the stem kernel off and on; with `--profile`, the device
 time by kind of kernel with it on.
 
+Every path also reports its FLOP count and `mfu`: `flops_per_step` (a
+training step, counted on the step the optimizer runs, on a copy of the
+model), `flops_per_forward` (serving) and `flops` (each attention call),
+all from `observability.costs.count_flops`, counted once before the timed
+window; `mfu` is that count over the measured time, against
+`costs.peak_flops` of the card (the dense bf16 peak; None off the
+registry, on the CPU for one).
+
 prints one JSON object. `--profile` gives device time by kind of kernel.
 The benchmark needs a CUDA device unless called with `device="cpu"`; the
 profile always does.
@@ -37,6 +45,7 @@ profile always does.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -51,7 +60,9 @@ from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
 from bigdl_tpu_torch.nn.conv import STEM_ENV
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
                                           TimeDistributedCriterion)
+from bigdl_tpu_torch.observability import costs
 from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
+from bigdl_tpu_torch.optim.local_optimizer import BaseOptimizer, _to_device
 
 
 def _resident_optimizer(model: torch.nn.Module, x: np.ndarray,
@@ -80,6 +91,37 @@ def _token_batch(vocab: int, seq: int, batch_size: int):
     rs = np.random.RandomState(0)
     toks = rs.randint(1, vocab + 1, (batch_size, seq + 1)).astype(np.int32)
     return toks[:, :-1], toks[:, 1:]
+
+
+def _meta(model: torch.nn.Module) -> torch.nn.Module:
+    """A copy of `model` on the meta device: shapes without data."""
+    return copy.deepcopy(model).to("meta")
+
+
+def step_flops(opt: BaseOptimizer) -> int:
+    """FLOPs of one training step of `opt` on its dataset's first batch:
+    the step the optimizer runs (`_build_step`, with its precision,
+    accumulation and clipping), counted by `costs.count_flops` on a copy
+    of the model and the method on the meta device. Nothing runs and
+    nothing launches (the kernel wrappers count by their formulas), so
+    the run itself is untouched, as the reference lowers its step a
+    second time without running it (`bench_cli.py:52-87`)."""
+    twin = copy.copy(opt)
+    twin.model = _meta(opt.model)
+    twin.optim_method = copy.deepcopy(opt.optim_method)
+    params = dict(twin.model.named_parameters())
+    opt_state = twin.optim_method.init_state_with_masters(params)
+    batch = next(iter(opt.dataset.data(train=False)))
+    meta = torch.device("meta")
+    x = _to_device(batch.get_input(), meta)
+    y = _to_device(batch.get_target(), meta)
+    return costs.count_flops(twin._build_step(), opt_state, x, y,
+                             twin.optim_method.current_lr())
+
+
+def _mfu(flops, ms: float, device: torch.device):
+    """`costs.mfu` of `flops` in `ms` on `device` (None on the CPU)."""
+    return costs.mfu(flops, ms * 1e-3, device_kind=_device_name(device))
 
 
 def _timed_run(opt: DistriOptimizer, warmup: int, iters: int, sync: int):
@@ -111,16 +153,20 @@ def framework_throughput(model: torch.nn.Module, in_shape: Sequence[int],
                          n_class: int, batch_size: int, warmup: int,
                          iters: int, sync: int = 4, device=None) -> Dict:
     """Train `model` (already on `device`) for `warmup + iters` steps on a
-    resident batch of NHWC `in_shape` images; returns imgs/s, ms/step and
-    the losses. `warmup` and `iters` are rounded to whole sync windows."""
+    resident batch of NHWC `in_shape` images; returns imgs/s, ms/step, the
+    losses, the step's FLOP count (`step_flops`, off the clock) and mfu.
+    `warmup` and `iters` are rounded to whole sync windows."""
     device = resolve_device(device)
     sync = math.gcd(math.gcd(warmup, iters), sync)  # windows tile the run
     opt = _resident_optimizer(model, *_image_batch(in_shape, n_class,
                                                    batch_size),
                               ClassNLLCriterion(), device)
+    flops = step_flops(opt)
     window_s, losses = _timed_run(opt, warmup, iters, sync)
+    ms = 1e3 * window_s / sync
     return {"imgs_per_sec": sync * batch_size / window_s,
-            "ms_per_step": 1e3 * window_s / sync,
+            "ms_per_step": ms, "flops_per_step": flops,
+            "mfu": _mfu(flops, ms, device),
             "batch_size": batch_size, "steps": warmup + iters,
             "warmup": warmup, "sync": sync, "losses": losses,
             "device": _device_name(device)}
@@ -131,15 +177,19 @@ def lm_throughput(model: torch.nn.Module, vocab: int, seq: int,
                   device=None) -> Dict:
     """Train the `TransformerLM` `model` (already on `device`) for
     `warmup + iters` steps on a resident batch of `batch_size` sequences
-    of `seq` tokens; returns tokens/s, ms/step and the losses."""
+    of `seq` tokens; returns tokens/s, ms/step, the losses, the step's
+    FLOP count and mfu."""
     device = resolve_device(device)
     sync = math.gcd(math.gcd(warmup, iters), sync)
     opt = _resident_optimizer(model, *_token_batch(vocab, seq, batch_size),
                               TimeDistributedCriterion(ClassNLLCriterion()),
                               device)
+    flops = step_flops(opt)
     window_s, losses = _timed_run(opt, warmup, iters, sync)
+    ms = 1e3 * window_s / sync
     return {"tokens_per_sec": sync * batch_size * seq / window_s,
-            "ms_per_step": 1e3 * window_s / sync,
+            "ms_per_step": ms, "flops_per_step": flops,
+            "mfu": _mfu(flops, ms, device),
             "batch_size": batch_size, "seq": seq, "steps": warmup + iters,
             "warmup": warmup, "sync": sync, "losses": losses,
             "device": _device_name(device)}
@@ -213,6 +263,19 @@ def _sp_mesh(device: torch.device, length: int):
         "mesh": [str(x) for x in devices], "one_device": n_dev < 2}
 
 
+def _on_meta_mesh(mesh, scheme: str, fn):
+    """`fn` (a sequence-parallel attention over `mesh`) for real inputs,
+    and the same scheme over as many meta shards for meta inputs (the
+    FLOP count)."""
+    from bigdl_tpu_torch.parallel import (build_mesh,
+                                          make_sequence_parallel_attention)
+    n = len(mesh.devices.ravel())
+    meta = make_sequence_parallel_attention(
+        build_mesh(data=n, devices=["meta"] * n), scheme, causal=True)
+    return lambda q, k, v: (meta if q.device.type == "meta" else fn)(q, k,
+                                                                     v)
+
+
 def bench_attention(device=None, lengths: Sequence[int] = (8192, 16384),
                     naive_max: int = 8192, ring_len: int = 8192,
                     reps: int = 10,
@@ -224,9 +287,11 @@ def bench_attention(device=None, lengths: Sequence[int] = (8192, 16384),
     `lengths`, naive attention at lengths up to `naive_max`, and ring
     against zigzag sequence parallelism (kernel 2) at
     `ring_len // 2n * 2n` over a mesh of every CUDA device when there are
-    two or more, else of 4 shards on the one device. TFLOP/s use the
-    reference's counts: causal forward 2*B*H*T^2*D*2/2, forward plus
-    backward 7*B*H*T^2*D*2/2."""
+    two or more, else of 4 shards on the one device. Each call's `flops`
+    is `costs.count_flops` of it: the kernels' counts, 2*D a product per
+    unmasked pair (2 products forward, 3 + 4 more in the backward's dq
+    and dk/dv kernels), and naive attention's own matmuls, masked pairs
+    included; TFLOP/s and `mfu` divide it by the call's time."""
     from bigdl_tpu_torch.ops.attention_kernel import (flash_attention,
                                                       flash_attention_forward,
                                                       naive_attention)
@@ -239,11 +304,14 @@ def bench_attention(device=None, lengths: Sequence[int] = (8192, 16384),
         return [torch.randn((b, h, t, d), generator=gen).to(device, dtype)
                 for _ in range(3)]
 
-    def fwd_flops(t):
-        return 2 * b * h * t * t * d * 2 / 2
-
-    def tflops(fl, ms):
-        return fl / (ms * 1e-3) / 1e12
+    def figures(fn, args, reps_, **extra):
+        """ms, flops, TFLOP/s and mfu of one call `fn(*args)`, the count
+        taken on meta copies of the arguments."""
+        fl = costs.count_flops(fn, *[a.to("meta") for a in args])
+        ms = _median_ms(lambda: fn(*args), reps_, device)
+        return {**extra, "ms": ms, "flops": fl,
+                "tflops": fl / (ms * 1e-3) / 1e12,
+                "mfu": _mfu(fl, ms, device)}
 
     out = {"batch": b, "heads": h, "head_dim": d, "dtype": "bfloat16",
            "causal": True, "reps": reps, "device": _device_name(device),
@@ -252,32 +320,31 @@ def bench_attention(device=None, lengths: Sequence[int] = (8192, 16384),
     for t in lengths:
         q, k, v = qkv(t)
         with torch.no_grad():
-            ms = _median_ms(lambda: flash_attention_forward(
-                q, k, v, causal=True), reps, device)
-        out["flash"].append({"seq": t, "ms": ms,
-                             "tflops": tflops(fwd_flops(t), ms)})
-        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-        ms_bwd = _median_ms(lambda: torch.autograd.grad(
-            flash_attention(qg, kg, vg, True).float().sum(), (qg, kg, vg)),
-            reps, device)
-        out["flash_fwd_bwd"].append({"seq": t, "ms": ms_bwd, "tflops":
-                                     tflops(3.5 * fwd_flops(t), ms_bwd)})
-        del qg, kg, vg
+            fwd = figures(lambda *a: flash_attention_forward(
+                *a, causal=True), (q, k, v), reps, seq=t)
+        out["flash"].append(fwd)
+
+        def fwd_bwd(*a):
+            a = [x.detach().requires_grad_() for x in a]
+            return torch.autograd.grad(
+                flash_attention(*a, True).float().sum(), a)
+
+        out["flash_fwd_bwd"].append(figures(fwd_bwd, (q, k, v), reps,
+                                            seq=t))
         if t <= naive_max:
             with torch.no_grad():
-                nms = _median_ms(lambda: naive_attention(
-                    q, k, v, causal=True), reps, device)
-            out["naive"].append({"seq": t, "ms": nms,
-                                 "tflops": tflops(fwd_flops(t), nms),
-                                 "flash_speedup": nms / ms})
+                naive = figures(lambda *a: naive_attention(
+                    *a, causal=True), (q, k, v), reps, seq=t)
+            naive["flash_speedup"] = naive["ms"] / fwd["ms"]
+            out["naive"].append(naive)
 
     mesh, sp = _sp_mesh(device, ring_len)
     q, k, v = qkv(sp["seq"])
     for scheme in ("ring", "zigzag"):
         fn = make_sequence_parallel_attention(mesh, scheme, causal=True)
         with torch.no_grad():
-            ms = _median_ms(lambda: fn(q, k, v), reps, device)
-        sp[scheme] = {"ms": ms, "tflops": tflops(fwd_flops(sp["seq"]), ms)}
+            sp[scheme] = figures(_on_meta_mesh(mesh, scheme, fn),
+                                 (q, k, v), reps)
     out["sequence_parallel"] = sp
     return out
 
@@ -425,16 +492,25 @@ def bench_resnet50_serving(batch_size: int = 32, reps: int = 20,
                            generator: Optional[torch.Generator] = None
                            ) -> Dict:
     """Median ms of one forward of the served ResNet-50 (f32, TF32 off)
-    with the stem switch unset (cuDNN stem) and set (the stem kernel)."""
+    with the stem switch unset (cuDNN stem) and set (the stem kernel), the
+    forward's FLOP count (the same either way: kernel 5 counts the 7x7
+    convolution it restates) and each one's mfu."""
     device = resolve_device(device)
     pred, x = _served_resnet50(batch_size, device, generator)
     out = {"batch_size": batch_size, "reps": reps,
            "device": _device_name(device),
            "timer": "cuda_events" if device.type == "cuda"
            else "host_clock"}
-    for label, on in (("cudnn_stem_ms", False), ("stem_kernel_ms", True)):
+    twin = copy.copy(pred)
+    twin.model = _meta(pred.model)
+    with _serving_settings(True):
+        flops = out["flops_per_forward"] = costs.count_flops(
+            twin._forward, x.to("meta"))
+    for label, on in (("cudnn_stem", False), ("stem_kernel", True)):
         with _serving_settings(on):
-            out[label] = _median_ms(lambda: pred._forward(x), reps, device)
+            ms = out[f"{label}_ms"] = _median_ms(lambda: pred._forward(x),
+                                                 reps, device)
+        out[f"{label}_mfu"] = _mfu(flops, ms, device)
     return out
 
 

@@ -82,9 +82,10 @@ Phases:
    l = 0 in and out), and a second launch (equal bits): acc within
    1e-5 * max|plain|, m and l within 1e-5 * max(|plain|, 1); bf16 runs
    the tensor-core design, f32 the CUDA-core one. Time it at the
-   full-width hop shapes (the ring's B1 H8 T=2048 D64 bf16 diagonal and
-   below-diagonal hops, zigzag's T=1024 chunk) beside its plain version,
-   its bound and kernel 1 in bf16 at the same shape and offsets. (b) Ring,
+   full-width hop shapes (the ring's B1 H8 T=2048 D64 diagonal and
+   below-diagonal hops, zigzag's T=1024 chunk; bf16, then f32) beside
+   its plain version, its bound and kernel 1 in the same dtype at the
+   same shape and offsets. (b) Ring,
    zigzag and Ulysses through `make_sequence_parallel_attention`, causal, B1 H8 T=8192 D64 bf16, over
    a mesh of every card (4 shards on the one card when there is one):
    each within one bf16 ulp of kernel 1 over the whole sequence
@@ -124,6 +125,39 @@ Phases:
    and a short full loop (8 warm-up + 24 timed steps) with and without
    kernel 5.
 
+11. the training loop's accounting and safety net. (a) ResNet-50 (s2d
+   stem, random weights from seed 0) at b128 in bf16 with f32 masters,
+   SGD momentum 0.9, over three seeded batches of 128 reshuffled every
+   pass, for 12 steps with `set_validation(several_iteration(4))` on a
+   held-out seeded set of 256 images ([Top1Accuracy, Top5Accuracy,
+   Loss]), `set_gradient_clipping_by_l2_norm(1.0)` and
+   `set_checkpoint(tmp, several_iteration(4), keep_last_n=2)`, under
+   `torch.use_deterministic_algorithms(True, warn_only=True)` with cuDNN
+   deterministic: exactly 2 checkpoints are left, and a fresh process
+   resumed from the step-8 checkpoint trains steps 9-12 to the same losses
+   and parameters bit for bit (within a relative 1e-3, with the ops named,
+   if an op of the path warned that it is not deterministic); kernels 6-7
+   launch 33 times a step. (b) The same at b32 through `Optimizer(...,
+   local=False, retry_policy=RetryPolicy(max_retries=3, base_delay_s=0.05,
+   seed=0))` with a `train.step` fault at the 6th step: the run recovers
+   from the step-4 checkpoint, reaches step 12, and its losses after the
+   recovery equal the unfaulted run's; the time to recover is printed.
+   (c) `Evaluator(model, 32).test` of (a)'s model on the card against the
+   same methods on the CPU (the plain kernels) over 64 held-out images:
+   the loss within a relative 1e-4, the Top1/Top5 counts equal but for
+   rows whose deciding margin is under 1e-3. (d) The LM at b8, T=2048, f32
+   with TF32 off: one step with `set_gradient_accumulation(2)` against the
+   same step without it (each updated parameter within 1e-4 of its
+   tensor's largest element, launches of kernels 1, 3, 4 twice as many),
+   then the
+   benchmark recipe in bf16 for 12 steps with
+   `set_gradient_clipping_by_l2_norm(1.0)` (its losses printed). (e) The
+   FLOP count and `mfu` of each `tools/bench.py` path (`resnet50` and
+   `lm` from phases 6 and 8, `serve` and `attention` here): every mfu in
+   (0, 1) against `costs.peak_flops` of the card, which must be in the
+   registry; and a small ResNet and LM step counted on the card, on the
+   CPU and on the meta device give one number.
+
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
 measure ran: `tensor_cores` or `cuda_cores_f32`), then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
@@ -131,21 +165,32 @@ measure ran: `tensor_cores` or `cuda_cores_f32`), then as its last line
 
 from __future__ import annotations
 
+import os
+
+# cuBLAS's workspace for phase 11's deterministic runs, in this process and
+# the one it starts; 8 x 4 MiB is already torch's default on sm_90, so the
+# earlier phases run as before
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import copy
 import json
 import math
-import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_FLOPS = {torch.float32: 67e12,     # f32 on the CUDA cores
-              torch.bfloat16: 989e12}   # bf16 on the tensor cores
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit):
+# f32 on the CUDA cores and the memory rate. The bf16 tensor-core peak is
+# `observability.costs.peak_flops` of the card, set in main().
+PEAK_FLOPS = {torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 # |kernel - plain| limits. f32: both sum the same f32 terms in another
 # order (2048 keys), ~1e-6 apart; a wrong mask or guard is off by >1e-2.
@@ -710,7 +755,7 @@ def training_phase(bk):
         check(v == BN_SITES * steps,
               f"{k} launched {v} times in {steps} steps, not "
               f"{BN_SITES} x {steps}")
-    return launches
+    return launches, res
 
 
 def _kernel_label(mangled):
@@ -1036,6 +1081,7 @@ def lm_training_phase(ak):
         check(v == LM_LAYERS * steps,
               f"{k} launched {v} times in {steps} steps, not "
               f"{LM_LAYERS} x {steps}")
+    lm_res = res
 
     # (c) the example recipe at its defaults
     t0 = time.perf_counter()
@@ -1044,7 +1090,7 @@ def lm_training_phase(ak):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check(math.isfinite(ppl) and ppl < 25,
           f"the example's train-shard perplexity {ppl} is not below 25")
-    return launches
+    return launches, lm_res
 
 
 def carry_bound(b, h, tq, tk, d, causal, q_offset, k_offset, dtype):
@@ -1186,19 +1232,22 @@ def carry_phase(ak):
                   f"carry {tag}: a past shard differs from causal=False or "
                   "a future shard did not pass the carry through bitwise")
 
-    # timing at the full-width hop shapes (B1 H8 D64 bf16)
+    # timing at the full-width hop shapes (B1 H8 D64), bf16 (the main
+    # measure) then f32 (the CUDA-core design)
     hops = [("ring below-diagonal hop", 2048, 2048, 0),
             ("ring diagonal hop", 2048, 2048, 2048),
             ("zigzag chunk (q_high vs A)", 1024, 1024 * 6, 1024)]
     main_row = None
-    for name, t, q_off, k_off in hops:
+    for dtype, name, t, q_off, k_off in [
+            (dt, *hop) for dt in (torch.bfloat16, torch.float32)
+            for hop in hops]:
         causal = "zigzag" not in name
-        q, k, v = (rand(1, 8, t, 64, dtype=torch.bfloat16)
+        q, k, v = (rand(1, 8, t, 64, dtype=dtype)
                    for _ in range(3))
         kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
         with torch.inference_mode():
             carry = _random_carry(ak, q, *(rand(1, 8, t, 64,
-                                                dtype=torch.bfloat16)
+                                                dtype=dtype)
                                            for _ in range(2)))
             got = ak.flash_attention_carry(q, k, v, carry, **kw)
             torch.cuda.synchronize()
@@ -1211,8 +1260,10 @@ def carry_phase(ak):
             k1_ms = cuda_ms(lambda: ak.flash_attention_forward(q, k, v,
                                                                **kw), 20)
         bound_ms, bound_by = carry_bound(1, 8, t, t, 64, causal, q_off,
-                                         k_off, torch.bfloat16)
-        row = {"case": name, "shape": [1, 8, t, t, 64], "dtype": "bfloat16",
+                                         k_off, dtype)
+        row = {"case": name, "shape": [1, 8, t, t, 64],
+               "dtype": str(dtype).replace("torch.", ""),
+               "design": DESIGN[dtype],
                "q_offset": q_off, "k_offset": k_off, "causal": causal,
                "max_abs_err": err, "max_share_of_limit": share,
                "share_of_limit": parts, "ms": ms,
@@ -1222,7 +1273,12 @@ def carry_phase(ak):
         print("carry timing " + json.dumps(row), flush=True)
         check(share <= 1, f"carry {name}: disagrees with its plain version "
                           f"(share {share:.3f} of the limit)")
-        if main_row is None:
+        if dtype == torch.float32:
+            main_row.setdefault("f32_hops", []).append(
+                {"case": name, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "kernel1_ms": k1_ms})
+        elif main_row is None:
             main_row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None, "hop_shape": name,
@@ -1690,11 +1746,507 @@ def stem_training_phase(sk):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# 11. the training loop's accounting and safety net
+# --------------------------------------------------------------------------
+
+P11_STEPS, P11_EVERY = 12, 4
+# (c): the loss on the card against the CPU, relative; rows whose deciding
+# margin (top-1 over top-2, top-5 over top-6) is under MARGIN_TOL may flip
+EVAL_RTOL = 1e-4
+# (d): each updated parameter with accumulation against without, per
+# element, relative to the tensor's largest element (f32, TF32 off: the
+# same sums in another order); the updates' own difference is reported
+ACCUM_RTOL = 1e-4
+# (a), (b): the relative limit on losses when an op of the path warned that
+# it is not deterministic (bit for bit otherwise)
+NONDET_RTOL = 1e-3
+
+
+def p11_data(device):
+    """The training set: three seeded batches of 128 images (RandomState(0))
+    on `device`; the held-out set: eight seeded batches of 32
+    (RandomState(1))."""
+    from bigdl_tpu_torch.dataset import MiniBatch
+
+    def batches(seed, n, size):
+        rs = np.random.RandomState(seed)
+        out = []
+        for _ in range(n):
+            x = rs.rand(size, 224, 224, 3).astype(np.float32)
+            y = (rs.randint(0, 1000, size) + 1).astype(np.int32)
+            out.append(MiniBatch(torch.from_numpy(x).to(device),
+                                 torch.from_numpy(y).to(device)))
+        return out
+
+    return batches(0, 3, 128), batches(1, 8, 32)
+
+
+def p11_configure(opt, held, ckpt_dir):
+    """Phase 11's settings on an optimizer; returns the list its hook fills
+    with (step, loss, score)."""
+    from bigdl_tpu_torch.optim import (SGD, Loss, Top1Accuracy,
+                                       Top5Accuracy, max_iteration,
+                                       several_iteration)
+    opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+    opt.set_compute_precision("bfloat16")
+    opt.set_gradient_clipping_by_l2_norm(1.0)
+    opt.set_validation(several_iteration(P11_EVERY), held,
+                       [Top1Accuracy(), Top5Accuracy(), Loss()])
+    opt.set_checkpoint(ckpt_dir, several_iteration(P11_EVERY),
+                       keep_last_n=2)
+    opt.set_end_when(max_iteration(P11_STEPS))
+    record = []
+    opt.set_iteration_hook(lambda s: record.append(
+        (s["neval"], s["loss"], s.get("score"), time.perf_counter())))
+    return record
+
+
+def p11_model(device):
+    from bigdl_tpu_torch.models import ResNet50
+    return ResNet50(class_num=1000, s2d_stem=True, device=device,
+                    generator=torch.Generator().manual_seed(0))
+
+
+def p11_resnet_run(ckpt_dir, resume=False):
+    """(a)'s run: the model, the optimizer over three b128 batches, its
+    record; resumed from the newest checkpoint under `ckpt_dir` first when
+    `resume`."""
+    from bigdl_tpu_torch.dataset import LocalDataSet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import DistriOptimizer
+    train, held = p11_data("cuda")
+    model = p11_model("cuda")
+    opt = DistriOptimizer(model, LocalDataSet(train, seed=0),
+                          ClassNLLCriterion(), devices=["cuda"])
+    record = p11_configure(opt, held, ckpt_dir)
+    if resume:
+        check(opt.resume_from_latest_checkpoint(),
+              f"nothing to resume from under {ckpt_dir}")
+    return model, opt, record, held
+
+
+class Deterministic:
+    """`torch.use_deterministic_algorithms(True, warn_only=True)` with cuDNN
+    deterministic for the block; `ops` names every op that warned that it
+    has no deterministic implementation."""
+
+    def __enter__(self):
+        self._warn = warnings.catch_warnings(record=True)
+        self.caught = self._warn.__enter__()
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        return self
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        self._warn.__exit__(*exc)
+        return False
+
+    @property
+    def ops(self):
+        return sorted({str(w.message).split(" does not have")[0]
+                       for w in self.caught
+                       if "does not have a deterministic" in str(w.message)})
+
+
+def resume_child(ckpt_dir, out_path):
+    """Phase 11(a)'s fresh process: resume from the newest checkpoint under
+    `ckpt_dir`, train to step 12, and write the record and the parameters
+    to `out_path` (+ ".json")."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from bigdl_tpu_torch.ops import _build
+    _build.build_kernels()
+    with Deterministic() as det:
+        model, opt, record, _ = p11_resnet_run(ckpt_dir, resume=True)
+        start = opt.optim_method.state["neval"]
+        opt.optimize()
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+               out_path)
+    with open(out_path + ".json", "w") as f:
+        json.dump({"start": start, "record": record,
+                   "nondeterministic_ops": det.ops}, f)
+    return 0
+
+
+def _same(a, b, rtol):
+    """Bitwise when `rtol` is 0, else within `rtol` relative."""
+    if rtol == 0:
+        return a == b
+    return all(abs(x - y) <= rtol * abs(y) for x, y in zip(a, b))
+
+
+def resume_phase(bk, tmp):
+    """(a): the uninterrupted run here, the resumed one in a fresh
+    process. Returns the trained model's parameters (on the CPU), the
+    held-out batches, and the limit (b) holds its losses to."""
+    from bigdl_tpu_torch.serialization import valid_checkpoints
+    ckpt = os.path.join(tmp, "a")
+    _reset_bn_counts(bk)
+    t0 = time.perf_counter()
+    with Deterministic() as det:
+        model, opt, record, held = p11_resnet_run(ckpt)
+        opt.optimize()
+    run_s = time.perf_counter() - t0
+    launches = (bk.bn_relu_forward.launches, bk.bn_relu_backward.launches)
+    kept = [os.path.basename(p) for p in valid_checkpoints(ckpt)]
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    rtol = NONDET_RTOL if det.ops else 0.0
+    resume_dir = os.path.join(tmp, "resume")
+    shutil.copytree(os.path.join(ckpt, "iter8"),
+                    os.path.join(resume_dir, "iter8"))
+    out_path = os.path.join(tmp, "resumed.pt")
+    del opt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--resume-child",
+         resume_dir, out_path], capture_output=True, text=True,
+        timeout=600)
+    child_s = time.perf_counter() - t0
+    check(child.returncode == 0, f"the resumed process failed "
+          f"(exit {child.returncode}): {child.stderr[-2000:]}")
+    with open(out_path + ".json") as f:
+        resumed = json.load(f)
+    theirs = torch.load(out_path)
+    diff = [k for k in state if not torch.equal(state[k], theirs[k])]
+    rel = max((float((state[k].float() - theirs[k].float()).abs().max())
+               / max(float(state[k].float().abs().max()), 1e-30))
+              for k in state)
+    full = [r[1] for r in record]
+    rest = [r[1] for r in resumed["record"]]
+    scores = [r[2] for r in record if r[0] % P11_EVERY == 0]
+    print("training loop resume " + json.dumps({
+        "model": "ResNet50 s2d", "batch": 128, "steps": P11_STEPS,
+        "precision": "bfloat16 compute, f32 masters",
+        "losses": full, "resumed_from": resumed["start"],
+        "resumed_losses": rest, "scores": scores,
+        "checkpoints_left": kept, "params_differing": len(diff),
+        "params_max_rel_diff": rel,
+        "nondeterministic_ops": det.ops,
+        "child_nondeterministic_ops": resumed["nondeterministic_ops"],
+        "launches": launches, "run_s": run_s, "fresh_process_s": child_s}),
+        flush=True)
+    check(kept == ["iter12", "iter8"], f"checkpoints left: {kept}")
+    check(resumed["start"] == 8, f"resumed at {resumed['start']}, not 8")
+    check(len(full) == P11_STEPS and all(np.isfinite(full)),
+          f"losses {full}")
+    check(all(s is not None for s in scores), f"validation scores {scores}")
+    if rtol == 0:
+        check(rest == full[8:] and not diff,
+              f"resumed losses {rest} vs {full[8:]}, {len(diff)} tensors "
+              "differ: not bit for bit")
+    else:
+        check(_same(rest, full[8:], rtol) and rel <= rtol,
+              f"resumed losses {rest} vs {full[8:]} (ops not "
+              f"deterministic: {det.ops}), params {rel:.2e} > {rtol}")
+    check(launches[1] == BN_SITES * P11_STEPS
+          and launches[0] > BN_SITES * P11_STEPS,
+          f"BN+ReLU launches {launches}: want {BN_SITES} backward a step, "
+          "and forwards in training and validation")
+    return model, held, rtol
+
+
+def retry_phase(tmp, rtol):
+    """(b): the same configuration at b32 through the `Optimizer` factory,
+    unfaulted, then with a `train.step` fault at the 6th step."""
+    from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import Optimizer
+    from bigdl_tpu_torch.resilience import (FaultInjector, FaultSpec,
+                                            RetryPolicy,
+                                            TransientInjectedFault)
+    train, held = p11_data("cuda")
+    small = [MiniBatch(b.inputs[0][i:i + 32], b.targets[0][i:i + 32])
+             for b in train for i in range(0, 128, 32)]
+
+    def run(name, fault=None):
+        model = p11_model("cuda")
+        opt = Optimizer(model, LocalDataSet(small, seed=0),
+                        ClassNLLCriterion(), 32, local=False, device="cuda",
+                        retry_policy=RetryPolicy(max_retries=3,
+                                                 base_delay_s=0.05, seed=0))
+        record = p11_configure(opt, held, os.path.join(tmp, name))
+        if fault is None:
+            opt.optimize()
+        else:
+            with fault:
+                opt.optimize()
+        del model, opt
+        torch.cuda.empty_cache()
+        return record
+
+    faulted_at = []
+
+    def injected(ctx):
+        faulted_at.append(time.perf_counter())
+        return TransientInjectedFault(f"injected at step {ctx['step']}")
+
+    with Deterministic() as det:
+        clean = run("clean")
+        plan = FaultInjector(FaultSpec("train.step", at_hit=6,
+                                       exc=injected))
+        faulted = run("faulted", plan)
+    after = faulted[5:]
+    steps = [r[0] for r in faulted]
+    recover_s = after[0][3] - faulted_at[0] if faulted_at and after \
+        else float("nan")
+    got, want = [r[1] for r in after], [r[1] for r in clean[4:]]
+    rtol = max(rtol, NONDET_RTOL if det.ops else 0.0)
+    print("training loop retry " + json.dumps({
+        "batch": 32, "fault": "train.step at hit 6", "fired": plan.fired,
+        "steps": steps, "losses_unfaulted": [r[1] for r in clean],
+        "losses_faulted": [r[1] for r in faulted],
+        "time_to_recover_s": recover_s,
+        "time_to_recover": "from the fault to the end of the first step "
+                           "after the reload of the step-4 checkpoint",
+        "nondeterministic_ops": det.ops}), flush=True)
+    check(plan.fired == [("train.step", 6)], f"fired {plan.fired}")
+    check(steps == [1, 2, 3, 4, 5] + list(range(5, P11_STEPS + 1)),
+          f"the faulted run's steps {steps}: no recovery from step 4")
+    check(_same(got, want, rtol), f"losses after the recovery {got} vs "
+          f"the unfaulted run's {want} (limit {rtol})")
+    return recover_s
+
+
+def _deciding_margins(out):
+    """Per row: top-1 over top-2 and top-5 over top-6, the margins that
+    decide Top1 and Top5."""
+    top = torch.topk(out.float(), 6, dim=-1).values
+    return top[:, 0] - top[:, 1], top[:, 4] - top[:, 5]
+
+
+def evaluator_phase(model, held):
+    """(c): Evaluator on the card against the CPU (plain kernels)."""
+    from bigdl_tpu_torch.dataset import MiniBatch
+    from bigdl_tpu_torch.optim import (Evaluator, Loss, Top1Accuracy,
+                                       Top5Accuracy)
+
+    def methods():
+        return [Top1Accuracy(), Top5Accuracy(), Loss()]
+
+    card = Evaluator(model, 32)
+    t0 = time.perf_counter()
+    full = card.test(held, methods())
+    full_s = time.perf_counter() - t0
+    part = held[:2]
+    on_card = card.test(part, methods())
+    cpu = Evaluator(copy.deepcopy(model).cpu(), 32, device="cpu")
+    cpu_part = [MiniBatch(b.inputs[0].cpu(), b.targets[0].cpu())
+                for b in part]
+    t0 = time.perf_counter()
+    on_cpu = cpu.test(cpu_part, methods())
+    cpu_s = time.perf_counter() - t0
+    near = [0, 0]
+    for b in cpu_part:
+        m1, m5 = _deciding_margins(cpu._pred._forward(b.inputs[0]))
+        near[0] += int((m1 < MARGIN_TOL).sum())
+        near[1] += int((m5 < MARGIN_TOL).sum())
+    loss_rel = abs(on_card[2].result()[0] - on_cpu[2].result()[0]) / abs(
+        on_cpu[2].result()[0])
+    print("training loop evaluator " + json.dumps({
+        "held_out": [repr(r) for r in full], "held_out_s": full_s,
+        "images_compared": 64, "card": [repr(r) for r in on_card],
+        "cpu": [repr(r) for r in on_cpu], "cpu_s": cpu_s,
+        "loss_rel_diff": loss_rel, "rows_under_margin_top1_top5": near}),
+        flush=True)
+    check(full[0].result()[1] == 256, f"held-out count {full[0]}")
+    check(loss_rel <= EVAL_RTOL, f"Evaluator loss card vs CPU: relative "
+          f"{loss_rel:.2e} > {EVAL_RTOL}")
+    for i, label in enumerate(("Top1", "Top5")):
+        d = abs(on_card[i].correct - on_cpu[i].correct)
+        check(d <= near[i], f"{label} counts card {on_card[i]} vs CPU "
+              f"{on_cpu[i]}: {d} apart, {near[i]} rows near a tie")
+
+
+def lm_loop_phase(ak, lm_unclipped):
+    """(d): gradient accumulation on the LM (f32) and the benchmark recipe
+    with clipping (bf16)."""
+    from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
+    from bigdl_tpu_torch.tools.bench import _resident_optimizer, _token_batch
+
+    x, y = _token_batch(LM_CFG["vocab_size"], 2048, 8)
+    batch = MiniBatch(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    base = TransformerLM(**LM_CFG, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+
+    def one_step(accum):
+        """The parameters after one step, their updates, the flash
+        launches and the loss."""
+        model = copy.deepcopy(base)
+        before = {k: p.detach().clone() for k, p in model.named_parameters()}
+        opt = DistriOptimizer(model, LocalDataSet([batch]),
+                              TimeDistributedCriterion(ClassNLLCriterion()),
+                              devices=["cuda"])
+        opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+        opt.set_end_when(max_iteration(1))
+        if accum > 1:
+            opt.set_gradient_accumulation(accum)
+        _reset_flash_counts(ak)
+        opt.optimize()
+        counts = _flash_counts(ak)
+        after = {k: p.detach() for k, p in model.named_parameters()}
+        return after, {k: after[k] - before[k] for k in after}, counts, \
+            opt.optim_method.state["loss"]
+
+    def worst(a, b):
+        """The largest per-tensor max|a - b| / max|b|."""
+        return max(float((a[k] - b[k]).abs().max())
+                   / max(float(b[k].abs().max()), 1e-30) for k in b)
+
+    full, d_full, full_counts, full_loss = one_step(1)
+    acc, d_acc, acc_counts, acc_loss = one_step(2)
+    rel, share = worst(acc, full), worst(d_acc, d_full)
+    del base
+    torch.cuda.empty_cache()
+
+    model = TransformerLM(**LM_CFG, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+    opt = _resident_optimizer(model, x, y,
+                              TimeDistributedCriterion(ClassNLLCriterion()),
+                              torch.device("cuda"))
+    opt.set_gradient_clipping_by_l2_norm(1.0)
+    opt.set_end_when(max_iteration(P11_STEPS))
+    losses = []
+    opt.set_iteration_hook(lambda s: losses.append(s["loss"]))
+    _reset_flash_counts(ak)
+    opt.optimize()
+    clipped_counts = _flash_counts(ak)
+    print("training loop lm " + json.dumps({
+        "batch": 8, "seq": 2048, "accumulation": {
+            "dtype": "float32", "tf32": False, "steps": 2,
+            "loss": acc_loss, "loss_without": full_loss,
+            "params_max_rel_diff": rel, "update_max_diff_share": share,
+            "launches_fwd_dq_dkv": acc_counts,
+            "launches_without": full_counts},
+        "clipped_recipe": {
+            "precision": "bfloat16 compute, f32 masters", "clip_norm": 1.0,
+            "losses": losses, "finite": int(np.isfinite(losses).sum()),
+            "unclipped_losses_first_12": lm_unclipped[:P11_STEPS],
+            "launches_fwd_dq_dkv": clipped_counts}}), flush=True)
+    check(rel <= ACCUM_RTOL, f"parameters after a step with accumulation "
+          f"2 differ by {rel:.2e} of their largest element (limit "
+          f"{ACCUM_RTOL})")
+    check(full_counts == (LM_LAYERS,) * 3 and acc_counts == (2 * LM_LAYERS,)
+          * 3, f"flash launches {full_counts} without accumulation, "
+          f"{acc_counts} with 2")
+    check(clipped_counts == (LM_LAYERS * P11_STEPS,) * 3,
+          f"flash launches {clipped_counts} in {P11_STEPS} steps")
+    check(len(losses) == P11_STEPS and math.isfinite(losses[0]),
+          f"clipped recipe losses {losses}")
+    return losses
+
+
+def _mfu_ok(v):
+    return v is not None and 0 < v < 1
+
+
+def mfu_phase(resnet, lm):
+    """(e): the FLOP count and mfu of each tools/bench.py path, and one
+    count whatever runs the kernels."""
+    from bigdl_tpu_torch.observability import costs
+    from bigdl_tpu_torch.tools.bench import (bench_attention,
+                                             bench_resnet50_serving)
+    name = torch.cuda.get_device_name(0)
+    serve = bench_resnet50_serving(device="cuda",
+                                   generator=torch.Generator().manual_seed(0))
+    attention = bench_attention(device="cuda")
+    calls = [(f"{kind} T={e['seq']}", e) for kind in ("flash",
+             "flash_fwd_bwd", "naive") for e in attention[kind]] + [
+        (scheme, attention["sequence_parallel"][scheme])
+        for scheme in ("ring", "zigzag")]
+    paths = {
+        "resnet50": {"flops_per_step": resnet["flops_per_step"],
+                     "ms_per_step": resnet["ms_per_step"],
+                     "mfu": resnet["mfu"]},
+        "lm": {"flops_per_step": lm["flops_per_step"],
+               "ms_per_step": lm["ms_per_step"], "mfu": lm["mfu"]},
+        "serve": {"flops_per_forward": serve["flops_per_forward"],
+                  "cudnn_stem_ms": serve["cudnn_stem_ms"],
+                  "cudnn_stem_mfu": serve["cudnn_stem_mfu"],
+                  "stem_kernel_ms": serve["stem_kernel_ms"],
+                  "stem_kernel_mfu": serve["stem_kernel_mfu"]},
+        "attention": {label: {k: e[k] for k in ("flops", "ms", "tflops",
+                                                "mfu")}
+                      for label, e in calls}}
+    routes = route_counts()
+    print("training loop mfu " + json.dumps({
+        "device": name, "peak_bf16_flops": costs.peak_flops(name),
+        "paths": paths, "one_count_per_step": routes}), flush=True)
+    check(costs.peak_flops(name) is not None,
+          f"{name!r} is not in costs.PEAK_BF16_FLOPS")
+    mfus = [("resnet50", resnet["mfu"]), ("lm", lm["mfu"]),
+            ("serve cudnn stem", serve["cudnn_stem_mfu"]),
+            ("serve stem kernel", serve["stem_kernel_mfu"])] + [
+        (f"attention {label}", e["mfu"]) for label, e in calls]
+    bad = [(k, v) for k, v in mfus if not _mfu_ok(v)]
+    check(not bad, f"mfu outside (0, 1): {bad}")
+    for model, counts in routes.items():
+        check(len(set(counts.values())) == 1,
+              f"{model} step counted {counts} on the card, CPU and meta")
+
+
+def route_counts():
+    """A small ResNet and a small LM step counted by `costs.count_flops` on
+    the card (the kernels), on the CPU (their plain versions) and on the
+    meta device (shapes only)."""
+    from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+    from bigdl_tpu_torch.models import ResNet, TransformerLM
+    from bigdl_tpu_torch.nn import (ClassNLLCriterion,
+                                    TimeDistributedCriterion)
+    from bigdl_tpu_torch.observability import costs
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer
+    from bigdl_tpu_torch.tools.bench import step_flops
+
+    rs = np.random.RandomState(5)
+    cases = {
+        "resnet8 b4 16x16": (
+            lambda dev: ResNet(10, depth=8, data_set="cifar10", device=dev,
+                               generator=torch.Generator().manual_seed(0)),
+            rs.rand(4, 16, 16, 3).astype(np.float32),
+            (rs.randint(0, 10, 4) + 1).astype(np.int32),
+            ClassNLLCriterion()),
+        "lm 2 layers b2 T=64": (
+            lambda dev: TransformerLM(64, embed_dim=64, n_layer=2, n_head=2,
+                                      device=dev,
+                                      generator=torch.Generator()
+                                      .manual_seed(0)),
+            rs.randint(1, 65, (2, 64)).astype(np.int32),
+            rs.randint(1, 65, (2, 64)).astype(np.int32),
+            TimeDistributedCriterion(ClassNLLCriterion()))}
+    out = {}
+    for label, (make, x, y, crit) in cases.items():
+        counts = {}
+        for dev in ("cuda", "cpu"):
+            model = make(dev)
+            opt = DistriOptimizer(model, LocalDataSet([MiniBatch(x, y)]),
+                                  crit, devices=[dev])
+            opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+            state = opt.optim_method.init_state_with_masters(
+                dict(model.named_parameters()))
+            counts[dev] = costs.count_flops(
+                opt._build_step(), state, torch.from_numpy(x).to(dev),
+                torch.from_numpy(y).to(dev), 0.01)
+            if dev == "cpu":
+                counts["meta"] = step_flops(opt)
+        out[label] = counts
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--resume-child"]:
+        return resume_child(*sys.argv[2:4])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1708,10 +2260,18 @@ def main() -> int:
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}",
           flush=True)
 
+    from bigdl_tpu_torch.observability import costs
     from bigdl_tpu_torch.ops import _build
     from bigdl_tpu_torch.ops import attention_kernel as ak
     from bigdl_tpu_torch.ops import bn_relu_kernel as bk
     from bigdl_tpu_torch.ops import stem_kernel as sk
+
+    # the bf16 tensor-core peak of the bounds: the card's registry entry
+    PEAK_FLOPS[torch.bfloat16] = costs.peak_flops(
+        torch.cuda.get_device_name(0))
+    check(PEAK_FLOPS[torch.bfloat16] is not None,
+          f"{torch.cuda.get_device_name(0)!r} has no entry in "
+          "costs.PEAK_BF16_FLOPS")
 
     # 2. build
     t0 = time.perf_counter()
@@ -1734,13 +2294,13 @@ def main() -> int:
     bn_rows = bn_relu_phase(bk)
 
     # 6. training
-    bn_launches = training_phase(bk)
+    bn_launches, resnet_res = training_phase(bk)
 
     # 7. flash backward kernels
     bwd_rows = flash_backward_phase(ak)
 
     # 8. LM training
-    lm_launches = lm_training_phase(ak)
+    lm_launches, lm_res = lm_training_phase(ak)
 
     # 9. sequence parallelism
     carry_row = carry_phase(ak)
@@ -1750,6 +2310,18 @@ def main() -> int:
     stem_row = stem_kernel_phase(sk)
     stem_launches = stem_serving_phase(sk, bk, stem_row["ms"])
     stem_training_phase(sk)
+
+    # 11. the training loop's accounting and safety net
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        model, held, rtol = resume_phase(bk, tmp)
+        retry_phase(tmp, rtol)
+        evaluator_phase(model, held)
+    del model, held
+    torch.cuda.empty_cache()
+    lm_loop_phase(ak, lm_res["losses"])
+    mfu_phase(resnet_res, lm_res)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [
         {**KERNEL_ROW, "launches": launches, **main_row, "status": "ok",

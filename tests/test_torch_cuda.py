@@ -3,8 +3,13 @@ hop), the flash backward (dq and dk/dv), the BN+ReLU and the
 space-to-depth stem CUDA kernels against their plain versions, the
 stem layer's kernel route against its cuDNN route, the generation engine
 on CUDA against the CPU, a ResNet training step through the kernels
-against the CPU, an LM training step's kernel launches, and ring, zigzag
-and Ulysses attention over 4 shards on one card against kernel 1.
+against the CPU, an LM training step's kernel launches, ring, zigzag
+and Ulysses attention over 4 shards on one card against kernel 1, and
+the training loop's accounting and safety net: one FLOP count of a step
+whether the kernels run (the card), their plain versions (the CPU) or
+neither (the meta device), the Evaluator on the card against the CPU,
+and a resume from a checkpoint equal to the uninterrupted run bit for bit
+(deterministic algorithms on).
 
 Every test here needs a CUDA device and skips without one. This file
 imports nothing of JAX, so it runs where JAX is not installed:
@@ -26,12 +31,15 @@ both, another summation order; bf16 runs on the tensor cores with P split
 into bf16 hi + lo, f32 on the CUDA cores); a shard wholly in the queries'
 future passes the carry through bitwise. Sequence parallel: per element 1e-4 *
 max|ref| of kernel 1 on the whole sequence, plus one bf16 ulp in bf16.
-Stem (kernel 5): per element 1e-5 * max|plain| in f32 (the same f32
-products summed in another order), plus one bf16 ulp, 2**-7 * |plain|, in
-bf16 (each rounds its f32 sum to nearest); a second launch gives the same
-bits. Kernels 1 and 5 in bf16 (with O % 8 == 0 for kernel 5) run their
-tensor-core designs, in f32 their CUDA-core ones; bf16 inputs 2 bytes past
-a 16-byte boundary take element-wise copies and give the same bits.
+Evaluator: the Top1/Top5 counts equal and the loss within a relative
+1e-5 (f32, TF32 off, another summation order; the rows' top-2 margins
+exceed 1e-3, checked). Stem (kernel 5): per element 1e-5 * max|plain|
+in f32 (the same f32 products summed in another order), plus one bf16
+ulp, 2**-7 * |plain|, in bf16 (each rounds its f32 sum to nearest); a
+second launch gives the same bits. Kernels 1 and 5 in bf16 (with O % 8
+== 0 for kernel 5) run their tensor-core designs, in f32 their CUDA-core
+ones; bf16 inputs 2 bytes past a 16-byte boundary take element-wise
+copies and give the same bits.
 """
 
 import numpy as np
@@ -612,3 +620,119 @@ def test_stem_layer_on_cuda_runs_the_kernel_never_the_plain(cuda_device,
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-5 * float(want.abs().max()))
+
+
+def _small_step(make, x, y, crit, device):
+    """`costs.count_flops` of one real step of `make(device)` on (x, y),
+    and the optimizer (for `step_flops`)."""
+    from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+    from bigdl_tpu_torch.observability import costs
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer
+    model = make(device)
+    opt = DistriOptimizer(model, LocalDataSet([MiniBatch(x, y)]), crit,
+                          devices=[device])
+    opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+    state = opt.optim_method.init_state_with_masters(
+        dict(model.named_parameters()))
+    return costs.count_flops(opt._build_step(), state,
+                             torch.from_numpy(x).to(device),
+                             torch.from_numpy(y).to(device), 0.01), opt
+
+
+@pytest.mark.parametrize("model", ["resnet", "lm"])
+def test_step_count_is_one_number_on_card_cpu_and_meta(cuda_device, model):
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.tools.bench import step_flops
+    rs = np.random.RandomState(5)
+    if model == "resnet":
+        def make(dev):
+            return ResNet(10, depth=8, data_set="cifar10", device=dev)
+        x = rs.rand(4, 16, 16, 3).astype(np.float32)
+        y = (rs.randint(0, 10, 4) + 1).astype(np.int32)
+        crit = ClassNLLCriterion()
+    else:
+        def make(dev):
+            return TransformerLM(64, embed_dim=64, n_layer=2, n_head=2,
+                                 device=dev)
+        x, y = (rs.randint(1, 65, (2, 64)).astype(np.int32)
+                for _ in range(2))
+        crit = TimeDistributedCriterion(ClassNLLCriterion())
+    launches = (tbk.bn_relu_backward.launches,
+                tak.flash_attention_backward_dkv.launches)
+    card, _ = _small_step(make, x, y, crit, cuda_device)
+    assert (tbk.bn_relu_backward.launches,
+            tak.flash_attention_backward_dkv.launches) != launches
+    cpu, opt = _small_step(make, x, y, crit, torch.device("cpu"))
+    assert card == cpu == step_flops(opt)
+
+
+def test_evaluator_on_the_card_matches_the_cpu(cuda_device):
+    import copy
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.optim import (Evaluator, Loss, Top1Accuracy,
+                                       Top5Accuracy)
+    torch.backends.cudnn.allow_tf32 = False
+    rs = np.random.RandomState(2)
+    x = rs.rand(20, 16, 16, 3).astype(np.float32)
+    y = (rs.randint(0, 10, 20) + 1).astype(np.int32)
+    samples = [Sample(x[i], y[i]) for i in range(20)]
+    model = ResNet(10, depth=8, data_set="cifar10", device=cuda_device,
+                   generator=torch.Generator().manual_seed(3))
+    cpu_model = copy.deepcopy(model).cpu()
+    methods = lambda: [Top1Accuracy(), Top5Accuracy(), Loss()]  # noqa
+    card = Evaluator(model, 8).test(samples, methods())
+    cpu_ev = Evaluator(cpu_model, 8, device="cpu")
+    cpu = cpu_ev.test(samples, methods())
+    out = cpu_ev._pred._forward(torch.from_numpy(x))
+    top = torch.topk(out, 6, dim=-1).values
+    assert float((top[:, 0] - top[:, 1]).min()) > 1e-3
+    assert float((top[:, 4] - top[:, 5]).min()) > 1e-3
+    assert card[0].result() == cpu[0].result()
+    assert card[1].result() == cpu[1].result()
+    np.testing.assert_allclose(card[2].result()[0], cpu[2].result()[0],
+                               rtol=1e-5)
+
+
+def test_resume_on_the_card_equals_the_uninterrupted_run(cuda_device,
+                                                         tmp_path):
+    import shutil
+    from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import (SGD, DistriOptimizer, max_iteration,
+                                       several_iteration)
+    rs = np.random.RandomState(4)
+    batches = [MiniBatch(torch.from_numpy(rs.rand(8, 16, 16, 3).astype(
+        np.float32)).to(cuda_device), torch.from_numpy(
+        (rs.randint(0, 10, 8) + 1).astype(np.int32)).to(cuda_device))
+        for _ in range(3)]
+
+    def run(path, resume):
+        model = ResNet(10, depth=8, data_set="cifar10", device=cuda_device,
+                       generator=torch.Generator().manual_seed(0))
+        opt = DistriOptimizer(model, LocalDataSet(batches, seed=0),
+                              ClassNLLCriterion(), devices=[cuda_device])
+        opt.set_optim_method(SGD(learning_rate=0.05, momentum=0.9))
+        opt.set_compute_precision("bfloat16")
+        opt.set_gradient_clipping_by_l2_norm(1.0)
+        opt.set_checkpoint(str(path), several_iteration(4))
+        opt.set_end_when(max_iteration(10))
+        if resume:
+            assert opt.resume_from_latest_checkpoint()
+        losses = []
+        opt.set_iteration_hook(lambda s: losses.append(s["loss"]))
+        opt.optimize()
+        return model, losses
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        full_model, full = run(tmp_path / "a", False)
+        shutil.copytree(tmp_path / "a" / "iter4", tmp_path / "b" / "iter4")
+        model, rest = run(tmp_path / "b", True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    assert rest == full[4:]
+    for a, b in zip(full_model.state_dict().values(),
+                    model.state_dict().values()):
+        assert torch.equal(a, b)

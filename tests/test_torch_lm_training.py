@@ -456,7 +456,7 @@ def test_optimizer_factory_picks_the_loop(monkeypatch):
         toptim.Optimizer(tm, X, crit, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="multi-GPU data parallel"):
         toptim.Optimizer(tm, (X, Y), crit, device="cuda:0")
 
 

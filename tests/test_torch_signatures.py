@@ -306,7 +306,7 @@ def test_optimizers_take_the_reference_positions():
     ds = LocalDataSet([])
     one = DistriOptimizer(model, ds, crit, build_mesh(devices=["cpu"]))
     assert [str(d) for d in one.devices] == ["cpu"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="multi-GPU data parallel"):
         DistriOptimizer(model, ds, crit, build_mesh(devices=["cpu", "cpu"]))
     with pytest.raises(ValueError, match="not both"):
         DistriOptimizer(model, ds, crit, build_mesh(devices=["cpu"]),
