@@ -20,16 +20,12 @@ import torch
 import torch.nn.functional as F
 
 import bigdl_tpu_torch.nn as nn
-from bigdl_tpu_torch._device import resolve_device
-from bigdl_tpu_torch.nn.initialization import MsraFiller, default_generator
+from bigdl_tpu_torch.models._builder import Builder
+from bigdl_tpu_torch.nn.initialization import MsraFiller
 
 
-class _Builder:
+class _Builder(Builder):
     """Makes the layers of one model on one device from one generator."""
-
-    def __init__(self, device, generator):
-        self.device = resolve_device(device)
-        self.g = default_generator(generator)
 
     def conv(self, n_in, n_out, k, stride=1, pad=None, name=None):
         if pad is None:

@@ -1,6 +1,7 @@
 """Activations (counterpart of `bigdl_tpu/nn/activation.py`).
 
-Ported: `ReLU` and `LogSoftMax`, what the ResNets use.
+Ported: `ReLU` and `LogSoftMax` (the ResNets), `Tanh` (LeNet-5) and
+`Sigmoid` (the autoencoder).
 """
 
 from __future__ import annotations
@@ -30,3 +31,17 @@ class LogSoftMax(Module):
 
     def forward(self, x):
         return torch.log_softmax(x, dim=-1)
+
+
+class Tanh(Module):
+    """Hyperbolic tangent."""
+
+    def forward(self, x):
+        return torch.tanh(x)
+
+
+class Sigmoid(Module):
+    """1 / (1 + exp(-x))."""
+
+    def forward(self, x):
+        return torch.sigmoid(x)

@@ -1,8 +1,9 @@
 """Containers (counterpart of `bigdl_tpu/nn/containers.py`).
 
 Ported: `Sequential` (with the BN->ReLU matcher), `ConcatTable`,
-`CAddTable` and `Identity`, what the ResNets use. Children are registered
-under the reference's keys, `"<index>_<child name>"`, so a module's path
+`CAddTable` and `Identity` (the ResNets), and `Concat` (Inception).
+Children are registered under the reference's keys, `"<index>_<child
+name>"`, so a module's path
 in the port (`named_modules`, split on ".") is its path in the JAX
 package's parameter tree and BN state. `ConcatTable` returns a Python list
 where the reference returns a 1-based `Table`.
@@ -10,7 +11,9 @@ where the reference returns a 1-based `Table`.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
+
+import torch
 
 from bigdl_tpu_torch.nn.module import Module
 
@@ -54,6 +57,21 @@ class ConcatTable(Container):
 
     def forward(self, x):
         return [child(x) for child in self.children_in_order()]
+
+
+class Concat(Container):
+    """Each child applied to the same input, the outputs joined along
+    `axis` (0-based, as the reference's): 3 is the NHWC channel axis of an
+    Inception block, 1 the class axis of the auxiliary heads. Autograd
+    hands each child a slice of the joined gradient, a strided view."""
+
+    def __init__(self, axis: int = 1, name: Optional[str] = None):
+        super().__init__(name)
+        self.axis = axis
+
+    def forward(self, x):
+        return torch.cat([child(x) for child in self.children_in_order()],
+                         dim=self.axis)
 
 
 class CAddTable(Module):

@@ -1,7 +1,8 @@
 """Criteria (counterpart of `bigdl_tpu/nn/criterion.py`).
 
-Ported: `ClassNLLCriterion`, the classification loss, and
-`TimeDistributedCriterion`, the per-time-step loss of the language models.
+Ported: `ClassNLLCriterion`, the classification loss,
+`TimeDistributedCriterion`, the per-time-step loss of the language models,
+and `MSECriterion`, the autoencoder's loss.
 """
 
 from __future__ import annotations
@@ -84,3 +85,15 @@ class TimeDistributedCriterion(nn.Module):
                                     target.select(dim, t))
                         for t in range(steps))
         return total / steps if self.size_average else total
+
+
+class MSECriterion(nn.Module):
+    """Squared error: its mean with `size_average`, else its sum."""
+
+    def __init__(self, size_average: bool = True):
+        super().__init__()
+        self.size_average = size_average
+
+    def forward(self, output, target):
+        d = output - torch.as_tensor(target, device=output.device)
+        return (d * d).mean() if self.size_average else (d * d).sum()

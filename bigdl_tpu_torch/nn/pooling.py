@@ -1,8 +1,9 @@
 """Pooling layers (counterpart of `bigdl_tpu/nn/pooling.py`), NHWC.
 
 Ported: `SpatialMaxPooling` and `SpatialAveragePooling` (with `pad`,
-`ceil_mode`, and for the average `count_include_pad` and `divide`), NHWC
-only, and `Pooler`. Like the convolutions, the pools permute NHWC to a
+`ceil_mode` or the `.ceil()` builder, and for the average
+`count_include_pad` and `divide`), NHWC only, `Pooler`, and
+`SpatialCrossMapLRN`. Like the convolutions, the pools permute NHWC to a
 channels_last NCHW view (no copy) and back.
 """
 
@@ -36,6 +37,11 @@ class _Pool2d(Module):
         self.dw, self.dh = dw or kw, dh or kh
         self.pad_w, self.pad_h = pad_w, pad_h
         self.ceil_mode = ceil_mode
+
+    def ceil(self):
+        """Ceil mode on, the reference's builder; returns the layer."""
+        self.ceil_mode = True
+        return self
 
     def _same(self) -> bool:
         return self.pad_h in (-1, "SAME")
@@ -119,3 +125,25 @@ class Pooler(Module):
 
     def forward(self, x):
         return x.mean(dim=(1, 2))
+
+
+class SpatialCrossMapLRN(Module):
+    """Local response normalization across channels, NHWC: `x / (k +
+    alpha / size * s) ** beta`, where s sums x**2 over a window of `size`
+    channels padded with zeros by (size // 2, size - 1 - size // 2), in
+    the input's dtype as the reference computes it. Plain PyTorch: the
+    reference runs it in `jnp`, outside any Pallas kernel."""
+
+    def __init__(self, size: int = 5, alpha: float = 1.0, beta: float = 0.75,
+                 k: float = 1.0, data_format: str = "NHWC",
+                 name: Optional[str] = None):
+        check_nhwc(data_format, type(self).__name__)
+        super().__init__(name)
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+
+    def forward(self, x):
+        half = self.size // 2
+        win = F.pad(x * x, (half, self.size - 1 - half)).unfold(
+            -1, self.size, 1).sum(-1)
+        return x / torch.pow(self.k + (self.alpha / self.size) * win,
+                             self.beta)

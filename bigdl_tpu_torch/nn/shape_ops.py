@@ -1,0 +1,30 @@
+"""Shape layers (counterpart of `bigdl_tpu/nn/shape_ops.py`).
+
+Ported: `Reshape`, what the feed-forward models use.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from bigdl_tpu_torch.nn.module import Module
+
+
+class Reshape(Module):
+    """Reshape the non-batch axes to `size` (`batch_mode=False`: the whole
+    tensor). The port's activations are NHWC tensors whatever their
+    memory layout, so `Reshape((H * W * C,))` flattens in (H, W, C) order,
+    the order the reference's `Linear` weights after it are laid out in.
+    (Flattening the channels_last NCHW view the convolutions run on would
+    give (C, H, W) order and silently permute the features.)"""
+
+    def __init__(self, size: Sequence[int], batch_mode: Optional[bool] = True,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.size = tuple(size)
+        self.batch_mode = batch_mode
+
+    def forward(self, x):
+        if self.batch_mode is False:
+            return x.reshape(self.size)
+        return x.reshape((x.shape[0],) + self.size)

@@ -233,7 +233,9 @@ class BnReluFunction(torch.autograd.Function):
     """`bn_relu` with the fused backward: saves (x, scale, shift), no mask
     and no pre-activation. `BnReluFunction.g_copies` counts the backward
     calls whose incoming gradient was not NHWC-contiguous and had to be
-    copied before the kernel could read it as [N, C]."""
+    copied before the kernel could read it as [N, C] (as a `Concat`'s
+    gradient slice is); a `meta` tensor, which holds no data, is not
+    counted, as a kernel launch is not."""
 
     g_copies = 0
 
@@ -254,7 +256,8 @@ class BnReluFunction(torch.autograd.Function):
         x, scale, shift = ctx.saved_tensors
         c = x.shape[-1]
         if not g.is_contiguous():
-            BnReluFunction.g_copies += 1
+            if g.device.type != "meta":
+                BnReluFunction.g_copies += 1
             g = g.contiguous()
         dx2, ds, db = bn_relu_backward(x.view(-1, c), scale, shift,
                                        g.view(-1, c), ctx.relu)

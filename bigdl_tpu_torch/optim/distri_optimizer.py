@@ -10,10 +10,12 @@ the error is classified by the `RetryPolicy`, the loop backs off, reloads
 the newest valid checkpoint and trains on; with no checkpoint yet, it
 restores the host snapshot of the model taken at the start of the
 attempt (the steps update the model in place, so a failed attempt leaves
-it half updated). As in the reference, there is no retry without
-`set_checkpoint`: then no snapshot is taken either (it would cost a host
-copy of the model at every `optimize()`), and a failure leaves the model
-where the failed step left it.
+it half updated). A reloaded checkpoint also puts back the step
+generator's state committed with it, so the retried steps draw the
+dropout masks of the unfaulted run. As in the reference, there is no
+retry without `set_checkpoint`: then no snapshot is taken either (it
+would cost a host copy of the model at every `optimize()`), and a
+failure leaves the model where the failed step left it.
 
 Not ported: several devices (data parallel over `torch.distributed`,
 `ROADMAP.md` queue 1 item 3; asking for them raises
@@ -87,7 +89,7 @@ class DistriOptimizer(BaseOptimizer):
         return self.retry_policy
 
     def optimize(self) -> torch.nn.Module:
-        self._pristine = None
+        self._start_run()
         return self._optimize_with_retry()
 
     def _optimize_with_retry(self) -> torch.nn.Module:

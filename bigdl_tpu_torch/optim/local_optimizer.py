@@ -36,6 +36,16 @@ model's output upcast to f32.
   `interop.jax_params`; resume restores them, the counters and the data
   cursor.
 - The `train.step` fault site fires before every step.
+- The step generator (`generator`): a `torch.Generator` on the training
+  device, seeded 0 as the reference's key chain starts at `PRNGKey(0)`,
+  lent to every `Dropout` for each step (`nn.lend_generator`); the
+  step's masks advance it. Its state is committed in memory with each
+  checkpoint saved, and a run that reloads that checkpoint on this
+  optimizer (the retry path) restores it, so a retried step draws the
+  masks of the unfaulted run. Checkpoints do not hold it, as the
+  reference's do not hold its key: a fresh process that resumes starts
+  the stream from the seed. A failed run puts it back as the run found
+  it, as the reference keeps its key when a run fails.
 
 Not ported (`ROADMAP.md` lists them): telemetry and tracing, summaries,
 NaN/step guards, prefetch, preemption, graph optimisation, sharded
@@ -57,6 +67,7 @@ import torch
 from torch.func import functional_call
 
 from bigdl_tpu_torch._device import resolve_device
+from bigdl_tpu_torch.nn.dropout import lend_generator
 from bigdl_tpu_torch.optim.metrics import Metrics, Timer
 from bigdl_tpu_torch.optim.optim_method import OptimMethod, SGD
 from bigdl_tpu_torch.optim.trigger import Trigger, every_epoch
@@ -145,6 +156,12 @@ class BaseOptimizer:
         self._cursor_prev_pos = self._cursor_last_pos = None
         # host copy of the model's tensors at the start of a run
         self._pristine: Optional[Dict[str, torch.Tensor]] = None
+        #: the step generator: lent to the Dropout layers for each step
+        self.generator = torch.Generator(self.device).manual_seed(0)
+        # its state at the start of a run, and after each checkpoint's
+        # step (keyed by that step's neval), for the retry path
+        self._generator_at_start: Optional[torch.Tensor] = None
+        self._generator_commits: Dict[int, torch.Tensor] = {}
 
     # fluent setters
     def set_gradient_accumulation(self, steps: int):
@@ -268,6 +285,10 @@ class BaseOptimizer:
         _, params, mstate, oblob = got
         load_params(self.model, params, mstate)
         restore_optim_method(self.optim_method, oblob)
+        committed = self._generator_commits.get(
+            self.optim_method.state.get("neval"))
+        if committed is not None:
+            self.generator.set_state(committed)
         if oblob.get("slots") is not None:
             self._resume_slots = self._slots_from_tree(oblob["slots"])
         self._resume_cursor = oblob.get("cursor")
@@ -322,6 +343,8 @@ class BaseOptimizer:
                         overwrite=self.overwrite_checkpoint,
                         keep_last_n=self.checkpoint_keep_last_n,
                         cursor=self._data_cursor())
+        self._generator_commits[self.optim_method.state["neval"]] = \
+            self.generator.get_state()
 
     def _data_cursor(self):
         """The dataset's cursor at the last trained batch (one pull behind
@@ -509,6 +532,10 @@ class BaseOptimizer:
             return loss.detach(), list(grads)
 
         def step(opt_state, x, y, lr):
+            with lend_generator(self.generator):
+                return train_step(opt_state, x, y, lr)
+
+        def train_step(opt_state, x, y, lr):
             model.train()
             if accum > 1:
                 # the micro-batches in order, their gradients and losses
@@ -547,11 +574,20 @@ class BaseOptimizer:
         self._pristine = {k: v.detach().to("cpu", copy=True)
                           for k, v in self.model.state_dict().items()}
 
+    def _start_run(self):
+        """Forget the last run's snapshot; note the step generator's
+        state."""
+        self._pristine = None
+        self._generator_at_start = self.generator.get_state()
+
     def _restore_pristine(self):
         """Put the start-of-run snapshot back: the steps update in place,
-        so a run that fails mid-step leaves the model half updated."""
+        so a run that fails mid-step leaves the model half updated. The
+        step generator goes back to its start-of-run state too."""
         if self._pristine is not None:
             self.model.load_state_dict(self._pristine)
+        if self._generator_at_start is not None:
+            self.generator.set_state(self._generator_at_start)
 
     def _optimize_impl(self):
         params = dict(self.model.named_parameters())
@@ -643,7 +679,7 @@ class LocalOptimizer(BaseOptimizer):
         self.batch_size = batch_size
 
     def optimize(self) -> torch.nn.Module:
-        self._pristine = None
+        self._start_run()
         try:
             return self._optimize_impl()
         except BaseException:

@@ -23,6 +23,21 @@ warm-up. The result also carries every step's loss.
     python -m bigdl_tpu_torch.tools.bench [--model lm] --profile
     python -m bigdl_tpu_torch.tools.bench --model attention [--profile]
     python -m bigdl_tpu_torch.tools.bench --model serve [--profile]
+    python -m bigdl_tpu_torch.tools.bench --model inception_v1 [--profile]
+    python -m bigdl_tpu_torch.tools.bench --model lenet|inception_v2|vgg16
+
+The feed-forward zoo (`--model lenet | inception_v1 | inception_v2 |
+vgg16`) trains with the same recipe (`ClassNLLCriterion`, sync every 8) at
+the reference's batch sizes (`bench_cli.py` `bench_baseline_configs`,
+`examples/perf.py`): LeNet-5 at b512 on 28x28 images with 10 classes;
+`Inception_v1_NoAuxClassifier(1000, s2d_stem=True)` at b64 on 224x224x3,
+the stem through kernel 5 when `BIGDL_TPU_PALLAS_STEM` is set, as in the
+reference; `Inception_v2_NoAuxClassifier(1000)` and `Vgg_16(1000)` at
+b32. Dropout draws from the optimizer's step generator. `--profile` works
+for both Inceptions; it adds the `torch.cat` copies and the copies and
+casts as kinds of their own, the BN+ReLU gradient copies a step
+(`BnReluFunction.g_copies`) and the LRN layers' device time (every zoo
+model takes it).
 
 `--model serve` times one b32 forward of the served ResNet-50
 (`LocalPredictor` over `ResNet50(class_num=1000, s2d_stem=True)`, f32,
@@ -46,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -206,6 +222,44 @@ def bench_resnet50(batch_size: int = 128, warmup: int = 216,
                      generator=generator)
     return framework_throughput(model, (224, 224, 3), 1000, batch_size,
                                 warmup, iters, sync=sync, device=device)
+
+
+#: the zoo's benchmark configurations: (builder, input shape, classes,
+#: batch size); the builders live in `bigdl_tpu_torch.models`
+ZOO = {
+    "lenet": ("LeNet5", (28, 28), 10, 512),
+    "inception_v1": ("Inception_v1_NoAuxClassifier", (224, 224, 3), 1000,
+                     64),
+    "inception_v2": ("Inception_v2_NoAuxClassifier", (224, 224, 3), 1000,
+                     32),
+    "vgg16": ("Vgg_16", (224, 224, 3), 1000, 32),
+}
+
+
+def zoo_model(name: str, device=None,
+              generator: Optional[torch.Generator] = None
+              ) -> torch.nn.Module:
+    """The zoo model of the configuration `name`, random weights from
+    `generator` (default seed 0), on `device`."""
+    from bigdl_tpu_torch import models
+    builder, _, n_class, _ = ZOO[name]
+    kw = {"s2d_stem": True} if name == "inception_v1" else {}
+    return getattr(models, builder)(n_class, **kw, device=device,
+                                    generator=generator)
+
+
+def bench_zoo(name: str, batch_size: Optional[int] = None, warmup: int = 8,
+              iters: int = 40, sync: int = 8, device=None,
+              generator: Optional[torch.Generator] = None) -> Dict:
+    """`framework_throughput` of the zoo configuration `name` (`ZOO`), at
+    its batch size unless `batch_size` is given; 8 + 40 steps, syncing
+    every 8, as `bench_cli.py`'s baseline configurations run."""
+    device = resolve_device(device)
+    _, in_shape, n_class, default_batch = ZOO[name]
+    res = framework_throughput(zoo_model(name, device, generator), in_shape,
+                               n_class, batch_size or default_batch, warmup,
+                               iters, sync=sync, device=device)
+    return {"model": name, **res}
 
 
 def _lm(vocab: int, device, generator=None):
@@ -370,16 +424,22 @@ _KERNEL_KINDS = (
 )
 
 
-def _kind(name: str) -> str:
+#: the zoo's profiles also file `torch.cat` and `copy_` (the Concat
+#: gradient slices made contiguous, the bf16 casts) on their own
+_ZOO_KINDS = (("concat (torch.cat)", ("catarraybatchedcopy",)),
+              ("copies and casts (copy_)", ("direct_copy",))) + _KERNEL_KINDS
+
+
+def _kind(name: str, kinds=_KERNEL_KINDS) -> str:
     low = name.lower()
-    for kind, parts in _KERNEL_KINDS:
+    for kind, parts in kinds:
         if any(p in low for p in parts):
             return kind
     return "other"
 
 
 def _profile(opt: DistriOptimizer, warmup: int, steps: int, top: int,
-             device: torch.device) -> Dict:
+             device: torch.device, kinds=_KERNEL_KINDS) -> Dict:
     """Where the device time of `opt`'s training goes: after `warmup`
     steps, `steps` more under `torch.profiler`. Returns the device-busy
     and idle shares of the profiled wall time (host clock, from a drained
@@ -391,10 +451,11 @@ def _profile(opt: DistriOptimizer, warmup: int, steps: int, top: int,
     torch.cuda.synchronize(device)
     opt.set_sync_interval(steps)
     opt.set_end_when(max_iteration(warmup + steps))
-    return _profiled(opt.optimize, steps, top, device)
+    return _profiled(opt.optimize, steps, top, device, kinds)
 
 
-def _profiled(run, steps: int, top: int, device: torch.device) -> Dict:
+def _profiled(run, steps: int, top: int, device: torch.device,
+              kinds=_KERNEL_KINDS) -> Dict:
     """Run `run()` (`steps` steps, the device drained before) under
     `torch.profiler` and summarise where its device time goes."""
     from torch.profiler import ProfilerActivity, profile
@@ -415,9 +476,10 @@ def _profiled(run, steps: int, top: int, device: torch.device) -> Dict:
     if not by_name:
         raise RuntimeError("the profiler recorded no device events")
     busy_ms = sum(ms for _, ms in by_name.values())
-    kinds: Dict[str, float] = {}
+    by_kind: Dict[str, float] = {}
     for name, (_, ms) in by_name.items():
-        kinds[_kind(name)] = kinds.get(_kind(name), 0.0) + ms / steps
+        kind = _kind(name, kinds)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms / steps
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     return {"steps": steps,
             "wall_ms_per_step": wall_ms / steps,
@@ -425,9 +487,9 @@ def _profiled(run, steps: int, top: int, device: torch.device) -> Dict:
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "kernel_launches_per_step": sum(
                 n for n, _ in by_name.values()) / steps,
-            "ms_per_step_by_kind": dict(sorted(kinds.items(),
+            "ms_per_step_by_kind": dict(sorted(by_kind.items(),
                                                key=lambda kv: -kv[1])),
-            "top_kernels": [{"name": name[:120], "kind": _kind(name),
+            "top_kernels": [{"name": name[:120], "kind": _kind(name, kinds),
                              "calls_per_step": n / steps,
                              "ms_per_step": ms / steps}
                             for name, (n, ms) in ranked],
@@ -454,6 +516,55 @@ def profile_resnet50(batch_size: int = 128, warmup: int = 8, steps: int = 8,
                               ClassNLLCriterion(), device)
     return {"batch_size": batch_size,
             **_profile(opt, warmup, steps, top, device)}
+
+
+def _lrn_ms(shapes, device: torch.device, reps: int = 10) -> float:
+    """Device ms of one forward and backward of
+    `SpatialCrossMapLRN(5, 1e-4, 0.75)` in bf16 at each of `shapes`,
+    summed (CUDA events)."""
+    from bigdl_tpu_torch.nn import SpatialCrossMapLRN
+    lrn = SpatialCrossMapLRN(5, 0.0001, 0.75)
+    total = 0.0
+    for shape in shapes:
+        x = torch.rand(shape, device=device, dtype=torch.bfloat16)
+        x.requires_grad_()
+        g = torch.ones(shape, device=device, dtype=torch.bfloat16)
+        total += _median_ms(lambda: torch.autograd.grad(lrn(x), x, g),
+                            reps, device)
+    return total
+
+
+def profile_zoo(name: str, batch_size: Optional[int] = None,
+                warmup: int = 8, steps: int = 8, top: int = 15, device=None,
+                generator: Optional[torch.Generator] = None) -> Dict:
+    """`_profile` of the zoo configuration `name` (`ZOO`), with
+    `torch.cat` and `copy_` filed on their own; also the BN+ReLU
+    gradient copies a step (`BnReluFunction.g_copies`) and the device ms
+    a step of the model's LRN layers, each timed alone at the shape it
+    saw (forward and backward)."""
+    from bigdl_tpu_torch.nn import SpatialCrossMapLRN
+    from bigdl_tpu_torch.ops.bn_relu_kernel import BnReluFunction
+    device = _cuda_only(device, "profile_zoo")
+    _, in_shape, n_class, default_batch = ZOO[name]
+    batch_size = batch_size or default_batch
+    model = zoo_model(name, device, generator)
+    lrn_shapes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda _, args: lrn_shapes.append(tuple(args[0].shape)))
+        for m in model.modules() if isinstance(m, SpatialCrossMapLRN)]
+    opt = _resident_optimizer(model, *_image_batch(in_shape, n_class,
+                                                   batch_size),
+                              ClassNLLCriterion(), device)
+    copies = BnReluFunction.g_copies
+    out = _profile(opt, warmup, steps, top, device, _ZOO_KINDS)
+    for h in hooks:
+        h.remove()
+    lrn_shapes = lrn_shapes[:len(hooks)]  # one step's
+    return {"model": name, "batch_size": batch_size,
+            "bn_relu_g_copies_per_step":
+                (BnReluFunction.g_copies - copies) / (warmup + steps),
+            "lrn_shapes": lrn_shapes,
+            "lrn_ms_per_step": _lrn_ms(lrn_shapes, device), **out}
 
 
 def _served_resnet50(batch_size: int, device: torch.device,
@@ -594,7 +705,8 @@ def main(argv=None) -> None:
     import argparse
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", choices=("resnet50", "serve", "lm",
-                                       "attention"), default="resnet50")
+                                       "attention", *ZOO),
+                   default="resnet50")
     p.add_argument("--profile", action="store_true",
                    help="device time by kind of kernel (torch.profiler)")
     args = p.parse_args(argv)
@@ -605,6 +717,9 @@ def main(argv=None) -> None:
             else bench_resnet50_serving
     elif args.model == "lm":
         fn = profile_transformer_lm if args.profile else bench_transformer_lm
+    elif args.model in ZOO:
+        fn = functools.partial(profile_zoo if args.profile else bench_zoo,
+                               args.model)
     else:
         fn = profile_resnet50 if args.profile else bench_resnet50
     print(json.dumps(fn()))

@@ -158,8 +158,34 @@ Phases:
    registry; and a small ResNet and LM step counted on the card, on the
    CPU and on the meta device give one number.
 
+12. the feed-forward zoo. (a) Kernel 5 with its bias at Inception-v1's
+   b64 shape (x2 [64, 112, 112, 12], O = 64; f32, and bf16 with the bias
+   as the bf16 copy of its master), and kernels 6-7 at Inception-v2's 7x7
+   C=352 and 28x28 C=96 sites and VggForCifar10's 2-D [32, 512] site (x
+   f32, y and g bf16, the backward's g a channel slice of a wider Concat
+   gradient, copied once by the Function), each against its plain
+   version with phases 10's and 5's limits, timed beside its bound
+   (kernels 6-7 there also by the profiler: their device time is below
+   a launch's host cost, which back-to-back CUDA events measure).
+   (b) f32 parity pairs through `DistriOptimizer`, 3 SGD steps each:
+   `Inception_v1_NoAuxClassifier(1000, s2d_stem=True)` at b8 with the
+   stem kernel on against a `pallas_stem=False` twin;
+   `Inception_v2_NoAuxClassifier(1000)` at b8 and `VggForCifar10(10)` at
+   b16, 32x32, against `fusion_scope(False)` twins. Twins share the
+   weights and the step generator's seed (so the dropout masks): losses
+   within a relative 1e-4; kernel 5 once a step, kernels 6 and 7 69
+   (v2) and 14 (Cifar VGG) times a step, the twins none. (c) The
+   `tools/bench.py --model lenet | inception_v1 | inception_v2 | vgg16`
+   configurations (b512, b64 with the stem kernel on, b32, b32; bf16
+   compute, f32 masters) for 8 warm-up and 24 timed steps: imgs/s,
+   ms/step, the FLOP count, mfu in (0, 1), a finite first loss and a
+   last loss below it, and exact launches (kernel 5 once a step for
+   Inception-v1, kernels 6-7 69 times and 36 gradient copies a step for
+   Inception-v2). (d) Phase 12's wall time.
+
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
-measure ran: `tensor_cores` or `cuda_cores_f32`), then as its last line
+measure ran: `tensor_cores` or `cuda_cores_f32`; rows 5-7 with their
+launches on the zoo's paths and their zoo shapes), then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
 """
 
@@ -2240,6 +2266,339 @@ def route_counts():
     return out
 
 
+# --------------------------------------------------------------------------
+# 12. the feed-forward zoo
+# --------------------------------------------------------------------------
+
+# fused BN+ReLU sites a training step: Inception-v2 (after every one of its
+# 69 convolutions) and VggForCifar10 (13 convolution blocks and the 1-D BN)
+V2_SITES = 69
+CIFAR_VGG_SITES = 14
+# Inception-v2's Concat gradient slices a step: the last BN+ReLU of each
+# branch that has one (4 in each of 8 blocks, 2 in the 2 reduction blocks)
+V2_G_COPIES = 36
+# kernels 6-7 at the zoo's new sites, (label, N, C) of the [N, C] view
+ZOO_BN_SHAPES = [("v2 7x7 C=352", 32 * 7 * 7, 352),
+                 ("v2 28x28 C=96", 32 * 28 * 28, 96),
+                 ("cifar vgg 2-D [32, 512]", 32, 512)]
+# the width of the joined Concat gradient each of those sites is a slice
+# of, and the slice's offset (the 2-D site gets a slice of the same form)
+ZOO_G_SLICES = {"v2 7x7 C=352": (1024, 0), "v2 28x28 C=96": (256, 64),
+                "cifar vgg 2-D [32, 512]": (1024, 256)}
+# the zoo's benchmark configurations, `tools/bench.py --model <name>`
+ZOO_BENCH = ("lenet", "inception_v1", "inception_v2", "vgg16")
+
+
+def device_ms(fn, reps=20):
+    """Device time (ms) of one call of `fn`: every kernel it launches,
+    summed over `reps` calls under `torch.profiler` and divided by
+    `reps`. Back-to-back CUDA events time the host's issue rate instead
+    when a call's kernels take less time than its launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(us) >= reps, f"the profiler saw {len(us)} device events in "
+                           f"{reps} calls")
+    return sum(us) / reps / 1e3
+
+
+def zoo_kernel_phase(sk, bk):
+    """12(a): kernel 5 with its bias at Inception-v1's b64 shape, kernels
+    6-7 at Inception-v2's and VggForCifar10's sites (the backward given a
+    channel slice of a Concat gradient), each against its plain version
+    with phases 5's and 10's limits, timed beside its bound. Kernels 6-7
+    at these sites take less device time than a launch: `ms` (CUDA
+    events over back-to-back calls) is then the host's issue rate, and
+    `device_ms` (the profiler) the kernels' own time."""
+    from bigdl_tpu_torch.nn.conv import s2d_kernel, space_to_depth
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {"stem": [], "fwd": [], "bwd": []}
+    x = torch.rand((64, 224, 224, 3), generator=gen, device="cuda")
+    w_oihw = torch.randn((64, 3, 7, 7), generator=gen, device="cuda") * 0.2
+    bias32 = torch.randn((64,), generator=gen, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        # in bf16 training the bias arrives as the bf16 copy of its master
+        xd, wd, bias = x.to(dt), w_oihw.to(dt), bias32.to(dt)
+        x2, wk = space_to_depth(xd), s2d_kernel(wd)
+        out = sk.stem_conv_forward(x2, wk, bias, 2, 1)
+        again = sk.stem_conv_forward(x2, wk, bias, 2, 1)
+        torch.cuda.synchronize()
+        ref = sk.stem_conv_forward_plain(x2, wk, bias, 2, 1).float()
+        err = (out.float() - ref).abs()
+        lim = (2 ** -7 if dt == torch.bfloat16 else 0) * ref.abs() \
+            + STEM_ATOL * ref.abs().max()
+        share = float((err / lim).max())
+        bitwise = torch.equal(out, again)
+        x_nchw = xd.permute(0, 3, 1, 2)
+        bound = stem_bound(64, 112, 112, 7, 3, 64, dt, True)
+        row = {"case": f"inception_v1 b64 bias {str(dt)[6:]}",
+               "x2": list(x2.shape), "O": 64,
+               "design": stem_design(dt, dt, 64),
+               "max_abs_err": float(err.max()), "max_share_of_limit": share,
+               "second_launch_equal": bitwise,
+               "ms": cuda_ms(lambda: sk.stem_conv_forward(
+                   x2, wk, bias, 2, 1), 20),
+               "plain_ms": cuda_ms(lambda: sk.stem_conv_forward_plain(
+                   x2, wk, bias, 2, 1), 10),
+               "bound_ms": bound[0], "bound_by": bound[1],
+               "library_ms": cuda_ms(lambda: F.conv2d(
+                   x_nchw, wd, bias, 2, 3), 20)}
+        print("zoo stem case " + json.dumps(row), flush=True)
+        check(share <= 1 and bitwise,
+              f"{row['case']}: the stem kernel disagrees with its plain "
+              f"version ({share:.3f} of the limit) or a second launch "
+              f"differs (equal: {bitwise})")
+        rows["stem"].append(row)
+        del xd, wd, x2, wk, out, again, ref, err, lim, x_nchw
+    del x
+    torch.cuda.empty_cache()
+
+    for label, n, c in ZOO_BN_SHAPES:
+        width, offset = ZOO_G_SLICES[label]
+        x2 = torch.randn((n, c), generator=gen, device="cuda")
+        scale = torch.rand((c,), generator=gen, device="cuda") + 0.5
+        shift = torch.randn((c,), generator=gen, device="cuda") * 0.5
+        g = torch.randn((n, width), generator=gen, device="cuda").to(
+            torch.bfloat16)[:, offset:offset + c]
+        # the fused tail as a layer calls it: the Function copies the
+        # strided slice, then launches kernel 7 on it
+        xr = x2.clone().requires_grad_()
+        copies = bk.BnReluFunction.g_copies
+        y = bk.bn_relu(xr, scale, shift, True, torch.bfloat16)
+        dx = torch.autograd.grad(y, xr, g)[0]
+        torch.cuda.synchronize()
+        check(bk.BnReluFunction.g_copies == copies + 1,
+              f"{label}: the strided gradient was not copied once")
+        gc = g.contiguous()
+        y_ref = bk.bn_relu_forward_plain(x2, scale, shift, True,
+                                         torch.bfloat16)
+        dx_k, ds, db = bk.bn_relu_backward(x2, scale, shift, gc, True)
+        dx_ref, ds_ref, db_ref = bk.bn_relu_backward_plain(
+            x2, scale, shift, gc, True)
+        gm = torch.where((x2 * scale + shift).to(torch.bfloat16) > 0,
+                         gc.float(), 0.0)
+        ok = (torch.equal(y, y_ref) and torch.equal(dx, dx_ref)
+              and torch.equal(dx_k, dx_ref)
+              and bool(((ds - ds_ref).abs()
+                        <= BN_SUM_RTOL * (gm * x2).abs().sum(0)).all())
+              and bool(((db - db_ref).abs()
+                        <= BN_SUM_RTOL * gm.abs().sum(0)).all()))
+        fwd_bound = bn_relu_bound(n, c, torch.float32, torch.bfloat16, False)
+        bwd_bound = bn_relu_bound(n, c, torch.float32, torch.bfloat16, True)
+        iters = 50
+        fwd = {"case": f"{label} x float32 y bfloat16",
+               "max_abs_err": float((y.float() - y_ref.float()).abs().max()),
+               "ms": cuda_ms(lambda: bk.bn_relu_forward(
+                   x2, scale, shift, True, torch.bfloat16), iters),
+               "plain_ms": cuda_ms(lambda: bk.bn_relu_forward_plain(
+                   x2, scale, shift, True, torch.bfloat16), iters),
+               "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+               "library_ms": None}
+        bwd = {"case": f"{label} x float32 g bfloat16 (a slice of "
+                       f"[{n}, {width}])",
+               "max_abs_err": float((dx - dx_ref).abs().max()),
+               "max_abs_err_dscale": float((ds - ds_ref).abs().max()),
+               "max_abs_err_dshift": float((db - db_ref).abs().max()),
+               "ms": cuda_ms(lambda: bk.bn_relu_backward(
+                   x2, scale, shift, gc, True), iters),
+               "plain_ms": cuda_ms(lambda: bk.bn_relu_backward_plain(
+                   x2, scale, shift, gc, True), iters),
+               "g_copy_ms": cuda_ms(lambda: g.contiguous(), iters),
+               "g_copy_device_ms": device_ms(lambda: g.contiguous()),
+               "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+               "library_ms": None}
+        fwd["device_ms"] = device_ms(lambda: bk.bn_relu_forward(
+            x2, scale, shift, True, torch.bfloat16))
+        bwd["device_ms"] = device_ms(lambda: bk.bn_relu_backward(
+            x2, scale, shift, gc, True))
+        for row in (fwd, bwd):
+            row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        print("zoo bn_relu case " + json.dumps({"ok": ok, "fwd": fwd,
+                                                "bwd": bwd}), flush=True)
+        check(ok, f"{label}: a BN+ReLU kernel disagrees with its plain "
+                  "version (y or dx not bitwise, or dscale/dshift beyond "
+                  f"{BN_SUM_RTOL} * sum|terms|)")
+        rows["fwd"].append(fwd)
+        rows["bwd"].append(bwd)
+    return rows
+
+
+def _zoo_data(batch, shape, n_class, seed):
+    from bigdl_tpu_torch.dataset import MiniBatch
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy(rs.rand(batch, *shape).astype(np.float32))
+    y = torch.from_numpy((rs.randint(0, n_class, batch) + 1).astype(
+        np.int32))
+    return MiniBatch(x.cuda(), y.cuda())
+
+
+def _zoo_counts(sk, bk):
+    return {"stem_conv": sk.stem_conv_forward.launches,
+            "bn_relu_fwd": bk.bn_relu_forward.launches,
+            "bn_relu_bwd": bk.bn_relu_backward.launches}
+
+
+def _reset_zoo_counts(sk, bk):
+    sk.stem_conv_forward.launches = 0
+    _reset_bn_counts(bk)
+
+
+def zoo_parity_phase(sk, bk):
+    """12(b): f32 parity pairs through DistriOptimizer, 3 SGD steps each:
+    the model through the kernels against a twin with the same weights
+    and the same step-generator seed (so the same dropout masks) that
+    launches none. Returns the launches of each pair's model."""
+    from bigdl_tpu_torch.dataset import LocalDataSet
+    from bigdl_tpu_torch.models import (Inception_v1_NoAuxClassifier,
+                                        Inception_v2_NoAuxClassifier,
+                                        VggForCifar10)
+    from bigdl_tpu_torch.nn import (ClassNLLCriterion,
+                                    SpaceToDepthStemConvolution,
+                                    fusion_scope)
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
+
+    def stem_route(on):
+        def set_route(m):
+            for mod in m.modules():
+                if isinstance(mod, SpaceToDepthStemConvolution):
+                    mod.pallas_stem = on
+        return set_route
+
+    cases = [
+        ("inception_v1", lambda: Inception_v1_NoAuxClassifier(
+            1000, s2d_stem=True, device="cuda",
+            generator=torch.Generator().manual_seed(0)),
+         (224, 224, 3), 1000, 8, stem_route(True), stem_route(False), None,
+         {"stem_conv": 1, "bn_relu_fwd": 0, "bn_relu_bwd": 0}),
+        ("inception_v2", lambda: Inception_v2_NoAuxClassifier(
+            1000, device="cuda", generator=torch.Generator().manual_seed(0)),
+         (224, 224, 3), 1000, 8, None, None, False,
+         {"stem_conv": 0, "bn_relu_fwd": V2_SITES,
+          "bn_relu_bwd": V2_SITES}),
+        ("vgg_cifar", lambda: VggForCifar10(
+            10, device="cuda", generator=torch.Generator().manual_seed(0)),
+         (32, 32, 3), 10, 16, None, None, False,
+         {"stem_conv": 0, "bn_relu_fwd": CIFAR_VGG_SITES,
+          "bn_relu_bwd": CIFAR_VGG_SITES}),
+    ]
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    for name, make, shape, n_class, batch, on, off, fuse, per_step in cases:
+        data = _zoo_data(batch, shape, n_class, 12)
+        model = make()
+        twin = make()
+        twin.load_state_dict(model.state_dict())
+        if on is not None:
+            on(model)
+            off(twin)
+
+        def train3(m):
+            losses = []
+            opt = DistriOptimizer(m, LocalDataSet([data]),
+                                  ClassNLLCriterion(), devices=["cuda"])
+            opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+            opt.set_end_when(max_iteration(3))
+            opt.set_iteration_hook(lambda st: losses.append(st["loss"]))
+            opt.optimize()
+            return losses
+
+        _reset_zoo_counts(sk, bk)
+        got = train3(model)
+        launches = _zoo_counts(sk, bk)
+        _reset_zoo_counts(sk, bk)
+        if fuse is None:
+            ref = train3(twin)
+        else:
+            with fusion_scope(fuse):
+                ref = train3(twin)
+        twin_launches = _zoo_counts(sk, bk)
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+        print("zoo parity " + json.dumps({
+            "model": name, "batch": batch, "steps": 3, "dtype": "float32",
+            "losses": got, "twin_losses": ref, "rel_diff": rel,
+            "launches": launches, "twin_launches": twin_launches}),
+            flush=True)
+        check(len(got) == 3 and all(np.isfinite(got))
+              and max(rel) <= PARITY_RTOL,
+              f"{name}: f32 losses {got} vs twin {ref}: relative "
+              f"{max(rel):.2e} > {PARITY_RTOL}")
+        want = {k: 3 * v for k, v in per_step.items()}
+        check(launches == want, f"{name}: launches {launches} in 3 steps, "
+                                f"want {want}")
+        check(not any(twin_launches.values()),
+              f"{name}: the twin launched {twin_launches}")
+        out[name] = launches
+        del model, twin, data
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def zoo_bench_phase(sk, bk):
+    """12(c): each `tools/bench.py --model <zoo model>` configuration for 8
+    warm-up and 24 timed steps (the stem kernel on for Inception-v1): the
+    main path's runs, counts set to 0 before each and read after."""
+    from bigdl_tpu_torch.tools.bench import ZOO, bench_zoo
+    warmup, iters, sync = 8, 24, 8
+    steps = warmup + iters
+    per_step = {"lenet": {},
+                "inception_v1": {"stem_conv": 1},
+                "inception_v2": {"bn_relu_fwd": V2_SITES,
+                                 "bn_relu_bwd": V2_SITES},
+                "vgg16": {}}
+    out = {}
+    for name in ZOO_BENCH:
+        if name == "inception_v1":
+            os.environ[STEM_ENV] = "1"
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            _reset_zoo_counts(sk, bk)
+            res = bench_zoo(name, warmup=warmup, iters=iters, sync=sync,
+                            device="cuda",
+                            generator=torch.Generator().manual_seed(0))
+            launches = _zoo_counts(sk, bk)
+            g_copies = bk.BnReluFunction.g_copies
+        finally:
+            os.environ.pop(STEM_ENV, None)
+        losses = res["losses"]
+        row = {k: res[k] for k in ("model", "imgs_per_sec", "ms_per_step",
+                                   "flops_per_step", "mfu", "batch_size",
+                                   "steps", "warmup", "sync", "device")}
+        row.update({"precision": "bfloat16 compute, f32 masters",
+                    "input": list(ZOO[name][1]), "classes": ZOO[name][2],
+                    "loss_first": losses[0], "loss_last": losses[-1],
+                    "launches": launches,
+                    "g_copies_per_step": g_copies / steps,
+                    "peak_mem_gib": torch.cuda.max_memory_allocated()
+                    / 2 ** 30})
+        print("zoo bench " + json.dumps(row), flush=True)
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"{name}: non-finite or missing losses {losses}")
+        check(losses[-1] < losses[0],
+              f"{name}: the loss did not fall: first {losses[0]}, last "
+              f"{losses[-1]}")
+        check(_mfu_ok(res["mfu"]) and res["flops_per_step"] > 0,
+              f"{name}: mfu {res['mfu']} outside (0, 1) or no FLOP count")
+        want = {k: per_step[name].get(k, 0) * steps for k in launches}
+        check(launches == want,
+              f"{name}: launches {launches} in {steps} steps, want {want}")
+        if name == "inception_v2":
+            check(g_copies == V2_G_COPIES * steps,
+                  f"inception_v2: {g_copies} gradient copies in {steps} "
+                  f"steps, want {V2_G_COPIES} a step")
+        out[name] = {"launches": launches, "row": row}
+        torch.cuda.empty_cache()
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2323,6 +2682,17 @@ def main() -> int:
     mfu_phase(resnet_res, lm_res)
     print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 12. the feed-forward zoo
+    t0 = time.perf_counter()
+    zoo_rows = zoo_kernel_phase(sk, bk)
+    zoo_pairs = zoo_parity_phase(sk, bk)
+    zoo_bench = zoo_bench_phase(sk, bk)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+    zoo_launches = {
+        "launches_inception_v1": zoo_bench["inception_v1"]["launches"],
+        "launches_inception_v2": zoo_bench["inception_v2"]["launches"],
+        "launches_vgg_cifar": zoo_pairs["vgg_cifar"]}
+
     print(json.dumps({"kernels": [
         {**KERNEL_ROW, "launches": launches, **main_row, "status": "ok",
          "launches_lm_training": lm_launches["flash_attention_fwd"],
@@ -2340,11 +2710,17 @@ def main() -> int:
          **bwd_rows["dkv"], "design": DESIGN[torch.bfloat16],
          "build": tc_build["flash_attention_bwd_dkv"], "status": "ok"},
         {**BN_FWD_ROW, "launches": bn_launches["bn_relu_fwd"],
-         **bn_rows["fwd"], "design": "cuda_cores_f32", "status": "ok"},
+         **bn_rows["fwd"], "design": "cuda_cores_f32", "status": "ok",
+         **{k: v["bn_relu_fwd"] for k, v in zoo_launches.items()},
+         "zoo_shapes": zoo_rows["fwd"]},
         {**BN_BWD_ROW, "launches": bn_launches["bn_relu_bwd"],
-         **bn_rows["bwd"], "design": "cuda_cores_f32", "status": "ok"},
+         **bn_rows["bwd"], "design": "cuda_cores_f32", "status": "ok",
+         **{k: v["bn_relu_bwd"] for k, v in zoo_launches.items()},
+         "zoo_shapes": zoo_rows["bwd"]},
         {**STEM_ROW, "launches": stem_launches, **stem_row,
-         "build": tc_build["stem_conv"], "status": "ok"}]}), flush=True)
+         "build": tc_build["stem_conv"], "status": "ok",
+         **{k: v["stem_conv"] for k, v in zoo_launches.items()},
+         "zoo_shapes": zoo_rows["stem"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

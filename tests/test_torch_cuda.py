@@ -39,7 +39,10 @@ ulp, 2**-7 * |plain|, in bf16 (each rounds its f32 sum to nearest); a
 second launch gives the same bits. Kernels 1 and 5 in bf16 (with O % 8
 == 0 for kernel 5) run their tensor-core designs, in f32 their CUDA-core
 ones; bf16 inputs 2 bytes past a 16-byte boundary take element-wise
-copies and give the same bits.
+copies and give the same bits. The zoo's shapes: kernel 5 with its bias
+at Inception-v1's b64, and kernel 7 given a channel slice of a `Concat`
+gradient at Inception-v2's and `VggForCifar10`'s sites, with the
+tolerances above.
 """
 
 import numpy as np
@@ -570,6 +573,65 @@ def test_stem_tensor_core_design_at_resnet_width(cuda_device, cin,
     ref = tsk.stem_conv_forward_plain(x2, wk, bias, front, rear).float()
     lim = 2 ** -7 * ref.abs() + 1e-5 * ref.abs().max()
     assert bool(((out.float() - ref).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_kernel_with_bias_at_inception_v1_shape(cuda_device, dtype):
+    """Inception-v1's s2d stem at b64 (x2 [64, 112, 112, 12], O = 64) with
+    its bias. In bf16 training the bias reaches the wrapper as the bf16
+    copy of the f32 master, as the weight does, and the kernel adds it in
+    f32: within one bf16 ulp plus 1e-5 * max|plain| of the plain version
+    given the same bf16 bias, and the same bits on a second launch."""
+    x2, wk, bias, front, rear = _stem_inputs(
+        cuda_device, 64, 112, 112, 3, 64, 7, dtype, True, 64)
+    bias = bias.to(dtype)
+    out = tsk.stem_conv_forward(x2, wk, bias, front, rear)
+    again = tsk.stem_conv_forward(x2, wk, bias, front, rear)
+    assert out.dtype == dtype and torch.equal(out, again)
+    ref = tsk.stem_conv_forward_plain(x2, wk, bias, front, rear).float()
+    lim = (2 ** -7 if dtype == torch.bfloat16 else 0) * ref.abs() \
+        + 1e-5 * ref.abs().max()
+    assert bool(((out.float() - ref).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("shape,offset,width", [
+    ((32, 7, 7, 352), 0, 1024),     # Inception-v2's 5b 1x1 branch
+    ((32, 28, 28, 96), 64, 256),    # a 3a/3b 3x3 branch
+    ((32, 512), 256, 1024),         # VggForCifar10's 1-D BN
+])
+def test_bn_relu_backward_takes_a_concat_gradient_slice(cuda_device, shape,
+                                                        offset, width):
+    """The fused tail inside a `Concat`: the gradient reaching it is a
+    channel slice of the joined gradient (not contiguous), which the
+    Function copies once (`g_copies`) before kernel 7 reads it as [N, C].
+    dx, dscale, dshift against the plain backward on the same slice: dx
+    bitwise, the sums within 1e-5 of the terms' magnitudes per channel."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device=cuda_device)
+    s = torch.rand((c,), generator=gen, device=cuda_device) + 0.5
+    b = torch.randn((c,), generator=gen, device=cuda_device) * 0.5
+    x.requires_grad_()
+    s.requires_grad_()
+    b.requires_grad_()
+    y = tbk.bn_relu(x, s, b, True, torch.bfloat16)
+    g = torch.randn((*shape[:-1], width), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)[
+        ..., offset:offset + c]
+    assert not g.is_contiguous()
+    copies = tbk.BnReluFunction.g_copies
+    launches = tbk.bn_relu_backward.launches
+    dx, ds, db = torch.autograd.grad(y, (x, s, b), g)
+    assert tbk.BnReluFunction.g_copies == copies + 1
+    assert tbk.bn_relu_backward.launches == launches + 1
+    x2, g2 = x.detach().reshape(-1, c), g.contiguous().reshape(-1, c)
+    dx_ref, ds_ref, db_ref = tbk.bn_relu_backward_plain(
+        x2, s.detach(), b.detach(), g2, True)
+    assert torch.equal(dx.reshape(-1, c), dx_ref)
+    gm = torch.where((x2 * s.detach() + b.detach()).to(torch.bfloat16) > 0,
+                     g2.float(), 0.0)
+    assert ((ds - ds_ref).abs() <= 1e-5 * (gm * x2).abs().sum(0)).all()
+    assert ((db - db_ref).abs() <= 1e-5 * gm.abs().sum(0)).all()
 
 
 def test_stem_kernel_rejects_what_it_does_not_take(cuda_device):

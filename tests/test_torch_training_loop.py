@@ -18,6 +18,15 @@ softmax model whose gradient each package regularizes, within 1e-5.
 The triggers `max_score`, `min_loss`, `and_`, `or_` against the
 reference's on the same states; the validation trigger, its results and
 `loop_state["score"]` against the reference's `LocalOptimizer`.
+
+The step generator (the optimizer's `torch.Generator`, lent to every
+`Dropout` for each step): `VggForCifar10` with dropout on, b4 at 32x32,
+through `DistriOptimizer` with a `train.step` fault at the 6th step and
+a checkpoint every 3: the retried steps draw the unfaulted run's masks,
+so the losses after the recovery and the final model equal the unfaulted
+run's bit for bit. Resume as the reference does it: the key chain is not
+in the checkpoint, so a fresh optimizer that resumes starts it from its
+seed.
 """
 
 import numpy as np
@@ -39,6 +48,8 @@ from bigdl_tpu_torch import optim as toptim
 from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch, Sample
 from bigdl_tpu_torch.interop import load_module_params, module_state
 from bigdl_tpu_torch.models import ResNet as TResNet
+from bigdl_tpu_torch.models import VggForCifar10
+from bigdl_tpu_torch.resilience import FaultInjector, FaultSpec, RetryPolicy
 
 STEPS, BATCH = 5, 8
 
@@ -257,3 +268,97 @@ def test_validation_sets_the_score_as_the_reference():
     assert t_scores == j_scores
     assert t_state["neval"] == j_state["neval"] == 6
     assert tm.training  # validation leaves the model in training mode
+
+
+# ---------------------------------------------------------------- dropout
+
+def _dropout_opt(path, seed=None, local=False):
+    """VggForCifar10 (dropout on) at b4, 32x32, for 8 steps with a
+    checkpoint every 3 (DistriOptimizer) or none (LocalOptimizer); the
+    step generator re-seeded with `seed`."""
+    rs = np.random.RandomState(31)
+    x = rs.rand(4, 32, 32, 3).astype(np.float32)
+    y = (rs.randint(0, 10, 4) + 1).astype(np.int32)
+    model = VggForCifar10(10, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+    data = LocalDataSet([MiniBatch(x, y)])
+    if local:
+        opt = toptim.LocalOptimizer(model, data, tnn.ClassNLLCriterion(),
+                                    device="cpu")
+    else:
+        opt = toptim.DistriOptimizer(
+            model, data, tnn.ClassNLLCriterion(),
+            retry_policy=RetryPolicy(max_retries=2, base_delay_s=0.0,
+                                     seed=0), devices=["cpu"])
+        opt.set_checkpoint(path, toptim.several_iteration(3), keep_last_n=1)
+    opt.set_optim_method(toptim.SGD(learning_rate=0.01, momentum=0.9))
+    opt.set_end_when(toptim.max_iteration(8))
+    if seed is not None:
+        opt.generator.manual_seed(seed)
+    losses = []
+    opt.set_iteration_hook(lambda s: losses.append((s["neval"], s["loss"])))
+    return model, opt, losses
+
+
+def _dropout_run(path, fault=None, seed=None):
+    model, opt, losses = _dropout_opt(path, seed)
+    if fault is None:
+        opt.optimize()
+    else:
+        with FaultInjector(fault):
+            opt.optimize()
+    return model, opt, losses
+
+
+def test_a_retried_step_draws_the_unfaulted_runs_dropout_masks():
+    model, opt, clean = _dropout_run("memory://zoo-dropout/clean")
+    twin, topt, faulted = _dropout_run("memory://zoo-dropout/faulted",
+                                       FaultSpec("train.step", at_hit=6))
+    # steps 1-5, then the retry resumes at iter3: steps 4-8 again
+    assert [n for n, _ in faulted] == [1, 2, 3, 4, 5] + list(range(4, 9))
+    assert faulted[5:] == clean[3:]
+    for a, b in zip(model.state_dict().values(), twin.state_dict().values()):
+        assert torch.equal(a, b)
+    assert torch.equal(opt.generator.get_state(), topt.generator.get_state())
+
+
+def test_dropout_masks_come_from_the_step_generator():
+    """The same seed trains the same; another seed draws other masks from
+    the first step on; the steps' draws advance the generator."""
+    _, opt, losses = _dropout_run("memory://zoo-dropout/a")
+    assert _dropout_run("memory://zoo-dropout/b")[2] == losses
+    assert _dropout_run("memory://zoo-dropout/c", seed=1)[2][0] \
+        != losses[0]
+    assert not torch.equal(opt.generator.get_state(),
+                           torch.Generator().manual_seed(0).get_state())
+
+
+@pytest.mark.parametrize("local", [False, True],
+                         ids=["DistriOptimizer", "LocalOptimizer"])
+def test_a_failed_run_puts_the_step_generator_back(local):
+    """As the reference keeps its key when a run fails."""
+    _, opt, _ = _dropout_opt("memory://zoo-dropout/failed", seed=1,
+                             local=local)
+    with FaultInjector(FaultSpec("train.step", at_hit=3,
+                                 exc=ValueError("permanent"))):
+        with pytest.raises(ValueError):
+            opt.optimize()
+    assert torch.equal(opt.generator.get_state(),
+                       torch.Generator().manual_seed(1).get_state())
+
+
+def test_resume_in_a_fresh_optimizer_starts_the_chain_from_its_seed():
+    """As the reference: the checkpoint holds no key chain, so a fresh
+    optimizer resumed from it draws from its seed again; the optimizer
+    that wrote the checkpoint takes the state it committed with it."""
+    path = "memory://zoo-dropout/resume"
+    _, opt, _ = _dropout_run(path)
+    _, fresh, _ = _dropout_opt(path)
+    assert fresh.resume_from_latest_checkpoint()
+    assert fresh.optim_method.state["neval"] == 6
+    assert torch.equal(fresh.generator.get_state(),
+                       torch.Generator().manual_seed(0).get_state())
+    committed = opt._generator_commits[6]
+    opt.generator.manual_seed(5)
+    assert opt.resume_from_latest_checkpoint()
+    assert torch.equal(opt.generator.get_state(), committed)
