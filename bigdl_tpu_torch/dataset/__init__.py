@@ -1,10 +1,14 @@
 """Data (counterpart of `bigdl_tpu.dataset`): `Sample`, `MiniBatch`,
-`LocalDataSet`, `DataSet.from_arrays` and `SampleToMiniBatch`."""
+`PaddingParam`, `LocalDataSet`, `DataSet.from_arrays`, the transformers
+(`Transformer`, `FuncTransformer`, `chain`) and `SampleToMiniBatch`."""
 
 from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, DataSet,
                                              LocalDataSet)
-from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample
-from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
+from bigdl_tpu_torch.dataset.sample import MiniBatch, PaddingParam, Sample
+from bigdl_tpu_torch.dataset.transformer import (FuncTransformer,
+                                                 SampleToMiniBatch,
+                                                 Transformer, chain)
 
-__all__ = ["AbstractDataSet", "DataSet", "LocalDataSet", "MiniBatch",
-           "Sample", "SampleToMiniBatch"]
+__all__ = ["AbstractDataSet", "DataSet", "FuncTransformer", "LocalDataSet",
+           "MiniBatch", "PaddingParam", "Sample", "SampleToMiniBatch",
+           "Transformer", "chain"]

@@ -3,7 +3,8 @@
 `load_transformer_lm_params` fills a `TransformerLM` and
 `lm_params_tree` gives its parameters or gradients back;
 `load_module_params` fills any model built from the port's containers
-(the ResNets) from the JAX params tree and BN state, and
+(the ResNets, the zoo, the recurrent models) from the JAX params tree and
+BN state, and
 `module_params_tree` / `module_state` give the port's parameters,
 gradients and running stats back in the JAX layout. `params_tree` and
 `load_params` pick the right one of the two for a model, and
@@ -107,15 +108,17 @@ def _copy(targets: Mapping, tree: Mapping, path: str):
 
 
 def _module_targets(module) -> Dict:
-    from bigdl_tpu_torch.nn.containers import Container
+    """A module's parameters arranged as the JAX tree: its own parameters
+    by name, then each child's subtree under the child's key (a
+    container's `"<index>_<name>"`, a recurrent layer's `cell`,
+    `cell0`, ..., a `TimeDistributed`'s `layer`)."""
     from bigdl_tpu_torch.nn.conv import SpatialConvolution
-    if isinstance(module, Container):
-        return {key: _module_targets(child)
-                for key, child in module.named_children()}
     out = {}
     for name, p in module.named_parameters(recurse=False):
         conv_w = isinstance(module, SpatialConvolution) and name == "weight"
         out[name] = _HwioToOihw(p) if conv_w else p
+    for key, child in module.named_children():
+        out[key] = _module_targets(child)
     return out
 
 
@@ -233,16 +236,24 @@ def _param_names(model) -> Dict[int, str]:
 def tree_from_named(model, named: Mapping[str, torch.Tensor]) -> Dict:
     """Tensors keyed by the model's parameter names (for example an
     optimizer's velocity), as the JAX-layout tree of f32 numpy arrays: the
-    layout `params_tree` gives, empty subtrees included."""
+    layout `params_tree` gives, empty subtrees included. Tensors of the
+    parameters of one top-level child only (a per-submodule method's
+    slots) give that child's subtree."""
     names = _param_names(model)
-    return _export(_tree_targets(model),
+    targets = _tree_targets(model)
+    children = {n.split(".", 1)[0] for n in named}
+    if set(named) != set(names.values()) and len(children) == 1:
+        targets = targets[children.pop()]
+    return _export(targets,
                    lambda p: named[names[id(p)]].detach().float().cpu())
 
 
-def named_from_tree(model, tree: Mapping) -> Dict:
-    """The inverse of `tree_from_named`: a JAX-layout tree as tensors keyed
-    by parameter name, each on its parameter's device in the tree's
-    dtype. Raises on a missing key or a shape mismatch."""
+def named_from_tree(model, tree: Mapping, child: Optional[str] = None
+                    ) -> Dict:
+    """The inverse of `tree_from_named`: a JAX-layout tree (of the whole
+    model, or of its top-level `child`) as tensors keyed by parameter
+    name, each on its parameter's device in the tree's dtype. Raises on a
+    missing key or a shape mismatch."""
     names = _param_names(model)
     out = {}
 
@@ -262,10 +273,13 @@ def named_from_tree(model, tree: Mapping) -> Dict:
                                  f"parameter shape {tuple(p.shape)}")
             out[names[id(p)]] = t.to(p.device)
 
-    walk(_tree_targets(model), tree, "")
+    targets = _tree_targets(model)
+    walk(targets if child is None else targets[child], tree, child or "")
     return out
 
 
-def tree_keys(model) -> set:
-    """The top-level keys of the model's JAX-layout tree."""
-    return set(_tree_targets(model))
+def tree_keys(model, child: Optional[str] = None) -> set:
+    """The top-level keys of the model's JAX-layout tree (or of its
+    top-level `child`'s subtree)."""
+    targets = _tree_targets(model)
+    return set(targets if child is None else targets[child])

@@ -1,5 +1,5 @@
-"""Layers (counterpart of `bigdl_tpu.nn`): the transformer, the ResNet and
-the feed-forward model zoo's paths."""
+"""Layers (counterpart of `bigdl_tpu.nn`): the transformer, the ResNet,
+the feed-forward model zoo's and the recurrent paths."""
 
 from bigdl_tpu_torch.nn.activation import LogSoftMax, ReLU, Sigmoid, Tanh
 from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
@@ -11,11 +11,13 @@ from bigdl_tpu_torch.nn.containers import (CAddTable, Concat, ConcatTable,
 from bigdl_tpu_torch.nn.conv import (SpaceToDepthStemConvolution,
                                      SpatialConvolution)
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion, MSECriterion,
-                                          TimeDistributedCriterion)
+                                          TimeDistributedCriterion,
+                                          TimeDistributedMaskCriterion)
 from bigdl_tpu_torch.nn.dropout import Dropout, lend_generator
+from bigdl_tpu_torch.nn.embedding import LookupTable
 from bigdl_tpu_torch.nn.fusion import fusion_enabled, fusion_scope, set_fusion
-from bigdl_tpu_torch.nn.initialization import (MsraFiller, RandomUniform,
-                                               Xavier, Zeros)
+from bigdl_tpu_torch.nn.initialization import (MsraFiller, RandomNormal,
+                                               RandomUniform, Xavier, Zeros)
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.nn.normalization import (BatchNormalization,
@@ -23,16 +25,22 @@ from bigdl_tpu_torch.nn.normalization import (BatchNormalization,
                                               SpatialBatchNormalization)
 from bigdl_tpu_torch.nn.pooling import (Pooler, SpatialAveragePooling,
                                         SpatialCrossMapLRN, SpatialMaxPooling)
+from bigdl_tpu_torch.nn.recurrent import (LSTM, LSTM2, Cell, LSTMCell,
+                                          MultiRNNCell, Recurrent, RnnCell,
+                                          TimeDistributed)
 from bigdl_tpu_torch.nn.shape_ops import Reshape
 
-__all__ = ["BatchNormalization", "CAddTable", "ClassNLLCriterion", "Concat",
-           "ConcatTable", "Container", "Dropout", "Identity",
-           "LayerNormalization", "Linear", "LogSoftMax", "MSECriterion",
-           "Module", "MsraFiller", "MultiHeadAttention", "Pooler",
-           "RandomUniform", "ReLU", "Reshape", "ScaledDotProductAttention",
-           "Sequential", "Sigmoid", "SpaceToDepthStemConvolution",
-           "SpatialAveragePooling", "SpatialBatchNormalization",
-           "SpatialConvolution", "SpatialCrossMapLRN", "SpatialMaxPooling",
-           "Tanh", "TimeDistributedCriterion", "TransformerBlock", "Xavier",
+__all__ = ["BatchNormalization", "CAddTable", "Cell", "ClassNLLCriterion",
+           "Concat", "ConcatTable", "Container", "Dropout", "Identity",
+           "LSTM", "LSTM2", "LSTMCell", "LayerNormalization", "Linear",
+           "LogSoftMax", "LookupTable", "MSECriterion", "Module",
+           "MsraFiller", "MultiHeadAttention", "MultiRNNCell", "Pooler",
+           "RandomNormal", "RandomUniform", "ReLU", "Recurrent", "Reshape",
+           "RnnCell", "ScaledDotProductAttention", "Sequential", "Sigmoid",
+           "SpaceToDepthStemConvolution", "SpatialAveragePooling",
+           "SpatialBatchNormalization", "SpatialConvolution",
+           "SpatialCrossMapLRN", "SpatialMaxPooling", "Tanh",
+           "TimeDistributed", "TimeDistributedCriterion",
+           "TimeDistributedMaskCriterion", "TransformerBlock", "Xavier",
            "Zeros", "cache_commit", "cache_write", "fusion_enabled",
            "fusion_scope", "lend_generator", "rope", "set_fusion"]

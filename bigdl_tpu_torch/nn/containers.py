@@ -5,8 +5,8 @@ Ported: `Sequential` (with the BN->ReLU matcher), `ConcatTable`,
 Children are registered under the reference's keys, `"<index>_<child
 name>"`, so a module's path
 in the port (`named_modules`, split on ".") is its path in the JAX
-package's parameter tree and BN state. `ConcatTable` returns a Python list
-where the reference returns a 1-based `Table`.
+package's parameter tree and BN state. `ConcatTable` returns a 1-based
+`Table` (`utils/table.py`), as the reference's does.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from typing import List, Optional
 import torch
 
 from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.utils.table import T
 
 
 class Container(Module):
@@ -53,10 +54,11 @@ class Sequential(Container):
 
 
 class ConcatTable(Container):
-    """Each child applied to the same input; a list of their outputs."""
+    """Each child applied to the same input; a 1-based `Table` of their
+    outputs (`out[1]` is the first child's)."""
 
     def forward(self, x):
-        return [child(x) for child in self.children_in_order()]
+        return T(*[child(x) for child in self.children_in_order()])
 
 
 class Concat(Container):
@@ -75,11 +77,13 @@ class Concat(Container):
 
 
 class CAddTable(Module):
-    """Elementwise sum of a list of tensors."""
+    """Elementwise sum of a `Table` of tensors (or any sequence of them),
+    its values taken in key order."""
 
     def forward(self, xs):
-        out = xs[0]
-        for v in xs[1:]:
+        vals = list(xs)
+        out = vals[0]
+        for v in vals[1:]:
             out = out + v
         return out
 

@@ -2,6 +2,7 @@
 
 Ported: `ClassNLLCriterion`, the classification loss,
 `TimeDistributedCriterion`, the per-time-step loss of the language models,
+`TimeDistributedMaskCriterion`, its padding-aware form for ragged text,
 and `MSECriterion`, the autoencoder's loss.
 """
 
@@ -97,3 +98,29 @@ class MSECriterion(nn.Module):
     def forward(self, output, target):
         d = output - torch.as_tensor(target, device=output.device)
         return (d * d).mean() if self.size_average else (d * d).sum()
+
+
+class TimeDistributedMaskCriterion(nn.Module):
+    """The mean negative log-likelihood over the time steps whose target
+    is not `padding_value`: `output` [..., C] and 1-based targets [...]
+    are flattened, the padded positions masked out, and the picked
+    log-probabilities averaged over the positions kept (at least one).
+    The output is taken as log-probabilities when `critrn` is a
+    `ClassNLLCriterion` and as logits (log-softmax first) otherwise; the
+    inner criterion's other settings (weights, `size_average`,
+    `zero_based`) play no part, as in the reference."""
+
+    def __init__(self, critrn: nn.Module, padding_value: int = 0):
+        super().__init__()
+        self.critrn = critrn
+        self.padding_value = padding_value
+
+    def forward(self, output, target):
+        o = output.reshape(-1, output.shape[-1])
+        t = torch.as_tensor(target, device=output.device).reshape(-1)
+        mask = (t != self.padding_value).to(o.dtype)
+        safe_t = torch.where(mask > 0, t, torch.ones_like(t))
+        logp = o if isinstance(self.critrn, ClassNLLCriterion) \
+            else torch.log_softmax(o, dim=-1)
+        picked = logp.gather(1, (safe_t.long() - 1)[:, None])[:, 0]
+        return -(picked * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,7 +1,8 @@
 """Weight initialization (counterpart of `bigdl_tpu/nn/initialization.py`).
 
 Ported: `Zeros`, `RandomUniform`, `Xavier` and `MsraFiller`, what the
-transformer and the ResNets use. Each method is called with the weight's
+transformer and the ResNets use, and `RandomNormal`, `LookupTable`'s
+default. Each method is called with the weight's
 shape in the JAX package's layout (`(in, out)` for a dense weight, HWIO for
 a conv kernel), so fan-in and fan-out come out as the reference computes
 them (`_fans`); a layer that stores another layout permutes the result.
@@ -70,6 +71,17 @@ class RandomUniform(InitializationMethod):
             lo, hi = self.lower, self.upper
         u = torch.rand(tuple(shape), generator=generator, dtype=dtype)
         return (u * (hi - lo) + lo).to(device)
+
+
+class RandomNormal(InitializationMethod):
+    """N(mean, stdv^2)."""
+
+    def __init__(self, mean: float = 0.0, stdv: float = 1.0):
+        self.mean, self.stdv = mean, stdv
+
+    def __call__(self, generator, shape, dtype=torch.float32, device=None):
+        z = torch.randn(tuple(shape), generator=generator, dtype=dtype)
+        return (self.mean + self.stdv * z).to(device)
 
 
 class Xavier(InitializationMethod):

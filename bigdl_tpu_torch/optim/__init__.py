@@ -1,5 +1,7 @@
-"""Training and batch inference (counterpart of `bigdl_tpu.optim`): `SGD`,
-`Adam`, `AdamW`, the learning-rate schedules, triggers, metrics, the
+"""Training and batch inference (counterpart of `bigdl_tpu.optim`): the
+optimization methods (`SGD`, the Adam family, `LAMB`, `Adagrad`,
+`Adadelta`, `RMSprop`, `Ftrl`, `LBFGS`, per-submodule methods), the
+learning-rate schedules, triggers, metrics, the
 regularizers, the validation methods and `Evaluator`, `LocalOptimizer`,
 the single-device `DistriOptimizer`, the `Optimizer` factory, and
 `LocalPredictor`."""
@@ -10,16 +12,23 @@ from bigdl_tpu_torch.optim.evaluator import (DistriValidator, Evaluator,
 from bigdl_tpu_torch.optim.local_optimizer import (BaseOptimizer,
                                                    LocalOptimizer)
 from bigdl_tpu_torch.optim.metrics import Metrics, Timer
-from bigdl_tpu_torch.optim.optim_method import (SGD, Adam, AdamW,
-                                                OptimMethod)
+from bigdl_tpu_torch.optim.optim_method import (LAMB, LBFGS, SGD, Adadelta,
+                                                Adagrad, Adam, Adamax, AdamW,
+                                                CompositeOptimMethod, Ftrl,
+                                                OptimMethod, RMSprop)
 from bigdl_tpu_torch.optim.optimizer import Optimizer
 from bigdl_tpu_torch.optim.predictor import LocalPredictor, Predictor
 from bigdl_tpu_torch.optim.regularizer import (L1L2Regularizer,
                                                L1Regularizer, L2Regularizer,
                                                Regularizer)
 from bigdl_tpu_torch.optim.schedules import (CosineDecay, Default,
-                                             LearningRateSchedule,
-                                             WarmupCosineDecay)
+                                             EpochDecay, EpochDecayWithWarmUp,
+                                             EpochSchedule, EpochStep,
+                                             Exponential,
+                                             LearningRateSchedule, MultiStep,
+                                             NaturalExp, Plateau, Poly,
+                                             Regime, SequentialSchedule,
+                                             Step, Warmup, WarmupCosineDecay)
 from bigdl_tpu_torch.optim.trigger import (Trigger, and_, every_epoch,
                                            max_epoch, max_iteration,
                                            max_score, min_loss, or_,
@@ -32,14 +41,19 @@ from bigdl_tpu_torch.optim.validation import (MAE, NDCG, AccuracyResult,
                                               ValidationMethod,
                                               ValidationResult)
 
-__all__ = ["AccuracyResult", "Adam", "AdamW", "BaseOptimizer",
+__all__ = ["AccuracyResult", "Adadelta", "Adagrad", "Adam", "Adamax",
+           "AdamW", "BaseOptimizer", "CompositeOptimMethod",
            "ContiguousResult", "CosineDecay", "Default", "DistriOptimizer",
-           "DistriValidator", "Evaluator", "HitRatio", "L1L2Regularizer",
-           "L1Regularizer", "L2Regularizer", "LearningRateSchedule",
-           "LocalOptimizer", "LocalPredictor", "LocalValidator", "Loss",
-           "LossResult", "MAE", "Metrics", "NDCG", "OptimMethod",
-           "Optimizer", "Predictor", "Regularizer", "SGD", "Timer",
+           "DistriValidator", "EpochDecay", "EpochDecayWithWarmUp",
+           "EpochSchedule", "EpochStep", "Evaluator", "Exponential", "Ftrl",
+           "HitRatio", "L1L2Regularizer", "L1Regularizer", "L2Regularizer",
+           "LAMB", "LBFGS", "LearningRateSchedule", "LocalOptimizer",
+           "LocalPredictor", "LocalValidator", "Loss", "LossResult", "MAE",
+           "Metrics", "MultiStep", "NDCG", "NaturalExp", "OptimMethod",
+           "Optimizer", "Plateau", "Poly", "Predictor", "RMSprop", "Regime",
+           "Regularizer", "SGD", "SequentialSchedule", "Step", "Timer",
            "Top1Accuracy", "Top5Accuracy", "TreeNNAccuracy", "Trigger",
-           "ValidationMethod", "ValidationResult", "WarmupCosineDecay",
-           "and_", "every_epoch", "max_epoch", "max_iteration", "max_score",
-           "min_loss", "or_", "several_iteration"]
+           "ValidationMethod", "ValidationResult", "Warmup",
+           "WarmupCosineDecay", "and_", "every_epoch", "max_epoch",
+           "max_iteration", "max_score", "min_loss", "or_",
+           "several_iteration"]

@@ -47,10 +47,15 @@ model's output upcast to f32.
   the stream from the seed. A failed run puts it back as the run found
   it, as the reference keeps its key when a run fails.
 
+- `set_optim_methods({child name: method})`: per-submodule methods, a
+  `CompositeOptimMethod` over the model's top-level children.
+- After each validation the first method's score feeds the method's
+  schedule when it takes one (`Plateau.record`), as the reference's loop
+  does.
+
 Not ported (`ROADMAP.md` lists them): telemetry and tracing, summaries,
 NaN/step guards, prefetch, preemption, graph optimisation, sharded
-checkpoints, per-submodule methods (`set_optim_methods`), and the donation
-the JAX step uses (the port updates in place instead, and keeps a host
+checkpoints, and the donation the JAX step uses (the port updates in place instead, and keeps a host
 snapshot of the model at the start of each run so that a failed run can
 put it back).
 """
@@ -179,6 +184,15 @@ class BaseOptimizer:
 
     setOptimMethod = set_optim_method
 
+    def set_optim_methods(self, methods: Dict[str, OptimMethod]):
+        """Per-submodule optimization methods keyed by top-level child
+        name (the reference's `setOptimMethods`)."""
+        from bigdl_tpu_torch.optim.optim_method import CompositeOptimMethod
+        self.optim_method = CompositeOptimMethod(self.model, methods)
+        return self
+
+    setOptimMethods = set_optim_methods
+
     def set_end_when(self, trigger: Trigger):
         self.end_trigger = trigger
         return self
@@ -297,14 +311,15 @@ class BaseOptimizer:
 
     def _slots_tree(self, opt_state):
         """The optimizer state in the reference's layout: every dict keyed
-        by the parameter names becomes the JAX-layout tree, a step count
-        an int32 array."""
+        by the parameter names (all of them, or those of one top-level
+        child under a per-submodule method) becomes the JAX-layout tree
+        (or the child's subtree), a step count an int32 array."""
         from bigdl_tpu_torch.interop.jax_params import tree_from_named
         names = {n for n, _ in self.model.named_parameters()}
 
         def conv(node):
             if isinstance(node, dict):
-                if node and set(node) == names:
+                if node and set(node) <= names:
                     return tree_from_named(self.model, node)
                 return {k: conv(v) for k, v in node.items()}
             if isinstance(node, int) and not isinstance(node, bool):
@@ -320,11 +335,17 @@ class BaseOptimizer:
                                                         tree_keys)
         keys = tree_keys(self.model)
 
-        def conv(node):
+        def conv(node, child=None):
+            """`child`: the top-level child whose slots `node` is under
+            (a per-submodule method's state is keyed by child)."""
             if isinstance(node, dict):
                 if node and set(node) == keys:
                     return named_from_tree(self.model, node)
-                return {k: conv(v) for k, v in node.items()}
+                if child is not None and node \
+                        and set(node) == tree_keys(self.model, child):
+                    return named_from_tree(self.model, node, child)
+                return {k: conv(v, k if k in keys else child)
+                        for k, v in node.items()}
             if isinstance(node, np.ndarray) and node.ndim == 0 \
                     and np.issubdtype(node.dtype, np.integer):
                 return int(node)
@@ -439,7 +460,8 @@ class BaseOptimizer:
     def _validate(self, loop_state):
         """Run the validation methods when the trigger fires: the model in
         eval mode, results summed over the batches and logged, the first
-        one's score into `loop_state["score"]`."""
+        one's score into `loop_state["score"]` and to the method's
+        schedule's `record` where it has one."""
         if not (self.validation_trigger and self.validation_dataset
                 and self.validation_trigger(loop_state)):
             return None
@@ -461,6 +483,10 @@ class BaseOptimizer:
             logger.info(f"{m!r} is {r!r}")
         if results and results[0] is not None:
             loop_state["score"] = results[0].result()[0]
+            # feed Plateau-style schedules
+            sched = getattr(self.optim_method, "schedule", None)
+            if sched is not None and hasattr(sched, "record"):
+                sched.record(loop_state["score"], self.optim_method)
         return results
 
     # -- the step and the loop ---------------------------------------------

@@ -1,7 +1,8 @@
 """Optimization methods (counterpart of `bigdl_tpu/optim/optim_method.py`).
 
 Ported: the `OptimMethod` base (with the f32-master wrappers), `SGD`,
-`Adam` and `AdamW`.
+`Adam`, `AdamW`, `LAMB`, `Adagrad`, `Adadelta`, `Adamax`, `RMSprop`,
+`Ftrl`, `LBFGS` and `CompositeOptimMethod` (per-submodule methods).
 
 A method works on dicts of tensors keyed by parameter name:
 `init_state(params)` makes the slot state (SGD's velocity, Adam's
@@ -15,7 +16,8 @@ The host-side bookkeeping (`state`: epoch, neval, ...) is the reference's.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import math
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -177,16 +179,20 @@ class Adam(OptimMethod):
     def current_lr(self) -> float:
         return self.schedule.compute(self)
 
+    def _bias_corrections(self, opt_state):
+        """Advance the step count t; (1 - beta1^t, 1 - beta2^t) in f32, as
+        the reference computes them (1 - 0.999 differs by 1.3e-5 relative
+        between f32 and f64)."""
+        t = opt_state["t"] = opt_state["t"] + 1
+        one, tf = np.float32(1.0), np.float32(t)
+        return (float(one - np.float32(self.beta1) ** tf),
+                float(one - np.float32(self.beta2) ** tf))
+
     def update(self, grads: Tree, opt_state, params: Tree, lr: float):
         b1, b2 = self.beta1, self.beta2
         with torch.no_grad():
             grads = self._decay(grads, params)
-            t = opt_state["t"] = opt_state["t"] + 1
-            # the bias corrections in f32, as the reference computes them
-            # (1 - 0.999 differs by 1.3e-5 relative between f32 and f64)
-            one, tf = np.float32(1.0), np.float32(t)
-            bc1 = float(one - np.float32(b1) ** tf)
-            bc2 = float(one - np.float32(b2) ** tf)
+            bc1, bc2 = self._bias_corrections(opt_state)
             for k, p in params.items():
                 g, m, v = grads[k], opt_state["m"][k], opt_state["v"][k]
                 m.mul_(b1).add_((1 - b1) * g)
@@ -220,4 +226,400 @@ class AdamW(Adam):
         with torch.no_grad():
             for k, d in decay.items():
                 params[k].sub_(d)
+        return params, opt_state
+
+
+class LAMB(Adam):
+    """Layer-wise adaptive moments (reference `LAMB`): Adam's moments and
+    bias corrections, then for each parameter tensor (the layer-wise
+    unit)
+        r = (m / bc1) / (sqrt(v / bc2) + eps) + weight_decay * p
+        trust = ||p|| / ||r||  (1 where either norm is 0)
+        p = p - lr * trust * r
+    The decay is decoupled: it enters r, not the gradient."""
+
+    def __init__(self, learning_rate: float = 1e-3, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-6,
+                 weight_decay: float = 0.0,
+                 learning_rate_schedule: Optional[
+                     LearningRateSchedule] = None):
+        super().__init__(learning_rate, beta1=beta1, beta2=beta2,
+                         epsilon=epsilon, weight_decay=0.0,
+                         learning_rate_schedule=learning_rate_schedule)
+        self.trust_weight_decay = weight_decay
+
+    def update(self, grads: Tree, opt_state, params: Tree, lr: float):
+        b1, b2 = self.beta1, self.beta2
+        eps, wd = self.epsilon, self.trust_weight_decay
+        with torch.no_grad():
+            bc1, bc2 = self._bias_corrections(opt_state)
+            for k, p in params.items():
+                g, m, v = grads[k], opt_state["m"][k], opt_state["v"][k]
+                m.mul_(b1).add_((1 - b1) * g)
+                v.mul_(b2).add_((1 - b2) * g * g)
+                r = (m / bc1) / ((v / bc2).sqrt() + eps)
+                if wd:
+                    r = r + wd * p
+                p_norm = torch.linalg.vector_norm(p)
+                r_norm = torch.linalg.vector_norm(r)
+                trust = torch.where((p_norm > 0) & (r_norm > 0),
+                                    p_norm / torch.clamp(r_norm, min=1e-12),
+                                    torch.ones_like(p_norm))
+                p.sub_(lr * trust * r)
+        return params, opt_state
+
+
+def _decayed_lr(method) -> float:
+    """lr / (1 + neval * learning_rate_decay), the reference's own rule
+    for the methods that take no schedule."""
+    n = method.state["neval"]
+    return method.learning_rate / (1 + n * method.learning_rate_decay)
+
+
+class Adagrad(OptimMethod):
+    """Per-coordinate scaling by the accumulated squared gradient
+    (reference `Adagrad`), lr / (1 + neval * learning_rate_decay):
+        g = grad + weight_decay * p
+        a = a + g * g
+        p = p - lr * g / (sqrt(a) + 1e-10)"""
+
+    def __init__(self, learning_rate: float = 1e-3,
+                 learning_rate_decay: float = 0.0,
+                 weight_decay: float = 0.0):
+        super().__init__(learning_rate, weight_decay)
+        self.learning_rate_decay = learning_rate_decay
+
+    def init_state(self, params: Tree):
+        return {"accum": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    def current_lr(self) -> float:
+        return _decayed_lr(self)
+
+    def update(self, grads: Tree, opt_state, params: Tree, lr: float):
+        with torch.no_grad():
+            grads = self._decay(grads, params)
+            for k, p in params.items():
+                g, a = grads[k], opt_state["accum"][k]
+                a.add_(g * g)
+                p.sub_(lr * g / (a.sqrt() + 1e-10))
+        return params, opt_state
+
+
+class Adadelta(OptimMethod):
+    """Accumulated-delta adaptive steps (reference `Adadelta`; its
+    learning rate is 1.0), with rho = `decay_rate`:
+        g = grad + weight_decay * p
+        a = rho * a + (1 - rho) * g * g
+        s = g * sqrt(d + eps) / sqrt(a + eps)
+        d = rho * d + (1 - rho) * s * s
+        p = p - lr * s"""
+
+    def __init__(self, decay_rate: float = 0.9, epsilon: float = 1e-10,
+                 weight_decay: float = 0.0):
+        super().__init__(1.0, weight_decay)
+        self.rho, self.epsilon = decay_rate, epsilon
+
+    def init_state(self, params: Tree):
+        return {"accum": {k: torch.zeros_like(p) for k, p in params.items()},
+                "delta_accum": {k: torch.zeros_like(p)
+                                for k, p in params.items()}}
+
+    def update(self, grads: Tree, opt_state, params: Tree, lr: float):
+        rho, eps = self.rho, self.epsilon
+        with torch.no_grad():
+            grads = self._decay(grads, params)
+            for k, p in params.items():
+                g = grads[k]
+                a, d = opt_state["accum"][k], opt_state["delta_accum"][k]
+                a.mul_(rho).add_((1 - rho) * g * g)
+                s = g * (d + eps).sqrt() / (a + eps).sqrt()
+                d.mul_(rho).add_((1 - rho) * s * s)
+                p.sub_(lr * s)
+        return params, opt_state
+
+
+class Adamax(OptimMethod):
+    """Adam with an infinity-norm second moment (reference `Adamax`):
+        g = grad + weight_decay * p
+        m = beta1 * m + (1 - beta1) * g
+        u = max(beta2 * u, |g| + epsilon)
+        p = p - (lr / (1 - beta1^t)) * m / u
+    with the bias correction in f32, as the reference computes it."""
+
+    def __init__(self, learning_rate: float = 0.002, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-38,
+                 weight_decay: float = 0.0):
+        super().__init__(learning_rate, weight_decay)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def init_state(self, params: Tree):
+        return {"m": {k: torch.zeros_like(p) for k, p in params.items()},
+                "u": {k: torch.zeros_like(p) for k, p in params.items()},
+                "t": 0}
+
+    def update(self, grads: Tree, opt_state, params: Tree, lr: float):
+        b1, b2 = self.beta1, self.beta2
+        with torch.no_grad():
+            grads = self._decay(grads, params)
+            t = opt_state["t"] = opt_state["t"] + 1
+            # lr / (1 - beta1^t) in f32, as the reference computes it
+            bc = np.float32(1.0) - np.float32(b1) ** np.float32(t)
+            step = float(np.float32(lr) / bc)
+            for k, p in params.items():
+                g, m, u = grads[k], opt_state["m"][k], opt_state["u"][k]
+                m.mul_(b1).add_((1 - b1) * g)
+                torch.maximum(b2 * u, g.abs() + self.epsilon, out=u)
+                p.sub_(step * m / u)
+        return params, opt_state
+
+
+class RMSprop(OptimMethod):
+    """Scaling by an EMA of squared gradients (reference `RMSprop`),
+    lr / (1 + neval * learning_rate_decay), rho = `decay_rate`:
+        g = grad + weight_decay * p
+        a = rho * a + (1 - rho) * g * g
+        p = p - lr * g / (sqrt(a) + epsilon)"""
+
+    def __init__(self, learning_rate: float = 1e-2,
+                 learning_rate_decay: float = 0.0, decay_rate: float = 0.99,
+                 epsilon: float = 1e-8, weight_decay: float = 0.0):
+        super().__init__(learning_rate, weight_decay)
+        self.learning_rate_decay = learning_rate_decay
+        self.rho, self.epsilon = decay_rate, epsilon
+
+    def init_state(self, params: Tree):
+        return {"accum": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    def current_lr(self) -> float:
+        return _decayed_lr(self)
+
+    def update(self, grads: Tree, opt_state, params: Tree, lr: float):
+        rho = self.rho
+        with torch.no_grad():
+            grads = self._decay(grads, params)
+            for k, p in params.items():
+                g, a = grads[k], opt_state["accum"][k]
+                a.mul_(rho).add_((1 - rho) * g * g)
+                p.sub_(lr * g / (a.sqrt() + self.epsilon))
+        return params, opt_state
+
+
+class Ftrl(OptimMethod):
+    """Follow-the-regularized-leader (reference `Ftrl`), per element with
+    lp = `learning_rate_power`:
+        gs = g + 2 * l2_shrinkage * p      (g itself without shrinkage)
+        a' = a + g * g
+        sigma = (a'^-lp - a^-lp) / lr
+        lin = lin + gs - sigma * p
+        p = (clip(lin, -l1, l1) - lin) / (a'^-lp / lr + 2 * l2)
+    The accumulator starts at `initial_accumulator_value`."""
+
+    def __init__(self, learning_rate: float = 1e-3,
+                 learning_rate_power: float = -0.5,
+                 initial_accumulator_value: float = 0.1,
+                 l1_regularization_strength: float = 0.0,
+                 l2_regularization_strength: float = 0.0,
+                 l2_shrinkage_regularization_strength: float = 0.0):
+        super().__init__(learning_rate)
+        self.lr_power = learning_rate_power
+        self.init_accum = initial_accumulator_value
+        self.l1 = l1_regularization_strength
+        self.l2 = l2_regularization_strength
+        self.l2_shrinkage = l2_shrinkage_regularization_strength
+
+    def init_state(self, params: Tree):
+        return {"accum": {k: torch.full_like(p, self.init_accum)
+                          for k, p in params.items()},
+                "linear": {k: torch.zeros_like(p)
+                           for k, p in params.items()}}
+
+    def update(self, grads: Tree, opt_state, params: Tree, lr: float):
+        lp, l1, l2 = self.lr_power, self.l1, self.l2
+        with torch.no_grad():
+            for k, p in params.items():
+                g = grads[k]
+                a, lin = opt_state["accum"][k], opt_state["linear"][k]
+                gs = g + 2 * self.l2_shrinkage * p if self.l2_shrinkage \
+                    else g
+                a2 = a + g * g
+                sigma = (a2.pow(-lp) - a.pow(-lp)) / lr
+                lin.copy_(lin + gs - sigma * p)
+                quad = a2.pow(-lp) / lr + 2 * l2
+                p.copy_((lin.clamp(-l1, l1) - lin) / quad)
+                a.copy_(a2)
+        return params, opt_state
+
+
+class LBFGS(OptimMethod):
+    """Limited-memory BFGS (reference `LBFGS`), with the reference's two
+    entry points: inside a training step `update` is a plain gradient
+    step, p = p - lr * g; `optimize_full_batch(loss_and_grad, params)`
+    runs up to `max_iter` L-BFGS iterations (the two-loop recursion over
+    the last `n_correction` pairs, a fixed step of `learning_rate`) on a
+    full-batch objective. `max_eval` is accepted and ignored, as in the
+    reference."""
+
+    def __init__(self, max_iter: int = 20, max_eval: Optional[float] = None,
+                 tol_fun: float = 1e-5, tol_x: float = 1e-9,
+                 n_correction: int = 100, learning_rate: float = 1.0):
+        super().__init__(learning_rate)
+        self.max_iter = max_iter
+        self.tol_fun, self.tol_x = tol_fun, tol_x
+        self.n_correction = n_correction
+
+    def init_state(self, params: Tree):
+        return {"history": []}
+
+    def update(self, grads: Tree, opt_state, params: Tree, lr: float):
+        with torch.no_grad():
+            for k, p in params.items():
+                p.sub_(lr * grads[k])
+        return params, opt_state
+
+    def optimize_full_batch(self, loss_and_grad, params: Tree) -> Tree:
+        """`loss_and_grad(params) -> (loss, grads)` over dicts of tensors
+        keyed as `params`; returns the new parameters (new tensors; the
+        given ones are not changed)."""
+        keys = list(params)
+        shapes = [params[k].shape for k in keys]
+
+        def pack(tree):
+            return torch.cat([tree[k].detach().reshape(-1) for k in keys])
+
+        def unpack(vec):
+            out, off = {}, 0
+            for k, s in zip(keys, shapes):
+                n = math.prod(s)
+                out[k] = vec[off:off + n].reshape(s)
+                off += n
+            return out
+
+        x = pack(params)
+        s_hist: List[torch.Tensor] = []
+        y_hist: List[torch.Tensor] = []
+        f_prev = None
+        for _ in range(self.max_iter):
+            loss, grads = loss_and_grad(unpack(x))
+            g = pack(grads)
+            if f_prev is not None and abs(float(loss) - f_prev) \
+                    < self.tol_fun:
+                break
+            f_prev = float(loss)
+            q = g
+            alphas = []
+            for s, y in reversed(list(zip(s_hist, y_hist))):
+                rho = 1.0 / (torch.dot(y, s) + 1e-10)
+                a = rho * torch.dot(s, q)
+                q = q - a * y
+                alphas.append((rho, a))
+            if y_hist:
+                gamma = torch.dot(s_hist[-1], y_hist[-1]) / (
+                    torch.dot(y_hist[-1], y_hist[-1]) + 1e-10)
+                q = gamma * q
+            for (s, y), (rho, a) in zip(zip(s_hist, y_hist),
+                                        reversed(alphas)):
+                b = rho * torch.dot(y, q)
+                q = q + (a - b) * s
+            d = -q
+            step = self.learning_rate
+            x_new = x + step * d
+            _, g_new = loss_and_grad(unpack(x_new))
+            s_vec, y_vec = x_new - x, pack(g_new) - g
+            if float(torch.dot(s_vec, y_vec)) > 1e-10:
+                s_hist.append(s_vec)
+                y_hist.append(y_vec)
+                if len(s_hist) > self.n_correction:
+                    s_hist.pop(0)
+                    y_hist.pop(0)
+            if float((step * d).abs().max()) < self.tol_x:
+                x = x_new
+                break
+            x = x_new
+        return unpack(x)
+
+
+class CompositeOptimMethod(OptimMethod):
+    """Per-submodule optimization methods (reference
+    `CompositeOptimMethod`, built by `set_optim_methods`): each top-level
+    child of the model named in `methods` (by its `name`) trains under its
+    own method, with its own learning rate, schedule and slots. A child
+    with parameters must be covered. `current_lr()` returns one rate per
+    top-level child (0.0 for an uncovered one), which `update` unpacks.
+    Parameters are grouped by their top-level child's key, the first
+    component of their name."""
+
+    def __init__(self, model, methods: Dict[str, "OptimMethod"]):
+        super().__init__()
+        self.methods = dict(methods)
+        children = list(model.named_children())
+        self._keys = [key for key, _ in children]
+        self._method_of: Dict[str, Optional[OptimMethod]] = {}
+        unused = set(methods)
+        for key, child in children:
+            m = methods.get(child.name)
+            self._method_of[key] = m
+            if m is not None:
+                unused.discard(child.name)
+        if unused:
+            raise ValueError(
+                f"set_optim_methods: no top-level submodule named "
+                f"{sorted(unused)}; children are "
+                f"{[c.name for _, c in children]}")
+
+    @staticmethod
+    def _split(tree: Tree) -> Dict[str, Tree]:
+        """A dict keyed by parameter name, grouped by top-level key."""
+        out: Dict[str, Tree] = {}
+        for name, v in tree.items():
+            out.setdefault(name.split(".", 1)[0], {})[name] = v
+        return out
+
+    def _pairs(self, groups: Dict[str, Tree]):
+        for key in groups:
+            m = self._method_of.get(key)
+            if m is None:
+                raise ValueError(
+                    f"submodule '{key}' has parameters but no optim "
+                    "method; cover every trainable top-level child")
+            yield key, m
+
+    def init_state(self, params: Tree):
+        groups = self._split(params)
+        return {k: m.init_state(groups[k]) for k, m in self._pairs(groups)}
+
+    def _sync_counters(self):
+        """The loop's counters copied into every sub-method's state, so
+        their schedules see the training progress."""
+        for m in self.methods.values():
+            for key in ("neval", "epoch", "recordsProcessedThisEpoch",
+                        "loss", "score"):
+                if key in self.state:
+                    m.state[key] = self.state[key]
+
+    def current_lr(self):
+        self._sync_counters()
+        return tuple(m.current_lr() if m else 0.0
+                     for m in (self._method_of.get(k) for k in self._keys))
+
+    @property
+    def schedule(self):
+        """Validation scores reach the sub-methods' `Plateau`-style
+        schedules through this proxy (the loop calls
+        `optim_method.schedule.record(score, method)`)."""
+        methods = self.methods
+
+        class _Proxy:
+            def record(self, score, _method):
+                for m in methods.values():
+                    sched = getattr(m, "schedule", None)
+                    if sched is not None and hasattr(sched, "record"):
+                        sched.record(score, m)
+
+        return _Proxy()
+
+    def update(self, grads: Tree, opt_state, params: Tree, lr):
+        lrs = dict(zip(self._keys, lr))
+        g_groups, p_groups = self._split(grads), self._split(params)
+        for k, m in self._pairs(g_groups):
+            m.update(g_groups[k], opt_state[k], p_groups[k], lrs[k])
         return params, opt_state

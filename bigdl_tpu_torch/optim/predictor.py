@@ -26,6 +26,7 @@ import torch
 from bigdl_tpu_torch._device import resolve_device
 from bigdl_tpu_torch.dataset.sample import MiniBatch
 from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
+from bigdl_tpu_torch.utils.table import Table
 
 
 def model_device(model: torch.nn.Module):
@@ -74,11 +75,11 @@ class LocalPredictor:
 
     def _forward(self, x):
         """One forward of a batch already on the device. A model that
-        returns a list (a `ConcatTable`) gives its first element, the
-        reference's convention for a `Table` output."""
+        returns a `Table` (a `ConcatTable`) gives its first entry, `y[1]`,
+        the reference's convention for a `Table` output."""
         with torch.inference_mode():
             y = self.model(x)
-        return y[0] if isinstance(y, (list, tuple)) else y
+        return y[1] if isinstance(y, Table) else y
 
     def _to_device(self, x):
         if isinstance(x, list):

@@ -25,6 +25,7 @@ warm-up. The result also carries every step's loss.
     python -m bigdl_tpu_torch.tools.bench --model serve [--profile]
     python -m bigdl_tpu_torch.tools.bench --model inception_v1 [--profile]
     python -m bigdl_tpu_torch.tools.bench --model lenet|inception_v2|vgg16
+    python -m bigdl_tpu_torch.tools.bench --model ptb_lstm [--profile]
 
 The feed-forward zoo (`--model lenet | inception_v1 | inception_v2 |
 vgg16`) trains with the same recipe (`ClassNLLCriterion`, sync every 8) at
@@ -38,6 +39,13 @@ for both Inceptions; it adds the `torch.cat` copies and the copies and
 casts as kinds of their own, the BN+ReLU gradient copies a step
 (`BnReluFunction.g_copies`) and the LRN layers' device time (every zoo
 model takes it).
+
+`--model ptb_lstm` is `BASELINE.md` config 4, the PTB LSTM language
+model (`PTBModel(10001, 200, 10001)`, b64, 20 time steps, 1-based seeded
+ids, `TimeDistributedCriterion(ClassNLLCriterion())`), through the same
+recipe; it reports records/s (sequences, the reference's unit) and
+tokens/s. Its time loop is a Python loop of 20 steps; no kernel of the
+port runs on this path.
 
 `--model serve` times one b32 forward of the served ResNet-50
 (`LocalPredictor` over `ResNet50(class_num=1000, s2d_stem=True)`, f32,
@@ -167,16 +175,20 @@ def _device_name(device: torch.device) -> str:
 
 def framework_throughput(model: torch.nn.Module, in_shape: Sequence[int],
                          n_class: int, batch_size: int, warmup: int,
-                         iters: int, sync: int = 4, device=None) -> Dict:
+                         iters: int, sync: int = 4, device=None, *,
+                         batch=None, criterion=None) -> Dict:
     """Train `model` (already on `device`) for `warmup + iters` steps on a
-    resident batch of NHWC `in_shape` images; returns imgs/s, ms/step, the
-    losses, the step's FLOP count (`step_flops`, off the clock) and mfu.
-    `warmup` and `iters` are rounded to whole sync windows."""
+    resident batch of NHWC `in_shape` images (or on `batch`, an (x, y)
+    pair of arrays, under `criterion`; default `ClassNLLCriterion`);
+    returns records/s (`imgs_per_sec`), ms/step, the losses, the step's
+    FLOP count (`step_flops`, off the clock) and mfu. `warmup` and
+    `iters` are rounded to whole sync windows."""
     device = resolve_device(device)
     sync = math.gcd(math.gcd(warmup, iters), sync)  # windows tile the run
-    opt = _resident_optimizer(model, *_image_batch(in_shape, n_class,
-                                                   batch_size),
-                              ClassNLLCriterion(), device)
+    if batch is None:
+        batch = _image_batch(in_shape, n_class, batch_size)
+    opt = _resident_optimizer(model, *batch,
+                              criterion or ClassNLLCriterion(), device)
     flops = step_flops(opt)
     window_s, losses = _timed_run(opt, warmup, iters, sync)
     ms = 1e3 * window_s / sync
@@ -279,6 +291,61 @@ def bench_transformer_lm(batch_size: int = 8, seq: int = 2048,
     device = resolve_device(device)
     return lm_throughput(_lm(vocab, device, generator), vocab, seq,
                          batch_size, warmup, iters, sync=sync, device=device)
+
+
+#: the PTB-LSTM configuration of `bench_cli.py`'s baseline configurations
+#: (`BASELINE.md` config 4): vocabulary, hidden width, batch, time steps
+PTB = {"vocab": 10001, "hidden": 200, "batch_size": 64, "seq": 20}
+
+
+def _ptb_batch(vocab: int, seq: int, batch_size: int):
+    """Seeded 1-based ids in [1, vocab) for the inputs and the targets,
+    [B, T] int32 each, from `RandomState(0)`."""
+    rs = np.random.RandomState(0)
+    x = rs.randint(1, vocab, (batch_size, seq)).astype(np.int32)
+    y = rs.randint(1, vocab, (batch_size, seq)).astype(np.int32)
+    return x, y
+
+
+def bench_ptb_lstm(batch_size: int = 64, seq: int = 20, vocab: int = 10001,
+                   hidden: int = 200, warmup: int = 8, iters: int = 40,
+                   sync: int = 8, device=None,
+                   generator: Optional[torch.Generator] = None) -> Dict:
+    """`PTBModel(vocab, hidden, vocab)` (2 LSTM layers), random weights
+    from `generator` (default seed 0), trained through
+    `framework_throughput` on one resident batch of seeded ids under
+    `TimeDistributedCriterion(ClassNLLCriterion())` (the loss summed over
+    the T steps), as `bench_cli.py`'s baseline configurations run it (8 +
+    40 steps, sync every 8). Reports records/s (sequences, the
+    reference's unit), tokens/s, ms/step, the FLOP count and mfu."""
+    from bigdl_tpu_torch.models.rnn import PTBModel
+    device = resolve_device(device)
+    model = PTBModel(vocab, hidden, vocab, device=device,
+                     generator=generator)
+    res = framework_throughput(
+        model, (seq,), vocab, batch_size, warmup, iters, sync=sync,
+        device=device, batch=_ptb_batch(vocab, seq, batch_size),
+        criterion=TimeDistributedCriterion(ClassNLLCriterion()))
+    records = res.pop("imgs_per_sec")
+    return {"model": "ptb_lstm", "records_per_sec": records,
+            "tokens_per_sec": records * seq, "seq": seq, "vocab": vocab,
+            "hidden": hidden, **res}
+
+
+def profile_ptb_lstm(batch_size: int = 64, seq: int = 20,
+                     vocab: int = 10001, hidden: int = 200, warmup: int = 8,
+                     steps: int = 8, top: int = 15, device=None,
+                     generator: Optional[torch.Generator] = None) -> Dict:
+    """`_profile` of the PTB-LSTM benchmark configuration."""
+    from bigdl_tpu_torch.models.rnn import PTBModel
+    device = _cuda_only(device, "profile_ptb_lstm")
+    model = PTBModel(vocab, hidden, vocab, device=device,
+                     generator=generator)
+    opt = _resident_optimizer(model, *_ptb_batch(vocab, seq, batch_size),
+                              TimeDistributedCriterion(ClassNLLCriterion()),
+                              device)
+    return {"model": "ptb_lstm", "batch_size": batch_size, "seq": seq,
+            **_profile(opt, warmup, steps, top, device)}
 
 
 def _median_ms(fn, reps: int, device: torch.device) -> float:
@@ -705,7 +772,7 @@ def main(argv=None) -> None:
     import argparse
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", choices=("resnet50", "serve", "lm",
-                                       "attention", *ZOO),
+                                       "attention", "ptb_lstm", *ZOO),
                    default="resnet50")
     p.add_argument("--profile", action="store_true",
                    help="device time by kind of kernel (torch.profiler)")
@@ -717,6 +784,8 @@ def main(argv=None) -> None:
             else bench_resnet50_serving
     elif args.model == "lm":
         fn = profile_transformer_lm if args.profile else bench_transformer_lm
+    elif args.model == "ptb_lstm":
+        fn = profile_ptb_lstm if args.profile else bench_ptb_lstm
     elif args.model in ZOO:
         fn = functools.partial(profile_zoo if args.profile else bench_zoo,
                                args.model)

@@ -1,2 +1,7 @@
 """Utilities (counterpart of `bigdl_tpu.utils`). Ported so far:
-`filesystem`, the path and URI dispatch the checkpoints go through."""
+`filesystem`, the path and URI dispatch the checkpoints go through, and
+`table`, the 1-based `Table` and its builder `T`."""
+
+from bigdl_tpu_torch.utils.table import T, Table
+
+__all__ = ["T", "Table"]

@@ -183,6 +183,26 @@ Phases:
    Inception-v1, kernels 6-7 69 times and 36 gradient copies a step for
    Inception-v2). (d) Phase 12's wall time.
 
+13. the recurrent path and the rest of the training loop; no kernel of
+   the port runs on it (the reference's LSTM reaches no Pallas kernel).
+   (a) f32 on the card (TF32 off) against the port on the CPU, from the
+   same weights and batch, through `DistriOptimizer`:
+   `PTBModel(10001, 200, 10001)` at b8, T=20, 3 SGD steps (momentum
+   0.9); `SimpleRNN(4, 40, 4)` at b8, T=20, 3 steps under each of
+   `LAMB`, `Adagrad`, `Adadelta`, `Adamax`, `RMSprop` and `Ftrl`, and 6
+   SGD steps under `SequentialSchedule(Warmup, Poly)`: losses (and the
+   SimpleRNN's parameters, relative to each tensor's largest element)
+   within a relative 1e-4, and the learning rate of every step equal.
+   (b) `tools/bench.py --model ptb_lstm` (b64, T=20, bf16 compute with
+   f32 masters, SGD momentum 0.9, one resident batch of seeded 1-based
+   ids) for 8 warm-up and 24 timed steps, syncing every 8: records/s,
+   tokens/s, ms/step, the FLOP count, mfu in (0, 1), a first loss within
+   10% of T ln V and a last loss below it, and no launch of any kernel
+   of the port (every count set to 0 before the run, read after).
+   (c) The example (`tools/language_model.py` at its defaults): its
+   perplexity below the corpus's vocabulary size (200). (d) Phase 13's
+   wall time.
+
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
 measure ran: `tensor_cores` or `cuda_cores_f32`; rows 5-7 with their
 launches on the zoo's paths and their zoo shapes), then as its last line
@@ -199,6 +219,7 @@ import os
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import copy
+import functools
 import json
 import math
 import re
@@ -2598,6 +2619,194 @@ def zoo_bench_phase(sk, bk):
     return out
 
 
+# --------------------------------------------------------------------------
+# 13. the recurrent path and the rest of the training loop
+# --------------------------------------------------------------------------
+
+# the PTB-LSTM configuration (`tools/bench.py --model ptb_lstm`)
+PTB_VOCAB, PTB_HIDDEN, PTB_SEQ = 10001, 200, 20
+# the new optimization methods held on the card against the CPU, with
+# the settings of the run
+NEW_METHODS = {
+    "LAMB": dict(learning_rate=1e-2, weight_decay=1e-2),
+    "Adagrad": dict(learning_rate=0.1, learning_rate_decay=0.01,
+                    weight_decay=1e-3),
+    "Adadelta": dict(decay_rate=0.9, epsilon=1e-6),
+    "Adamax": dict(learning_rate=1e-2),
+    "RMSprop": dict(learning_rate=1e-2, learning_rate_decay=0.01),
+    "Ftrl": dict(learning_rate=0.1, l1_regularization_strength=0.01,
+                 l2_regularization_strength=0.01),
+}
+# the example's perplexity must fall below the corpus's vocabulary size
+LM_EXAMPLE_VOCAB = 200
+
+
+def _all_counts(ak, sk, bk):
+    """The launches of every kernel of the port, by name."""
+    return {"flash_attention_fwd": ak.flash_attention_forward.launches,
+            "flash_attention_carry": ak.flash_attention_carry.launches,
+            "flash_attention_bwd_dq": ak.flash_attention_backward_dq.launches,
+            "flash_attention_bwd_dkv":
+                ak.flash_attention_backward_dkv.launches,
+            "stem_conv": sk.stem_conv_forward.launches,
+            "bn_relu_fwd": bk.bn_relu_forward.launches,
+            "bn_relu_bwd": bk.bn_relu_backward.launches}
+
+
+def _reset_all_counts(ak, sk, bk):
+    _reset_flash_counts(ak)
+    ak.flash_attention_carry.launches = 0
+    sk.stem_conv_forward.launches = 0
+    _reset_bn_counts(bk)
+
+
+def _recurrent_run(model, x, y, method, dev, steps=3):
+    """`steps` steps of `model` on `dev` through DistriOptimizer under
+    `method` on the one batch (x, y), with the loss summed over T; the
+    losses and the learning rate of every step."""
+    from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import DistriOptimizer, max_iteration
+    losses, lrs = [], []
+    opt = DistriOptimizer(model, LocalDataSet([MiniBatch(
+        torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))]),
+        TimeDistributedCriterion(ClassNLLCriterion()), devices=[dev])
+    rate = method.current_lr
+    method.current_lr = lambda: lrs.append(rate()) or lrs[-1]
+    opt.set_optim_method(method)
+    opt.set_end_when(max_iteration(steps))
+    opt.set_iteration_hook(lambda st: losses.append(st["loss"]))
+    opt.optimize()
+    return losses, lrs
+
+
+def recurrent_parity_phase():
+    """13(a): f32 on the card (TF32 off) against the port on the CPU from
+    the same weights and batch: PTB-LSTM at full width under SGD, then
+    SimpleRNN under each new method and under SequentialSchedule(Warmup,
+    Poly)."""
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.models import PTBModel, SimpleRNN
+
+    def pair(make, x, y, method, steps=3):
+        cpu = make()
+        card = copy.deepcopy(cpu).cuda()
+        got = _recurrent_run(card, x, y, method(), "cuda", steps)
+        ref = _recurrent_run(cpu, x, y, method(), "cpu", steps)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got[0], ref[0]))
+        params = max(float((a.detach().cpu() - b.detach()).abs().max()
+                           / b.detach().abs().max().clamp(min=1e-12))
+                     for a, b in zip(card.parameters(), cpu.parameters()))
+        return got, ref, rel, params
+
+    rs = np.random.RandomState(13)
+    px = rs.randint(1, PTB_VOCAB, (8, PTB_SEQ)).astype(np.int32)
+    py = rs.randint(1, PTB_VOCAB, (8, PTB_SEQ)).astype(np.int32)
+    got, ref, rel, params = pair(
+        lambda: PTBModel(PTB_VOCAB, PTB_HIDDEN, PTB_VOCAB, device="cpu",
+                         generator=torch.Generator().manual_seed(0)),
+        px, py, lambda: optim.SGD(learning_rate=0.01, momentum=0.9))
+    print("recurrent parity " + json.dumps({
+        "model": f"PTBModel({PTB_VOCAB}, {PTB_HIDDEN}, {PTB_VOCAB})",
+        "batch": 8, "seq": PTB_SEQ, "steps": 3, "dtype": "float32",
+        "method": "SGD(0.01, momentum 0.9)", "losses": got[0],
+        "cpu_losses": ref[0], "rel_diff": rel,
+        "params_rel_diff": params}), flush=True)
+    check(len(got[0]) == 3 and all(np.isfinite(got[0]))
+          and rel <= PARITY_RTOL,
+          f"PTB f32 losses {got[0]} vs the CPU's {ref[0]}: relative "
+          f"{rel:.2e} > {PARITY_RTOL}")
+
+    sx = rs.randn(8, PTB_SEQ, 4).astype(np.float32)
+    sy = rs.randint(1, 5, (8, PTB_SEQ)).astype(np.int32)
+
+    def simple_rnn():
+        return SimpleRNN(4, 40, 4, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+
+    def warmup_poly():
+        sched = optim.SequentialSchedule(1)
+        sched.add(optim.Warmup(0.02), 3).add(optim.Poly(1.0, 10), 10)
+        return optim.SGD(0.1, momentum=0.9, learning_rate_schedule=sched)
+
+    cases = {name: functools.partial(getattr(optim, name), **kw)
+             for name, kw in NEW_METHODS.items()}
+    cases["SGD + SequentialSchedule(Warmup, Poly)"] = warmup_poly
+    for name, method in cases.items():
+        steps = 6 if name.startswith("SGD") else 3
+        got, ref, rel, params = pair(simple_rnn, sx, sy, method, steps)
+        print("recurrent method " + json.dumps({
+            "model": "SimpleRNN(4, 40, 4)", "method": name, "batch": 8,
+            "seq": PTB_SEQ, "steps": steps, "losses": got[0],
+            "cpu_losses": ref[0], "rel_diff": rel,
+            "params_rel_diff": params, "lrs": got[1],
+            "cpu_lrs": ref[1]}), flush=True)
+        check(all(np.isfinite(got[0])) and rel <= PARITY_RTOL
+              and params <= PARITY_RTOL,
+              f"SimpleRNN under {name}: losses {got[0]} vs {ref[0]} "
+              f"(relative {rel:.2e}), parameters {params:.2e} apart, "
+              f"limit {PARITY_RTOL}")
+        check(got[1] == ref[1],
+              f"{name}: learning rates {got[1]} on the card, {ref[1]} on "
+              "the CPU")
+
+
+def ptb_bench_phase(ak, sk, bk):
+    """13(b): `tools/bench.py --model ptb_lstm` for 8 warm-up and 24
+    timed steps: the main path's run, every kernel count set to 0 before
+    it and read after (the path runs none of the port's kernels)."""
+    from bigdl_tpu_torch.tools.bench import bench_ptb_lstm
+    warmup, iters, sync = 8, 24, 8
+    steps = warmup + iters
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts(ak, sk, bk)
+    res = bench_ptb_lstm(warmup=warmup, iters=iters, sync=sync,
+                         device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    launches = _all_counts(ak, sk, bk)
+    losses = res["losses"]
+    row = {k: res[k] for k in ("model", "records_per_sec", "tokens_per_sec",
+                               "ms_per_step", "flops_per_step", "mfu",
+                               "batch_size", "seq", "vocab", "hidden",
+                               "steps", "warmup", "sync", "device")}
+    row.update({"precision": "bfloat16 compute, f32 masters",
+                "loss_first": losses[0], "loss_last": losses[-1],
+                "synced_losses": {i + 1: losses[i]
+                                  for i in range(sync - 1, steps, sync)},
+                "kernel_launches": launches,
+                "peak_mem_gib": torch.cuda.max_memory_allocated()
+                / 2 ** 30})
+    print("ptb_lstm bench " + json.dumps(row), flush=True)
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"ptb_lstm: non-finite or missing losses {losses}")
+    lo = PTB_SEQ * math.log(PTB_VOCAB)
+    check(0.9 * lo <= losses[0] <= 1.1 * lo,
+          f"ptb_lstm: first loss {losses[0]} not within 10% of "
+          f"T ln V = {lo:.2f}")
+    check(losses[-1] < losses[0],
+          f"ptb_lstm: the loss did not fall: first {losses[0]}, last "
+          f"{losses[-1]}")
+    check(_mfu_ok(res["mfu"]) and res["flops_per_step"] > 0,
+          f"ptb_lstm: mfu {res['mfu']} outside (0, 1) or no FLOP count")
+    check(not any(launches.values()),
+          f"ptb_lstm launched kernels of the port: {launches}")
+    return row
+
+
+def lm_example_phase():
+    """13(c): the example recipe (`tools/language_model.py`, its defaults:
+    2 epochs of b32 over the seeded corpus, Adam 2e-3)."""
+    from bigdl_tpu_torch.tools import language_model
+    t0 = time.perf_counter()
+    ppl = language_model.main(["--device", "cuda"])
+    print(f"language model example: perplexity {ppl:.3f} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(math.isfinite(ppl) and ppl < LM_EXAMPLE_VOCAB,
+          f"the example's perplexity {ppl} is not below the vocabulary's "
+          f"{LM_EXAMPLE_VOCAB}")
+    return ppl
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2688,6 +2897,13 @@ def main() -> int:
     zoo_pairs = zoo_parity_phase(sk, bk)
     zoo_bench = zoo_bench_phase(sk, bk)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 13. the recurrent path and the rest of the training loop
+    t0 = time.perf_counter()
+    recurrent_parity_phase()
+    ptb_bench_phase(ak, sk, bk)
+    lm_example_phase()
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
     zoo_launches = {
         "launches_inception_v1": zoo_bench["inception_v1"]["launches"],
         "launches_inception_v2": zoo_bench["inception_v2"]["launches"],

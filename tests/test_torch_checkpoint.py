@@ -20,6 +20,11 @@ retry) against `bigdl_tpu`.
   more steps equal N uninterrupted steps bit for bit on the CPU (losses
   and every parameter and buffer), across epoch boundaries with a
   shuffled dataset, for both loops and two methods.
+- The adaptive methods: a checkpoint holding `Adagrad`'s or `RMSprop`'s
+  accumulators, written by either package, loads in the other and the
+  resumed run continues the reference's trajectory (losses within a
+  relative 1e-5, parameters within 1e-5 of each tensor's largest element:
+  a small MLP, the same f32 arithmetic).
 - Retry: `RetryPolicy`'s delays and classes against the reference's for
   the same seed; `DistriOptimizer` recovers from a `train.step` fault
   through the newest checkpoint, and from a failure in the middle of an
@@ -163,6 +168,117 @@ def test_reference_checkpoint_resumes_in_the_port(tmp_path):
     opt.set_end_when(toptim.max_iteration(5))
     opt.optimize()
     np.testing.assert_allclose(losses, j_losses[3:], rtol=1e-4)
+
+
+def _mlp(pkg, params=None):
+    """Sequential(Linear 4->8 "enc", Tanh, Linear 8->3 "dec", LogSoftMax),
+    the JAX model with `params` (or its init) and the port's carrying
+    them."""
+    if pkg is joptim:
+        jm = (jnn.Sequential().add(jnn.Linear(4, 8, name="enc"))
+              .add(jnn.Tanh()).add(jnn.Linear(8, 3, name="dec"))
+              .add(jnn.LogSoftMax()))
+        params = params or jax.tree_util.tree_map(
+            np.asarray, jm.init(jax.random.PRNGKey(4)))
+        jm.set_params(jax.tree_util.tree_map(jnp.asarray, params))
+        return jm
+    tm = (tnn.Sequential().add(tnn.Linear(4, 8, name="enc", device="cpu"))
+          .add(tnn.Tanh()).add(tnn.Linear(8, 3, name="dec", device="cpu"))
+          .add(tnn.LogSoftMax()))
+    if params is not None:  # else its own weights, until a resume
+        load_module_params(tm, params)
+    return tm
+
+
+#: the methods whose slots the interchange carries, with their settings
+#: ("per_submodule": Adagrad for "enc", RMSprop for "dec")
+SLOT_METHODS = {
+    "Adagrad": dict(learning_rate=0.1, learning_rate_decay=0.05,
+                    weight_decay=1e-3),
+    "RMSprop": dict(learning_rate=0.01, learning_rate_decay=0.05,
+                    decay_rate=0.9, weight_decay=1e-3),
+    "per_submodule": {},
+}
+
+
+def _set_method(pkg, opt, name):
+    if name == "per_submodule":
+        opt.set_optim_methods({
+            "enc": pkg.Adagrad(**SLOT_METHODS["Adagrad"]),
+            "dec": pkg.RMSprop(**SLOT_METHODS["RMSprop"])})
+    else:
+        opt.set_optim_method(getattr(pkg, name)(**SLOT_METHODS[name]))
+
+
+def _slot_run(pkg, name, params, path, steps, resume=False):
+    """`steps` steps of the MLP under the method `name` on one batch,
+    checkpointing every 3 into `path` (or resuming from it first); the
+    losses and the optimizer."""
+    rs = np.random.RandomState(11)
+    x = rs.randn(16, 4).astype(np.float32)
+    y = rs.randint(1, 4, 16).astype(np.int32)
+    model = _mlp(pkg, params)
+    if pkg is joptim:
+        opt = joptim.LocalOptimizer(model, JLocalDataSet([JMiniBatch(x, y)]),
+                                    jnn.ClassNLLCriterion())
+    else:
+        opt = toptim.LocalOptimizer(model, LocalDataSet([MiniBatch(x, y)]),
+                                    tnn.ClassNLLCriterion(), device="cpu")
+    _set_method(pkg, opt, name)
+    opt.set_checkpoint(str(path), pkg.several_iteration(3))
+    if resume:
+        if name != "per_submodule":
+            opt.optim_method = getattr(pkg, name)()  # settings: the blob's
+        assert opt.resume_from_latest_checkpoint()
+        for k, v in SLOT_METHODS[name].items():
+            attr = {"decay_rate": "rho"}.get(k, k)
+            assert getattr(opt.optim_method, attr) == v
+    opt.set_end_when(pkg.max_iteration(steps))
+    losses = []
+    opt.set_iteration_hook(lambda s: losses.append(s["loss"]))
+    opt.optimize()
+    return losses, opt
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+@pytest.mark.parametrize("name", sorted(SLOT_METHODS))
+def test_adaptive_slots_round_trip_with_the_reference(tmp_path, name,
+                                                      writer):
+    """A checkpoint holding Adagrad's or RMSprop's accumulators (or both,
+    one a top-level child, through `set_optim_methods`), written by one
+    package after 3 steps, loads in the other: the slots have the
+    reference's structure and the writer's values, and the
+    resumed run's steps 4-5 give the reference's uninterrupted losses
+    (within a relative 1e-5) and parameters (1e-5 of each tensor's
+    largest element)."""
+    params = jax.tree_util.tree_map(
+        np.asarray, _mlp(joptim).init(jax.random.PRNGKey(4)))
+    want, jopt = _slot_run(joptim, name, params, tmp_path / "ref", 5)
+    wpkg, rpkg = (toptim, joptim) if writer == "port" else (joptim, toptim)
+    _slot_run(wpkg, name, params, tmp_path / "w", 3)
+    ckpt = jckpt.latest_checkpoint(str(tmp_path / "w"))
+    _, _, blob = jckpt.load_checkpoint(ckpt)
+    _, _, ref_blob = jckpt.load_checkpoint(
+        os.path.join(str(tmp_path / "ref"), "iter3"))
+    assert blob["class"] == ref_blob["class"]
+    assert blob["state"]["neval"] == 3
+    assert jax.tree_util.tree_structure(blob["slots"]) == \
+        jax.tree_util.tree_structure(ref_blob["slots"])
+    if name != "per_submodule":
+        assert jax.tree_util.tree_structure(blob["slots"]["accum"]) == \
+            jax.tree_util.tree_structure(params)
+    for a, b in zip(jax.tree_util.tree_leaves(blob["slots"]),
+                    jax.tree_util.tree_leaves(ref_blob["slots"])):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0,
+                                   atol=1e-5 * np.abs(np.asarray(b)).max())
+    got, ropt = _slot_run(rpkg, name, None, tmp_path / "w", 5, resume=True)
+    np.testing.assert_allclose(got, want[3:], rtol=1e-5)
+    final = module_params_tree(ropt.model) if rpkg is toptim else \
+        jax.tree_util.tree_map(np.asarray, ropt.model.ensure_params())
+    ref = jax.tree_util.tree_map(np.asarray, jopt.model.ensure_params())
+    for a, b in zip(jax.tree_util.tree_leaves(final),
+                    jax.tree_util.tree_leaves(ref)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * np.abs(b).max())
 
 
 # --------------------------------------------------------------------------

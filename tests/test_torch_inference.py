@@ -525,8 +525,8 @@ class TestBucketPaddingParity:
             _close(np.stack(out), np.stack(ref[:n]), what=f"n={n}")
 
     def test_list_output_model(self):
-        # a ConcatTable gives a list; serving keeps LocalPredictor's
-        # convention (the first element)
+        # a ConcatTable gives a 1-based Table; serving keeps
+        # LocalPredictor's convention (its first entry, out[1])
         m = (tnn.Sequential().add(tnn.Linear(6, 8, device="cpu"))
              .add(tnn.ConcatTable().add(tnn.Linear(8, 3, device="cpu"))
                   .add(tnn.Linear(8, 2, device="cpu"))))

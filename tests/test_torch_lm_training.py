@@ -435,8 +435,14 @@ def test_samples_batch_into_minibatches():
     dropped = ds.transform(SampleToMiniBatch(2, drop_remainder=True))
     assert [b.size() for b in dropped.data(train=False)] == [2, 2]
     assert dropped.size() == 5
-    with pytest.raises(ValueError, match="padding"):
-        MiniBatch.from_samples([Sample(np.zeros(3)), Sample(np.zeros(4))])
+    # ragged records pad with 0 to the longest, as the reference's do
+    from bigdl_tpu.dataset.sample import MiniBatch as JMiniBatch
+    from bigdl_tpu.dataset.sample import Sample as JSample
+    ragged = [np.arange(3, dtype=np.float32), np.arange(4, dtype=np.float32)]
+    got = MiniBatch.from_samples([Sample(r) for r in ragged]).get_input()
+    want = JMiniBatch.from_samples([JSample(r) for r in ragged]).get_input()
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == (2, 4) and got[0, 3] == 0
 
 
 def test_optimizer_factory_picks_the_loop(monkeypatch):

@@ -10,6 +10,13 @@
   `DistriOptimizer`, against the JAX `LocalOptimizer`: the loss at every
   step and the final BN running stats.
 
+- the rest of the loop: `LAMB`, `Adagrad`, `Adadelta`, `Adamax`,
+  `RMSprop`, `Ftrl` and `LBFGS` over 5 updates, in f32 and with bf16
+  masters; every schedule's learning rate over 30 iterations; `Plateau`
+  fed by validation through the loop; `set_optim_methods` on a two-child
+  model in both loops; `LBFGS.optimize_full_batch` on a quadratic; the
+  transformer chains and padded batches.
+
 Inputs come from numpy with a fixed seed. Tolerances:
 - SGD: rtol 1e-6 (the same f32 operations in the same order; XLA may
   contract a multiply-add where PyTorch rounds twice);
@@ -23,7 +30,13 @@ Inputs come from numpy with a fixed seed. Tolerances:
   output is rounded to bf16 (2**-8 relative) after an accumulation whose
   order and width differ between oneDNN and XLA, so single bf16 roundings
   land on different sides, and 5 steps of momentum SGD carry those
-  differences on.
+  differences on;
+- the other methods: 1e-5 of each tensor's largest element for the
+  parameters (the masters in bf16) and slots, one bf16 ulp for bf16
+  parameters (the rounding of a master on a tie); learning rates to
+  1e-12 relative (the same float64 arithmetic); the per-submodule and
+  Plateau runs' losses within a relative 1e-5; L-BFGS's point within
+  1e-4 relative of the reference's.
 """
 
 import numpy as np
@@ -41,7 +54,8 @@ from bigdl_tpu.models.resnet import ResNet as JResNet
 import bigdl_tpu_torch.nn as tnn
 from bigdl_tpu_torch import optim as toptim
 from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
-from bigdl_tpu_torch.interop import load_module_params, module_state
+from bigdl_tpu_torch.interop import (load_module_params, module_params_tree,
+                                     module_state)
 from bigdl_tpu_torch.models import ResNet as TResNet
 
 SHAPES = {"w": (3, 4), "b": (4,), "k": (2, 2, 3)}
@@ -336,3 +350,303 @@ def test_profile_needs_the_card():
     from bigdl_tpu_torch.tools.bench import profile_resnet50
     with pytest.raises(ValueError, match="CUDA"):
         profile_resnet50(device="cpu")
+
+
+# --------------------------------------------------------------------------
+# The rest of the training loop: the other methods, the schedules,
+# Plateau through validation, per-submodule methods, L-BFGS, transformers
+# --------------------------------------------------------------------------
+
+#: name -> keyword settings, the same in both packages (weight decay and
+#: a learning-rate decay where the method takes them)
+METHODS = {
+    "LAMB": dict(learning_rate=1e-2, weight_decay=1e-2),
+    "Adagrad": dict(learning_rate=0.1, learning_rate_decay=0.1,
+                    weight_decay=1e-3),
+    "Adadelta": dict(decay_rate=0.9, epsilon=1e-6, weight_decay=1e-3),
+    "Adamax": dict(learning_rate=1e-2, weight_decay=1e-3),
+    "RMSprop": dict(learning_rate=1e-2, learning_rate_decay=0.1,
+                    decay_rate=0.9, weight_decay=1e-3),
+    "Ftrl": dict(learning_rate=0.1, l1_regularization_strength=0.01,
+                 l2_regularization_strength=0.02,
+                 l2_shrinkage_regularization_strength=0.01),
+    "LBFGS": dict(learning_rate=0.1),
+}
+
+
+def _slot_leaves(state):
+    """The slot tensors of a method state in key order (step counts and
+    empty histories aside)."""
+    leaves = jax.tree_util.tree_leaves(
+        jax.tree_util.tree_map(_np, state,
+                               is_leaf=lambda x: isinstance(x, torch.Tensor)))
+    return [l for l in leaves if np.ndim(l) > 0]
+
+
+@pytest.mark.parametrize("name", sorted(METHODS))
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_method_updates_match_jax(name, precision):
+    """5 updates at the learning rate each method reports, in f32 and on
+    bf16 parameters with f32 masters: parameters (the masters in bf16)
+    and slots within 1e-5 of each tensor's largest element, and in bf16
+    the parameters within one bf16 ulp (2**-8 relative)."""
+    kw = METHODS[name]
+    jm, tm = getattr(joptim, name)(**kw), getattr(toptim, name)(**kw)
+    bf16 = precision == "bfloat16"
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else \
+        (jnp.float32, torch.float32)
+    p0 = _tree(3)
+    jp, tp = _j(p0, jdt), _t(p0, tdt)
+    js, ts = jm.init_state_with_masters(jp), tm.init_state_with_masters(tp)
+    key = toptim.OptimMethod._MASTER_KEY
+    for step in range(5):
+        g = _tree(30 + step)
+        jlr, tlr = jm.current_lr(), tm.current_lr()
+        assert tlr == pytest.approx(jlr, rel=1e-12)
+        jp, js = jm.update_with_masters(_j(g, jdt), js, jp, jlr)
+        tp, ts = tm.update_with_masters(_t(g, tdt), ts, tp, tlr)
+        jm.state["neval"] += 1
+        tm.state["neval"] += 1
+        masters = (ts[key], js[key]) if bf16 else (tp, jp)
+        for k in SHAPES:
+            want = _np(masters[1][k])
+            np.testing.assert_allclose(
+                _np(masters[0][k]), want, rtol=0,
+                atol=1e-5 * np.abs(want).max(), err_msg=f"{name} {k}")
+            if bf16:
+                assert tp[k].dtype == torch.bfloat16
+                np.testing.assert_allclose(_np(tp[k]), _np(jp[k]),
+                                           rtol=2.0 ** -8, atol=0)
+        got_s, want_s = _slot_leaves(ts), _slot_leaves(js)
+        assert len(got_s) == len(want_s)
+        for a, b in zip(got_s, want_s):
+            np.testing.assert_allclose(a, b, rtol=0,
+                                       atol=1e-5 * max(np.abs(b).max(),
+                                                       1e-6))
+
+
+def _decay_by_two_epochs(epoch):
+    return epoch // 2
+
+
+def _schedules(pkg):
+    seq = pkg.SequentialSchedule(3)
+    seq.add(pkg.Warmup(0.01), 10).add(pkg.Poly(1.0, 20), 20)
+    return {
+        "Poly": pkg.Poly(0.5, 20),
+        "Step": pkg.Step(7, 0.5),
+        "MultiStep": pkg.MultiStep([5, 12, 20], 0.3),
+        "EpochDecay": pkg.EpochDecay(_decay_by_two_epochs),
+        "EpochStep": pkg.EpochStep(2, 0.5),
+        "NaturalExp": pkg.NaturalExp(5, 0.3),
+        "Exponential": pkg.Exponential(6, 0.8),
+        "Exponential staircase": pkg.Exponential(6, 0.8, True),
+        "EpochSchedule": pkg.EpochSchedule([
+            pkg.Regime(1, 1, {"learningRate": 0.2}),
+            pkg.Regime(2, 2, {"learningRate": 0.05, "weightDecay": 1e-4,
+                              "momentum": 0.5})]),
+        "Plateau (no validation)": pkg.Plateau(),
+        "Warmup": pkg.Warmup(0.01),
+        "SequentialSchedule": seq,
+        "EpochDecayWithWarmUp": pkg.EpochDecayWithWarmUp(
+            8, 0.02, _decay_by_two_epochs),
+        "Default": pkg.Default(),
+        "CosineDecay": pkg.CosineDecay(20, 0.1),
+        "WarmupCosineDecay": pkg.WarmupCosineDecay(5, 25, 0.1),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_schedules(joptim)))
+def test_schedule_learning_rates_match_jax(name):
+    """30 iterations of 10 a epoch: the learning rate SGD reports and,
+    for EpochSchedule, the settings it writes, equal the reference's."""
+    jsgd = joptim.SGD(0.1, 0.01, momentum=0.9,
+                      learning_rate_schedule=_schedules(joptim)[name])
+    tsgd = toptim.SGD(0.1, 0.01, momentum=0.9,
+                      learning_rate_schedule=_schedules(toptim)[name])
+    got, want = [], []
+    for n in range(30):
+        for m in (jsgd, tsgd):
+            m.state["neval"], m.state["epoch"] = n, n // 10
+        want.append(jsgd.current_lr())
+        got.append(tsgd.current_lr())
+        assert (tsgd.weight_decay, tsgd.momentum) == \
+            (jsgd.weight_decay, jsgd.momentum)
+        assert tsgd.state["neval"] == n
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+    assert len(set(np.round(got, 12))) > 1 or name.startswith("Plateau")
+
+
+def _mlp_pair(seed=5):
+    """Sequential(Linear 4->8 "enc", Tanh, Linear 8->3 "dec", LogSoftMax)
+    in both packages, the JAX weights carried into the port."""
+    jm = (jnn.Sequential().add(jnn.Linear(4, 8, name="enc")).add(jnn.Tanh())
+          .add(jnn.Linear(8, 3, name="dec")).add(jnn.LogSoftMax()))
+    tm = (tnn.Sequential()
+          .add(tnn.Linear(4, 8, name="enc", device="cpu")).add(tnn.Tanh())
+          .add(tnn.Linear(8, 3, name="dec", device="cpu"))
+          .add(tnn.LogSoftMax()))
+    params = jax.tree_util.tree_map(np.asarray,
+                                    jm.init(jax.random.PRNGKey(seed)))
+    jm.set_params(jax.tree_util.tree_map(jnp.asarray, params))
+    load_module_params(tm, params)
+    return jm, tm
+
+
+def _mlp_data(n=16, seed=6):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(n, 4).astype(np.float32),
+            rs.randint(1, 4, n).astype(np.int32))
+
+
+def test_plateau_is_fed_by_validation_through_the_loop():
+    """Validation every step on a held-out set with [Loss]: the first
+    method's score goes to Plateau.record. The held-out labels are
+    random, so the held-out loss rises as the training batch is fitted:
+    in "min" mode it never improves after the first validation, and the
+    rate is cut by `factor` every `patience` validations, in both
+    packages alike; the losses follow."""
+    from bigdl_tpu.dataset.dataset import LocalDataSet as JLocalDataSet
+    from bigdl_tpu.dataset.sample import MiniBatch as JMiniBatch
+    from bigdl_tpu.dataset.sample import Sample as JSample
+    from bigdl_tpu_torch.dataset import Sample
+    jm, tm = _mlp_pair()
+    x, y = _mlp_data()
+    vx, vy = _mlp_data(8, seed=7)
+    runs = {}
+    for pkg, model, ds, mb, sample in (
+            (joptim, jm, JLocalDataSet, JMiniBatch, JSample),
+            (toptim, tm, LocalDataSet, MiniBatch, Sample)):
+        crit = (jnn if pkg is joptim else tnn).ClassNLLCriterion()
+        kw = {} if pkg is joptim else {"device": "cpu"}
+        opt = pkg.LocalOptimizer(model, ds([mb(x, y)]), crit, **kw)
+        plateau = pkg.Plateau(factor=0.5, patience=2, mode="min")
+        opt.set_optim_method(pkg.SGD(0.5, learning_rate_schedule=plateau))
+        opt.set_validation(pkg.several_iteration(1),
+                           [sample(a, b) for a, b in zip(vx, vy)],
+                           [pkg.Loss(crit)], batch_size=8)
+        opt.set_end_when(pkg.max_iteration(7))
+        lrs, losses = [], []
+        opt.set_iteration_hook(lambda s, p=plateau, l=lrs, o=losses: (
+            l.append(p._lr), o.append(s["loss"])))
+        opt.optimize()
+        runs[pkg is toptim] = (lrs, losses)
+    (t_lrs, t_losses), (j_lrs, j_losses) = runs[True], runs[False]
+    assert t_lrs == j_lrs
+    assert t_lrs[-1] == 0.5 * 0.5 ** 3
+    np.testing.assert_allclose(t_losses, j_losses, rtol=1e-5)
+
+
+@pytest.mark.parametrize("loop", ["LocalOptimizer", "DistriOptimizer"])
+def test_set_optim_methods_on_a_two_child_model(loop):
+    """{"enc": SGD with momentum, "dec": Adam}: each top-level child
+    trains under its own method; 3 steps give the reference's losses and
+    parameters (within a relative 1e-5 and 1e-5 of each tensor's
+    largest element)."""
+    jm, tm = _mlp_pair()
+    x, y = _mlp_data()
+    jopt = joptim.LocalOptimizer(jm, JLocalDataSet([JMiniBatch(x, y)]),
+                                 jnn.ClassNLLCriterion())
+    kw = {"device": "cpu"} if loop == "LocalOptimizer" else \
+        {"devices": ["cpu"]}
+    topt = getattr(toptim, loop)(tm, LocalDataSet([MiniBatch(x, y)]),
+                                 tnn.ClassNLLCriterion(), **kw)
+    losses = {}
+    for pkg, opt in ((joptim, jopt), (toptim, topt)):
+        opt.set_optim_methods({"enc": pkg.SGD(0.1, momentum=0.9),
+                               "dec": pkg.Adam(0.01)})
+        assert isinstance(opt.optim_method, pkg.CompositeOptimMethod)
+        opt.set_end_when(pkg.max_iteration(3))
+        got = losses[pkg is toptim] = []
+        opt.set_iteration_hook(lambda s, g=got: g.append(s["loss"]))
+        opt.optimize()
+    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-5)
+    assert topt.optim_method.current_lr() == jopt.optim_method.current_lr()
+    want = jax.tree_util.tree_map(np.asarray, jm.ensure_params())
+    got = module_params_tree(tm)
+    for k in want:
+        for leaf in want[k]:
+            np.testing.assert_allclose(
+                got[k][leaf], want[k][leaf], rtol=0,
+                atol=1e-5 * np.abs(want[k][leaf]).max())
+
+
+def test_set_optim_methods_checks_its_children():
+    _, tm = _mlp_pair()
+    opt = toptim.LocalOptimizer(tm, LocalDataSet([]),
+                                tnn.ClassNLLCriterion(), device="cpu")
+    with pytest.raises(ValueError, match="no top-level submodule"):
+        opt.set_optim_methods({"nope": toptim.SGD()})
+    opt.set_optim_methods({"enc": toptim.SGD()})
+    with pytest.raises(ValueError, match="no optim method"):
+        opt.optim_method.init_state(dict(tm.named_parameters()))
+
+
+def test_lbfgs_full_batch_on_a_quadratic():
+    """0.5 x'Ax - b'x with A symmetric positive definite (5x5), from the
+    same start: the port's two-loop recursion reaches the reference's
+    point (within 1e-4 relative) and the minimiser A^-1 b."""
+    rs = np.random.RandomState(8)
+    q = rs.randn(5, 5).astype(np.float32)
+    a = (q @ q.T / 5 + np.eye(5)).astype(np.float32)
+    b = rs.randn(5).astype(np.float32)
+    x0 = {"x": np.zeros(5, np.float32), "y": np.zeros(1, np.float32)}
+
+    def j_lg(p):
+        def f(p):
+            return 0.5 * p["x"] @ (a @ p["x"]) - b @ p["x"] \
+                + jnp.sum((p["y"] - 2.0) ** 2)
+        return jax.value_and_grad(f)(p)
+
+    def t_lg(p):
+        p = {k: v.detach().requires_grad_() for k, v in p.items()}
+        at, bt = torch.from_numpy(a), torch.from_numpy(b)
+        loss = 0.5 * p["x"] @ (at @ p["x"]) - bt @ p["x"] \
+            + torch.sum((p["y"] - 2.0) ** 2)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        return loss.detach(), dict(zip(p, grads))
+
+    kw = dict(max_iter=50, tol_fun=1e-9, learning_rate=0.5)
+    want = joptim.LBFGS(**kw).optimize_full_batch(j_lg, _j(x0))
+    got = toptim.LBFGS(**kw).optimize_full_batch(t_lg, _t(x0))
+    for k in x0:
+        np.testing.assert_allclose(_np(got[k]), _np(want[k]), rtol=1e-4,
+                                   atol=1e-5)
+    np.testing.assert_allclose(_np(got["x"]), np.linalg.solve(a, b),
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(_np(got["y"]), [2.0], rtol=1e-4)
+
+
+def test_transformer_chains_and_padded_batches():
+    """FuncTransformer >> FuncTransformer >> SampleToMiniBatch with a
+    PaddingParam, and `chain` of the same stages, on ragged records: the
+    reference's batches, element-wise flags and `apply_one`."""
+    from bigdl_tpu.dataset import transformer as jtr
+    from bigdl_tpu.dataset.sample import PaddingParam as JPaddingParam
+    from bigdl_tpu.dataset.sample import Sample as JSample
+    from bigdl_tpu_torch.dataset import (FuncTransformer, PaddingParam,
+                                         Sample, SampleToMiniBatch, chain)
+    rs = np.random.RandomState(9)
+    recs = [(rs.randn(n).astype(np.float32), np.arange(1, n + 1))
+            for n in (3, 5, 2, 4, 1)]
+
+    def stages(fmod, smod, pad, sample):
+        return (fmod(lambda r: (r[0] * 2, r[1])),
+                fmod(lambda r: sample(r[0], r[1])),
+                smod(2, pad(-1.0, 6), pad(0)))
+
+    j = stages(jtr.FuncTransformer, jtr.SampleToMiniBatch, JPaddingParam,
+               JSample)
+    t = stages(FuncTransformer, SampleToMiniBatch, PaddingParam, Sample)
+    want = list((j[0] >> j[1] >> j[2])(recs))
+    for pipe in (t[0] >> t[1] >> t[2], chain(*t)):
+        got = list(pipe(recs))
+        assert [b.size() for b in got] == [b.size() for b in want] == \
+            [2, 2, 1]
+        for gb, wb in zip(got, want):
+            np.testing.assert_array_equal(gb.get_input(), wb.get_input())
+            np.testing.assert_array_equal(gb.get_target(), wb.get_target())
+    assert got[0].get_input().shape == (2, 6)
+    assert (t[0] >> t[1]).elementwise and not (t[1] >> t[2]).elementwise
+    np.testing.assert_array_equal(t[0].apply_one(recs[0])[0],
+                                  j[0].apply_one(recs[0])[0])

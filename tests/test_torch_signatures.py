@@ -278,8 +278,19 @@ def test_sample_to_minibatch_paddings_come_before_drop_remainder():
                for i in range(5)]
     got = list(SampleToMiniBatch(2, None, None, True)(iter(samples)))
     assert [len(b.get_input()) for b in got] == [2, 2]
-    with pytest.raises(NotImplementedError, match="padding"):
-        SampleToMiniBatch(2, object())
+    # the paddings, second and third, pad ragged records as the
+    # reference's do
+    from bigdl_tpu.dataset import SampleToMiniBatch as JSampleToMiniBatch
+    from bigdl_tpu.dataset.sample import PaddingParam as JPaddingParam
+    from bigdl_tpu_torch.dataset import PaddingParam
+    ragged = [np.arange(n, dtype=np.float32) for n in (2, 3)]
+    got = next(SampleToMiniBatch(2, PaddingParam(-1.0, 5), None, True)(
+        iter([Sample(r, np.int64(1)) for r in ragged])))
+    want = next(JSampleToMiniBatch(2, JPaddingParam(-1.0, 5), None,
+                                   True).apply(
+        iter([JSample(r, np.int64(1)) for r in ragged])))
+    np.testing.assert_array_equal(got.get_input(), want.get_input())
+    assert got.get_input().shape == (2, 5)
     # the reference keeps the tail batch unless drop_remainder
     from bigdl_tpu.dataset import SampleToMiniBatch as JSampleToMiniBatch
     jsamples = [JSample(np.full(2, i, np.float32), np.int64(i))
