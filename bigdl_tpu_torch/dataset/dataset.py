@@ -7,8 +7,9 @@ fresh random order, as the reference's does; the order comes from an
 explicit `torch.Generator` (seed 1 by default), so it is not the
 reference's numpy order. The checkpoint cursor (`position`, `cursor`,
 `restore_cursor`) is the reference's, with the torch generator's state in
-place of numpy's. The distributed (per-host shard) dataset is not
-ported.
+place of numpy's. `DistributedDataSet` is one rank's shard of the items
+(item `i` on rank `i % num_hosts`, by default the process group's rank
+and world size), and `DataSet.array` picks it above world size 1.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.dataset.sample import Sample
+from bigdl_tpu_torch.parallel import collectives
 
 
 class AbstractDataSet:
@@ -181,10 +183,38 @@ class LocalDataSet(AbstractDataSet):
         self._pass_shuffles = []
 
 
+class DistributedDataSet(LocalDataSet):
+    """This rank's shard of `items`: item `i` when `i % num_hosts ==
+    host_index`. The defaults are the process group's rank and world size
+    (`Engine.init(distributed=True)` joins it), so one script runs on one
+    process or many; on one it is a `LocalDataSet` of every item.
+    `global_size` counts the items of every shard, so the epoch triggers
+    see global progress."""
+
+    def __init__(self, items: Sequence, host_index: Optional[int] = None,
+                 num_hosts: Optional[int] = None, seed: int = 1):
+        if host_index is None:
+            host_index = collectives.rank()
+        if num_hosts is None:
+            num_hosts = collectives.world_size()
+        if not 0 <= host_index < num_hosts:
+            raise ValueError(f"host_index {host_index} is not in "
+                             f"[0, {num_hosts})")
+        shard = [x for i, x in enumerate(items)
+                 if i % num_hosts == host_index]
+        super().__init__(shard, seed)
+        self.global_size = len(items)
+        self.host_index, self.num_hosts = host_index, num_hosts
+
+
 class _TransformedDataSet(AbstractDataSet):
     def __init__(self, base: AbstractDataSet, transformer):
         self.base = base
         self.transformer = transformer
+        # the shard's accounting, so the loop counts global progress
+        for attr in ("global_size", "num_hosts", "host_index"):
+            if hasattr(base, attr):
+                setattr(self, attr, getattr(base, attr))
 
     def data(self, train: bool) -> Iterator:
         return self.transformer(self.base.data(train))
@@ -206,6 +236,18 @@ class _TransformedDataSet(AbstractDataSet):
 
 
 class DataSet:
+    @staticmethod
+    def array(items: Sequence, host_index: Optional[int] = None,
+              num_hosts: Optional[int] = None) -> LocalDataSet:
+        """`items` as a dataset: this rank's `DistributedDataSet` shard
+        when there is more than one host (by default, the process group's
+        world size), else a `LocalDataSet` of them all."""
+        if num_hosts is None:
+            num_hosts = collectives.world_size()
+        if num_hosts > 1:
+            return DistributedDataSet(items, host_index, num_hosts)
+        return LocalDataSet(items)
+
     @staticmethod
     def from_arrays(features: np.ndarray, labels: Optional[np.ndarray] = None,
                     *, generator: Optional[torch.Generator] = None

@@ -4,12 +4,23 @@ Ported: `ClassNLLCriterion`, the classification loss,
 `TimeDistributedCriterion`, the per-time-step loss of the language models,
 `TimeDistributedMaskCriterion`, its padding-aware form for ragged text,
 and `MSECriterion`, the autoencoder's loss.
+
+Inside a data-parallel step over W ranks (`parallel.collectives`), a loss
+whose denominator depends on the data (the weighted mean of
+`ClassNLLCriterion`, the kept positions of `TimeDistributedMaskCriterion`)
+divides by the global denominator over W, all-reduced
+(`collectives.dp_denominator`): the mean of the
+ranks' losses, and of their gradients, is then the global batch's, as
+the reference's SPMD step computes it. A fixed denominator (the rows, the
+steps) needs nothing: the ranks' shards are equal.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from bigdl_tpu_torch.parallel import collectives
 
 
 class ClassNLLCriterion(nn.Module):
@@ -42,7 +53,9 @@ class ClassNLLCriterion(nn.Module):
         if self.weights is not None:
             w = self.weights.to(output.device)[t]
             total = (-picked * w).sum(-1)
-            return total / w.sum(-1) if self.size_average else total
+            if not self.size_average:
+                return total
+            return total / collectives.dp_denominator(w.sum(-1))
         return -picked.mean(-1) if self.size_average else -picked.sum(-1)
 
     def forward(self, output, target):
@@ -123,4 +136,5 @@ class TimeDistributedMaskCriterion(nn.Module):
         logp = o if isinstance(self.critrn, ClassNLLCriterion) \
             else torch.log_softmax(o, dim=-1)
         picked = logp.gather(1, (safe_t.long() - 1)[:, None])[:, 0]
-        return -(picked * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        kept = collectives.dp_denominator(mask.sum(), min_value=1.0)
+        return -(picked * mask).sum() / kept

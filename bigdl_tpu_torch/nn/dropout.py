@@ -5,30 +5,42 @@ key, a fold of the optimizer's per-step key; the port draws them from a
 `torch.Generator` on the activation's device that an optimizer lends
 every `Dropout` for the step (`lend_generator`,
 `optim/local_optimizer.py`). The bits differ from JAX's, so the masks
-match the reference's in distribution only.
+match the reference's in distribution only. A data-parallel optimizer
+lends a factory instead, which derives each rank's generator at the
+step's first draw.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import List, Optional
+from typing import Callable, List, Optional, Union
 
 import torch
 
 from bigdl_tpu_torch.nn.module import Module
 
-#: the generators lent for the current step, innermost last
-_LENT: List[torch.Generator] = []
+#: the generators (or their factories) lent for the current step,
+#: innermost last
+_LENT: List[Union[torch.Generator, Callable[[], torch.Generator]]] = []
 
 
 @contextlib.contextmanager
-def lend_generator(generator: torch.Generator):
-    """Every `Dropout` draws from `generator` inside the block."""
+def lend_generator(generator: Union[torch.Generator,
+                                    Callable[[], torch.Generator]]):
+    """Every `Dropout` draws from `generator` inside the block: a
+    `torch.Generator`, or a function that makes one, called at the
+    block's first draw (a block that draws nothing never calls it)."""
     _LENT.append(generator)
     try:
         yield generator
     finally:
         _LENT.pop()
+
+
+def _lent() -> torch.Generator:
+    if not isinstance(_LENT[-1], torch.Generator):
+        _LENT[-1] = _LENT[-1]()
+    return _LENT[-1]
 
 
 class Dropout(Module):
@@ -54,7 +66,7 @@ class Dropout(Module):
                 "Dropout in training mode needs a generator: train through "
                 "an optimizer (it lends its step generator), or wrap the "
                 "call in lend_generator()")
-        kept = torch.rand(x.shape, generator=_LENT[-1],
+        kept = torch.rand(x.shape, generator=_lent(),
                           device=x.device) < keep
         y = torch.where(kept, x, torch.zeros((), dtype=x.dtype,
                                              device=x.device))

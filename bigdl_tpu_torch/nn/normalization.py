@@ -15,7 +15,19 @@ shared by the plain tail `forward` and the fused one
   `shift = bias - mean * scale`, which the fused tail consumes as they are;
   with `affine=False` there is no weight and no bias, and `scale =
   rsqrt(var + eps)`, `shift = -mean * scale`;
-- eval mode normalizes with the running stats.
+- eval mode normalizes with the running stats;
+- inside a data-parallel training step over several ranks
+  (`parallel.collectives.data_parallel_step`, which the optimizer opens)
+  the statistics are the global batch's, as under the reference's SPMD
+  step, where XLA turns the batch-axis mean into a global reduction: the
+  per-channel f32 sums and the element count are all-reduced and divided
+  into the mean, then the sums of (x - mean)^2 are all-reduced and
+  divided into the biased variance (two passes, as `x.var`; never
+  E[x^2] - mean^2), and the running variance's unbiased correction uses
+  the global count. The all-reduces are differentiable (their backward
+  sums the gradient over the ranks), so autograd carries kernel 7's
+  dscale/dshift through the global statistics, as SyncBatchNorm does;
+  the fused tail stays kernel 6/7.
 `F.batch_norm` is not used: its normalize is another function than the one
 the fused kernel replaces.
 """
@@ -30,6 +42,23 @@ from torch import nn
 
 from bigdl_tpu_torch._device import resolve_device
 from bigdl_tpu_torch.nn.module import Module, check_nhwc
+from bigdl_tpu_torch.parallel import collectives
+
+
+def _global_moments(x, axes):
+    """(mean, biased variance, element count) of `x` over `axes` and over
+    every rank of the data-parallel step: the sums and the count go in
+    one all-reduce, the squared deviations from the global mean in a
+    second."""
+    n_local = math.prod(x.shape[a] for a in axes)
+    s = x.sum(axes)
+    total = collectives.all_reduce_sum(
+        torch.cat([s, s.new_full((1,), n_local)]), "bn")
+    n = total[-1].detach()
+    mean = total[:-1] / n
+    d = x - mean
+    var = collectives.all_reduce_sum((d * d).sum(axes), "bn") / n
+    return mean, var, n
 
 
 class BatchNormalization(Module):
@@ -60,12 +89,17 @@ class BatchNormalization(Module):
         if x.is_floating_point() and torch.finfo(x.dtype).bits < 32:
             x = x.float()
         if self.training:
-            mean = x.mean(self._axes)
-            var = x.var(self._axes, correction=0)
-            n = math.prod(x.shape[a] for a in self._axes)
+            if collectives.step_world() > 1:
+                mean, var, n = _global_moments(x, self._axes)
+                n_less_1 = torch.clamp(n - 1.0, min=1.0)
+            else:
+                mean = x.mean(self._axes)
+                var = x.var(self._axes, correction=0)
+                n = math.prod(x.shape[a] for a in self._axes)
+                n_less_1 = max(n - 1.0, 1.0)
             m = self.momentum
             with torch.no_grad():
-                unbiased = var * n / max(n - 1.0, 1.0)
+                unbiased = var * n / n_less_1
                 self.mean.copy_((1 - m) * self.mean + m * mean)
                 self.var.copy_((1 - m) * self.var + m * unbiased)
         else:

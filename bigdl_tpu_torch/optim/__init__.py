@@ -3,9 +3,11 @@ optimization methods (`SGD`, the Adam family, `LAMB`, `Adagrad`,
 `Adadelta`, `RMSprop`, `Ftrl`, `LBFGS`, per-submodule methods), the
 learning-rate schedules, triggers, metrics, the
 regularizers, the validation methods and `Evaluator`, `LocalOptimizer`,
-the single-device `DistriOptimizer`, the `Optimizer` factory, and
+the data-parallel `DistriOptimizer` (one process per device) with its
+gradient buckets (`GradientBucketPlan`), the `Optimizer` factory, and
 `LocalPredictor`."""
 
+from bigdl_tpu_torch.optim.bucketing import GradientBucketPlan
 from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
 from bigdl_tpu_torch.optim.evaluator import (DistriValidator, Evaluator,
                                              LocalValidator)
@@ -46,6 +48,7 @@ __all__ = ["AccuracyResult", "Adadelta", "Adagrad", "Adam", "Adamax",
            "ContiguousResult", "CosineDecay", "Default", "DistriOptimizer",
            "DistriValidator", "EpochDecay", "EpochDecayWithWarmUp",
            "EpochSchedule", "EpochStep", "Evaluator", "Exponential", "Ftrl",
+           "GradientBucketPlan",
            "HitRatio", "L1L2Regularizer", "L1Regularizer", "L2Regularizer",
            "LAMB", "LBFGS", "LearningRateSchedule", "LocalOptimizer",
            "LocalPredictor", "LocalValidator", "Loss", "LossResult", "MAE",

@@ -62,6 +62,7 @@ put it back).
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
 import time
@@ -208,8 +209,9 @@ class BaseOptimizer:
         format) is not ported and raises."""
         if sharded:
             raise NotImplementedError(
-                "sharded (orbax) checkpoints are not ported; use the "
-                "default format v2")
+                "sharded checkpoints are not ported yet (ROADMAP.md queue 1 "
+                "item 3, torch.distributed.checkpoint); use the default "
+                "format v2")
         if keep_last_n is not None and keep_last_n < 1:
             raise ValueError(
                 f"keep_last_n must be >= 1, got {keep_last_n}")
@@ -364,6 +366,11 @@ class BaseOptimizer:
                         overwrite=self.overwrite_checkpoint,
                         keep_last_n=self.checkpoint_keep_last_n,
                         cursor=self._data_cursor())
+        self._commit_generator()
+
+    def _commit_generator(self):
+        """Keep the step generator's state for this step's neval, which a
+        retry that reloads this step's checkpoint restores."""
         self._generator_commits[self.optim_method.state["neval"]] = \
             self.generator.get_state()
 
@@ -558,7 +565,7 @@ class BaseOptimizer:
             return loss.detach(), list(grads)
 
         def step(opt_state, x, y, lr):
-            with lend_generator(self.generator):
+            with lend_generator(self._step_generator()), self._step_scope():
                 return train_step(opt_state, x, y, lr)
 
         def train_step(opt_state, x, y, lr):
@@ -577,6 +584,7 @@ class BaseOptimizer:
                 loss = l_sum / accum
             else:
                 loss, grads = loss_and_grads(x, y)
+            grads = self._reduce_grads(grads)
             if clip:
                 grads = self._clip_grads(grads)
             optim.update_with_masters(dict(zip(params, grads)), opt_state,
@@ -585,8 +593,38 @@ class BaseOptimizer:
 
         return step
 
+    # hooks the data-parallel loop overrides; here, one process alone
     def _log_suffix(self) -> str:
         return ""
+
+    def _step_generator(self):
+        """What a step lends its `Dropout` layers."""
+        return self.generator
+
+    def _step_scope(self):
+        """The context a step runs in."""
+        return contextlib.nullcontext()
+
+    def _reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """A step's gradients as the update takes them (before
+        clipping)."""
+        return grads
+
+    def _start_attempt(self, params: Dict[str, torch.Tensor]):
+        """Called at the start of each run or retried attempt, after the
+        snapshot, before the optimizer state is built."""
+
+    def _synced_loss(self, loss: torch.Tensor) -> float:
+        """The loss to log and record at a sync point (waits for the
+        step)."""
+        return float(loss)
+
+    def _epoch_size(self) -> int:
+        return self.dataset.size()
+
+    def _records(self, batch) -> int:
+        """The records a step trains on."""
+        return batch.size()
 
     def _keeps_snapshot(self) -> bool:
         """Whether a run takes the start-of-run snapshot (a host copy of
@@ -623,13 +661,14 @@ class BaseOptimizer:
                              f"the optimizer's device {self.device}")
         if self._keeps_snapshot():
             self._snapshot()
+        self._start_attempt(params)
         if self._resume_slots is not None:
             opt_state, self._resume_slots = self._resume_slots, None
         else:
             opt_state = self.optim_method.init_state_with_masters(params)
         step = self._build_step()
         loop_state = self.optim_method.state
-        epoch_size = self.dataset.size()
+        epoch_size = self._epoch_size()
         data_iter = self._fast_forward_data(self.dataset.data(train=True),
                                             loop_state)
         self._init_cursor_positions()
@@ -659,8 +698,8 @@ class BaseOptimizer:
             pending = fetch_and_place()  # queued while the step runs
             do_sync = (loop_state["neval"] + 1) % sync_every == 0
             if do_sync:
-                loss_val = float(loss)  # waits for the step to finish
-            n = batch.size()
+                loss_val = self._synced_loss(loss)  # waits for the step
+            n = self._records(batch)
             loop_state["neval"] += 1
             loop_state["recordsProcessedThisEpoch"] += n
             loop_state["loss"] = loss_val
@@ -689,7 +728,7 @@ class BaseOptimizer:
                 win.restart()  # keep the tail work out of the next window
         if sync_every > 1 and loss is not None and \
                 loop_state["neval"] % sync_every != 0:
-            loop_state["loss"] = float(loss)  # the true final loss
+            loop_state["loss"] = self._synced_loss(loss)  # the final loss
         return self.model
 
 

@@ -1,10 +1,14 @@
 """The `Optimizer` factory (counterpart of `bigdl_tpu/optim/optimizer.py`).
 
 `Optimizer(model, training_set, criterion, batch_size)` batches the
-training set and picks the loop, as the reference does: `LocalOptimizer`
-on one device, `DistriOptimizer` over several (which raises for now:
-multi-GPU data parallel is `ROADMAP.md` queue 1 item 3). `local=False`
-takes `DistriOptimizer` on one device. Further keywords (the retry
+training set and picks the loop, as the reference does: `DistriOptimizer`
+when the process group has more than one rank (one process per GPU,
+`Engine.init(distributed=True)`), with `drop_remainder=True` so every
+rank's shard steps in equal batches; otherwise `LocalOptimizer` on one
+device. A single process that sees several cards gets `DistriOptimizer`
+over them all, which raises: several devices in one process are not
+ported (`ROADMAP.md` queue 1 item 3). `local=False` takes
+`DistriOptimizer` on one device. Further keywords (the retry
 settings `retry_times`, `retry_interval_s`, `retry_policy`) go to
 `DistriOptimizer`, as in the reference; where the reference's
 `LocalOptimizer` drops them, the port raises.
@@ -25,6 +29,7 @@ from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
 from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
 from bigdl_tpu_torch.optim.local_optimizer import (BaseOptimizer,
                                                    LocalOptimizer)
+from bigdl_tpu_torch.parallel import collectives
 
 
 def Optimizer(model: torch.nn.Module, training_set, criterion,
@@ -35,17 +40,18 @@ def Optimizer(model: torch.nn.Module, training_set, criterion,
     `training_set`: an `AbstractDataSet`, a pair of numpy arrays
     (features, labels) or a list of `Sample`s, batched by `batch_size`
     unless its items are already MiniBatches. `local=None` picks
-    `LocalOptimizer` when one device is visible (the CPU, or a single
-    card) and `DistriOptimizer` over all the cards otherwise; with
-    `local=False` on one device, `DistriOptimizer` on it. `kw` goes to
-    `DistriOptimizer`."""
+    `DistriOptimizer` on `device` when the process group has more than one
+    rank, `LocalOptimizer` when one device is visible (the CPU, or a
+    single card), and `DistriOptimizer` over all the cards otherwise;
+    with `local=False` on one device, `DistriOptimizer` on it. `kw` goes
+    to `DistriOptimizer`."""
     device = resolve_device(device)
     devices = [device]
-    if device.type == "cuda":
+    if device.type == "cuda" and collectives.world_size() == 1:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     if local is None:
-        local = len(devices) <= 1
+        local = len(devices) <= 1 and collectives.world_size() == 1
     if drop_remainder is None:
         drop_remainder = not local  # equal shards per step across devices
     dataset = _as_batched_dataset(training_set, batch_size, drop_remainder)

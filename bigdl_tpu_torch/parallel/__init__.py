@@ -1,5 +1,7 @@
 """Parallelism over a mesh of torch devices (counterpart of
-`bigdl_tpu/parallel`): the mesh and sequence-parallel attention."""
+`bigdl_tpu/parallel`): the mesh and sequence-parallel attention, and the
+collectives of data-parallel training over `torch.distributed`
+(`parallel/collectives.py`)."""
 
 from bigdl_tpu_torch.parallel.mesh import Mesh, build_mesh
 from bigdl_tpu_torch.parallel.sequence import (

@@ -3,6 +3,9 @@ budget, and transient-vs-permanent classification (counterpart of
 `bigdl_tpu/resilience/retry.py`; the same delays for the same seed).
 
 `DistriOptimizer`'s retry loop and the remote filesystem IO use it. A
+failed collective (`parallel.collectives.CollectiveError`, and
+`torch.distributed`'s own errors) is permanent: a peer that died or
+timed out is gone, and no rank retries into it. A
 seeded policy replays its jitter sequence; `sleep=` observes or elides
 the sleeping (tests run a 5-retry schedule in microseconds).
 """
@@ -14,6 +17,9 @@ import random
 import time
 from typing import Callable, Optional, Tuple, Type
 
+import torch.distributed as dist
+
+from bigdl_tpu_torch.parallel.collectives import CollectiveError
 from bigdl_tpu_torch.resilience.faults import (PermanentInjectedFault,
                                                TransientInjectedFault)
 
@@ -24,11 +30,11 @@ DEFAULT_TRANSIENT: Tuple[Type[BaseException], ...] = (
     OSError, TimeoutError, TransientInjectedFault)
 
 #: never retried: deterministic program errors, which fail the same way
-#: on every attempt
+#: on every attempt, and failed collectives (a peer is gone)
 DEFAULT_PERMANENT: Tuple[Type[BaseException], ...] = (
     TypeError, ValueError, KeyError, IndexError, AttributeError,
     ZeroDivisionError, AssertionError, NotImplementedError,
-    PermanentInjectedFault)
+    PermanentInjectedFault, CollectiveError, dist.DistError)
 
 
 class RetryBudgetExhausted(RuntimeError):

@@ -32,6 +32,11 @@ Durability, as the reference's:
   returns the newest good one;
 - bounded: `keep_last_n` prunes the oldest valid checkpoints after a save.
 
+In a data-parallel run every rank calls `save_on_rank0`: rank 0 writes,
+between a barrier and an all-reduced success flag, so the checkpoint is
+there for every rank when the call returns, and a failed write fails
+every rank at the same step.
+
 Paths may be local or `memory://` (`utils/filesystem.py`). The `ckpt.*`
 fault sites sit between the writes. Sharded (orbax) checkpoints are not
 ported: one is skipped by `load_latest_valid`, with a warning.
@@ -46,10 +51,11 @@ import os
 import pickle
 import re
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from bigdl_tpu_torch.parallel import collectives
 from bigdl_tpu_torch.resilience import faults
 from bigdl_tpu_torch.utils import filesystem as fsys
 
@@ -209,6 +215,31 @@ def save_checkpoint(path: str, model, params, model_state, optim_method,
     if keep_last_n is not None:
         prune_checkpoints(path, keep_last_n)
     return ckpt_dir
+
+
+def save_on_rank0(save: Callable[[], Any], device) -> Optional[Any]:
+    """`save()` (a checkpoint write) on rank 0 of the process group,
+    called by every rank: a barrier, rank 0's write, then a success flag
+    all-reduced on `device`. Returns what `save()` returned on rank 0,
+    None on the others. A failed write re-raises on rank 0 and raises
+    `OSError` on the others, all at the same step. At world size 1 it is
+    `save()`."""
+    if collectives.world_size() == 1:
+        return save()
+    collectives.barrier()
+    out, failed = None, None
+    if collectives.rank() == 0:
+        try:
+            out = save()
+        except Exception as e:
+            failed = e
+    flag = torch.tensor([0.0 if failed is None else 1.0], device=device)
+    collectives.all_reduce_(flag, "flag")
+    if failed is not None:
+        raise failed
+    if float(flag) > 0:
+        raise OSError("rank 0 failed to write the checkpoint")
+    return out
 
 
 def _read_manifest(mf_path: str) -> Optional[Dict]:

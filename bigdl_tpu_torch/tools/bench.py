@@ -26,6 +26,18 @@ warm-up. The result also carries every step's loss.
     python -m bigdl_tpu_torch.tools.bench --model inception_v1 [--profile]
     python -m bigdl_tpu_torch.tools.bench --model lenet|inception_v2|vgg16
     python -m bigdl_tpu_torch.tools.bench --model ptb_lstm [--profile]
+    python -m bigdl_tpu_torch.tools.bench --nproc 2 [--backend gloo|nccl]
+
+`--nproc N` (ResNet-50 only) is the data-parallel configuration: it
+starts N ranks, one process each (`Engine.init(distributed=True)`, NCCL
+by default on cards, gloo with `--backend gloo`, which lets ranks share
+one card), each with its resident shard of one global batch (b128 split
+N ways, rows `rank * 128/N` on), as the reference's `bench_cli.py`
+shards one batch over its mesh. The report: global imgs/s, each rank's
+imgs/s and ms a step, mfu of the global FLOPs over N peaks, the loss of
+every step (the ranks' mean), and a step's collectives on each rank
+(gradient all-reduces, one a bucket, and their bytes; BN all-reduces),
+and BN+ReLU kernel launches a step on each rank.
 
 The feed-forward zoo (`--model lenet | inception_v1 | inception_v2 |
 vgg16`) trains with the same recipe (`ClassNLLCriterion`, sync every 8) at
@@ -87,6 +99,7 @@ from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
 from bigdl_tpu_torch.observability import costs
 from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
 from bigdl_tpu_torch.optim.local_optimizer import BaseOptimizer, _to_device
+from bigdl_tpu_torch.parallel import collectives
 
 
 def _resident_optimizer(model: torch.nn.Module, x: np.ndarray,
@@ -234,6 +247,163 @@ def bench_resnet50(batch_size: int = 128, warmup: int = 216,
                      generator=generator)
     return framework_throughput(model, (224, 224, 3), 1000, batch_size,
                                 warmup, iters, sync=sync, device=device)
+
+
+def _collectives_ms(opt: DistriOptimizer, reps: int = 5) -> Dict:
+    """Host ms (device drained, ranks aligned by a barrier) of one step's
+    collectives issued alone, the median of `reps`: the gradient buckets'
+    all-reduces over copies of the parameters, and the BN statistics'
+    all-reduces (4 a BN layer, at their sizes)."""
+    from bigdl_tpu_torch.nn.normalization import BatchNormalization
+    dev = opt.device
+    grads = [p.detach().clone() for p in opt.model.parameters()]
+    bn = [torch.zeros(n, device=dev)
+          for m in opt.model.modules() if isinstance(m, BatchNormalization)
+          for n in (m.n_output + 1, m.n_output, m.n_output, m.n_output + 1)]
+
+    def median_ms(fn):
+        times = []
+        for _ in range(reps):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            collectives.barrier()
+            t0 = time.perf_counter()
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            times.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(times))
+
+    return {"grad_allreduce_ms": median_ms(
+                lambda: collectives.bucket_all_reduce_mean(
+                    grads, opt.bucket_plan.buckets, collectives.world_size())),
+            "bn_allreduce_ms": median_ms(
+                lambda: [collectives.all_reduce_(t, "bn") for t in bn])}
+
+
+def resnet50_rank(batch_size: int = 128, warmup: int = 8, iters: int = 16,
+                  sync: int = 8, device=None, seed: int = 0) -> Dict:
+    """This rank's part of the data-parallel ResNet-50 benchmark, in a
+    process that has joined the process group: the global batch
+    `batch_size` (seeded as `bench_resnet50`'s) split over the ranks, this
+    rank's rows resident on `device`, `warmup + iters` steps syncing every
+    `sync`. Returns this rank's ms a step, imgs/s, FLOPs a step (its
+    shard's), losses (its shard's), collectives a step by kind, gradient
+    buckets and BN+ReLU launches a step, and the time of a step's
+    collectives issued alone (`_collectives_ms`, after the run)."""
+    from bigdl_tpu_torch.models.resnet import ResNet50
+    from bigdl_tpu_torch.ops import bn_relu_kernel as bk
+    world, rank = collectives.world_size(), collectives.rank()
+    if batch_size % world:
+        raise ValueError(f"batch {batch_size} does not split over {world} "
+                         "ranks")
+    device = resolve_device(device)
+    local = batch_size // world
+    model = ResNet50(class_num=1000, s2d_stem=True, device=device,
+                     generator=torch.Generator().manual_seed(seed))
+    x, y = _image_batch((224, 224, 3), 1000, batch_size)
+    rows = slice(rank * local, (rank + 1) * local)
+    opt = _resident_optimizer(model, x[rows], y[rows], ClassNLLCriterion(),
+                              device)
+    flops = step_flops(opt)
+    sync = math.gcd(math.gcd(warmup, iters), sync)
+    bk.bn_relu_forward.launches = bk.bn_relu_backward.launches = 0
+    collectives.reset_counts()
+    window_s, losses = _timed_run(opt, warmup, iters, sync)
+    steps = warmup + iters
+    ms = 1e3 * window_s / sync
+    counts = {k: v / steps for k, v in collectives.counts.items()
+              if not k.startswith("broadcast")}
+    launches = {"fwd": bk.bn_relu_forward.launches / steps,
+                "bwd": bk.bn_relu_backward.launches / steps}
+    return {"rank": rank, "world": world, "local_batch": local,
+            "ms_per_step": ms, "imgs_per_sec": sync * local / window_s,
+            "flops_per_step": flops, "losses": losses,
+            "collectives_per_step": counts,
+            "n_buckets": len(opt.bucket_plan) if opt.bucket_plan else 0,
+            "bn_relu_launches_per_step": launches,
+            "collectives_alone": _collectives_ms(opt) if world > 1 else None,
+            "steps": steps, "warmup": warmup, "sync": sync,
+            "device": _device_name(device)}
+
+
+def _dp_child(args) -> None:
+    """A rank started by `bench_resnet50_dp`: joins the group from the
+    launcher's environment, runs `resnet50_rank`, prints its result."""
+    from bigdl_tpu_torch.utils.engine import Engine
+    Engine.init(distributed=True, backend=args.backend)
+    try:
+        res = resnet50_rank(args.batch_size, args.warmup, args.iters,
+                            args.sync, device=args.device)
+    finally:
+        Engine.shutdown()
+    print("DP_RANK " + json.dumps(res), flush=True)
+
+
+def bench_resnet50_dp(nproc: int = 2, batch_size: int = 128,
+                      warmup: int = 8, iters: int = 16, sync: int = 8,
+                      backend: Optional[str] = None, device: str = "cuda",
+                      timeout_s: float = 900.0) -> Dict:
+    """ResNet-50 data parallel over `nproc` ranks on this machine, one
+    process each (`resnet50_rank`): rank r on `cuda:{r % device_count}`
+    (or the CPU with `device="cpu"`), `backend` as `Engine.init` takes it.
+    The kernels are built here before any rank starts. Returns the global
+    figures and each rank's."""
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+    if device == "cuda":
+        resolve_device(device)  # raises without a card
+        from bigdl_tpu_torch.ops import _build
+        _build.build_kernels()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = str(Path(__file__).resolve().parents[2])
+    cmd = [sys.executable, "-m", "bigdl_tpu_torch.tools.bench",
+           "--dp-child", "--batch-size", str(batch_size), "--warmup",
+           str(warmup), "--iters", str(iters), "--sync", str(sync),
+           "--device", device]
+    if backend:
+        cmd += ["--backend", backend]
+    procs = []
+    for r in range(nproc):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   RANK=str(r), WORLD_SIZE=str(nproc), LOCAL_RANK=str(r),
+                   PYTHONPATH=os.pathsep.join(
+                       [root, os.environ.get("PYTHONPATH", "")]))
+        procs.append(subprocess.Popen(cmd, env=env, cwd=root,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout_s)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("DP_RANK ")]
+        if p.returncode != 0 or not lines:
+            raise RuntimeError(f"rank {r} failed (exit {p.returncode}):\n"
+                               f"{out[-4000:]}")
+        ranks.append(json.loads(lines[-1][len("DP_RANK "):]))
+    ms = max(r["ms_per_step"] for r in ranks)
+    flops = sum(r["flops_per_step"] for r in ranks)
+    return {"nproc": nproc, "backend": backend or (
+                "nccl" if device == "cuda" else "gloo"),
+            "batch_size": batch_size, "ms_per_step": ms,
+            "imgs_per_sec": batch_size / ms * 1e3,
+            "flops_per_step": flops,
+            "mfu": costs.mfu(flops, ms * 1e-3, device_kind=ranks[0]["device"],
+                             n_devices=nproc),
+            "losses": [float(np.mean(v)) for v in
+                       zip(*(r["losses"] for r in ranks))],
+            "ranks": ranks}
 
 
 #: the zoo's benchmark configurations: (builder, input shape, classes,
@@ -776,7 +946,26 @@ def main(argv=None) -> None:
                    default="resnet50")
     p.add_argument("--profile", action="store_true",
                    help="device time by kind of kernel (torch.profiler)")
+    p.add_argument("--nproc", type=int, default=1,
+                   help="ResNet-50 data parallel over this many ranks")
+    p.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                   help="the ranks' backend (default: NCCL on cards)")
+    p.add_argument("--dp-child", action="store_true",
+                   help=argparse.SUPPRESS)
+    for flag, default in (("--batch-size", 128), ("--warmup", 8),
+                          ("--iters", 16), ("--sync", 8)):
+        p.add_argument(flag, type=int, default=default,
+                       help=argparse.SUPPRESS)
+    p.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.dp_child:
+        return _dp_child(args)
+    if args.nproc > 1:
+        if args.model != "resnet50" or args.profile:
+            p.error("--nproc runs the ResNet-50 benchmark only")
+        print(json.dumps(bench_resnet50_dp(args.nproc,
+                                           backend=args.backend)))
+        return
     if args.model == "attention":
         fn = profile_attention if args.profile else bench_attention
     elif args.model == "serve":

@@ -203,9 +203,34 @@ Phases:
    perplexity below the corpus's vocabulary size (200). (d) Phase 13's
    wall time.
 
+14. data parallel over `torch.distributed`, one process a rank, every
+   rank running kernels 6-7 at ResNet-50's 33 fused sites with the BN
+   statistics taken over the global batch. First kernels 6-7 against
+   their plain versions at a rank's b64 shapes, as in phase 5. (a)
+   ResNet-50 b128 bf16 (phase 6's configuration, 4 steps, deterministic)
+   under an NCCL group of world size 1 against no group: no collective
+   issued, losses and parameters within PARITY_RTOL (in practice the same
+   bits), 33 launches of each kernel a step. (b) Two ranks sharing the
+   card over an explicitly named gloo group (`--dp-child`; the kernels
+   are built here first, so the ranks only load them): an f32 parity run
+   (TF32 off, deterministic, ResNet-50 at global b16, 3 SGD steps)
+   against one process on the whole batch (the limits at DP_LOSS_RTOL,
+   DP_UPDATE_RTOL and DP_STAT_RTOL), then `tools/bench.py resnet50_rank`
+   at global b128 (64 a rank) for 8 + 16 steps: ms a step and imgs/s a
+   rank, a falling loss on each rank, 33 launches of each kernel a step a
+   rank, one gradient all-reduce a bucket and 212 BN all-reduces a step,
+   and the time of a step's collectives issued alone. These times are two
+   processes time-sharing one card through host-staged gloo: a check
+   that the path works, not a scaling figure. (c) With several cards, the
+   parity and full-width runs over NCCL, one rank a card (up to 4); with
+   one, it prints that multi-card numbers are not measured. A rank that
+   fails, times out or disagrees fails the phase.
+
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
 measure ran: `tensor_cores` or `cuda_cores_f32`; rows 5-7 with their
-launches on the zoo's paths and their zoo shapes), then as its last line
+launches on the zoo's paths and their zoo shapes; rows 6-7 with their
+launches on each rank of phase 14(b) and their time at a rank's b64
+stem site), then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
 """
 
@@ -637,13 +662,16 @@ def bn_relu_bound(n, c, x_dtype, y_dtype, backward):
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def bn_relu_phase(bk):
+BN_SHAPES = [("7x5", 7, 5), ("1x129", 1, 129), ("16x130", 16, 130),
+             ("stem", 128 * 112 * 112, 64),
+             ("last stage", 128 * 7 * 7, 512)]
+BN_DTYPES = [(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+             (torch.bfloat16, torch.bfloat16)]
+
+
+def bn_relu_phase(bk, shapes=BN_SHAPES, dtypes=BN_DTYPES, main="stem"):
     """Both BN+ReLU kernels against their plain versions. Returns the rows
-    for the main path's stem site (x f32, y and g bf16, ReLU)."""
-    shapes = [("7x5", 7, 5), ("1x129", 1, 129), ("16x130", 16, 130),
-              ("stem", 128 * 112 * 112, 64), ("last stage", 128 * 7 * 7, 512)]
-    dtypes = [(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
-              (torch.bfloat16, torch.bfloat16)]
+    for the main path's site `main` (x f32, y and g bf16, ReLU)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
     for label, n, c in shapes:
@@ -700,7 +728,7 @@ def bn_relu_phase(bk):
                           f"plain version (y {err_y:.3e}, dx {err_dx:.3e}, "
                           "or dscale/dshift beyond "
                           f"{BN_SUM_RTOL} * sum|terms|)")
-                if label == "stem" and x_dt == torch.float32 \
+                if label == main and x_dt == torch.float32 \
                         and y_dt == torch.bfloat16 and relu:
                     rows["fwd"] = {"max_abs_err": err_y, "ms": fwd_ms,
                                    "plain_ms": fwd_plain_ms,
@@ -2314,18 +2342,23 @@ def device_ms(fn, reps=20):
     """Device time (ms) of one call of `fn`: every kernel it launches,
     summed over `reps` calls under `torch.profiler` and divided by
     `reps`. Back-to-back CUDA events time the host's issue rate instead
-    when a call's kernels take less time than its launches."""
+    when a call's kernels take less time than its launches. A profile that
+    lost a device event (CUPTI has dropped one in 20 on the card) is taken
+    again, up to 3 times in all; one that never sees every call fails."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(us) >= reps:
+            break
     check(len(us) >= reps, f"the profiler saw {len(us)} device events in "
-                           f"{reps} calls")
+                           f"{reps} calls, three times")
     return sum(us) / reps / 1e3
 
 
@@ -2808,6 +2841,324 @@ def lm_example_phase():
 
 
 
+# 14. data parallel: the global batch of the parity pair, its steps; the
+# full-width configuration (global batch, warm-up, timed steps, sync)
+DP_PARITY_BATCH, DP_PARITY_STEPS = 16, 3
+DP_BATCH, DP_WARMUP, DP_ITERS, DP_SYNC = 128, 8, 16, 8
+# f32 parity, several ranks against one process on the whole batch: the
+# losses of every step within DP_LOSS_RTOL relative (PARITY_RTOL, phase
+# 6's); after the first step, the parameters' distance from the one
+# process's within DP_UPDATE_RTOL of the size of that step's update (both
+# as norms over every parameter), and every BN running stat within
+# DP_STAT_RTOL of its tensor's largest element. The global BN sums are the
+# ranks' partial sums added and the gradients the ranks' halves averaged:
+# the same f32 terms in another order. A tensor alone is no fair measure:
+# the gradient of a zero-initialised residual BN's scale is a small
+# difference of large sums (sum g*x - mean * sum g), which another
+# summation order moves by up to 1% of its value on the card (the same
+# expression as the reference's), and each later step multiplies such
+# differences (in f64 on the CPU the two runs agree to 1e-12 after one
+# step and 6e-9 after three). Those scales' gradients are most of the
+# first update (the residual branches behind them get none), which puts
+# the update's distance at 2.5e-4 on the CPU at these shapes; a wrong
+# gradient (a BN statistic left local) is off by the update's own size.
+# The per-tensor figures and the parameters after the last step are
+# reported, not held to a limit.
+DP_LOSS_RTOL = PARITY_RTOL
+DP_UPDATE_RTOL = 1e-3
+DP_STAT_RTOL = 1e-4
+DP_CHILD_TIMEOUT_S = 600
+
+
+def _dp_parity_data():
+    rs = np.random.RandomState(3)
+    x = rs.rand(DP_PARITY_BATCH, 224, 224, 3).astype(np.float32)
+    y = (rs.randint(0, 1000, size=DP_PARITY_BATCH) + 1).astype(np.int32)
+    return x, y
+
+
+def _dp_f32_run(x, y):
+    """ResNet-50 (seed 0) in f32 for DP_PARITY_STEPS SGD steps on the
+    resident batch (x, y) through `DistriOptimizer`, deterministic: the
+    losses (the ranks' mean) and the parameters and buffers (CPU) before
+    the run, after the first step and after the last, and which of them
+    are parameters."""
+    from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
+    model = p11_model("cuda")
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    batch = MiniBatch(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    opt = DistriOptimizer(model, LocalDataSet([batch]), ClassNLLCriterion())
+    opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+    opt.set_end_when(max_iteration(DP_PARITY_STEPS))
+    losses, first = [], {}
+
+    def hook(st):
+        losses.append(st["loss"])
+        if st["neval"] == 1:
+            first.update({k: v.detach().cpu().clone()
+                          for k, v in model.state_dict().items()})
+
+    opt.set_iteration_hook(hook)
+    with Deterministic():
+        opt.optimize()
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    names = [k for k, _ in model.named_parameters()]
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return losses, {"init": init, "first": first, "last": state,
+                    "params": names}
+
+
+def dp_child(out_dir, backend, full):
+    """A rank of phase 14(b, c), started by `dp_launch`: joins the group
+    from the launcher's environment, runs the f32 parity on its shard,
+    then (with `full`) the full-width bf16 configuration; writes its
+    results to `out_dir`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from bigdl_tpu_torch.parallel import collectives
+    from bigdl_tpu_torch.tools import bench
+    from bigdl_tpu_torch.utils.engine import Engine
+    Engine.init(distributed=True, backend=backend)
+    rank, world = collectives.rank(), collectives.world_size()
+    x, y = _dp_parity_data()
+    local = DP_PARITY_BATCH // world
+    rows = slice(rank * local, (rank + 1) * local)
+    collectives.reset_counts()
+    losses, state = _dp_f32_run(x[rows], y[rows])
+    out = {"rank": rank, "world": world, "backend": backend,
+           "device": str(Engine.device), "parity_losses": losses,
+           "parity_collectives": dict(collectives.counts)}
+    if rank == 0:
+        torch.save(state, os.path.join(out_dir, "parity_state.pt"))
+    if full == "1":
+        out["full"] = bench.resnet50_rank(DP_BATCH, DP_WARMUP, DP_ITERS,
+                                          DP_SYNC, device=Engine.device)
+    Engine.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def dp_launch(tmp, world, backend, full):
+    """Start `world` ranks of `chip_smoke.py --dp-child` (rank r on
+    cuda:{r % device_count}), wait for all of them, and return their
+    results and the wall time; any rank that fails or outlives
+    DP_CHILD_TIMEOUT_S fails the phase (every rank is stopped)."""
+    import socket
+    out_dir = os.path.join(tmp, f"dp-{backend}-{world}")
+    os.makedirs(out_dir)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(world):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-child",
+             out_dir, backend, "1" if full else "0"], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_CHILD_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"data-parallel rank {r}/{world} "
+              f"({backend}) failed (exit {p.returncode}):\n{log[-3000:]}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    state = torch.load(os.path.join(out_dir, "parity_state.pt"))
+    return ranks, state, seconds
+
+
+def _max_rel(a, b):
+    """The largest |a - b| of each tensor over its largest |b|; the worst
+    tensor's name and value."""
+    worst = ("", 0.0)
+    for k in b:
+        if not b[k].is_floating_point():
+            continue
+        d = float((a[k].float() - b[k].float()).abs().max()) / max(
+            float(b[k].float().abs().max()), 1e-30)
+        if d > worst[1]:
+            worst = (k, d)
+    return worst
+
+
+def _update_rel(got, want, init, names):
+    """|got - want| over |want - init|, as norms over the tensors `names`:
+    the distance between two runs' parameters relative to the size of the
+    update they made."""
+    num = sum(float((got[k] - want[k]).double().pow(2).sum()) for k in names)
+    den = sum(float((want[k] - init[k]).double().pow(2).sum())
+              for k in names)
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def _dp_parity_check(label, ranks, state, ref_losses, ref_state):
+    """Every rank's losses and rank 0's parameters and BN running stats
+    against the one-process run; prints and checks them."""
+    rel = max(abs(a - b) / abs(b) for r in ranks
+              for a, b in zip(r["parity_losses"], ref_losses))
+    names = ref_state["params"]
+    buffers = [k for k in ref_state["first"] if k not in names]
+    update = _update_rel(state["first"], ref_state["first"],
+                         ref_state["init"], names)
+    update_last = _update_rel(state["last"], ref_state["last"],
+                              ref_state["init"], names)
+    stats = _max_rel({k: state["first"][k] for k in buffers},
+                     {k: ref_state["first"][k] for k in buffers})
+    worst = _max_rel({k: state["first"][k] for k in names},
+                     {k: ref_state["first"][k] for k in names})
+    last = _max_rel(state["last"], ref_state["last"])
+    print(f"data parallel parity {label} " + json.dumps({
+        "world": len(ranks), "backend": ranks[0]["backend"],
+        "global_batch": DP_PARITY_BATCH, "steps": DP_PARITY_STEPS,
+        "dtype": "float32", "losses": [r["parity_losses"] for r in ranks],
+        "one_process_losses": ref_losses, "loss_max_rel_diff": rel,
+        "update_rel_diff_step1": update, "update_rel_diff_last": update_last,
+        "bn_stat_max_rel_diff_step1": stats[1], "worst_stat": stats[0],
+        "param_max_rel_diff_step1": worst[1], "worst_tensor": worst[0],
+        "param_max_rel_diff_last": last[1], "worst_tensor_last": last[0],
+        "collectives": ranks[0]["parity_collectives"],
+        "devices": [r["device"] for r in ranks]}), flush=True)
+    check(all(len(r["parity_losses"]) == DP_PARITY_STEPS
+              and all(np.isfinite(r["parity_losses"])) for r in ranks),
+          f"{label}: losses {[r['parity_losses'] for r in ranks]}")
+    check(rel <= DP_LOSS_RTOL, f"{label}: losses {rel:.2e} relative from "
+          f"the one-process run (> {DP_LOSS_RTOL})")
+    check(update <= DP_UPDATE_RTOL, f"{label}: the parameters after step 1 "
+          f"are {update:.2e} of the step's update from the one-process run "
+          f"(> {DP_UPDATE_RTOL})")
+    check(stats[1] <= DP_STAT_RTOL, f"{label}: {stats[0]} {stats[1]:.2e} of "
+          f"its largest element from the one-process run (> {DP_STAT_RTOL})")
+    return {"loss_max_rel_diff": rel, "update_rel_diff_step1": update,
+            "bn_stat_max_rel_diff_step1": stats[1],
+            "param_max_rel_diff_step1": worst[1],
+            "param_max_rel_diff_last": last[1]}
+
+
+def dp_one_rank_phase(bk):
+    """(a): the benchmark configuration under an NCCL group of world size 1
+    against phase 6's path without a group: no collective, the same
+    losses and parameters."""
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.parallel import collectives
+    from bigdl_tpu_torch.tools import bench
+    from bigdl_tpu_torch.utils.engine import Engine
+    steps = 4
+    x, y = bench._image_batch((224, 224, 3), 1000, DP_BATCH)
+
+    def run():
+        model = ResNet50(class_num=1000, s2d_stem=True, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+        opt = bench._resident_optimizer(model, x, y, ClassNLLCriterion(),
+                                        torch.device("cuda"))
+        opt.set_end_when(max_iteration(steps))
+        losses = []
+        opt.set_iteration_hook(lambda st: losses.append(st["loss"]))
+        with Deterministic():
+            opt.optimize()
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        del model, opt
+        torch.cuda.empty_cache()
+        return losses, state
+
+    ref_losses, ref_state = run()
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    Engine.init(distributed=True, coordinator_address=f"127.0.0.1:{port}",
+                num_processes=1, process_id=0)
+    try:
+        backend = torch.distributed.get_backend()
+        collectives.reset_counts()
+        _reset_bn_counts(bk)
+        losses, state = run()
+        issued = dict(collectives.counts)
+        launches = (bk.bn_relu_forward.launches, bk.bn_relu_backward.launches)
+    finally:
+        Engine.shutdown()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    worst = _max_rel(state, ref_state)
+    print("data parallel one rank " + json.dumps({
+        "backend": backend, "world": 1, "batch": DP_BATCH, "steps": steps,
+        "precision": "bfloat16 compute, f32 masters", "losses": losses,
+        "no_group_losses": ref_losses, "loss_max_rel_diff": rel,
+        "param_max_rel_diff": worst[1], "collectives": issued,
+        "launches": launches}), flush=True)
+    check(backend == "nccl", f"the one-rank group is {backend}, not nccl")
+    check(not issued, f"world size 1 issued collectives: {issued}")
+    check(rel <= PARITY_RTOL and worst[1] <= PARITY_RTOL,
+          f"world size 1 against no group: losses {rel:.2e}, {worst[0]} "
+          f"{worst[1]:.2e} (> {PARITY_RTOL})")
+    check(launches == (BN_SITES * steps,) * 2,
+          f"BN+ReLU launches {launches} in {steps} steps")
+
+
+def dp_phase(bk, tmp):
+    """(b) two ranks over gloo sharing the card, (c) NCCL over the cards
+    when there are several. Returns each rank's full-width figures."""
+    x, y = _dp_parity_data()
+    torch.cuda.empty_cache()
+    ref_losses, ref_state = _dp_f32_run(x, y)
+    ranks, state, seconds = dp_launch(tmp, 2, "gloo", full=True)
+    _dp_parity_check("gloo 2 ranks on one card", ranks, state, ref_losses,
+                     ref_state)
+    full = [r["full"] for r in ranks]
+    for f in full:
+        print("data parallel gloo rank " + json.dumps({
+            **{k: v for k, v in f.items() if k != "losses"},
+            "loss_first": f["losses"][0], "loss_last": f["losses"][-1],
+            "note": "two ranks sharing one card through host-staged gloo: "
+                    "a check that the path works, not a scaling figure"}),
+            flush=True)
+        steps = DP_WARMUP + DP_ITERS
+        check(len(f["losses"]) == steps and all(np.isfinite(f["losses"]))
+              and f["losses"][-1] < f["losses"][0],
+              f"rank {f['rank']}: losses {f['losses']}")
+        check(f["bn_relu_launches_per_step"] == {"fwd": BN_SITES,
+                                                 "bwd": BN_SITES},
+              f"rank {f['rank']}: BN+ReLU launches a step "
+              f"{f['bn_relu_launches_per_step']}, not {BN_SITES}")
+        per = f["collectives_per_step"]
+        check(per.get("grad") == f["n_buckets"] and per.get("bn") == 212,
+              f"rank {f['rank']}: collectives a step {per}, "
+              f"{f['n_buckets']} buckets")
+    print(f"data parallel gloo launch: {seconds:.1f} s", flush=True)
+    n = min(torch.cuda.device_count(), 4)
+    multi = None
+    if n >= 2:
+        ranks, state, seconds = dp_launch(tmp, n, "nccl", full=True)
+        multi = _dp_parity_check(f"nccl {n} cards", ranks, state,
+                                 ref_losses, ref_state)
+        for r in ranks:
+            print("data parallel nccl rank " + json.dumps(
+                {k: v for k, v in r["full"].items() if k != "losses"}),
+                flush=True)
+        multi["imgs_per_sec"] = DP_BATCH / max(
+            r["full"]["ms_per_step"] for r in ranks) * 1e3
+    else:
+        print("data parallel over several cards: not measured (this "
+              f"machine has {torch.cuda.device_count()} card)", flush=True)
+    return full, multi
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2815,6 +3166,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--resume-child"]:
         return resume_child(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--dp-child"]:
+        return dp_child(*sys.argv[2:5])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2904,6 +3257,19 @@ def main() -> int:
     ptb_bench_phase(ak, sk, bk)
     lm_example_phase()
     print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 14. data parallel
+    t0 = time.perf_counter()
+    dp_rows = bn_relu_phase(
+        bk, [("stem b64", 64 * 112 * 112, 64),
+             ("last stage b64", 64 * 7 * 7, 512)],
+        [(torch.float32, torch.bfloat16)], main="stem b64")
+    dp_one_rank_phase(bk)
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_full, _ = dp_phase(bk, tmp)
+    dp_launches = [f["bn_relu_launches_per_step"] for f in dp_full]
+    dp_steps = DP_WARMUP + DP_ITERS
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
     zoo_launches = {
         "launches_inception_v1": zoo_bench["inception_v1"]["launches"],
         "launches_inception_v2": zoo_bench["inception_v2"]["launches"],
@@ -2928,11 +3294,15 @@ def main() -> int:
         {**BN_FWD_ROW, "launches": bn_launches["bn_relu_fwd"],
          **bn_rows["fwd"], "design": "cuda_cores_f32", "status": "ok",
          **{k: v["bn_relu_fwd"] for k, v in zoo_launches.items()},
-         "zoo_shapes": zoo_rows["fwd"]},
+         "zoo_shapes": zoo_rows["fwd"],
+         "launches_dp_ranks": [l["fwd"] * dp_steps for l in dp_launches],
+         "dp_rank_shape": dp_rows["fwd"]},
         {**BN_BWD_ROW, "launches": bn_launches["bn_relu_bwd"],
          **bn_rows["bwd"], "design": "cuda_cores_f32", "status": "ok",
          **{k: v["bn_relu_bwd"] for k, v in zoo_launches.items()},
-         "zoo_shapes": zoo_rows["bwd"]},
+         "zoo_shapes": zoo_rows["bwd"],
+         "launches_dp_ranks": [l["bwd"] * dp_steps for l in dp_launches],
+         "dp_rank_shape": dp_rows["bwd"]},
         {**STEM_ROW, "launches": stem_launches, **stem_row,
          "build": tc_build["stem_conv"], "status": "ok",
          **{k: v["stem_conv"] for k, v in zoo_launches.items()},

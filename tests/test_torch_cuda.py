@@ -9,7 +9,8 @@ the training loop's accounting and safety net: one FLOP count of a step
 whether the kernels run (the card), their plain versions (the CPU) or
 neither (the meta device), the Evaluator on the card against the CPU,
 and a resume from a checkpoint equal to the uninterrupted run bit for bit
-(deterministic algorithms on).
+(deterministic algorithms on); and data parallel: two ranks over gloo
+sharing the card against one process on the whole batch.
 
 Every test here needs a CUDA device and skips without one. This file
 imports nothing of JAX, so it runs where JAX is not installed:
@@ -798,3 +799,132 @@ def test_resume_on_the_card_equals_the_uninterrupted_run(cuda_device,
     for a, b in zip(full_model.state_dict().values(),
                     model.state_dict().values()):
         assert torch.equal(a, b)
+
+
+_DP_RANK = r'''
+import json, os, sys
+sys.path.insert(0, os.environ["REPO_ROOT"])
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+from bigdl_tpu_torch.utils.engine import Engine
+Engine.init(distributed=True, backend="gloo")
+from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+from bigdl_tpu_torch.models import ResNet
+from bigdl_tpu_torch.nn import ClassNLLCriterion
+from bigdl_tpu_torch.ops import bn_relu_kernel as bk
+from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
+from bigdl_tpu_torch.parallel import collectives
+rank = collectives.rank()
+rs = np.random.RandomState(5)
+x = rs.rand(8, 16, 16, 3).astype(np.float32)[4 * rank:4 * rank + 4]
+y = (rs.randint(0, 10, 8) + 1).astype(np.int32)[4 * rank:4 * rank + 4]
+model = ResNet(10, depth=8, data_set="cifar10", device="cuda",
+               generator=torch.Generator().manual_seed(0))
+opt = DistriOptimizer(model, LocalDataSet([MiniBatch(
+    torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())]),
+    ClassNLLCriterion())
+opt.set_optim_method(SGD(learning_rate=0.05, momentum=0.9))
+opt.set_end_when(max_iteration(3))
+losses, first = [], {}
+def hook(s):
+    losses.append(s["loss"])
+    if s["neval"] == 1:
+        first.update({k: v.cpu().clone() for k, v in model.state_dict().items()})
+opt.set_iteration_hook(hook)
+opt.optimize()
+out = os.environ["OUT"]
+torch.save(first, f"{out}/rank{rank}.pt")
+with open(f"{out}/rank{rank}.json", "w") as f:
+    json.dump({"losses": losses, "bn": collectives.counts["bn"],
+               "launches": [bk.bn_relu_forward.launches,
+                            bk.bn_relu_backward.launches],
+               "device": str(Engine.device)}, f)
+Engine.shutdown()
+'''
+
+
+def test_two_gloo_ranks_on_one_card_match_one_process(cuda_device,
+                                                      tmp_path, monkeypatch):
+    """Data parallel on the card: two ranks over gloo sharing it, each on
+    half of a b8 batch, 3 f32 SGD steps of the CIFAR ResNet-8, against one
+    process on the whole batch: losses within a relative 1e-4; after the
+    first step, the parameters within 1e-3 of the step's update (norms
+    over every parameter; `chip_smoke.py` DP_UPDATE_RTOL: a
+    zero-initialised BN scale's gradient, a small difference of large
+    sums, moves by up to 1% in another summation order) and each BN
+    running stat within 1e-4 of its tensor's largest element (the same
+    f32 terms in another order); kernels 6-7 launch on both ranks."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
+    _build.build_kernels()  # before the ranks start: they only load
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    (tmp_path / "rank.py").write_text(_DP_RANK)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(tmp_path / "rank.py")],
+        env=dict(os.environ, REPO_ROOT=root, OUT=str(tmp_path),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                 RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)[-3000:]
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text())
+             for r in range(2)]
+
+    rs = np.random.RandomState(5)
+    x = rs.rand(8, 16, 16, 3).astype(np.float32)
+    y = (rs.randint(0, 10, 8) + 1).astype(np.int32)
+    model = ResNet(10, depth=8, data_set="cifar10", device=cuda_device,
+                   generator=torch.Generator().manual_seed(0))
+    opt = DistriOptimizer(model, LocalDataSet([MiniBatch(
+        torch.from_numpy(x).to(cuda_device),
+        torch.from_numpy(y).to(cuda_device))]), ClassNLLCriterion())
+    opt.set_optim_method(SGD(learning_rate=0.05, momentum=0.9))
+    opt.set_end_when(max_iteration(3))
+    init = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    losses, first = [], {}
+
+    def hook(s):
+        losses.append(s["loss"])
+        if s["neval"] == 1:
+            first.update({k: v.cpu().clone()
+                          for k, v in model.state_dict().items()})
+
+    opt.set_iteration_hook(hook)
+    # as the ranks run: f32 convolutions (no TF32), deterministic
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    opt.optimize()
+    for r in ranks:
+        assert r["device"] == "cuda:0"
+        np.testing.assert_allclose(r["losses"], losses, rtol=1e-4)
+        assert r["bn"] == 3 * 4 * sum(
+            1 for m in model.modules() if hasattr(m, "_axes"))
+        assert r["launches"][0] > 0 and r["launches"][0] == r["launches"][1]
+    got = torch.load(tmp_path / "rank0.pt")
+    names = {k for k, _ in model.named_parameters()}
+    dist = sum(float((got[k] - first[k]).pow(2).sum()) for k in names)
+    update = sum(float((first[k] - init[k]).pow(2).sum()) for k in names)
+    assert dist ** 0.5 <= 1e-3 * update ** 0.5
+    for k, want in first.items():
+        if k not in names and want.is_floating_point():
+            tol = 1e-4 * max(float(want.abs().max()), 1e-6)
+            assert float((got[k] - want).abs().max()) <= tol, k

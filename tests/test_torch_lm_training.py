@@ -462,7 +462,7 @@ def test_optimizer_factory_picks_the_loop(monkeypatch):
         toptim.Optimizer(tm, X, crit, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-GPU data parallel"):
+    with pytest.raises(NotImplementedError, match="one process per GPU"):
         toptim.Optimizer(tm, (X, Y), crit, device="cuda:0")
 
 

@@ -290,7 +290,7 @@ def test_training_fits_the_resident_batch():
 
 def test_distri_optimizer_takes_one_device_only():
     tm = TResNet(10, depth=8, data_set="cifar10", device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU data parallel"):
+    with pytest.raises(NotImplementedError, match="one process per GPU"):
         toptim.DistriOptimizer(tm, LocalDataSet([]),
                                tnn.ClassNLLCriterion(),
                                devices=["cpu", "cpu"])

@@ -317,7 +317,7 @@ def test_optimizers_take_the_reference_positions():
     ds = LocalDataSet([])
     one = DistriOptimizer(model, ds, crit, build_mesh(devices=["cpu"]))
     assert [str(d) for d in one.devices] == ["cpu"]
-    with pytest.raises(NotImplementedError, match="multi-GPU data parallel"):
+    with pytest.raises(NotImplementedError, match="one process per GPU"):
         DistriOptimizer(model, ds, crit, build_mesh(devices=["cpu", "cpu"]))
     with pytest.raises(ValueError, match="not both"):
         DistriOptimizer(model, ds, crit, build_mesh(devices=["cpu"]),
@@ -342,3 +342,24 @@ def test_attention_port_only_parameters_are_keywords():
         tak.flash_attention_carry(q, k, v, carry, True, None, 0, 0, True)
     with pytest.raises(TypeError):
         tak.flash_attention_forward(q, k, v, True, None, True, 16)
+
+
+def test_distributed_dataset_takes_the_reference_positions():
+    """`DistributedDataSet(items, host_index, num_hosts, seed)` and
+    `DataSet.array(items, host_index, num_hosts)`, positionally, shard as
+    the reference's do: item i on host i % num_hosts."""
+    from bigdl_tpu.dataset.dataset import DataSet as JDataSet
+    from bigdl_tpu.dataset.dataset import DistributedDataSet as JDistributed
+    from bigdl_tpu_torch.dataset import DataSet, DistributedDataSet
+    assert _positional(DistributedDataSet) == _positional(JDistributed)
+    assert _positional(DataSet.array) == _positional(JDataSet.array)
+    items = list(range(7))
+    for args in ((0, 3, 5), (2, 3, 5), (1, 2)):
+        got, want = DistributedDataSet(items, *args), JDistributed(items,
+                                                                   *args)
+        assert (got.items, got.size(), got.global_size, got.host_index,
+                got.num_hosts) == (want.items, want.size(),
+                                   want.global_size, want.host_index,
+                                   want.num_hosts)
+    assert DataSet.array(items, 1, 2).items == \
+        JDataSet.array(items, 1, 2).items
