@@ -3,8 +3,9 @@
 `load_transformer_lm_params` fills a `TransformerLM` and
 `lm_params_tree` gives its parameters or gradients back;
 `load_module_params` fills any model built from the port's containers
-(the ResNets, the zoo, the recurrent models) from the JAX params tree and
-BN state, and
+(the ResNets, the zoo, the recurrent models, `WideAndDeep` with its
+children `wide`, `embed0`, ... and `deep` at the JAX tree's keys) from
+the JAX params tree and BN state, and
 `module_params_tree` / `module_state` give the port's parameters,
 gradients and running stats back in the JAX layout. `params_tree` and
 `load_params` pick the right one of the two for a model, and

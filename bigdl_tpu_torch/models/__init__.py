@@ -1,6 +1,7 @@
 """Models (counterpart of `bigdl_tpu.models`): `TransformerLM`, the ResNets,
 the feed-forward zoo (LeNet-5, Inception v1 and v2, VGG, the
-autoencoder) and the sequence models (`PTBModel`, `SimpleRNN`)."""
+autoencoder), the sequence models (`PTBModel`, `SimpleRNN`) and the
+`WideAndDeep` recommender."""
 
 from bigdl_tpu_torch.models.autoencoder import Autoencoder
 from bigdl_tpu_torch.models.inception import (Inception_v1,
@@ -14,8 +15,10 @@ from bigdl_tpu_torch.models.resnet import ResNet, ResNet50
 from bigdl_tpu_torch.models.rnn import PTBModel, SimpleRNN
 from bigdl_tpu_torch.models.transformer import TransformerLM
 from bigdl_tpu_torch.models.vgg import Vgg_16, Vgg_19, VggForCifar10
+from bigdl_tpu_torch.models.widedeep import WideAndDeep
 
 __all__ = ["Autoencoder", "Inception_v1", "Inception_v1_NoAuxClassifier",
            "Inception_v2", "Inception_v2_NoAuxClassifier", "LeNet5",
            "PTBModel", "ResNet", "ResNet50", "SimpleRNN", "TransformerLM", "Vgg_16", "Vgg_19",
-           "VggForCifar10", "inception_layer_v2", "inception_module"]
+           "VggForCifar10", "WideAndDeep", "inception_layer_v2",
+           "inception_module"]

@@ -1,5 +1,5 @@
 """Layers (counterpart of `bigdl_tpu.nn`): the transformer, the ResNet,
-the feed-forward model zoo's and the recurrent paths."""
+the feed-forward model zoo's, the recurrent and the Wide&Deep paths."""
 
 from bigdl_tpu_torch.nn.activation import LogSoftMax, ReLU, Sigmoid, Tanh
 from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
@@ -14,7 +14,8 @@ from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion, MSECriterion,
                                           TimeDistributedCriterion,
                                           TimeDistributedMaskCriterion)
 from bigdl_tpu_torch.nn.dropout import Dropout, lend_generator
-from bigdl_tpu_torch.nn.embedding import LookupTable
+from bigdl_tpu_torch.nn.embedding import (LookupTable, LookupTableSparse,
+                                           SparseJoinTable, SparseLinear)
 from bigdl_tpu_torch.nn.fusion import fusion_enabled, fusion_scope, set_fusion
 from bigdl_tpu_torch.nn.initialization import (MsraFiller, RandomNormal,
                                                RandomUniform, Xavier, Zeros)
@@ -28,16 +29,19 @@ from bigdl_tpu_torch.nn.pooling import (Pooler, SpatialAveragePooling,
 from bigdl_tpu_torch.nn.recurrent import (LSTM, LSTM2, Cell, LSTMCell,
                                           MultiRNNCell, Recurrent, RnnCell,
                                           TimeDistributed)
-from bigdl_tpu_torch.nn.shape_ops import Reshape
+from bigdl_tpu_torch.nn.shape_ops import DenseToSparse, Reshape
 
 __all__ = ["BatchNormalization", "CAddTable", "Cell", "ClassNLLCriterion",
-           "Concat", "ConcatTable", "Container", "Dropout", "Identity",
+           "Concat", "ConcatTable", "Container", "DenseToSparse", "Dropout",
+           "Identity",
            "LSTM", "LSTM2", "LSTMCell", "LayerNormalization", "Linear",
-           "LogSoftMax", "LookupTable", "MSECriterion", "Module",
+           "LogSoftMax", "LookupTable", "LookupTableSparse", "MSECriterion",
+           "Module",
            "MsraFiller", "MultiHeadAttention", "MultiRNNCell", "Pooler",
            "RandomNormal", "RandomUniform", "ReLU", "Recurrent", "Reshape",
            "RnnCell", "ScaledDotProductAttention", "Sequential", "Sigmoid",
-           "SpaceToDepthStemConvolution", "SpatialAveragePooling",
+           "SpaceToDepthStemConvolution", "SparseJoinTable", "SparseLinear",
+           "SpatialAveragePooling",
            "SpatialBatchNormalization", "SpatialConvolution",
            "SpatialCrossMapLRN", "SpatialMaxPooling", "Tanh",
            "TimeDistributed", "TimeDistributedCriterion",

@@ -1,6 +1,8 @@
 """Shape layers (counterpart of `bigdl_tpu/nn/shape_ops.py`).
 
-Ported: `Reshape`, what the feed-forward models use.
+Ported: `Reshape`, what the feed-forward models use, and
+`DenseToSparse`, the identity (the sparse layers take the padded
+`T(indices, values)` form, not a COO tensor), as in the reference.
 """
 
 from __future__ import annotations
@@ -28,3 +30,12 @@ class Reshape(Module):
         if self.batch_mode is False:
             return x.reshape(self.size)
         return x.reshape((x.shape[0],) + self.size)
+
+
+class DenseToSparse(Module):
+    """The identity, as in the reference: the sparse layers downstream
+    read a dense input through their gathers (the reference's
+    `DenseToSparse` converts to COO; neither package does)."""
+
+    def forward(self, input):
+        return input

@@ -15,12 +15,15 @@
   the plain version's own aten ops from the counter, so a step counts the
   same number on the CPU and on the card. Inside a count, a wrapper given
   `meta` tensors only counts, so a step can be counted on shapes alone
-  (`tools/bench.py` `step_flops`) without launching anything.
+  (`tools/bench.py` `step_flops`) without launching anything. Gathers
+  and scatters (the embeddings, the sparse layers' lookups and their
+  gradients) count nothing, as in `FlopCounterMode`; the sparse layers'
+  weighted sums are `einsum`s, counted as the batched matmuls they run.
 - `mfu(flops, step_time_s, ...)`: achieved FLOP/s over the peak. A
   data-parallel step's is the global FLOPs (every rank's shard) over
   `n_devices` = the world size times the peak, the reference's
   `_n_compute_devices` (`DistriOptimizer._n_compute_devices`,
-  `tools/bench.py bench_resnet50_dp`).
+  `tools/bench.py bench_dp`).
 
 The kernels' formulas are the counts `PERF.md` section 6 takes for the
 bounds: 2*D operations per unmasked (query, key) pair a product (2

@@ -35,6 +35,12 @@ model's output upcast to f32.
   optimizer slots carried to the JAX tree layout through
   `interop.jax_params`; resume restores them, the counters and the data
   cursor.
+- A multi-input batch (a `MiniBatch` whose inputs or targets are a list
+  of arrays) reaches the model and the criterion as the 1-based `Table`
+  (`input[1]` is the first array), as the reference gives it; float
+  tensors in it are cast under mixed precision and integer ones left
+  alone, and string and bytes columns stay numpy arrays on the host, for
+  the feature-column ops (`ops/feature_col.py`).
 - The `train.step` fault site fires before every step.
 - The step generator (`generator`): a `torch.Generator` on the training
   device, seeded 0 as the reference's key chain starts at `PRNGKey(0)`,
@@ -79,6 +85,7 @@ from bigdl_tpu_torch.optim.optim_method import OptimMethod, SGD
 from bigdl_tpu_torch.optim.trigger import Trigger, every_epoch
 from bigdl_tpu_torch.optim.validation import ValidationMethod
 from bigdl_tpu_torch.resilience import faults
+from bigdl_tpu_torch.utils.table import Table
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
@@ -87,36 +94,55 @@ logger = logging.getLogger("bigdl_tpu_torch.optim")
 _PRECISIONS = (None, "float32", "highest", "bfloat16")
 
 
+def _host_column(x) -> bool:
+    """A string, bytes or object column: it stays a numpy array on the
+    host, for the feature-column ops to consume (as the reference's)."""
+    return isinstance(x, np.ndarray) and x.dtype.kind in "USO"
+
+
+def _each(fn, x) -> Table:
+    """`fn` of every item of a list, tuple or `Table`, as a `Table`."""
+    return Table(*[fn(v) for v in x])
+
+
 def _to_device(x, device: torch.device):
-    """A batch's inputs or targets as tensors on `device`: numpy arrays are
-    copied there, tensors moved (no copy when already there)."""
+    """A batch's inputs or targets on `device`: numpy arrays are copied
+    there, tensors moved (no copy when already there), string and bytes
+    columns left on the host. A list or tuple of them (a multi-input
+    batch) becomes the 1-based `Table` the model reads as `input[1]`,
+    `input[2]`, ..., as the reference's `_to_device` gives it."""
     if x is None:
         return None
-    if isinstance(x, (list, tuple)):
-        return [_to_device(v, device) for v in x]
+    if isinstance(x, (list, tuple, Table)):
+        return _each(lambda v: _to_device(v, device), x)
+    if _host_column(x):
+        return x
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
     return x.to(device)
 
 
 def _cast_floats(x, dtype: torch.dtype):
-    """Float tensors (or lists of them) cast to `dtype`; integer tensors
-    (labels, indices) left alone."""
+    """Float tensors (alone, or in a `Table`, list or tuple, which keeps
+    its kind) cast to `dtype`; integer tensors (labels, indices) and host
+    columns left alone."""
+    if isinstance(x, Table):
+        return _each(lambda v: _cast_floats(v, dtype), x)
     if isinstance(x, (list, tuple)):
-        return [_cast_floats(v, dtype) for v in x]
+        return type(x)(_cast_floats(v, dtype) for v in x)
     if isinstance(x, torch.Tensor) and x.is_floating_point():
         return x.to(dtype)
     return x
 
 
 def _micro_batches(x, steps: int):
-    """x (a tensor, a list of them, or None) split along its first axis
-    into `steps` equal micro-batches, in order."""
+    """x (a tensor, a host column, a `Table` of them, or None) split along
+    its first axis into `steps` equal micro-batches, in order."""
     if x is None:
         return [None] * steps
-    if isinstance(x, (list, tuple)):
-        return [list(parts) for parts in
-                zip(*(_micro_batches(v, steps) for v in x))]
+    if isinstance(x, (list, tuple, Table)):
+        parts = _each(lambda v: _micro_batches(v, steps), x)
+        return [_each(lambda v: v[i], parts) for i in range(steps)]
     if x.shape[0] % steps:
         raise ValueError(f"gradient accumulation over {steps} micro-batches "
                          f"needs a batch size divisible by {steps}, got "

@@ -7,7 +7,8 @@ device-to-host fetch, so the device never waits for the host between
 batches and host memory stays bounded. With `convert=True` it serves a
 converted copy of the caller's model (`ir.ConversionUtils.convert`: BN
 fold, noise elision, the space-to-depth stem restatement) and leaves the
-caller's model untouched.
+caller's model untouched. A batch of several inputs reaches the model
+as the 1-based `Table`, as in the training loop.
 
 Not ported yet: `DistriPredictor` (the mesh-sharded predictor) and the
 `PredictionService` facade.
@@ -26,6 +27,7 @@ import torch
 from bigdl_tpu_torch._device import resolve_device
 from bigdl_tpu_torch.dataset.sample import MiniBatch
 from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
+from bigdl_tpu_torch.optim.local_optimizer import _to_device
 from bigdl_tpu_torch.utils.table import Table
 
 
@@ -82,11 +84,10 @@ class LocalPredictor:
         return y[1] if isinstance(y, Table) else y
 
     def _to_device(self, x):
-        if isinstance(x, list):
-            return [self._to_device(v) for v in x]
-        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(x))
-        return t.to(self.device)
+        """A batch's inputs (or targets) on the predictor's device; a list
+        of them becomes the 1-based `Table`, and string and bytes columns
+        stay on the host, as the reference's predictor gives them."""
+        return _to_device(x, self.device)
 
     def predict(self, dataset) -> List[np.ndarray]:
         """Per-sample outputs (numpy rows) for `dataset`: an array or

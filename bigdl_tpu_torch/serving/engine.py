@@ -474,8 +474,11 @@ class InferenceEngine(ServingEngine):
         return list(groups.values())
 
     def _forward_arrays(self, arrs: List[np.ndarray]):
-        x = [self._pred._to_device(a) for a in arrs]
-        return self._pred._forward(x[0] if len(x) == 1 else x)
+        """One forward of the stacked feature columns: the 1-based `Table`
+        of them when there is more than one, as the reference's engine
+        gives a multi-feature model."""
+        return self._pred._forward(
+            self._pred._to_device(arrs[0] if len(arrs) == 1 else arrs))
 
     def _dispatch(self, reqs: List[_Request]):
         """Pad a group with its last row up to its bucket and launch one

@@ -26,18 +26,21 @@ warm-up. The result also carries every step's loss.
     python -m bigdl_tpu_torch.tools.bench --model inception_v1 [--profile]
     python -m bigdl_tpu_torch.tools.bench --model lenet|inception_v2|vgg16
     python -m bigdl_tpu_torch.tools.bench --model ptb_lstm [--profile]
+    python -m bigdl_tpu_torch.tools.bench --model wide_n_deep [--profile]
     python -m bigdl_tpu_torch.tools.bench --nproc 2 [--backend gloo|nccl]
+    python -m bigdl_tpu_torch.tools.bench --model wide_n_deep --nproc 2
 
-`--nproc N` (ResNet-50 only) is the data-parallel configuration: it
-starts N ranks, one process each (`Engine.init(distributed=True)`, NCCL
-by default on cards, gloo with `--backend gloo`, which lets ranks share
-one card), each with its resident shard of one global batch (b128 split
-N ways, rows `rank * 128/N` on), as the reference's `bench_cli.py`
-shards one batch over its mesh. The report: global imgs/s, each rank's
-imgs/s and ms a step, mfu of the global FLOPs over N peaks, the loss of
-every step (the ranks' mean), and a step's collectives on each rank
-(gradient all-reduces, one a bucket, and their bytes; BN all-reduces),
-and BN+ReLU kernel launches a step on each rank.
+`--nproc N` (ResNet-50 or Wide&Deep) is the data-parallel configuration:
+it starts N ranks, one process each (`Engine.init(distributed=True)`,
+NCCL by default on cards, gloo with `--backend gloo`, which lets ranks
+share one card), each with its resident shard of one global batch (b128
+or b1024 split N ways, rows `rank * B/N` on), as the reference's
+`bench_cli.py` shards one batch over its mesh. The report: global imgs/s
+(records/s), each rank's rate and ms a step, mfu of the global FLOPs over
+N peaks, the loss of every step (the ranks' mean), and a step's
+collectives on each rank (gradient all-reduces, one a bucket, and their
+bytes; BN all-reduces), and the kernel launches on each rank (BN+ReLU a
+step for ResNet-50; every kernel's count for Wide&Deep).
 
 The feed-forward zoo (`--model lenet | inception_v1 | inception_v2 |
 vgg16`) trains with the same recipe (`ClassNLLCriterion`, sync every 8) at
@@ -58,6 +61,14 @@ ids, `TimeDistributedCriterion(ClassNLLCriterion())`), through the same
 recipe; it reports records/s (sequences, the reference's unit) and
 tokens/s. Its time loop is a Python loop of 20 steps; no kernel of the
 port runs on this path.
+
+`--model wide_n_deep` is `BASELINE.md` config 5, `WideAndDeep(2,
+wide_dim=100, embed_vocabs=(10, 10), embed_dim=4, cont_dim=3)` at b1024
+(`bench_cli.py:1645-1656`): one resident four-tensor batch (0-based wide
+ids, wide values of 1, 1-based categorical ids, continuous features; the
+model takes their 1-based `Table`), labels 1 or 2, the same recipe; it
+reports records/s. With `--nproc N` each rank holds its rows of all four
+tensors. No kernel of the port runs on this path.
 
 `--model serve` times one b32 forward of the served ResNet-50
 (`LocalPredictor` over `ResNet50(class_num=1000, s2d_stem=True)`, f32,
@@ -102,13 +113,19 @@ from bigdl_tpu_torch.optim.local_optimizer import BaseOptimizer, _to_device
 from bigdl_tpu_torch.parallel import collectives
 
 
-def _resident_optimizer(model: torch.nn.Module, x: np.ndarray,
-                        y: np.ndarray, criterion,
+def _resident(x, device: torch.device):
+    """An array, or a list of them (a multi-input batch), on `device`."""
+    if isinstance(x, (list, tuple)):
+        return [_resident(v, device) for v in x]
+    return torch.from_numpy(x).to(device)
+
+
+def _resident_optimizer(model: torch.nn.Module, x, y: np.ndarray, criterion,
                         device: torch.device) -> DistriOptimizer:
     """The benchmark's optimizer over one batch (x, y) placed on `device`
-    once."""
-    batch = MiniBatch(torch.from_numpy(x).to(device),
-                      torch.from_numpy(y).to(device))
+    once; x is an array or a list of them (the model then takes the
+    1-based `Table` of them)."""
+    batch = MiniBatch(_resident(x, device), _resident(y, device))
     opt = DistriOptimizer(model, LocalDataSet([batch]), criterion,
                           devices=[device])
     opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
@@ -281,71 +298,96 @@ def _collectives_ms(opt: DistriOptimizer, reps: int = 5) -> Dict:
                 lambda: [collectives.all_reduce_(t, "bn") for t in bn])}
 
 
+def _rank_shard(batch_size: int):
+    """(world, rank, local batch, this rank's rows) of a global batch."""
+    world, rank = collectives.world_size(), collectives.rank()
+    if batch_size % world:
+        raise ValueError(f"batch {batch_size} does not split over {world} "
+                         "ranks")
+    local = batch_size // world
+    return world, rank, local, slice(rank * local, (rank + 1) * local)
+
+
+def _rank_run(opt: DistriOptimizer, local: int, warmup: int, iters: int,
+              sync: int) -> Dict:
+    """The timed part of a data-parallel rank: the step's FLOPs (its
+    shard's), `warmup + iters` steps syncing every `sync`; this rank's ms
+    a step, records/s, losses, collectives a step by kind, gradient
+    buckets, and every kernel's launches a step during the run."""
+    flops = step_flops(opt)
+    sync = math.gcd(math.gcd(warmup, iters), sync)
+    before = _kernel_launches()
+    collectives.reset_counts()
+    window_s, losses = _timed_run(opt, warmup, iters, sync)
+    steps = warmup + iters
+    return {"rank": collectives.rank(), "world": collectives.world_size(),
+            "local_batch": local, "ms_per_step": 1e3 * window_s / sync,
+            "records_per_sec": sync * local / window_s,
+            "flops_per_step": flops, "losses": losses,
+            "collectives_per_step": {
+                k: v / steps for k, v in collectives.counts.items()
+                if not k.startswith("broadcast")},
+            "n_buckets": len(opt.bucket_plan) if opt.bucket_plan else 0,
+            "kernel_launches_per_step": {
+                k: (v - before[k]) / steps
+                for k, v in _kernel_launches().items()},
+            "steps": steps, "warmup": warmup, "sync": sync,
+            "device": _device_name(opt.device)}
+
+
 def resnet50_rank(batch_size: int = 128, warmup: int = 8, iters: int = 16,
                   sync: int = 8, device=None, seed: int = 0) -> Dict:
     """This rank's part of the data-parallel ResNet-50 benchmark, in a
     process that has joined the process group: the global batch
     `batch_size` (seeded as `bench_resnet50`'s) split over the ranks, this
-    rank's rows resident on `device`, `warmup + iters` steps syncing every
-    `sync`. Returns this rank's ms a step, imgs/s, FLOPs a step (its
-    shard's), losses (its shard's), collectives a step by kind, gradient
-    buckets and BN+ReLU launches a step, and the time of a step's
-    collectives issued alone (`_collectives_ms`, after the run)."""
+    rank's rows resident on `device`; `_rank_run`'s figures (records/s as
+    `imgs_per_sec`), the BN+ReLU launches a step, and the time of a
+    step's collectives issued alone (`_collectives_ms`, after the run)."""
     from bigdl_tpu_torch.models.resnet import ResNet50
-    from bigdl_tpu_torch.ops import bn_relu_kernel as bk
-    world, rank = collectives.world_size(), collectives.rank()
-    if batch_size % world:
-        raise ValueError(f"batch {batch_size} does not split over {world} "
-                         "ranks")
+    world, _, local, rows = _rank_shard(batch_size)
     device = resolve_device(device)
-    local = batch_size // world
     model = ResNet50(class_num=1000, s2d_stem=True, device=device,
                      generator=torch.Generator().manual_seed(seed))
     x, y = _image_batch((224, 224, 3), 1000, batch_size)
-    rows = slice(rank * local, (rank + 1) * local)
     opt = _resident_optimizer(model, x[rows], y[rows], ClassNLLCriterion(),
                               device)
-    flops = step_flops(opt)
-    sync = math.gcd(math.gcd(warmup, iters), sync)
-    bk.bn_relu_forward.launches = bk.bn_relu_backward.launches = 0
-    collectives.reset_counts()
-    window_s, losses = _timed_run(opt, warmup, iters, sync)
-    steps = warmup + iters
-    ms = 1e3 * window_s / sync
-    counts = {k: v / steps for k, v in collectives.counts.items()
-              if not k.startswith("broadcast")}
-    launches = {"fwd": bk.bn_relu_forward.launches / steps,
-                "bwd": bk.bn_relu_backward.launches / steps}
-    return {"rank": rank, "world": world, "local_batch": local,
-            "ms_per_step": ms, "imgs_per_sec": sync * local / window_s,
-            "flops_per_step": flops, "losses": losses,
-            "collectives_per_step": counts,
-            "n_buckets": len(opt.bucket_plan) if opt.bucket_plan else 0,
-            "bn_relu_launches_per_step": launches,
-            "collectives_alone": _collectives_ms(opt) if world > 1 else None,
-            "steps": steps, "warmup": warmup, "sync": sync,
-            "device": _device_name(device)}
+    res = _rank_run(opt, local, warmup, iters, sync)
+    res["imgs_per_sec"] = res.pop("records_per_sec")
+    launches = res["kernel_launches_per_step"]
+    res["bn_relu_launches_per_step"] = {"fwd": launches["bn_relu_fwd"],
+                                        "bwd": launches["bn_relu_bwd"]}
+    res["collectives_alone"] = _collectives_ms(opt) if world > 1 else None
+    return res
 
 
 def _dp_child(args) -> None:
-    """A rank started by `bench_resnet50_dp`: joins the group from the
-    launcher's environment, runs `resnet50_rank`, prints its result."""
+    """A rank started by `bench_dp`: joins the group from the launcher's
+    environment, runs the model's rank function (`resnet50_rank`,
+    `wide_n_deep_rank`), prints its result."""
     from bigdl_tpu_torch.utils.engine import Engine
     Engine.init(distributed=True, backend=args.backend)
+    rank_fn = {"resnet50": resnet50_rank,
+               "wide_n_deep": wide_n_deep_rank}[args.model]
     try:
-        res = resnet50_rank(args.batch_size, args.warmup, args.iters,
-                            args.sync, device=args.device)
+        res = rank_fn(args.batch_size, args.warmup, args.iters, args.sync,
+                      device=args.device)
     finally:
         Engine.shutdown()
     print("DP_RANK " + json.dumps(res), flush=True)
 
 
-def bench_resnet50_dp(nproc: int = 2, batch_size: int = 128,
-                      warmup: int = 8, iters: int = 16, sync: int = 8,
-                      backend: Optional[str] = None, device: str = "cuda",
-                      timeout_s: float = 900.0) -> Dict:
-    """ResNet-50 data parallel over `nproc` ranks on this machine, one
-    process each (`resnet50_rank`): rank r on `cuda:{r % device_count}`
+#: the configurations `bench_dp` runs, and their global batch sizes
+DP_MODELS = {"resnet50": 128, "wide_n_deep": 1024}
+
+
+def bench_dp(model: str = "resnet50", nproc: int = 2,
+             batch_size: Optional[int] = None, warmup: int = 8,
+             iters: int = 16, sync: int = 8, backend: Optional[str] = None,
+             device: str = "cuda", timeout_s: float = 900.0) -> Dict:
+    """`model` ("resnet50" or "wide_n_deep") data parallel over `nproc`
+    ranks on this machine, one process each (`resnet50_rank`,
+    `wide_n_deep_rank`), at the global batch `batch_size` (default the
+    configuration's, `DP_MODELS`): rank r on `cuda:{r % device_count}`
     (or the CPU with `device="cpu"`), `backend` as `Engine.init` takes it.
     The kernels are built here before any rank starts. Returns the global
     figures and each rank's."""
@@ -361,8 +403,10 @@ def bench_resnet50_dp(nproc: int = 2, batch_size: int = 128,
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     root = str(Path(__file__).resolve().parents[2])
+    batch_size = batch_size or DP_MODELS[model]
     cmd = [sys.executable, "-m", "bigdl_tpu_torch.tools.bench",
-           "--dp-child", "--batch-size", str(batch_size), "--warmup",
+           "--dp-child", "--model", model,
+           "--batch-size", str(batch_size), "--warmup",
            str(warmup), "--iters", str(iters), "--sync", str(sync),
            "--device", device]
     if backend:
@@ -394,10 +438,11 @@ def bench_resnet50_dp(nproc: int = 2, batch_size: int = 128,
         ranks.append(json.loads(lines[-1][len("DP_RANK "):]))
     ms = max(r["ms_per_step"] for r in ranks)
     flops = sum(r["flops_per_step"] for r in ranks)
-    return {"nproc": nproc, "backend": backend or (
+    rate = "imgs_per_sec" if model == "resnet50" else "records_per_sec"
+    return {"model": model, "nproc": nproc, "backend": backend or (
                 "nccl" if device == "cuda" else "gloo"),
             "batch_size": batch_size, "ms_per_step": ms,
-            "imgs_per_sec": batch_size / ms * 1e3,
+            rate: batch_size / ms * 1e3,
             "flops_per_step": flops,
             "mfu": costs.mfu(flops, ms * 1e-3, device_kind=ranks[0]["device"],
                              n_devices=nproc),
@@ -516,6 +561,98 @@ def profile_ptb_lstm(batch_size: int = 64, seq: int = 20,
                               device)
     return {"model": "ptb_lstm", "batch_size": batch_size, "seq": seq,
             **_profile(opt, warmup, steps, top, device)}
+
+
+#: `BASELINE.md` config 5, Wide&Deep as `bench_cli.py:1645-1656` builds it
+WIDE_N_DEEP = {"class_num": 2, "wide_dim": 100, "embed_vocabs": (10, 10),
+               "embed_dim": 4, "cont_dim": 3, "batch_size": 1024}
+
+
+def wide_n_deep_model(device=None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.nn.Module:
+    """`WideAndDeep(2, wide_dim=100, embed_vocabs=(10, 10), embed_dim=4,
+    cont_dim=3)`, random weights from `generator` (default seed 0)."""
+    from bigdl_tpu_torch.models.widedeep import WideAndDeep
+    cfg = {k: v for k, v in WIDE_N_DEEP.items() if k != "batch_size"}
+    return WideAndDeep(**cfg, device=device, generator=generator)
+
+
+def _wide_n_deep_batch(batch_size: int, seed: int = 0):
+    """The four-tensor batch of config 5 from `RandomState(seed)`: wide
+    ids [B, 3] in [0, 100) (0-based), wide values of 1, categorical ids
+    [B, 2] in [1, 10), continuous features [B, 3] in [0, 1); labels 1 or
+    2."""
+    rs = np.random.RandomState(seed)
+    b = batch_size
+    x = [rs.randint(0, WIDE_N_DEEP["wide_dim"], (b, 3)).astype(np.int32),
+         np.ones((b, 3), np.float32),
+         rs.randint(1, 10, (b, 2)).astype(np.int32),
+         rs.rand(b, 3).astype(np.float32)]
+    y = (rs.randint(0, 2, b) + 1).astype(np.int32)
+    return x, y
+
+
+def bench_wide_n_deep(batch_size: int = 1024, warmup: int = 8,
+                      iters: int = 40, sync: int = 8, device=None,
+                      generator: Optional[torch.Generator] = None) -> Dict:
+    """Config 5 trained through `framework_throughput` on one resident
+    four-tensor batch (the model takes their `Table`) under
+    `ClassNLLCriterion`, as `bench_cli.py`'s baseline configurations run
+    it (8 + 40 steps, sync every 8). Reports records/s, ms/step, the FLOP
+    count and mfu."""
+    device = resolve_device(device)
+    res = framework_throughput(
+        wide_n_deep_model(device, generator), (), 2, batch_size, warmup,
+        iters, sync=sync, device=device,
+        batch=_wide_n_deep_batch(batch_size))
+    return {"model": "wide_n_deep",
+            "records_per_sec": res.pop("imgs_per_sec"), **res}
+
+
+def profile_wide_n_deep(batch_size: int = 1024, warmup: int = 8,
+                        steps: int = 8, top: int = 15, device=None,
+                        generator: Optional[torch.Generator] = None) -> Dict:
+    """`_profile` of the Wide&Deep benchmark configuration."""
+    device = _cuda_only(device, "profile_wide_n_deep")
+    opt = _resident_optimizer(wide_n_deep_model(device, generator),
+                              *_wide_n_deep_batch(batch_size),
+                              ClassNLLCriterion(), device)
+    return {"model": "wide_n_deep", "batch_size": batch_size,
+            **_profile(opt, warmup, steps, top, device, _WIDE_KINDS)}
+
+
+def _kernel_launches() -> Dict[str, int]:
+    """The launches of every kernel of the port so far, by name."""
+    from bigdl_tpu_torch.ops import attention_kernel as ak
+    from bigdl_tpu_torch.ops import bn_relu_kernel as bk
+    from bigdl_tpu_torch.ops import stem_kernel as sk
+    fns = {"flash_attention_fwd": ak.flash_attention_forward,
+           "flash_attention_carry": ak.flash_attention_carry,
+           "flash_attention_bwd_dq": ak.flash_attention_backward_dq,
+           "flash_attention_bwd_dkv": ak.flash_attention_backward_dkv,
+           "stem_conv": sk.stem_conv_forward,
+           "bn_relu_fwd": bk.bn_relu_forward,
+           "bn_relu_bwd": bk.bn_relu_backward}
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def wide_n_deep_rank(batch_size: int = 1024, warmup: int = 8,
+                     iters: int = 16, sync: int = 8, device=None,
+                     seed: int = 0) -> Dict:
+    """This rank's part of the data-parallel Wide&Deep benchmark, in a
+    process that has joined the process group: the global batch
+    `batch_size` (seeded as `bench_wide_n_deep`'s) split over the ranks,
+    this rank's rows of each of the four tensors and the labels resident
+    on `device`; `_rank_run`'s figures (no kernel of the port launches on
+    this path)."""
+    _, _, local, rows = _rank_shard(batch_size)
+    device = resolve_device(device)
+    x, y = _wide_n_deep_batch(batch_size)
+    opt = _resident_optimizer(
+        wide_n_deep_model(device, torch.Generator().manual_seed(seed)),
+        [v[rows] for v in x], y[rows], ClassNLLCriterion(), device)
+    return _rank_run(opt, local, warmup, iters, sync)
 
 
 def _median_ms(fn, reps: int, device: torch.device) -> float:
@@ -665,6 +802,13 @@ _KERNEL_KINDS = (
 #: gradient slices made contiguous, the bf16 casts) on their own
 _ZOO_KINDS = (("concat (torch.cat)", ("catarraybatchedcopy",)),
               ("copies and casts (copy_)", ("direct_copy",))) + _KERNEL_KINDS
+
+
+#: the Wide&Deep profile also files the gathers and their gradients'
+#: scatters on their own
+_WIDE_KINDS = (("gather and scatter (embedding, index_add)",
+                ("indexselect", "index_select", "embedding", "indexfunc",
+                 "index_add", "gather", "scatter")),) + _KERNEL_KINDS
 
 
 def _kind(name: str, kinds=_KERNEL_KINDS) -> str:
@@ -942,12 +1086,14 @@ def main(argv=None) -> None:
     import argparse
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", choices=("resnet50", "serve", "lm",
-                                       "attention", "ptb_lstm", *ZOO),
+                                       "attention", "ptb_lstm",
+                                       "wide_n_deep", *ZOO),
                    default="resnet50")
     p.add_argument("--profile", action="store_true",
                    help="device time by kind of kernel (torch.profiler)")
     p.add_argument("--nproc", type=int, default=1,
-                   help="ResNet-50 data parallel over this many ranks")
+                   help="ResNet-50 or Wide&Deep data parallel over this "
+                   "many ranks")
     p.add_argument("--backend", choices=("gloo", "nccl"), default=None,
                    help="the ranks' backend (default: NCCL on cards)")
     p.add_argument("--dp-child", action="store_true",
@@ -961,10 +1107,11 @@ def main(argv=None) -> None:
     if args.dp_child:
         return _dp_child(args)
     if args.nproc > 1:
-        if args.model != "resnet50" or args.profile:
-            p.error("--nproc runs the ResNet-50 benchmark only")
-        print(json.dumps(bench_resnet50_dp(args.nproc,
-                                           backend=args.backend)))
+        if args.model not in DP_MODELS or args.profile:
+            p.error("--nproc runs the ResNet-50 and Wide&Deep benchmarks "
+                    "only, without --profile")
+        print(json.dumps(bench_dp(args.model, args.nproc,
+                                  backend=args.backend)))
         return
     if args.model == "attention":
         fn = profile_attention if args.profile else bench_attention
@@ -975,6 +1122,8 @@ def main(argv=None) -> None:
         fn = profile_transformer_lm if args.profile else bench_transformer_lm
     elif args.model == "ptb_lstm":
         fn = profile_ptb_lstm if args.profile else bench_ptb_lstm
+    elif args.model == "wide_n_deep":
+        fn = profile_wide_n_deep if args.profile else bench_wide_n_deep
     elif args.model in ZOO:
         fn = functools.partial(profile_zoo if args.profile else bench_zoo,
                                args.model)

@@ -226,6 +226,27 @@ Phases:
    one, it prints that multi-card numbers are not measured. A rank that
    fails, times out or disagrees fails the phase.
 
+15. Wide&Deep (`BASELINE.md` config 5, `WideAndDeep(2, wide_dim=100,
+   embed_vocabs=(10, 10), embed_dim=4, cont_dim=3)`), a four-tensor input
+   the model takes as the 1-based `Table`; no kernel of the port runs on
+   it (the reference's Wide&Deep reaches no Pallas kernel). (a) b1024 in
+   f32 on the card (TF32 off) against the CPU, one seed, 8 SGD steps
+   (momentum 0.9) through `DistriOptimizer`: losses within a relative
+   1e-5 and each parameter within 1e-5 of its tensor's largest element.
+   (b) `tools/bench.py --model wide_n_deep` (b1024, bf16 compute with f32
+   masters, one resident batch) for 8 warm-up and 24 timed steps, syncing
+   every 8: records/s, ms/step, every step's loss (the last below the
+   first), the FLOP count and mfu in (0, 1). (c) Its `--profile`: device
+   busy and idle shares, launches a step, device ms by kind of kernel.
+   (d) The launches of each of the seven kernels during (b): every count
+   0. (e) The example (`tools/wide_n_deep.py` at its defaults): train
+   accuracy of `wide_n_deep` at least 0.85. (f) 64 four-feature requests
+   through `InferenceEngine` (the model behind a `ConcatTable`, so the
+   engine gives `y[1]`): within 1e-6 of the model's b64 forward, as
+   `LocalPredictor`'s. (g) `--nproc 2` over gloo on the one card: each
+   rank's loss falls, one gradient all-reduce a step. (h) Phase 15's wall
+   time.
+
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
 measure ran: `tensor_cores` or `cuda_cores_f32`; rows 5-7 with their
 launches on the zoo's paths and their zoo shapes; rows 6-7 with their
@@ -3159,6 +3180,181 @@ def dp_phase(bk, tmp):
     return full, multi
 
 
+# 15. Wide&Deep (`BASELINE.md` config 5): the f32 pair's steps and limits;
+# the benchmark's warm-up, timed steps and sync; the served requests; the
+# example's accuracy floor
+WD_PARITY_STEPS, WD_PARITY_RTOL = 8, 1e-5
+WD_WARMUP, WD_ITERS, WD_SYNC = 8, 24, 8
+WD_REQUESTS, WD_SERVE_ATOL = 64, 1e-6
+WD_EXAMPLE_ACC = 0.85
+
+
+def _wd_run(model, x, y, dev, steps):
+    """`steps` SGD steps (0.01, momentum 0.9) of `model` on `dev` through
+    DistriOptimizer in f32 on the one four-tensor batch; the losses."""
+    from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
+    batch = MiniBatch([torch.from_numpy(v).to(dev) for v in x],
+                      torch.from_numpy(y).to(dev))
+    opt = DistriOptimizer(model, LocalDataSet([batch]), ClassNLLCriterion(),
+                          devices=[dev])
+    opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+    opt.set_end_when(max_iteration(steps))
+    losses = []
+    opt.set_iteration_hook(lambda st: losses.append(st["loss"]))
+    opt.optimize()
+    return losses
+
+
+def wd_parity_phase():
+    """15(a): config 5 at b1024 in f32 on the card (TF32 off) against the
+    same model on the CPU, from one seed, for 8 SGD steps: losses within
+    a relative 1e-5, each parameter within 1e-5 of its tensor's largest
+    element (the embedding backward's atomics add in another order)."""
+    from bigdl_tpu_torch.tools import bench
+    x, y = bench._wide_n_deep_batch(bench.WIDE_N_DEEP["batch_size"])
+    cpu = bench.wide_n_deep_model("cpu", torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).cuda()
+    got = _wd_run(card, x, y, "cuda", WD_PARITY_STEPS)
+    ref = _wd_run(cpu, x, y, "cpu", WD_PARITY_STEPS)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    params = max(float((a.detach().cpu() - b.detach()).abs().max()
+                       / b.detach().abs().max().clamp(min=1e-12))
+                 for a, b in zip(card.parameters(), cpu.parameters()))
+    print("wide_n_deep parity " + json.dumps({
+        "batch": len(y), "steps": WD_PARITY_STEPS, "dtype": "float32",
+        "losses": got, "cpu_losses": ref, "rel_diff": rel,
+        "params_rel_diff": params}), flush=True)
+    check(len(got) == WD_PARITY_STEPS and all(np.isfinite(got))
+          and rel <= WD_PARITY_RTOL and params <= WD_PARITY_RTOL,
+          f"wide_n_deep f32: losses {got} vs the CPU's {ref} (relative "
+          f"{rel:.2e}), parameters {params:.2e} apart, limit "
+          f"{WD_PARITY_RTOL}")
+
+
+def wd_bench_phase(ak, sk, bk):
+    """15(b, d): `tools/bench.py --model wide_n_deep` (b1024, bf16 compute
+    with f32 masters) for 8 warm-up and 24 timed steps: the main path's
+    run, every kernel count set to 0 before it and read after (the path
+    runs none of the port's kernels)."""
+    from bigdl_tpu_torch.tools.bench import bench_wide_n_deep
+    steps = WD_WARMUP + WD_ITERS
+    _reset_all_counts(ak, sk, bk)
+    res = bench_wide_n_deep(warmup=WD_WARMUP, iters=WD_ITERS, sync=WD_SYNC,
+                            device="cuda",
+                            generator=torch.Generator().manual_seed(0))
+    launches = _all_counts(ak, sk, bk)
+    losses = res["losses"]
+    row = {k: res[k] for k in ("model", "records_per_sec", "ms_per_step",
+                               "flops_per_step", "mfu", "batch_size",
+                               "steps", "warmup", "sync", "device")}
+    row.update({"precision": "bfloat16 compute, f32 masters",
+                "losses": losses, "kernel_launches": launches})
+    print("wide_n_deep bench " + json.dumps(row), flush=True)
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"wide_n_deep: non-finite or missing losses {losses}")
+    check(losses[-1] < losses[0],
+          f"wide_n_deep: the loss did not fall: first {losses[0]}, last "
+          f"{losses[-1]}")
+    check(_mfu_ok(res["mfu"]) and res["flops_per_step"] > 0,
+          f"wide_n_deep: mfu {res['mfu']} outside (0, 1) or no FLOP count")
+    check(not any(launches.values()),
+          f"wide_n_deep launched kernels of the port: {launches}")
+    return row
+
+
+def wd_profile_phase():
+    """15(c): where the b1024 bf16 step's time goes (`--profile`)."""
+    from bigdl_tpu_torch.tools.bench import profile_wide_n_deep
+    res = profile_wide_n_deep(generator=torch.Generator().manual_seed(0))
+    print("wide_n_deep profile " + json.dumps(res), flush=True)
+    check(res["kernel_launches_per_step"] > 0
+          and res["device_busy_ms_per_step"] > 0,
+          f"wide_n_deep profile saw no device work: {res}")
+    return res
+
+
+def wd_example_phase():
+    """15(e): the example (`tools/wide_n_deep.py` at its defaults) on the
+    card: train accuracy of `wide_n_deep` at least 0.85."""
+    from bigdl_tpu_torch.tools import wide_n_deep
+    t0 = time.perf_counter()
+    acc = wide_n_deep.main(["--device", "cuda"])
+    print(f"wide_n_deep example: train accuracy {acc} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(acc >= WD_EXAMPLE_ACC,
+          f"the example's train accuracy {acc} < {WD_EXAMPLE_ACC}")
+    return acc
+
+
+def wd_serving_phase():
+    """15(f): 64 four-feature requests through `InferenceEngine` (the
+    model behind a `ConcatTable` of two views, so the engine must give
+    `y[1]`): each output within 1e-6 of the model's own b64 forward and
+    equal to `LocalPredictor`'s."""
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.optim import LocalPredictor
+    from bigdl_tpu_torch.serving import InferenceEngine
+    from bigdl_tpu_torch.tools import bench
+    from bigdl_tpu_torch.utils import T
+    wd = bench.wide_n_deep_model("cuda", torch.Generator().manual_seed(0))
+    served = (tnn.Sequential().add(wd).add(
+        tnn.ConcatTable().add(tnn.Identity()).add(tnn.Identity())))
+    x, _ = bench._wide_n_deep_batch(WD_REQUESTS, seed=15)
+    samples = [Sample([v[i] for v in x]) for i in range(WD_REQUESTS)]
+    with torch.no_grad():
+        want = wd.eval()(T(*[torch.from_numpy(v).cuda() for v in x])).cpu()
+    pred = np.stack(LocalPredictor(served, batch_size=WD_REQUESTS,
+                                   device="cuda").predict(samples))
+    with InferenceEngine(served, max_batch_size=32, max_wait_ms=2.0,
+                         device="cuda") as eng:
+        futs = [eng.submit(s) for s in samples]
+        got = np.stack([f.result(120) for f in futs])
+        stats = eng.stats()
+    err = float(np.abs(got - want.numpy()).max())
+    err_pred = float(np.abs(pred - want.numpy()).max())
+    print("wide_n_deep serving " + json.dumps({
+        "requests": WD_REQUESTS, "max_abs_err": err,
+        "predictor_max_abs_err": err_pred,
+        "batches": stats["batches"], "completed": stats["completed"]}),
+        flush=True)
+    check(got.shape == (WD_REQUESTS, 2) and err <= WD_SERVE_ATOL
+          and err_pred <= WD_SERVE_ATOL,
+          f"wide_n_deep served outputs {err:.2e} (predictor "
+          f"{err_pred:.2e}) from the b64 forward, limit {WD_SERVE_ATOL}")
+
+
+def wd_dp_phase():
+    """15(g): `tools/bench.py --model wide_n_deep --nproc 2 --backend
+    gloo`: two ranks sharing the card, b512 each: each rank's loss falls,
+    one gradient all-reduce a step (one bucket), no kernel launch."""
+    from bigdl_tpu_torch.tools.bench import bench_dp
+    res = bench_dp("wide_n_deep", 2, warmup=WD_WARMUP, iters=16,
+                   sync=WD_SYNC, backend="gloo", device="cuda",
+                   timeout_s=DP_CHILD_TIMEOUT_S)
+    print("wide_n_deep dp " + json.dumps(
+        {**{k: v for k, v in res.items() if k != "ranks"},
+         "ranks": [{k: v for k, v in r.items() if k != "losses"}
+                   for r in res["ranks"]],
+         "rank_losses": [[r["losses"][0], r["losses"][-1]]
+                         for r in res["ranks"]]}), flush=True)
+    for r in res["ranks"]:
+        losses = r["losses"]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"wide_n_deep rank {r['rank']}: the loss did not fall "
+              f"({losses[0]} -> {losses[-1]})")
+        check(r["collectives_per_step"].get("grad") == 1.0
+              and r["n_buckets"] == 1,
+              f"wide_n_deep rank {r['rank']}: gradient all-reduces "
+              f"{r['collectives_per_step']}, {r['n_buckets']} buckets")
+        check(not any(r["kernel_launches_per_step"].values()),
+              f"wide_n_deep rank {r['rank']} launched kernels of the port: "
+              f"{r['kernel_launches_per_step']}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3270,6 +3466,16 @@ def main() -> int:
     dp_launches = [f["bn_relu_launches_per_step"] for f in dp_full]
     dp_steps = DP_WARMUP + DP_ITERS
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 15. Wide&Deep
+    t0 = time.perf_counter()
+    wd_parity_phase()
+    wd_bench_phase(ak, sk, bk)
+    wd_profile_phase()
+    wd_example_phase()
+    wd_serving_phase()
+    wd_dp_phase()
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
     zoo_launches = {
         "launches_inception_v1": zoo_bench["inception_v1"]["launches"],
         "launches_inception_v2": zoo_bench["inception_v2"]["launches"],

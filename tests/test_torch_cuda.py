@@ -9,8 +9,12 @@ the training loop's accounting and safety net: one FLOP count of a step
 whether the kernels run (the card), their plain versions (the CPU) or
 neither (the meta device), the Evaluator on the card against the CPU,
 and a resume from a checkpoint equal to the uninterrupted run bit for bit
-(deterministic algorithms on); and data parallel: two ranks over gloo
-sharing the card against one process on the whole batch.
+(deterministic algorithms on); data parallel: two ranks over gloo
+sharing the card against one process on the whole batch; and the
+Wide&Deep sparse stack: `LookupTableSparse` and `SparseLinear` on the
+card against their CPU run (outputs and gradients within 1e-5 of the
+largest element, f32), `SparseLinear` and `IndicatorCol` given the
+card's index tensors.
 
 Every test here needs a CUDA device and skips without one. This file
 imports nothing of JAX, so it runs where JAX is not installed:
@@ -928,3 +932,72 @@ def test_two_gloo_ranks_on_one_card_match_one_process(cuda_device,
         if k not in names and want.is_floating_point():
             tol = 1e-4 * max(float(want.abs().max()), 1e-6)
             assert float((got[k] - want).abs().max()) <= tol, k
+
+
+# ------------------------------------------------ the Wide&Deep sparse stack
+
+def _sparse_pair(make, cuda_device):
+    cpu = make("cpu")
+    card = make("cpu")
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card.to(cuda_device)
+
+
+def _run_sparse(layer, inputs):
+    from bigdl_tpu_torch.utils import T
+    out = layer(T(*inputs) if isinstance(inputs, list) else inputs)
+    (out * out).sum().backward()
+    return out.detach().cpu(), {n: p.grad.cpu()
+                                for n, p in layer.named_parameters()}
+
+
+def _assert_close_f32(got, want, what):
+    tol = 1e-5 * max(float(want.abs().max()), 1e-6)
+    assert float((got - want).abs().max()) <= tol, what
+
+
+def test_sparse_layers_on_cuda_match_cpu(cuda_device):
+    """`LookupTableSparse` (each combiner, a finite max_norm, 0 padding)
+    and `SparseLinear` (-1 padding, an index past the last row, float and
+    int64 indices on the card): outputs and gradients within 1e-5 of
+    their CPU run's largest element (f32; the embedding backward's
+    atomics add in another order)."""
+    from bigdl_tpu_torch import nn as tnn
+    rs = np.random.RandomState(3)
+    ids = rs.randint(0, 11, (64, 7)).astype(np.int64)
+    wts = rs.rand(64, 7).astype(np.float32)
+    for combiner in ("sum", "mean", "sqrtn"):
+        cpu, card = _sparse_pair(lambda d: tnn.LookupTableSparse(
+            10, 6, combiner, 1.5, device=d,
+            generator=torch.Generator().manual_seed(1)), cuda_device)
+        want = _run_sparse(cpu, [torch.from_numpy(ids),
+                                 torch.from_numpy(wts)])
+        got = _run_sparse(card, [torch.from_numpy(ids).to(cuda_device),
+                                 torch.from_numpy(wts).to(cuda_device)])
+        _assert_close_f32(got[0], want[0], combiner)
+        for n in want[1]:
+            _assert_close_f32(got[1][n], want[1][n], f"{combiner} {n}")
+    idx = rs.randint(-1, 120, (1024, 3))
+    vals = rs.rand(1024, 3).astype(np.float32)
+    for dtype in (torch.int64, torch.float32):
+        cpu, card = _sparse_pair(lambda d: tnn.SparseLinear(
+            100, 2, device=d, generator=torch.Generator().manual_seed(2)),
+            cuda_device)
+        i = torch.from_numpy(idx).to(dtype)
+        want = _run_sparse(cpu, [i, torch.from_numpy(vals)])
+        got = _run_sparse(card, [i.to(cuda_device),
+                                 torch.from_numpy(vals).to(cuda_device)])
+        _assert_close_f32(got[0], want[0], f"SparseLinear {dtype}")
+        for n in want[1]:
+            _assert_close_f32(got[1][n], want[1][n], f"SparseLinear {n}")
+
+
+def test_feature_columns_take_the_card_s_index_tensors(cuda_device):
+    from bigdl_tpu_torch.ops import IndicatorCol
+    ids = torch.tensor([[0, 1, 1], [4, -1, 2], [7, 3, 3]])
+    for is_count in (True, False):
+        want = IndicatorCol(5, is_count, device="cpu")(ids)
+        got = IndicatorCol(5, is_count, device=cuda_device)(
+            ids.to(cuda_device))
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)

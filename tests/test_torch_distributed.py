@@ -8,7 +8,10 @@ the launcher's environment, and writes its results for the tests to
 read. Three launches serve the whole file (module-scoped fixtures):
 - `runs`: every scenario of one healthy 2-rank run;
 - `resumed`: a fresh 2-rank launch resuming from `runs`' checkpoint;
-- `one_rank_fault`: a transient fault on rank 1 alone.
+- `one_rank_fault`: a transient fault on rank 1 alone;
+- `widedeep`: Wide&Deep (`BASELINE.md` config 5) at global b16, each
+  rank's 8 rows of all four input tensors, the model taking their 1-based
+  `Table`.
 Each rank pins torch to one thread; each launch has a 120 s limit.
 
 The model is conv (no bias: BN takes out its gradient) -> BN -> ReLU (a
@@ -100,6 +103,22 @@ def mask_data():
     y = np.array([1, 0, 3, 2, 0, 0, 4, 0], np.int32)
     return x, y
 
+def widedeep_net(nn, **kw):
+    """Config 5's WideAndDeep from the package `nn` belongs to."""
+    import importlib
+    models = importlib.import_module(nn.__name__[:-len("nn")] + "models")
+    return models.WideAndDeep(2, wide_dim=100, embed_vocabs=(10, 10),
+                              embed_dim=4, cont_dim=3, **kw)
+
+def widedeep_data():
+    rs = np.random.RandomState(14)
+    x = [rs.randint(0, 100, (16, 3)).astype(np.int32),
+         rs.rand(16, 3).astype(np.float32),
+         rs.randint(1, 10, (16, 2)).astype(np.int32),
+         rs.rand(16, 3).astype(np.float32)]
+    y = (rs.randint(0, 2, 16) + 1).astype(np.int32)
+    return x, y
+
 def dropout_data():
     rs = np.random.RandomState(13)
     x = rs.randn(8, 8).astype(np.float32)
@@ -128,6 +147,7 @@ from bigdl_tpu_torch.parallel import collectives
 from bigdl_tpu_torch.resilience import FaultInjector, FaultSpec
 
 exec(open(os.environ["COMMON"]).read())
+STEPS = int(os.environ["STEPS"])
 rank, world = collectives.rank(), Engine.node_number()
 out_dir = os.environ["OUT_DIR"]
 with open(os.environ["INPUTS"], "rb") as f:
@@ -247,6 +267,14 @@ try:
             else:
                 res[run], _ = train(m, (xd[rows], yd[rows]), 6, **kw)
         res["masks"] = masks
+    elif scenario == "widedeep":
+        x, y = widedeep_data()
+        wrows = slice(8 * rank, 8 * rank + 8)
+        collectives.reset_counts()
+        res["widedeep"], opt = train(
+            model_of(widedeep_net, "widedeep"),
+            ([v[wrows] for v in x], y[wrows]), STEPS, lr=0.05)
+        res["widedeep"]["counts"] = dict(collectives.counts)
     elif scenario == "resume":
         res["resumed"], _ = train(model_of(conv_net, "conv"), conv_batch(),
                                   6, ckpt=os.environ["CKPT"], resume=True)
@@ -290,6 +318,7 @@ def _launch(tmp, scenario, ckpt, timeout_s=20.0):
                    OUT_DIR=str(out), CKPT=str(ckpt),
                    INPUTS=str(tmp / "inputs.pkl"),
                    COMMON=str(tmp / "common.py"), TIMEOUT_S=str(timeout_s),
+                   STEPS=str(STEPS),
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                    RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
                    OMP_NUM_THREADS="1")
@@ -334,7 +363,8 @@ def setup(tmp_path_factory):
     (tmp / "common.py").write_text(_COMMON)
     carried = {}
     for key, builder, seed in (("conv", conv_net, 1), ("mask", mask_net, 2),
-                               ("dropout", dropout_net, 3)):
+                               ("dropout", dropout_net, 3),
+                               ("widedeep", widedeep_net, 4)):
         _, params, state = _jax_carry(builder, seed)
         carried[key] = (params, state or None)
     with open(tmp / "inputs.pkl", "wb") as f:
@@ -553,6 +583,26 @@ def test_dropout_masks_differ_across_ranks(runs):
         assert abs(m.mean() - 0.5) < 0.06
         # each step draws new masks
         assert all((m[i] != m[i + 1]).any() for i in range(5))
+
+
+def test_widedeep_two_ranks_match_the_jax_mesh(setup):
+    """Config 5 at global b16 over two gloo ranks, each given its rows of
+    the four input tensors, against the JAX DistriOptimizer on the whole
+    batch over a 2-device mesh: the tolerances above, and one gradient
+    all-reduce a step (one bucket)."""
+    tmp, carried = setup
+    got, rcs, _, logs = _launch(tmp, "widedeep", tmp / "ckpt_wd")
+    assert rcs == [0, 0], "\n".join(logs)[-4000:]
+    x, y = widedeep_data()
+    j_losses, j_params, _ = _jax_run(widedeep_net, "widedeep", carried, x,
+                                     y, STEPS, jnn.ClassNLLCriterion(),
+                                     lr=0.05)
+    for r in (0, 1):
+        run = got[r]["widedeep"]
+        np.testing.assert_allclose(run["losses"], j_losses, rtol=RTOL)
+        _close_tree(run["params"], j_params)
+        assert run["counts"]["grad"] == STEPS
+    _equal_tree(got[0]["widedeep"]["params"], got[1]["widedeep"]["params"])
 
 
 def test_a_fault_on_one_rank_stops_both(setup):

@@ -544,7 +544,8 @@ class TestBucketPaddingParity:
                 self.b = tnn.Linear(5, 3, device="cpu")
 
             def forward(self, xs):
-                return self.a(xs[0]) + self.b(xs[1])
+                # the features arrive as the 1-based Table
+                return self.a(xs[1]) + self.b(xs[2])
 
         m = TwoInputs()
         rs = np.random.RandomState(3)

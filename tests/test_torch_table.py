@@ -11,6 +11,13 @@ modules that produce and consume one (`ConcatTable`, `CAddTable`,
 - `CAddTable` sums a `Table` as the reference does; `LocalPredictor` on a
   model that ends in a `ConcatTable` returns its first branch, `out[1]`,
   in both packages.
+- A multi-input batch reaches the model as the 1-based `Table`: a model
+  that returns `input[1]` gets the first array through `LocalOptimizer`,
+  `DistriOptimizer`, `LocalPredictor`, `Evaluator` and `InferenceEngine`,
+  as in the reference (losses, parameters and outputs within 1e-6: the
+  same f32 arithmetic); a list target reaches the criterion as a `Table`
+  too; a string column stays a numpy array on the host for a
+  feature-column op.
 
 Inputs come from numpy with fixed seeds.
 """
@@ -23,15 +30,25 @@ import jax
 import jax.numpy as jnp
 
 import bigdl_tpu.nn as jnn
+import bigdl_tpu.ops as jops
+import bigdl_tpu.optim as joptim
+from bigdl_tpu.dataset.dataset import LocalDataSet as JLocalDataSet
+from bigdl_tpu.dataset.sample import MiniBatch as JMiniBatch
 from bigdl_tpu.dataset.sample import Sample as JSample
+from bigdl_tpu.optim.distri_optimizer import DistriOptimizer as JDistri
+from bigdl_tpu.optim.evaluator import Evaluator as JEvaluator
+from bigdl_tpu.parallel.mesh import build_mesh as jbuild_mesh
 from bigdl_tpu.nn.module import functional_apply
 from bigdl_tpu.optim.predictor import LocalPredictor as JPredictor
 from bigdl_tpu.utils.table import T as JT
 from bigdl_tpu.utils.table import Table as JTable
 import bigdl_tpu_torch.nn as tnn
-from bigdl_tpu_torch.dataset import Sample
+import bigdl_tpu_torch.ops as tops
+from bigdl_tpu_torch import optim as toptim
+from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch, Sample
 from bigdl_tpu_torch.interop import load_module_params
-from bigdl_tpu_torch.optim import LocalPredictor
+from bigdl_tpu_torch.optim import Evaluator, LocalPredictor
+from bigdl_tpu_torch.serving import InferenceEngine
 from bigdl_tpu_torch.utils import T, Table
 
 ATOL = 1e-6
@@ -172,3 +189,185 @@ def test_local_predictor_gives_the_first_branch():
     assert got[0].shape == want[0].shape == (3,)
     np.testing.assert_allclose(np.stack(got), np.stack(want), atol=ATOL,
                                rtol=0)
+
+
+# --------------------------------------------------------------------------
+# Multi-input batches reach the model as the 1-based Table
+# --------------------------------------------------------------------------
+
+class JFirst(jnn.Module):
+    """The reference side: `input[1] * scale`."""
+
+    def init(self, rng):
+        return {"scale": jnp.asarray([1.0, 0.5, 2.0], jnp.float32)}
+
+    def apply(self, params, input, ctx):
+        return input[1] * params["scale"]
+
+
+class TFirst(tnn.Module):
+    """The port side: `input[1] * scale`."""
+
+    def __init__(self):
+        super().__init__()
+        self.scale = torch.nn.Parameter(torch.tensor([1.0, 0.5, 2.0]))
+
+    def forward(self, input):
+        return input[1] * self.scale
+
+
+def _two_inputs(n=8):
+    """The first array near 0, the second near 10: a model that reads the
+    wrong one is off by ~10."""
+    return _x(n, 3, seed=20), _x(n, 3, seed=21) + 10.0, _x(n, 3, seed=22)
+
+
+def _jax_first():
+    jm = JFirst()
+    jm.ensure_params()
+    return jm
+
+
+def _train_both(port_kind):
+    a, b, y = _two_inputs()
+    jm = _jax_first()
+    jds = JLocalDataSet([JMiniBatch([a, b], y)])
+    if port_kind == "local":
+        jopt = joptim.LocalOptimizer(jm, jds, jnn.MSECriterion())
+    else:
+        jopt = JDistri(jm, jds, jnn.MSECriterion(),
+                       mesh=jbuild_mesh(data=1, devices=jax.devices()[:1]))
+    tm = TFirst()
+    tds = LocalDataSet([MiniBatch([a, b], y)])
+    if port_kind == "local":
+        topt = toptim.LocalOptimizer(tm, tds, tnn.MSECriterion(),
+                                     device="cpu")
+    else:
+        topt = toptim.DistriOptimizer(tm, tds, tnn.MSECriterion(),
+                                      devices=["cpu"])
+    runs = []
+    for opt, pkg in ((jopt, joptim), (topt, toptim)):
+        opt.set_optim_method(pkg.SGD(learning_rate=0.1, momentum=0.9))
+        opt.set_end_when(pkg.max_iteration(3))
+        losses = []
+        opt.set_iteration_hook(lambda s, losses=losses: losses.append(
+            s["loss"]))
+        opt.optimize()
+        runs.append(losses)
+    return runs, np.asarray(jm.ensure_params()["scale"]), \
+        tm.scale.detach().numpy()
+
+
+@pytest.mark.parametrize("kind", ["local", "distri"])
+def test_optimizers_give_the_model_a_one_based_table(kind):
+    (j_losses, t_losses), j_scale, t_scale = _train_both(kind)
+    assert len(t_losses) == 3
+    np.testing.assert_allclose(t_losses, j_losses, rtol=1e-6)
+    np.testing.assert_allclose(t_scale, j_scale, rtol=1e-6, atol=ATOL)
+
+
+def test_a_list_target_reaches_the_criterion_as_a_table():
+    """The reference's loop gives a list target as a `Table` too: a
+    criterion that reads `target[1]` trains as the reference's does on
+    the first target alone."""
+    a, b, y = _two_inputs()
+    jm = _jax_first()
+    jopt = joptim.LocalOptimizer(jm, JLocalDataSet([JMiniBatch([a, b], y)]),
+                                 jnn.MSECriterion())
+    tm = TFirst()
+    seen = []
+
+    def first_target_mse(out, t):
+        seen.append(type(t))
+        return torch.mean((out - t[1]) ** 2)
+
+    topt = toptim.LocalOptimizer(
+        tm, LocalDataSet([MiniBatch([a, b], [y, y + 100.0])]),
+        first_target_mse, device="cpu")
+    runs = []
+    for opt, pkg in ((jopt, joptim), (topt, toptim)):
+        opt.set_optim_method(pkg.SGD(learning_rate=0.1))
+        opt.set_end_when(pkg.max_iteration(2))
+        losses = []
+        opt.set_iteration_hook(lambda s, losses=losses: losses.append(
+            s["loss"]))
+        opt.optimize()
+        runs.append(losses)
+    assert seen and all(t is Table for t in seen)
+    np.testing.assert_allclose(runs[1], runs[0], rtol=1e-6)
+
+
+def _samples_both(n=8):
+    a, b, y = _two_inputs(n)
+    return ([JSample([a[i], b[i]], y[i]) for i in range(n)],
+            [Sample([a[i], b[i]], y[i]) for i in range(n)])
+
+
+def test_local_predictor_gives_the_model_a_one_based_table():
+    jm = _jax_first()
+    js, ts = _samples_both()
+    want = JPredictor(jm, batch_size=3).predict(js)
+    got = LocalPredictor(TFirst(), batch_size=3, device="cpu").predict(ts)
+    np.testing.assert_allclose(np.stack(got), np.stack(want), atol=ATOL,
+                               rtol=0)
+
+
+def test_evaluator_gives_the_model_a_one_based_table():
+    from bigdl_tpu.optim.validation import Loss as JLoss
+    from bigdl_tpu_torch.optim.validation import Loss
+    jm = _jax_first()
+    js, ts = _samples_both()
+    (want,) = JEvaluator(jm, 4).test(js, [JLoss(jnn.MSECriterion())])
+    (got,) = Evaluator(TFirst(), 4, device="cpu").test(
+        ts, [Loss(tnn.MSECriterion())])
+    np.testing.assert_allclose(got.result()[0], want.result()[0], rtol=1e-6)
+    assert got.result()[1] == want.result()[1]
+
+
+def test_inference_engine_gives_the_model_a_one_based_table():
+    jm = _jax_first()
+    js, ts = _samples_both(5)
+    want = JPredictor(jm, batch_size=5).predict(js)
+    with InferenceEngine(TFirst(), max_batch_size=8, max_wait_ms=25.0,
+                         device="cpu", start=False) as eng:
+        futs = [eng.submit(s) for s in ts]
+        eng.start()
+        got = [f.result(60) for f in futs]
+        assert eng.stats()["batches"] == 1
+    np.testing.assert_allclose(np.stack(got), np.stack(want), atol=ATOL,
+                               rtol=0)
+
+
+class THashed(tnn.Module):
+    """`input[1] * scale` plus the crc32 bucket of the string column
+    `input[2]`, hashed on the host."""
+
+    def __init__(self):
+        super().__init__()
+        self.scale = torch.nn.Parameter(torch.ones(3))
+        self.hash = tops.CategoricalColHashBucket(5, device="cpu")
+
+    def forward(self, input):
+        assert isinstance(input[2], np.ndarray) and input[2].dtype.kind == "U"
+        return input[1] * self.scale + self.hash(input[2]).float()[:, None]
+
+
+def test_a_string_column_reaches_a_feature_column_op_on_the_host():
+    a, _, y = _two_inputs()
+    words = np.array(["cat", "dog", "emu", "yak", "cat", "owl", "dog", "ant"])
+    buckets = np.asarray(jops.CategoricalColHashBucket(5).forward(words))
+    want = a + buckets[:, None].astype(np.float32)
+    got = LocalPredictor(THashed(), batch_size=3, device="cpu",
+                         convert=False).predict(
+        [Sample([a[i], words[i]]) for i in range(8)])
+    np.testing.assert_allclose(np.stack(got), want, atol=ATOL, rtol=0)
+    tm = THashed()
+    opt = toptim.LocalOptimizer(tm, LocalDataSet([MiniBatch([a, words], y)]),
+                                tnn.MSECriterion(), device="cpu")
+    opt.set_optim_method(toptim.SGD(learning_rate=0.01))
+    opt.set_end_when(toptim.max_iteration(1))
+    losses = []
+    opt.set_iteration_hook(lambda s: losses.append(s["loss"]))
+    opt.optimize()
+    np.testing.assert_allclose(losses[0], np.mean((want - y) ** 2),
+                               rtol=1e-6)
