@@ -187,9 +187,12 @@ class DistributedDataSet(LocalDataSet):
     """This rank's shard of `items`: item `i` when `i % num_hosts ==
     host_index`. The defaults are the process group's rank and world size
     (`Engine.init(distributed=True)` joins it), so one script runs on one
-    process or many; on one it is a `LocalDataSet` of every item.
-    `global_size` counts the items of every shard, so the epoch triggers
-    see global progress."""
+    process or many; on one it is a `LocalDataSet` of every item. Under a
+    model axis the ranks of a model group must share a shard: pass the
+    process mesh's `data_index` and data axis size (`DistriOptimizer`
+    refuses a shard that does not match its mesh). `global_size` counts
+    the items of every shard, so the epoch triggers see global
+    progress."""
 
     def __init__(self, items: Sequence, host_index: Optional[int] = None,
                  num_hosts: Optional[int] = None, seed: int = 1):

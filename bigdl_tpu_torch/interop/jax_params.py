@@ -240,13 +240,34 @@ def tree_from_named(model, named: Mapping[str, torch.Tensor]) -> Dict:
     layout `params_tree` gives, empty subtrees included. Tensors of the
     parameters of one top-level child only (a per-submodule method's
     slots) give that child's subtree."""
+    return export_named(
+        model, named, lambda name, t, conv: t.detach().float().cpu().numpy())
+
+
+def export_named(model, named: Mapping[str, torch.Tensor], leaf) -> Dict:
+    """`tree_from_named` with its own leaves: each leaf is
+    `leaf(name, tensor, conv)`, the tensor in the JAX layout (a conv
+    weight's permuted OIHW -> HWIO, `conv` True)."""
     names = _param_names(model)
     targets = _tree_targets(model)
     children = {n.split(".", 1)[0] for n in named}
     if set(named) != set(names.values()) and len(children) == 1:
         targets = targets[children.pop()]
-    return _export(targets,
-                   lambda p: named[names[id(p)]].detach().float().cpu())
+
+    def walk(node):
+        out = {}
+        for key, dst in node.items():
+            if isinstance(dst, Mapping):
+                out[key] = walk(dst)
+                continue
+            conv = isinstance(dst, _HwioToOihw)
+            name = names[id(dst.param if conv else dst)]
+            t = named[name]
+            out[key] = leaf(name, t.permute(2, 3, 1, 0) if conv else t,
+                            conv)
+        return out
+
+    return walk(targets)
 
 
 def named_from_tree(model, tree: Mapping, child: Optional[str] = None

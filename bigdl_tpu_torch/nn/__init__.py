@@ -29,7 +29,7 @@ from bigdl_tpu_torch.nn.pooling import (Pooler, SpatialAveragePooling,
 from bigdl_tpu_torch.nn.recurrent import (LSTM, LSTM2, Cell, LSTMCell,
                                           MultiRNNCell, Recurrent, RnnCell,
                                           TimeDistributed)
-from bigdl_tpu_torch.nn.shape_ops import DenseToSparse, Reshape
+from bigdl_tpu_torch.nn.shape_ops import DenseToSparse, Mean, Reshape
 
 __all__ = ["BatchNormalization", "CAddTable", "Cell", "ClassNLLCriterion",
            "Concat", "ConcatTable", "Container", "DenseToSparse", "Dropout",
@@ -38,7 +38,8 @@ __all__ = ["BatchNormalization", "CAddTable", "Cell", "ClassNLLCriterion",
            "LogSoftMax", "LookupTable", "LookupTableSparse", "MSECriterion",
            "Module",
            "MsraFiller", "MultiHeadAttention", "MultiRNNCell", "Pooler",
-           "RandomNormal", "RandomUniform", "ReLU", "Recurrent", "Reshape",
+           "Mean", "RandomNormal", "RandomUniform", "ReLU", "Recurrent",
+           "Reshape",
            "RnnCell", "ScaledDotProductAttention", "Sequential", "Sigmoid",
            "SpaceToDepthStemConvolution", "SparseJoinTable", "SparseLinear",
            "SpatialAveragePooling",

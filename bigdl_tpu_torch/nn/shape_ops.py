@@ -1,8 +1,9 @@
 """Shape layers (counterpart of `bigdl_tpu/nn/shape_ops.py`).
 
-Ported: `Reshape`, what the feed-forward models use, and
-`DenseToSparse`, the identity (the sparse layers take the padded
-`T(indices, values)` form, not a COO tensor), as in the reference.
+Ported: `Reshape`, what the feed-forward models use, `Mean` (an
+embedding model's pooling over the sequence), and `DenseToSparse`, the
+identity (the sparse layers take the padded `T(indices, values)` form,
+not a COO tensor), as in the reference.
 """
 
 from __future__ import annotations
@@ -30,6 +31,20 @@ class Reshape(Module):
         if self.batch_mode is False:
             return x.reshape(self.size)
         return x.reshape((x.shape[0],) + self.size)
+
+
+class Mean(Module):
+    """The mean over the 0-based axis `dimension` (reference `Mean`);
+    `squeeze=False` keeps the axis. `n_input_dims` is the reference's,
+    unused there too."""
+
+    def __init__(self, dimension: int = 0, n_input_dims: int = -1,
+                 squeeze: bool = True, name: Optional[str] = None):
+        super().__init__(name)
+        self.dimension, self.squeeze = dimension, squeeze
+
+    def forward(self, x):
+        return x.mean(self.dimension, keepdim=not self.squeeze)
 
 
 class DenseToSparse(Module):

@@ -1,4 +1,4 @@
-"""Synchronous data-parallel training (counterpart of
+"""Synchronous data- and tensor-parallel training (counterpart of
 `bigdl_tpu/optim/distri_optimizer.py`): one process per device, joined
 by `torch.distributed` (`Engine.init(distributed=True)`; NCCL on cards,
 gloo on the CPU).
@@ -41,6 +41,48 @@ global-batch step:
   a failure on one rank alone stops every rank: the failing one once the
   agreement times out, the others when their collective errors out.
 
+Tensor parallelism: with `mesh` a `ProcessMesh` of shape (data D, model
+M), M > 1 (`Engine.get_mesh(data=D, model=M)`; rank r at (r // M, r % M)),
+the ranks of one model group (the same data index) train on the same
+batch and share the parameters, as the reference's `NamedSharding` over
+a (data, model) mesh; `sharding_rules` (default `ShardingRules()`, as the
+reference's) decide which parameter is split over "model"
+(`parallel/sharding.py`):
+- at the start of each attempt the whole state is broadcast as above,
+  then each rank keeps only its shard of every sharded parameter
+  (`ShardedParameters`: the module's parameter is swapped for one of the
+  shard's shape, under the same name); its f32 masters and slots are
+  built from the shard, so they are 1/M the size. After the run (and
+  before a retry reloads) the whole parameters are gathered back;
+- each forward gathers every sharded parameter over the model group
+  (`collectives.all_gather`); the backward gives each rank its own slice
+  of the whole parameter's gradient, never summed over the model group
+  (every rank of it computed the same loss on the same data);
+- everything the data-parallel step reduces is reduced over the data
+  group only, divided by D: the gradient buckets (built over the shards),
+  the BN statistics, the criteria's denominators, the synced loss;
+- the global L2 norm of clipping counts each shard once: the shards'
+  squared norms are summed over the model group, the replicated
+  parameters' added once; so do the norms of a method that reduces over
+  a whole parameter (`LAMB`'s trust ratio,
+  `collectives.tensor_parallel_step`);
+- a `DistributedDataSet` is built with the mesh's data index over D hosts
+  (`DistributedDataSet(items, mesh.data_index, D)`), so the ranks of a
+  model group take the same rows and the records and the epoch count D
+  hosts; one whose host index or count does not match the mesh is
+  refused. Dropout mixes the step's seed with the data index, so a model
+  group draws one mask and data replicas draw different ones;
+- checkpoints: the format v2 gathers the whole parameters and slots on
+  every rank first (`save_on_rank0`'s `gather`), so rank 0 writes what
+  the reference loads; a resume slices each rank's shard out of the whole
+  arrays. `set_checkpoint(sharded=True)` writes each rank's shards
+  through `torch.distributed.checkpoint` (`sharded_checkpoint.py`);
+- a run that fails for good puts the start-of-run parameters back, as
+  `LocalOptimizer` does (each rank holds only its shards, so the model
+  cannot be left as the failed step had it).
+The compute is replicated across a model group: the Megatron split of
+the matmuls is not ported (`ROADMAP.md` queue 2).
+
 At world size 1 no collective is issued: the step is the local one, run
 inside the reference's retry loop (on a failure the error is classified
 by the `RetryPolicy`, the loop backs off, reloads the newest valid
@@ -49,14 +91,15 @@ at the start of the attempt, and trains on). As in the reference, there
 is no retry without `set_checkpoint`, and then no snapshot either.
 
 Not ported (`ROADMAP.md` queue 1 item 3): several devices in one process
-(`mesh=` or `devices=` naming more than one raises
-`NotImplementedError`: start one process per GPU), `sharding_rules`
-(tensor parallelism), sharded checkpoints and elastic mode; the overlap
-of the gradient buckets with the backward pass.
+(a device `Mesh` or `devices=` naming more than one raises
+`NotImplementedError`: start one process per GPU) and elastic mode; the
+overlap of the gradient buckets and the gathers with the backward and
+forward passes (queue 2).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import Dict, List, Optional, Sequence
@@ -67,30 +110,35 @@ from bigdl_tpu_torch._device import resolve_device
 from bigdl_tpu_torch.optim.bucketing import GradientBucketPlan
 from bigdl_tpu_torch.optim.local_optimizer import BaseOptimizer
 from bigdl_tpu_torch.parallel import collectives
+from bigdl_tpu_torch.parallel.mesh import ProcessMesh
+from bigdl_tpu_torch.parallel.sharding import (ShardedParameters,
+                                               ShardingRules, param_specs)
 from bigdl_tpu_torch.resilience.retry import RetryPolicy
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
 
 class DistriOptimizer(BaseOptimizer):
-    """Data-parallel SGD, one device per process: `mesh` (the reference's
-    parameter) or `devices` names this process's device (default: the
-    current CUDA device, which `Engine.init` sets to the rank's). The
-    ranks are the default process group's. `retry_times` /
-    `retry_interval_s` build the default `RetryPolicy(max_retries=
-    retry_times, base_delay_s=retry_interval_s)`; `retry_policy`
-    replaces it."""
+    """Data- and tensor-parallel SGD, one device per process. `mesh` is a
+    `ProcessMesh` of the default group's ranks (`Engine.get_mesh(data,
+    model)`), or, as before, a device `Mesh` naming this process's device;
+    None is every rank on the data axis. `sharding_rules` (default
+    `ShardingRules()`) place the parameters on a model axis. `devices`
+    names this process's device (default: the current CUDA device, which
+    `Engine.init` sets to the rank's). `retry_times` / `retry_interval_s`
+    build the default `RetryPolicy(max_retries=retry_times,
+    base_delay_s=retry_interval_s)`; `retry_policy` replaces it."""
 
     def __init__(self, model: torch.nn.Module, dataset, criterion,
-                 mesh=None, sharding_rules=None, retry_times: int = 5,
-                 retry_interval_s: float = 1.0,
+                 mesh=None, sharding_rules: Optional[ShardingRules] = None,
+                 retry_times: int = 5, retry_interval_s: float = 1.0,
                  retry_policy: Optional[RetryPolicy] = None, *,
                  devices: Optional[Sequence] = None):
-        if sharding_rules is not None:
-            raise NotImplementedError(
-                "DistriOptimizer sharding_rules (tensor parallelism) are "
-                "not ported (ROADMAP.md queue 1 item 3); pass None")
-        if mesh is not None:
+        #: the mesh of ranks (None: every rank on the data axis)
+        self.process_mesh: Optional[ProcessMesh] = None
+        if isinstance(mesh, ProcessMesh):
+            self.process_mesh = mesh
+        elif mesh is not None:
             if devices is not None:
                 raise ValueError("pass mesh or devices, not both")
             devices = list(mesh.devices.ravel())
@@ -103,6 +151,10 @@ class DistriOptimizer(BaseOptimizer):
                 "(ROADMAP.md queue 1 item 3)")
         super().__init__(model, dataset, criterion, device=devices[0])
         self.devices = devices
+        self.rules = sharding_rules or ShardingRules()
+        #: this attempt's tensor-parallel placement (None without a model
+        #: axis, and between runs)
+        self.sharded: Optional[ShardedParameters] = None
         self.retry_times = retry_times
         self.retry_interval_s = retry_interval_s
         self.retry_policy = retry_policy
@@ -130,19 +182,62 @@ class DistriOptimizer(BaseOptimizer):
         return collectives.world_size()
 
     @property
+    def data_size(self) -> int:
+        """Data replicas (the mesh's data axis; the world without one)."""
+        mesh = self.process_mesh
+        return self.world if mesh is None else mesh.shape["data"]
+
+    @property
+    def model_size(self) -> int:
+        """Ranks sharing the parameters (the mesh's model axis)."""
+        mesh = self.process_mesh
+        return 1 if mesh is None else mesh.shape["model"]
+
+    @property
+    def _data_group(self) -> Optional[collectives.Group]:
+        """The ranks the data-parallel step reduces over (None: all)."""
+        mesh = self.process_mesh
+        return None if mesh is None else mesh.data_group
+
+    @property
+    def _data_index(self) -> int:
+        mesh = self.process_mesh
+        return collectives.rank() if mesh is None else mesh.data_index
+
+    @property
     def _n_compute_devices(self) -> int:
         """The MFU denominator's device count: the global step runs on
         every rank's device."""
         return self.world
 
     def _log_suffix(self) -> str:
+        if self.model_size > 1:
+            return f" ({self.world} ranks, mesh {self.data_size}x" \
+                f"{self.model_size})"
         return f" ({self.world} ranks)" if self.world > 1 \
             else f" ({len(self.devices)} devices)"
 
     def _keeps_snapshot(self) -> bool:
-        """Only a run that can retry (a checkpoint path is set) needs the
-        start-of-attempt snapshot."""
-        return self.checkpoint_path is not None
+        """A run that can retry (a checkpoint path is set) needs the
+        start-of-attempt snapshot, and so does one with a model axis: a
+        failed run's ranks hold only their shards."""
+        return self.checkpoint_path is not None or self.model_size > 1
+
+    def _check_dataset(self) -> None:
+        """A dataset that knows its shard (`DistributedDataSet`) must hold
+        this rank's: its host index and count are the data index and the
+        data replicas of the mesh, so the ranks of a model group train on
+        the same rows."""
+        index = getattr(self.dataset, "host_index", None)
+        if index is None or self.world == 1:
+            return
+        got = (index, self.dataset.num_hosts)
+        if got != (self._data_index, self.data_size):
+            raise ValueError(
+                f"the dataset is host {got[0]} of {got[1]}, but this rank "
+                f"is data replica {self._data_index} of {self.data_size} "
+                f"on the mesh: build it as DistributedDataSet(items, "
+                f"mesh.data_index, mesh.shape['data'])")
 
     # -- the data-parallel step ---------------------------------------------
 
@@ -152,38 +247,91 @@ class DistriOptimizer(BaseOptimizer):
         with torch.no_grad():
             for t in self.model.state_dict().values():
                 collectives.broadcast_(t, 0)
-        self.bucket_plan = GradientBucketPlan(params, self._bucket_bytes)
+        if self.model_size > 1:
+            self.sharded = ShardedParameters(
+                self.model, self.process_mesh,
+                param_specs(self.model, self.process_mesh, self.rules))
+            self.sharded.place()
+            if self._resume_slots is not None:
+                self._resume_slots = self.sharded.shard_tree(
+                    self._resume_slots)
+        self.bucket_plan = GradientBucketPlan(
+            dict(self.model.named_parameters()), self._bucket_bytes)
 
+    def _unplace(self, gather: bool) -> None:
+        """Put the whole parameters back after a run or a failed attempt
+        (`ShardedParameters.unplace`)."""
+        if self.sharded is not None:
+            sharded, self.sharded = self.sharded, None
+            sharded.unplace(gather)
+
+    def _optimize_impl(self):
+        model = super()._optimize_impl()
+        self._unplace(gather=True)
+        return model
+
+    @property
+    def _gather_params(self):
+        return None if self.sharded is None else self.sharded.full_params
+
+    def _grad_sq_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        if self.sharded is None:
+            return super()._grad_sq_norm(grads)
+        dims = self.sharded.dims
+        names = [n for n, _ in self.model.named_parameters()]
+        zero = grads[0].new_zeros((), dtype=torch.float32)
+        shards = sum((torch.sum(g.float() ** 2)
+                      for n, g in zip(names, grads) if n in dims), zero)
+        shards = collectives.all_reduce_(shards.reshape(1).clone(), "clip",
+                                         self.process_mesh.model_group)[0]
+        return shards + sum((torch.sum(g.float() ** 2)
+                             for n, g in zip(names, grads) if n not in dims),
+                            zero)
+
+    def _sharded_leaf(self, name: str, t: torch.Tensor, conv: bool):
+        if self.sharded is None or name not in self.sharded.dims:
+            return super()._sharded_leaf(name, t, conv)
+        return self.sharded.to_dtensor(name, t, conv)
+
+    @contextlib.contextmanager
     def _step_scope(self):
-        return collectives.data_parallel_step(self.world)
+        with collectives.data_parallel_step(self.data_size,
+                                            self._data_group):
+            if self.sharded is None:
+                yield
+                return
+            with collectives.tensor_parallel_step(
+                    self.sharded.dims, self.process_mesh.model_group):
+                yield
 
     def _step_generator(self):
-        if self.world == 1:
+        if self.data_size == 1:
             return self.generator
 
-        def rank_generator():
+        def replica_generator():
             seed = int(torch.randint(
                 0, 2 ** 62, (1,), generator=self.generator,
                 device=self.generator.device))
-            mixed = (seed ^ (collectives.rank() * 0x9E3779B97F4A7C15)) \
+            mixed = (seed ^ (self._data_index * 0x9E3779B97F4A7C15)) \
                 % 2 ** 63
             return torch.Generator(self.device).manual_seed(mixed)
 
-        return rank_generator
+        return replica_generator
 
     def _reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        if self.world == 1:
+        if self.data_size == 1:
             return grads
         plan = self.bucket_plan or GradientBucketPlan(
             dict(self.model.named_parameters()), self._bucket_bytes)
-        return collectives.bucket_all_reduce_mean(grads, plan.buckets,
-                                                  self.world)
+        return collectives.bucket_all_reduce_mean(
+            grads, plan.buckets, self.data_size, self._data_group)
 
     def _synced_loss(self, loss: torch.Tensor) -> float:
-        if self.world == 1:
+        if self.data_size == 1:
             return float(loss)
         t = loss.detach().float().reshape(1).clone()
-        return float(collectives.all_reduce_(t, "loss")) / self.world
+        return float(collectives.all_reduce_(t, "loss", self._data_group)) \
+            / self.data_size
 
     def _epoch_size(self) -> int:
         num_hosts = getattr(self.dataset, "num_hosts", 1)
@@ -194,11 +342,23 @@ class DistriOptimizer(BaseOptimizer):
         return batch.size() * getattr(self.dataset, "num_hosts", 1)
 
     def _save_checkpoint(self, opt_state, tag: str):
+        if self.checkpoint_sharded:
+            super()._save_checkpoint(opt_state, tag)
+            return
         from bigdl_tpu_torch.serialization.checkpoint import save_on_rank0
-        save_on_rank0(lambda: super(DistriOptimizer, self)._save_checkpoint(
-            opt_state, tag), self.device)
-        if collectives.rank() != 0:
-            self._commit_generator()
+        sharded = self.sharded
+
+        def gather():
+            if sharded is None:
+                return None
+            with torch.no_grad():
+                return (sharded.full_params(
+                    dict(self.model.named_parameters()), "unshard"),
+                    sharded.gather_tree(opt_state))
+
+        save_on_rank0(lambda full: self._save_v2(opt_state, tag, full),
+                      self.device, gather=gather)
+        self._commit_generator()
 
     # -- the retry loop -----------------------------------------------------
 
@@ -223,6 +383,7 @@ class DistriOptimizer(BaseOptimizer):
                                  str(self.optim_method.state["neval"]))
 
     def optimize(self) -> torch.nn.Module:
+        self._check_dataset()
         self._start_run()
         return self._optimize_with_retry()
 
@@ -235,6 +396,7 @@ class DistriOptimizer(BaseOptimizer):
             try:
                 return self._optimize_impl()
             except (KeyboardInterrupt, SystemExit):
+                self._unplace(gather=False)
                 self._restore_pristine()
                 raise
             except Exception as e:
@@ -256,8 +418,11 @@ class DistriOptimizer(BaseOptimizer):
                     # a permanent error, retries used up, the budget gone,
                     # nothing to reload from, or peers that did not fail
                     # with this rank
+                    self._unplace(gather=False)
                     self._restore_pristine()
                     raise
+                # every rank failed here and is alive: gather together
+                self._unplace(gather=True)
                 logger.warning(
                     f"Optimization failed ({e!r}); retry {attempt}/"
                     f"{policy.max_retries} from latest checkpoint in "

@@ -34,7 +34,10 @@ model's output upcast to f32.
   format v2 (`serialization/checkpoint.py`), parameters, BN state and
   optimizer slots carried to the JAX tree layout through
   `interop.jax_params`; resume restores them, the counters and the data
-  cursor.
+  cursor. `set_checkpoint(sharded=True)` writes the same trees through
+  `torch.distributed.checkpoint` (`serialization/sharded_checkpoint.py`,
+  the reference's sharded layout, no data cursor, as the reference's);
+  resume finds and loads either kind.
 - A multi-input batch (a `MiniBatch` whose inputs or targets are a list
   of arrays) reaches the model and the criterion as the 1-based `Table`
   (`input[1]` is the first array), as the reference gives it; float
@@ -60,8 +63,8 @@ model's output upcast to f32.
   does.
 
 Not ported (`ROADMAP.md` lists them): telemetry and tracing, summaries,
-NaN/step guards, prefetch, preemption, graph optimisation, sharded
-checkpoints, and the donation the JAX step uses (the port updates in place instead, and keeps a host
+NaN/step guards, prefetch, preemption, graph optimisation, and the
+donation the JAX step uses (the port updates in place instead, and keeps a host
 snapshot of the model at the start of each run so that a failed run can
 put it back).
 """
@@ -163,6 +166,7 @@ class BaseOptimizer:
         self.end_trigger: Trigger = every_epoch()
         self.checkpoint_trigger: Optional[Trigger] = None
         self.checkpoint_path: Optional[str] = None
+        self.checkpoint_sharded = False
         self.checkpoint_keep_last_n: Optional[int] = None
         self.overwrite_checkpoint = True
         self.validation_trigger: Optional[Trigger] = None
@@ -179,6 +183,9 @@ class BaseOptimizer:
         #: the newest step's loss as a 0-d tensor on the device, read
         #: without a sync (the loop state's "loss" is the last synced one)
         self.last_loss: Optional[torch.Tensor] = None
+        #: the optimizer state (slots, f32 masters) of the run in progress
+        #: (for the iteration hook; None after a run)
+        self.opt_state = None
         # resume: what resume_from_latest_checkpoint loaded for the next
         # optimize()
         self._resume_slots = None
@@ -231,17 +238,18 @@ class BaseOptimizer:
                        keep_last_n: Optional[int] = None):
         """Checkpoint to `path` (local or `memory://`) every time `trigger`
         fires, tagged `iter<neval>`; `keep_last_n` prunes the oldest valid
-        checkpoints after each save. `sharded=True` (the reference's orbax
-        format) is not ported and raises."""
-        if sharded:
-            raise NotImplementedError(
-                "sharded checkpoints are not ported yet (ROADMAP.md queue 1 "
-                "item 3, torch.distributed.checkpoint); use the default "
-                "format v2")
+        checkpoints after each save (on rank 0). `sharded=True` writes the
+        arrays through `torch.distributed.checkpoint`, every rank its own
+        shards (`serialization/sharded_checkpoint.py`; a local path)."""
         if keep_last_n is not None and keep_last_n < 1:
             raise ValueError(
                 f"keep_last_n must be >= 1, got {keep_last_n}")
+        if sharded:
+            from bigdl_tpu_torch.serialization.sharded_checkpoint import \
+                _local_path
+            _local_path(path)  # refuse a URI now, not at the first save
         self.checkpoint_path = path
+        self.checkpoint_sharded = bool(sharded)
         self.checkpoint_trigger = trigger
         self.checkpoint_keep_last_n = keep_last_n
         return self
@@ -337,18 +345,22 @@ class BaseOptimizer:
         self._resumed = True
         return True
 
-    def _slots_tree(self, opt_state):
+    def _slots_tree(self, opt_state, leaf=None):
         """The optimizer state in the reference's layout: every dict keyed
         by the parameter names (all of them, or those of one top-level
         child under a per-submodule method) becomes the JAX-layout tree
-        (or the child's subtree), a step count an int32 array."""
-        from bigdl_tpu_torch.interop.jax_params import tree_from_named
+        (or the child's subtree), a step count an int32 array. The leaves
+        are f32 numpy arrays, or `leaf(name, tensor, conv)` with `leaf`
+        (`interop.jax_params.export_named`)."""
+        from bigdl_tpu_torch.interop.jax_params import (export_named,
+                                                        tree_from_named)
         names = {n for n, _ in self.model.named_parameters()}
 
         def conv(node):
             if isinstance(node, dict):
                 if node and set(node) <= names:
-                    return tree_from_named(self.model, node)
+                    return tree_from_named(self.model, node) if leaf is None \
+                        else export_named(self.model, node, leaf)
                 return {k: conv(v) for k, v in node.items()}
             if isinstance(node, int) and not isinstance(node, bool):
                 return np.asarray(node, dtype=np.int32)
@@ -382,17 +394,56 @@ class BaseOptimizer:
         return conv(slots)
 
     def _save_checkpoint(self, opt_state, tag: str):
+        if self.checkpoint_sharded:
+            self._save_sharded(opt_state, tag)
+        else:
+            self._save_v2(opt_state, tag)
+        self._commit_generator()
+
+    def _save_v2(self, opt_state, tag: str, full=None):
+        """The format v2 checkpoint; `full`, when given, is (the whole
+        parameters by name, the optimizer state with whole tensors), which
+        a tensor-parallel run gathers first."""
         from bigdl_tpu_torch.interop.jax_params import (module_state,
-                                                        params_tree)
+                                                        params_tree,
+                                                        tree_from_named)
         from bigdl_tpu_torch.serialization.checkpoint import save_checkpoint
-        save_checkpoint(self.checkpoint_path, self.model,
-                        params_tree(self.model), module_state(self.model),
-                        self.optim_method,
+        params = params_tree(self.model) if full is None else \
+            tree_from_named(self.model, full[0])
+        if full is not None:
+            opt_state = full[1]
+        save_checkpoint(self.checkpoint_path, self.model, params,
+                        module_state(self.model), self.optim_method,
                         opt_slots=self._slots_tree(opt_state), tag=tag,
                         overwrite=self.overwrite_checkpoint,
                         keep_last_n=self.checkpoint_keep_last_n,
                         cursor=self._data_cursor())
-        self._commit_generator()
+
+    def _sharded_leaf(self, name: str, t: torch.Tensor, conv: bool):
+        """A parameter's (or slot's) tensor in the reference's layout as
+        the sharded checkpoint takes it."""
+        return t.detach().contiguous()
+
+    def _save_sharded(self, opt_state, tag: str):
+        """The sharded checkpoint (every rank calls it), then rank 0 prunes
+        to `keep_last_n`."""
+        from bigdl_tpu_torch.interop.jax_params import (export_named,
+                                                        module_state)
+        from bigdl_tpu_torch.parallel import collectives
+        from bigdl_tpu_torch.serialization.checkpoint import (
+            prune_checkpoints)
+        from bigdl_tpu_torch.serialization.sharded_checkpoint import (
+            save_checkpoint_sharded)
+        leaf = self._sharded_leaf
+        save_checkpoint_sharded(
+            self.checkpoint_path, self.model,
+            export_named(self.model, dict(self.model.named_parameters()),
+                         leaf),
+            module_state(self.model), self.optim_method,
+            opt_slots=self._slots_tree(opt_state, leaf), tag=tag)
+        keep = self.checkpoint_keep_last_n
+        if keep is not None and collectives.rank() == 0:
+            prune_checkpoints(self.checkpoint_path, keep)
 
     def _commit_generator(self):
         """Keep the step generator's state for this step's neval, which a
@@ -500,12 +551,16 @@ class BaseOptimizer:
             return None
         results = [None] * len(self.validation_methods)
         self.model.eval()
+        gather = self._gather_params
         try:
             with torch.no_grad():
+                full = None if gather is None else \
+                    gather(dict(self.model.named_parameters()), "unshard")
                 for batch in self._validation_batches():
                     x = _to_device(batch.get_input(), self.device)
                     y = _to_device(batch.get_target(), self.device)
-                    out = self.model(x)
+                    out = self.model(x) if full is None else \
+                        functional_call(self.model, full, (x,))
                     for i, m in enumerate(self.validation_methods):
                         r = m.apply(out, y)
                         results[i] = r if results[i] is None \
@@ -555,11 +610,22 @@ class BaseOptimizer:
             lo, hi = self.grad_clip_const
             grads = [g.clamp(lo, hi) for g in grads]
         if self.grad_clip_norm is not None:
-            total = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+            total = torch.sqrt(self._grad_sq_norm(grads))
             scale = torch.clamp(self.grad_clip_norm / (total + 1e-12),
                                 max=1.0)
             grads = [g * scale for g in grads]
         return grads
+
+    def _grad_sq_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The squared global L2 norm of the gradients (f32)."""
+        return sum(torch.sum(g.float() ** 2) for g in grads)
+
+    @property
+    def _gather_params(self):
+        """None, or (under tensor parallelism) a function that turns the
+        parameters (or their casts), keyed by name, into the whole tensors
+        a forward takes."""
+        return None
 
     def _build_step(self):
         """step(opt_state, x, y, lr) -> the loss (a 0-d device tensor, not
@@ -573,6 +639,7 @@ class BaseOptimizer:
             or self.grad_clip_norm is not None
         params = dict(model.named_parameters())
         leaves = list(params.values())
+        gather = self._gather_params
 
         def loss_and_grads(x, y):
             if mixed:
@@ -580,9 +647,13 @@ class BaseOptimizer:
                 # graph, the casts included
                 low = {k: p.to(torch.bfloat16) for k, p in params.items()
                        if p.is_floating_point()}
+                if gather is not None:
+                    low = gather(low)
                 out = functional_call(model, low,
                                       (_cast_floats(x, torch.bfloat16),))
                 out = _cast_floats(out, torch.float32)
+            elif gather is not None:
+                out = functional_call(model, gather(params), (x,))
             else:
                 out = model(x)
             loss = criterion(out, y)
@@ -638,7 +709,8 @@ class BaseOptimizer:
 
     def _start_attempt(self, params: Dict[str, torch.Tensor]):
         """Called at the start of each run or retried attempt, after the
-        snapshot, before the optimizer state is built."""
+        snapshot, before the optimizer state is built (from the
+        parameters as this leaves them)."""
 
     def _synced_loss(self, loss: torch.Tensor) -> float:
         """The loss to log and record at a sync point (waits for the
@@ -688,10 +760,12 @@ class BaseOptimizer:
         if self._keeps_snapshot():
             self._snapshot()
         self._start_attempt(params)
+        params = dict(self.model.named_parameters())
         if self._resume_slots is not None:
             opt_state, self._resume_slots = self._resume_slots, None
         else:
             opt_state = self.optim_method.init_state_with_masters(params)
+        self.opt_state = opt_state
         step = self._build_step()
         loop_state = self.optim_method.state
         epoch_size = self._epoch_size()
@@ -755,6 +829,7 @@ class BaseOptimizer:
         if sync_every > 1 and loss is not None and \
                 loop_state["neval"] % sync_every != 0:
             loop_state["loss"] = self._synced_loss(loss)  # the final loss
+        self.opt_state = None
         return self.model
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.optim.schedules import Default, LearningRateSchedule
+from bigdl_tpu_torch.parallel import collectives
 
 Tree = Dict[str, torch.Tensor]
 
@@ -236,7 +237,9 @@ class LAMB(Adam):
         r = (m / bc1) / (sqrt(v / bc2) + eps) + weight_decay * p
         trust = ||p|| / ||r||  (1 where either norm is 0)
         p = p - lr * trust * r
-    The decay is decoupled: it enters r, not the gradient."""
+    The decay is decoupled: it enters r, not the gradient. The norms are
+    the whole parameter's: under tensor parallelism a shard's are summed
+    over its model group (`collectives.whole_norms`)."""
 
     def __init__(self, learning_rate: float = 1e-3, beta1: float = 0.9,
                  beta2: float = 0.999, epsilon: float = 1e-6,
@@ -253,19 +256,21 @@ class LAMB(Adam):
         eps, wd = self.epsilon, self.trust_weight_decay
         with torch.no_grad():
             bc1, bc2 = self._bias_corrections(opt_state)
+            rs = {}
             for k, p in params.items():
                 g, m, v = grads[k], opt_state["m"][k], opt_state["v"][k]
                 m.mul_(b1).add_((1 - b1) * g)
                 v.mul_(b2).add_((1 - b2) * g * g)
                 r = (m / bc1) / ((v / bc2).sqrt() + eps)
-                if wd:
-                    r = r + wd * p
-                p_norm = torch.linalg.vector_norm(p)
-                r_norm = torch.linalg.vector_norm(r)
+                rs[k] = r + wd * p if wd else r
+            norms = collectives.whole_norms(
+                {k: (params[k], r) for k, r in rs.items()})
+            for k, r in rs.items():
+                p_norm, r_norm = norms[k]
                 trust = torch.where((p_norm > 0) & (r_norm > 0),
                                     p_norm / torch.clamp(r_norm, min=1e-12),
                                     torch.ones_like(p_norm))
-                p.sub_(lr * trust * r)
+                params[k].sub_(lr * trust * r)
         return params, opt_state
 
 
@@ -457,7 +462,9 @@ class LBFGS(OptimMethod):
     runs up to `max_iter` L-BFGS iterations (the two-loop recursion over
     the last `n_correction` pairs, a fixed step of `learning_rate`) on a
     full-batch objective. `max_eval` is accepted and ignored, as in the
-    reference."""
+    reference. The training loops call only `update`, which is elementwise,
+    so under tensor parallelism no shard reaches the recursion's dot
+    products: `optimize_full_batch` takes whole tensors."""
 
     def __init__(self, max_iter: int = 20, max_eval: Optional[float] = None,
                  tol_fun: float = 1e-5, tol_x: float = 1e-9,

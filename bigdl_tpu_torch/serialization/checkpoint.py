@@ -35,11 +35,15 @@ Durability, as the reference's:
 In a data-parallel run every rank calls `save_on_rank0`: rank 0 writes,
 between a barrier and an all-reduced success flag, so the checkpoint is
 there for every rank when the call returns, and a failed write fails
-every rank at the same step.
+every rank at the same step. Under tensor parallelism every rank first
+gathers the whole parameters and slots (its `gather` argument), so rank 0
+writes whole arrays that the reference loads.
 
 Paths may be local or `memory://` (`utils/filesystem.py`). The `ckpt.*`
-fault sites sit between the writes. Sharded (orbax) checkpoints are not
-ported: one is skipped by `load_latest_valid`, with a warning.
+fault sites sit between the writes. Sharded checkpoints
+(`sharded_checkpoint.py`, through `torch.distributed.checkpoint`) are
+found, loaded and pruned by the same scan: their manifests say
+`"sharded": true`.
 """
 
 from __future__ import annotations
@@ -217,20 +221,25 @@ def save_checkpoint(path: str, model, params, model_state, optim_method,
     return ckpt_dir
 
 
-def save_on_rank0(save: Callable[[], Any], device) -> Optional[Any]:
+def save_on_rank0(save: Callable[..., Any], device,
+                  gather: Optional[Callable[[], Any]] = None
+                  ) -> Optional[Any]:
     """`save()` (a checkpoint write) on rank 0 of the process group,
     called by every rank: a barrier, rank 0's write, then a success flag
-    all-reduced on `device`. Returns what `save()` returned on rank 0,
-    None on the others. A failed write re-raises on rank 0 and raises
-    `OSError` on the others, all at the same step. At world size 1 it is
-    `save()`."""
+    all-reduced on `device`. With `gather`, every rank first calls
+    `gather()` (collectives that every rank must join: the whole
+    tensor-parallel parameters) and rank 0 writes `save(gathered)`.
+    Returns what `save` returned on rank 0, None on the others. A failed
+    write re-raises on rank 0 and raises `OSError` on the others, all at
+    the same step. At world size 1 it is `save()`."""
+    args = () if gather is None else (gather(),)
     if collectives.world_size() == 1:
-        return save()
+        return save(*args)
     collectives.barrier()
     out, failed = None, None
     if collectives.rank() == 0:
         try:
-            out = save()
+            out = save(*args)
         except Exception as e:
             failed = e
     flag = torch.tensor([0.0 if failed is None else 1.0], device=device)
@@ -373,30 +382,49 @@ def quarantine_checkpoint(ckpt_dir: str) -> Optional[str]:
 def load_latest_valid(path: str, quarantine: bool = True, telemetry=None):
     """The resume entry point: `(ckpt_dir, params, model_state,
     optim_blob)` of the newest checkpoint under `path` that verifies and
-    decodes, or None. A proven-corrupt one (`CheckpointCorruptError`) is
-    quarantined and the walk goes on to the next older one; any other
-    failure (a read error, a sharded checkpoint) also goes on but leaves
-    it in place. `telemetry`, if given, gets `checkpoint_quarantined`,
-    `checkpoint_unreadable` and `checkpoint_verified` events."""
-    for ckpt, manifest in _scan_checkpoints(path):
+    decodes, or None; a sharded one (`sharded_checkpoint.py`) loads whole,
+    as the reference's does. A proven-corrupt one
+    (`CheckpointCorruptError`) is quarantined and the walk goes on to the
+    next older one; any other failure (a read error) also goes on but
+    leaves it in place. `telemetry`, if given, gets `checkpoint_quarantined`,
+    `checkpoint_unreadable` and `checkpoint_verified` events. Under a
+    process group every rank calls it, and the ranks agree on each
+    checkpoint's outcome: they walk rank 0's list of candidates, and one
+    that fails on any rank (`collectives.any_failed`; the sharded load
+    agrees inside) is passed over by all, so they load the same one; only
+    rank 0 quarantines."""
+    grouped = collectives.world_size() > 1
+    candidates = _scan_checkpoints(path) if collectives.rank() == 0 \
+        else None
+    for ckpt, manifest in collectives.broadcast_object(candidates):
+        sharded = manifest.get("sharded")
+        failed = None
         try:
-            if manifest.get("sharded"):
-                raise NotImplementedError(
-                    "sharded (orbax) checkpoints are not ported")
-            params, mstate, oblob = load_checkpoint(ckpt, verify=True,
-                                                    manifest=manifest)
+            if sharded:
+                from bigdl_tpu_torch.serialization.sharded_checkpoint \
+                    import load_checkpoint_sharded
+                params, mstate, oblob = load_checkpoint_sharded(ckpt)
+            else:
+                params, mstate, oblob = load_checkpoint(
+                    ckpt, verify=True, manifest=manifest)
         except (KeyboardInterrupt, SystemExit):
             raise
         except Exception as e:
-            corrupt = isinstance(e, CheckpointCorruptError)
+            failed = e
+        if grouped and not sharded and \
+                collectives.any_failed(failed is not None):
+            failed = failed or OSError(
+                f"checkpoint {ckpt} failed to load on another rank")
+        if failed is not None:
+            corrupt = isinstance(failed, CheckpointCorruptError)
             logger.warning("checkpoint %s failed to load (%r); falling "
-                           "back to the next older one%s", ckpt, e,
+                           "back to the next older one%s", ckpt, failed,
                            "" if corrupt else " (left in place: the "
                            "failure is not proven corruption)")
             _event(telemetry, "checkpoint_quarantined" if corrupt
                    else "checkpoint_unreadable", path=str(ckpt),
-                   error=repr(e))
-            if quarantine and corrupt:
+                   error=repr(failed))
+            if quarantine and corrupt and collectives.rank() == 0:
                 quarantine_checkpoint(ckpt)
             continue
         _event(telemetry, "checkpoint_verified", path=str(ckpt),

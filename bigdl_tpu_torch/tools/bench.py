@@ -29,6 +29,7 @@ warm-up. The result also carries every step's loss.
     python -m bigdl_tpu_torch.tools.bench --model wide_n_deep [--profile]
     python -m bigdl_tpu_torch.tools.bench --nproc 2 [--backend gloo|nccl]
     python -m bigdl_tpu_torch.tools.bench --model wide_n_deep --nproc 2
+    python -m bigdl_tpu_torch.tools.bench --model lm --nproc 4 --model-axis 2
 
 `--nproc N` (ResNet-50 or Wide&Deep) is the data-parallel configuration:
 it starts N ranks, one process each (`Engine.init(distributed=True)`,
@@ -41,6 +42,17 @@ N peaks, the loss of every step (the ranks' mean), and a step's
 collectives on each rank (gradient all-reduces, one a bucket, and their
 bytes; BN all-reduces), and the kernel launches on each rank (BN+ReLU a
 step for ResNet-50; every kernel's count for Wide&Deep).
+
+`--model lm --nproc N --model-axis M` is the LM recipe over a (N/M, M)
+mesh of ranks (`Engine.get_mesh`), tensor parallel on the model axis
+(`DistriOptimizer`'s default `ShardingRules()`): the global b8 at T=2048
+split over the N/M data replicas (b4 each at (2, 2)), the ranks of a
+model group on the same rows, L2 clipping at 1.0 (the unclipped recipe
+diverges). It reports ms a step and global tokens/s, and on each rank the
+all-gathers ("gather") and gradient all-reduces ("grad") a step with their
+bytes, the bytes of parameters plus optimizer state the rank holds
+(`stored_bytes`, after the first step), and the launches of kernels 1, 3
+and 4 a step. With `--backend gloo` the ranks share one card.
 
 The feed-forward zoo (`--model lenet | inception_v1 | inception_v2 |
 vgg16`) trains with the same recipe (`ClassNLLCriterion`, sync every 8) at
@@ -178,14 +190,18 @@ def _mfu(flops, ms: float, device: torch.device):
     return costs.mfu(flops, ms * 1e-3, device_kind=_device_name(device))
 
 
-def _timed_run(opt: DistriOptimizer, warmup: int, iters: int, sync: int):
-    """Run `warmup + iters` steps, syncing every `sync`; returns the median
-    sync-window length (s) after the warm-up and every step's loss."""
+def _timed_run(opt: DistriOptimizer, warmup: int, iters: int, sync: int,
+               on_step=None):
+    """Run `warmup + iters` steps, syncing every `sync` (`on_step(state)`
+    after each); returns the median sync-window length (s) after the
+    warm-up and every step's loss."""
     opt.set_sync_interval(sync)
     opt.set_end_when(max_iteration(warmup + iters))
     times, losses = [], []
 
     def hook(state):
+        if on_step is not None:
+            on_step(state)
         losses.append(opt.last_loss)
         if state["neval"] % sync == 0:  # the device has drained here
             times.append(time.perf_counter())
@@ -309,16 +325,17 @@ def _rank_shard(batch_size: int):
 
 
 def _rank_run(opt: DistriOptimizer, local: int, warmup: int, iters: int,
-              sync: int) -> Dict:
+              sync: int, on_step=None) -> Dict:
     """The timed part of a data-parallel rank: the step's FLOPs (its
     shard's), `warmup + iters` steps syncing every `sync`; this rank's ms
-    a step, records/s, losses, collectives a step by kind, gradient
-    buckets, and every kernel's launches a step during the run."""
+    a step, records/s, losses, collectives a step by kind (not the
+    broadcasts before the run nor the gathers after it), gradient buckets,
+    and every kernel's launches a step during the run."""
     flops = step_flops(opt)
     sync = math.gcd(math.gcd(warmup, iters), sync)
     before = _kernel_launches()
     collectives.reset_counts()
-    window_s, losses = _timed_run(opt, warmup, iters, sync)
+    window_s, losses = _timed_run(opt, warmup, iters, sync, on_step)
     steps = warmup + iters
     return {"rank": collectives.rank(), "world": collectives.world_size(),
             "local_batch": local, "ms_per_step": 1e3 * window_s / sync,
@@ -326,7 +343,7 @@ def _rank_run(opt: DistriOptimizer, local: int, warmup: int, iters: int,
             "flops_per_step": flops, "losses": losses,
             "collectives_per_step": {
                 k: v / steps for k, v in collectives.counts.items()
-                if not k.startswith("broadcast")},
+                if not k.startswith(("broadcast", "unshard"))},
             "n_buckets": len(opt.bucket_plan) if opt.bucket_plan else 0,
             "kernel_launches_per_step": {
                 k: (v - before[k]) / steps
@@ -360,14 +377,73 @@ def resnet50_rank(batch_size: int = 128, warmup: int = 8, iters: int = 16,
     return res
 
 
+#: the tensor-parallel LM recipe (`lm_rank`): `bench_transformer_lm`'s
+#: vocabulary and sequence, and the L2 clipping without which it diverges
+LM_TP = {"vocab": 1024, "seq": 2048, "clip": 1.0}
+
+
+def lm_rank(batch_size: int = 8, warmup: int = 2, iters: int = 6,
+            sync: int = 2, device=None, *, model_axis: int = 1) -> Dict:
+    """This rank's part of the LM benchmark over a (world / `model_axis`,
+    `model_axis`) mesh of ranks, in a process that has joined the process
+    group: the global batch `batch_size` of `LM_TP` sequences (seeded as
+    `bench_transformer_lm`'s) split over the data replicas, this replica's
+    rows resident on `device`; the LM from seed 0, tensor parallel over
+    the model axis, clipped as `LM_TP` says. `_rank_run`'s figures, the
+    launches of kernels 1, 3 and 4 a step, and the bytes of parameters
+    and optimizer state this rank holds after the first step."""
+    from bigdl_tpu_torch.parallel.sharding import stored_bytes
+    from bigdl_tpu_torch.utils.engine import Engine
+    device = resolve_device(device)
+    mesh = Engine.get_mesh(model=model_axis)
+    data = mesh.shape["data"]
+    if batch_size % data:
+        raise ValueError(f"batch {batch_size} does not split over {data} "
+                         "data replicas")
+    local = batch_size // data
+    rows = slice(mesh.data_index * local, (mesh.data_index + 1) * local)
+    seq = LM_TP["seq"]
+    x, y = _token_batch(LM_TP["vocab"], seq, batch_size)
+    model = _lm(LM_TP["vocab"], device, torch.Generator().manual_seed(0))
+    batch = MiniBatch(_resident(x[rows], device), _resident(y[rows], device))
+    opt = DistriOptimizer(model, LocalDataSet([batch]),
+                          TimeDistributedCriterion(ClassNLLCriterion()),
+                          mesh=mesh, devices=[device])
+    opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+    opt.set_compute_precision("bfloat16")
+    opt.set_gradient_clipping_by_l2_norm(LM_TP["clip"])
+    held = {}
+
+    def note(state):
+        if state["neval"] == 1:
+            held["stored_param_bytes"] = stored_bytes(opt.model)
+            held["stored_bytes"] = stored_bytes(opt.model, opt.opt_state)
+            held["sharded"] = sorted(opt.sharded.dims) if opt.sharded \
+                else []
+
+    res = _rank_run(opt, local, warmup, iters, sync, note)
+    res["tokens_per_sec"] = res.pop("records_per_sec") * seq
+    res.update(seq=seq, mesh=mesh.shape,
+               coords=[mesh.data_index, mesh.model_index], **held)
+    launches = res["kernel_launches_per_step"]
+    res["flash_launches_per_step"] = {
+        k: launches[k] for k in ("flash_attention_fwd",
+                                 "flash_attention_bwd_dq",
+                                 "flash_attention_bwd_dkv")}
+    return res
+
+
 def _dp_child(args) -> None:
     """A rank started by `bench_dp`: joins the group from the launcher's
     environment, runs the model's rank function (`resnet50_rank`,
-    `wide_n_deep_rank`), prints its result."""
+    `wide_n_deep_rank`, `lm_rank`), prints its result."""
     from bigdl_tpu_torch.utils.engine import Engine
     Engine.init(distributed=True, backend=args.backend)
     rank_fn = {"resnet50": resnet50_rank,
-               "wide_n_deep": wide_n_deep_rank}[args.model]
+               "wide_n_deep": wide_n_deep_rank,
+               "lm": functools.partial(lm_rank,
+                                       model_axis=args.model_axis)
+               }[args.model]
     try:
         res = rank_fn(args.batch_size, args.warmup, args.iters, args.sync,
                       device=args.device)
@@ -377,20 +453,22 @@ def _dp_child(args) -> None:
 
 
 #: the configurations `bench_dp` runs, and their global batch sizes
-DP_MODELS = {"resnet50": 128, "wide_n_deep": 1024}
+DP_MODELS = {"resnet50": 128, "wide_n_deep": 1024, "lm": 8}
 
 
 def bench_dp(model: str = "resnet50", nproc: int = 2,
              batch_size: Optional[int] = None, warmup: int = 8,
              iters: int = 16, sync: int = 8, backend: Optional[str] = None,
-             device: str = "cuda", timeout_s: float = 900.0) -> Dict:
-    """`model` ("resnet50" or "wide_n_deep") data parallel over `nproc`
-    ranks on this machine, one process each (`resnet50_rank`,
-    `wide_n_deep_rank`), at the global batch `batch_size` (default the
+             device: str = "cuda", timeout_s: float = 900.0, *,
+             model_axis: int = 1) -> Dict:
+    """`model` ("resnet50", "wide_n_deep" or "lm") over `nproc` ranks on
+    this machine, one process each (`resnet50_rank`, `wide_n_deep_rank`,
+    `lm_rank`), at the global batch `batch_size` (default the
     configuration's, `DP_MODELS`): rank r on `cuda:{r % device_count}`
-    (or the CPU with `device="cpu"`), `backend` as `Engine.init` takes it.
-    The kernels are built here before any rank starts. Returns the global
-    figures and each rank's."""
+    (or the CPU with `device="cpu"`), `backend` as `Engine.init` takes it;
+    the LM with `model_axis` ranks on the model axis. The kernels are
+    built here before any rank starts. Returns the global figures and
+    each rank's."""
     import socket
     import subprocess
     import sys
@@ -408,7 +486,7 @@ def bench_dp(model: str = "resnet50", nproc: int = 2,
            "--dp-child", "--model", model,
            "--batch-size", str(batch_size), "--warmup",
            str(warmup), "--iters", str(iters), "--sync", str(sync),
-           "--device", device]
+           "--device", device, "--model-axis", str(model_axis)]
     if backend:
         cmd += ["--backend", backend]
     procs = []
@@ -438,11 +516,13 @@ def bench_dp(model: str = "resnet50", nproc: int = 2,
         ranks.append(json.loads(lines[-1][len("DP_RANK "):]))
     ms = max(r["ms_per_step"] for r in ranks)
     flops = sum(r["flops_per_step"] for r in ranks)
-    rate = "imgs_per_sec" if model == "resnet50" else "records_per_sec"
+    rate = {"resnet50": "imgs_per_sec", "lm": "tokens_per_sec"}.get(
+        model, "records_per_sec")
+    per_step = batch_size * ranks[0]["seq"] if model == "lm" else batch_size
     return {"model": model, "nproc": nproc, "backend": backend or (
                 "nccl" if device == "cuda" else "gloo"),
-            "batch_size": batch_size, "ms_per_step": ms,
-            rate: batch_size / ms * 1e3,
+            "batch_size": batch_size, "model_axis": model_axis,
+            "ms_per_step": ms, rate: per_step / ms * 1e3,
             "flops_per_step": flops,
             "mfu": costs.mfu(flops, ms * 1e-3, device_kind=ranks[0]["device"],
                              n_devices=nproc),
@@ -1096,6 +1176,9 @@ def main(argv=None) -> None:
                    "many ranks")
     p.add_argument("--backend", choices=("gloo", "nccl"), default=None,
                    help="the ranks' backend (default: NCCL on cards)")
+    p.add_argument("--model-axis", type=int, default=1,
+                   help="with --model lm --nproc N: ranks on the mesh's "
+                   "model axis (tensor parallel)")
     p.add_argument("--dp-child", action="store_true",
                    help=argparse.SUPPRESS)
     for flag, default in (("--batch-size", 128), ("--warmup", 8),
@@ -1106,12 +1189,16 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     if args.dp_child:
         return _dp_child(args)
+    if args.model_axis > 1 and (args.model != "lm" or args.nproc < 2):
+        p.error("--model-axis takes --model lm and --nproc")
     if args.nproc > 1:
         if args.model not in DP_MODELS or args.profile:
-            p.error("--nproc runs the ResNet-50 and Wide&Deep benchmarks "
-                    "only, without --profile")
+            p.error("--nproc runs the ResNet-50, Wide&Deep and LM "
+                    "benchmarks only, without --profile")
+        kw = dict(warmup=2, iters=6, sync=2) if args.model == "lm" else {}
         print(json.dumps(bench_dp(args.model, args.nproc,
-                                  backend=args.backend)))
+                                  backend=args.backend,
+                                  model_axis=args.model_axis, **kw)))
         return
     if args.model == "attention":
         fn = profile_attention if args.profile else bench_attention

@@ -19,6 +19,8 @@ the launcher's environment (`MASTER_ADDR`, `MASTER_PORT`, `RANK`,
 `WORLD_SIZE`; `LOCAL_RANK`, default the rank). The process's device is
 `cuda:{LOCAL_RANK % device_count}`, made the current device so that the
 entry points' default (`resolve_device`) is it, or the CPU without CUDA.
+Under the group, `get_mesh(data, model)` returns its ranks as a
+(data, model) `parallel.mesh.ProcessMesh` for `DistriOptimizer(mesh=...)`.
 The backend is NCCL on a CUDA device and gloo on the CPU; the
 keyword-only `backend=` names another (gloo on a card, where two ranks
 share one device, which NCCL refuses). A failed init raises: nothing
@@ -80,6 +82,8 @@ class _Engine:
         self._distributed_started = False
         self.config: Dict[str, Any] = dict(_DEFAULTS)
         self._mesh = None
+        # the process meshes built under the process group, by shape
+        self._process_meshes: Dict[tuple, Any] = {}
         #: this process's device once the process group is joined
         self.device: Optional[torch.device] = None
 
@@ -156,6 +160,7 @@ class _Engine:
         """Leave the process group (a later `init(distributed=True)` joins
         a new one)."""
         with self._lock:
+            self._process_meshes.clear()
             if dist.is_initialized():
                 dist.destroy_process_group()
             self.config["distributed"] = False
@@ -179,7 +184,19 @@ class _Engine:
         return self.config["engine_type"]
 
     def get_mesh(self, data: Optional[int] = None, model: int = 1):
-        """Build (and cache) this process's device mesh."""
+        """Under a process group, the (data, model) mesh of its ranks
+        (`parallel.mesh.ProcessMesh`, rank r at (r // model, r % model);
+        built once a shape, collectively: every rank calls this with the
+        same shape). Without one, build (and cache) this process's device
+        mesh."""
+        if collectives.is_initialized():
+            from bigdl_tpu_torch.parallel.mesh import (ProcessMesh,
+                                                       process_mesh_shape)
+            key = process_mesh_shape(data, model, collectives.world_size())
+            if key not in self._process_meshes:
+                self._process_meshes[key] = ProcessMesh(*key,
+                                                        device=self.device)
+            return self._process_meshes[key]
         if self._mesh is None or data is not None or model != 1:
             from bigdl_tpu_torch.parallel.mesh import build_mesh
             self._mesh = build_mesh(data=data, model=model)

@@ -247,11 +247,36 @@ Phases:
    rank's loss falls, one gradient all-reduce a step. (h) Phase 15's wall
    time.
 
+16. tensor parallelism: the LM (`TransformerLM(vocab 1024, embed 512, 4
+   layers, 8 heads)`, weights from seed 0) over a (data, model) mesh of
+   ranks (`Engine.get_mesh`, `DistriOptimizer`'s default `ShardingRules()`:
+   26 of its weight matrices split over "model"), one process a rank
+   (`--tp-child`): four gloo ranks sharing the card (NCCL refuses two ranks
+   on one device), NCCL with one rank a card where the machine has four.
+   (a) f32 (TF32 off, deterministic) at T=256, global b8, 4 SGD steps:
+   (2, 2) against (2, 1) on the same data, every loss and every parameter
+   bitwise; against one process on the whole batch, losses within a
+   relative 1e-5 and parameters within 1e-5 of each tensor's largest
+   element; every sharded parameter stored on each rank at exactly half
+   its shape; 16 launches of each of kernels 1, 3 and 4 on each rank. (b)
+   `tools/bench.py --model lm --nproc 4 --model-axis 2`: global b8 at
+   T=2048 (b4 a data replica), bf16 with f32 masters, SGD momentum 0.9, L2
+   clipping at 1.0, 2 warm-up and 6 timed steps: ms a step, tokens/s, the
+   all-gathers and gradient all-reduces a step with their bytes, each
+   rank's bytes of parameters and optimizer state, exactly 4 launches of
+   each of kernels 1, 3 and 4 a step on every rank, and a finite loss that
+   falls from the first step to the last. (c) (a)'s (2, 2) run saves a
+   sharded checkpoint (`torch.distributed.checkpoint`) at step 2: a fresh
+   4-rank launch resumes from it and matches steps 3-4 bitwise; a (2, 1)
+   launch and this process (no group) restore the step-2 parameters
+   bitwise. (d) Phase 16's wall time.
+
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
 measure ran: `tensor_cores` or `cuda_cores_f32`; rows 5-7 with their
 launches on the zoo's paths and their zoo shapes; rows 6-7 with their
 launches on each rank of phase 14(b) and their time at a rank's b64
-stem site), then as its last line
+stem site; rows 1, 3 and 4 with their launches on each rank of phase
+16(b), `launches_tp_ranks`), then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
 """
 
@@ -3180,6 +3205,325 @@ def dp_phase(bk, tmp):
     return full, multi
 
 
+# 16. tensor parallelism: (a)'s sequence, global batch, steps and the step
+# of (c)'s checkpoint; (b)'s warm-up, timed steps and sync; the limit
+# against one process (the global batch's sums in another order: two
+# replicas' halves averaged); the children's time limit
+TP_SEQ, TP_BATCH, TP_STEPS, TP_SAVE_AT = 256, 8, 4, 2
+TP_WARMUP, TP_ITERS, TP_SYNC = 2, 6, 2
+TP_RTOL = 1e-5
+TP_CHILD_TIMEOUT_S = 300
+
+
+def _tp_backend(world):
+    """NCCL with one rank a card where the machine has enough cards, else
+    gloo with the ranks sharing the card."""
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def _tp_batch():
+    rs = np.random.RandomState(4)
+    toks = rs.randint(1, LM_CFG["vocab_size"] + 1,
+                      (TP_BATCH, TP_SEQ + 1)).astype(np.int32)
+    return toks[:, :-1], toks[:, 1:]
+
+
+def _tp_run(mesh, x, y, ckpt=None, resume=False, on_step=None):
+    """The f32 LM (seed 0) for TP_STEPS SGD steps (0.01, momentum 0.9) on
+    the resident batch (x, y) through `DistriOptimizer` on `mesh` (None:
+    no model axis), deterministic; with `ckpt`, a sharded checkpoint at
+    step TP_SAVE_AT (`resume`: resumed from it first). The losses and the
+    parameters after the run (CPU)."""
+    from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
+    model = TransformerLM(**LM_CFG, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+    batch = MiniBatch(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    opt = DistriOptimizer(model, LocalDataSet([batch]),
+                          TimeDistributedCriterion(ClassNLLCriterion(),
+                                                   size_average=True),
+                          mesh=mesh)
+    opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+    opt.set_end_when(max_iteration(TP_STEPS))
+    if ckpt is not None:
+        opt.set_checkpoint(ckpt, lambda st: st["neval"] == TP_SAVE_AT,
+                           sharded=True)
+    if resume:
+        check(opt.resume_from_latest_checkpoint(),
+              f"nothing to resume from in {ckpt}")
+    losses = []
+
+    def hook(st):
+        losses.append(st["loss"])
+        if on_step is not None:
+            on_step(opt, st)
+
+    opt.set_iteration_hook(hook)
+    with Deterministic():
+        opt.optimize()
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return losses, state
+
+
+def tp_child(out_dir, mode, backend):
+    """A rank of phase 16(a, c), started by `tp_launch`: "tp" trains on the
+    (2, 2) mesh and saves the sharded checkpoint, "dp" trains on (2, 1)
+    and restores that checkpoint, "resume" resumes from it on (2, 2).
+    Writes its results to `out_dir`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from bigdl_tpu_torch.ops import attention_kernel as ak
+    from bigdl_tpu_torch.parallel import collectives
+    from bigdl_tpu_torch.utils.engine import Engine
+    Engine.init(distributed=True, backend=backend)
+    rank, world = collectives.rank(), collectives.world_size()
+    mesh = Engine.get_mesh(data=2, model=world // 2)
+    x, y = _tp_batch()
+    local = TP_BATCH // 2
+    rows = slice(mesh.data_index * local, (mesh.data_index + 1) * local)
+    ckpt = os.path.join(out_dir, "ckpt")
+    out = {"rank": rank, "world": world, "backend": backend,
+           "coords": [mesh.data_index, mesh.model_index],
+           "device": str(Engine.device)}
+    stored, at_save = {}, {}
+
+    def note(opt, st):
+        if st["neval"] == 1 and opt.sharded is not None:
+            stored.update({n: [list(p.shape),
+                               list(opt.sharded.full_shapes[n])]
+                           for n, p in opt.model.named_parameters()
+                           if n in opt.sharded.dims})
+        if st["neval"] == TP_SAVE_AT and opt.sharded is None:
+            at_save.update({k: v.detach().cpu().clone()
+                            for k, v in opt.model.state_dict().items()})
+
+    _reset_flash_counts(ak)
+    losses, state = _tp_run(mesh, x[rows], y[rows],
+                            ckpt=ckpt if mode != "dp" else None,
+                            resume=mode == "resume", on_step=note)
+    out.update(losses=losses, stored=stored,
+               launches=dict(zip(("fwd", "dq", "dkv"), _flash_counts(ak))))
+    if mode == "dp":
+        # (c): the (2, 2) checkpoint restored on (2, 1)
+        from bigdl_tpu_torch.models import TransformerLM
+        from bigdl_tpu_torch.nn import ClassNLLCriterion
+        from bigdl_tpu_torch.optim import DistriOptimizer
+        from bigdl_tpu_torch.dataset import LocalDataSet
+        model = TransformerLM(**LM_CFG, device="cuda",
+                              generator=torch.Generator().manual_seed(1))
+        opt = DistriOptimizer(model, LocalDataSet([]), ClassNLLCriterion(),
+                              mesh=mesh)
+        opt.set_checkpoint(ckpt, lambda st: False, sharded=True)
+        check(opt.resume_from_latest_checkpoint(), "no checkpoint on (2, 1)")
+        got = model.state_dict()
+        out["restored_bitwise"] = all(torch.equal(got[k].cpu(), v)
+                                      for k, v in at_save.items()) \
+            and set(got) == set(at_save) and bool(at_save)
+        if rank == 0:
+            torch.save(at_save, os.path.join(out_dir, "dp_at_save.pt"))
+    if rank == 0:
+        torch.save(state, os.path.join(out_dir, f"{mode}_state.pt"))
+    Engine.shutdown()
+    with open(os.path.join(out_dir, f"{mode}-rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def tp_launch(tmp, *jobs):
+    """Start every (world, mode) of `jobs` together, each `world` ranks of
+    `chip_smoke.py --tp-child` in `mode` (rank r on cuda:{r %
+    device_count}), and wait for all of them; for each job, its ranks'
+    results and rank 0's parameters after the run. A rank that fails or
+    outlives TP_CHILD_TIMEOUT_S fails the phase (every rank is
+    stopped)."""
+    import socket
+    t0 = time.perf_counter()
+    procs = []
+    for world, mode in jobs:
+        backend = _tp_backend(world)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        for r in range(world):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), RANK=str(r),
+                       WORLD_SIZE=str(world), LOCAL_RANK=str(r))
+            log = open(os.path.join(tmp, f"{mode}-rank{r}.log"), "w+")
+            procs.append((f"{mode} rank {r}/{world} ({backend})", log,
+                          subprocess.Popen(
+                              [sys.executable, os.path.abspath(__file__),
+                               "--tp-child", tmp, mode, backend], env=env,
+                              stdout=log, stderr=subprocess.STDOUT)))
+    try:
+        deadline = time.monotonic() + TP_CHILD_TIMEOUT_S
+        for _, _, p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        texts = []
+        for _, log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.seek(0)
+            texts.append(log.read())
+            log.close()
+    for (what, _, p), text in zip(procs, texts):
+        check(p.returncode == 0, f"tensor-parallel {what} failed (exit "
+              f"{p.returncode}):\n{text[-3000:]}")
+    print(f"tensor parallel launch {[m for _, m in jobs]}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out = []
+    for world, mode in jobs:
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"{mode}-rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        out.append((ranks, torch.load(os.path.join(tmp,
+                                                   f"{mode}_state.pt"))))
+    return out
+
+
+def _half_on_one_axis(got, full):
+    """Whether shape `got` is `full` with exactly one axis halved."""
+    diff = [(g, f) for g, f in zip(got, full) if g != f]
+    return len(got) == len(full) and len(diff) == 1 \
+        and 2 * diff[0][0] == diff[0][1]
+
+
+def _tp_bitwise(a, b):
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in b)
+
+
+def tp_parity_phase(tmp):
+    """(a) and (c); returns (a)'s figures."""
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.serialization.sharded_checkpoint import \
+        load_checkpoint_sharded
+    from bigdl_tpu_torch.interop import load_params
+    x, y = _tp_batch()
+    ref_losses, ref_state = _tp_run(None, x, y)
+    (tp, tp_state), = tp_launch(tmp, (4, "tp"))
+    # both only read (a)'s checkpoint: one launch of six processes
+    (dp, dp_state), (resumed, resumed_state) = tp_launch(
+        tmp, (2, "dp"), (4, "resume"))
+    # (a)
+    bitwise_losses = all(r["losses"] == dp[r["coords"][0]]["losses"]
+                         for r in tp)
+    bitwise_params = _tp_bitwise(tp_state, dp_state)
+    rel = max(abs(a - b) / abs(b) for r in tp
+              for a, b in zip(r["losses"], ref_losses))
+    worst = _max_rel(tp_state, ref_state)
+    halves = all(_half_on_one_axis(got, full)
+                 for r in tp for got, full in r["stored"].values())
+    out = {"mesh": [2, 2], "backend": tp[0]["backend"], "seq": TP_SEQ,
+           "global_batch": TP_BATCH, "steps": TP_STEPS, "dtype": "float32",
+           "losses": [r["losses"] for r in tp],
+           "dp_losses": [r["losses"] for r in dp],
+           "one_process_losses": ref_losses,
+           "losses_bitwise_vs_2x1": bitwise_losses,
+           "params_bitwise_vs_2x1": bitwise_params,
+           "loss_max_rel_diff_vs_one_process": rel,
+           "param_max_rel_diff_vs_one_process": worst[1],
+           "worst_tensor": worst[0],
+           "sharded_params": len(tp[0]["stored"]),
+           "stored_halves": halves,
+           "launches_per_rank": [r["launches"] for r in tp],
+           "devices": [r["device"] for r in tp]}
+    print("tensor parallel parity " + json.dumps(out), flush=True)
+    check(all(r["device"].startswith("cuda") for r in tp + dp + resumed),
+          f"a rank ran off the card: {[r['device'] for r in tp + dp]}")
+    check(bitwise_losses and bitwise_params,
+          "(2, 2) against (2, 1): not bitwise (losses "
+          f"{bitwise_losses}, parameters {bitwise_params})")
+    check(all(np.isfinite(r["losses"]).all() for r in tp)
+          and rel <= TP_RTOL and worst[1] <= TP_RTOL,
+          f"(2, 2) against one process: losses {rel:.2e}, {worst[0]} "
+          f"{worst[1]:.2e} (> {TP_RTOL})")
+    check(len(tp[0]["stored"]) == 26 and halves,
+          f"sharded parameters stored on a rank: {tp[0]['stored']}")
+    want = {k: LM_LAYERS * TP_STEPS for k in ("fwd", "dq", "dkv")}
+    check(all(r["launches"] == want for r in tp + dp),
+          f"flash launches per rank {[r['launches'] for r in tp + dp]}, "
+          f"not {want}")
+    # (c)
+    first = {tuple(r["coords"]): r["losses"] for r in tp}
+    resume_ok = all(r["losses"] == first[tuple(r["coords"])][TP_SAVE_AT:]
+                    for r in resumed)
+    resume_params = _tp_bitwise(resumed_state, tp_state)
+    at_save = torch.load(os.path.join(tmp, "dp_at_save.pt"))
+    params, mstate, blob = load_checkpoint_sharded(
+        os.path.join(tmp, "ckpt", f"iter{TP_SAVE_AT}"))
+    model = TransformerLM(**LM_CFG, device="cuda",
+                          generator=torch.Generator().manual_seed(1))
+    load_params(model, params, mstate)
+    one = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    restored = {"resumed_losses": [r["losses"] for r in resumed],
+                "resume_losses_bitwise": resume_ok,
+                "resume_params_bitwise": resume_params,
+                "restored_2x1_bitwise": [r["restored_bitwise"] for r in dp],
+                "restored_one_process_bitwise": _tp_bitwise(one, at_save),
+                "checkpoint_neval": blob["state"]["neval"],
+                "checkpoint_files": sorted(os.listdir(os.path.join(
+                    tmp, "ckpt", f"iter{TP_SAVE_AT}", "arrays")))}
+    print("tensor parallel sharded checkpoint " + json.dumps(restored),
+          flush=True)
+    check(resume_ok and resume_params,
+          "the fresh (2, 2) launch did not resume bitwise "
+          f"(losses {resume_ok}, parameters {resume_params})")
+    check(all(restored["restored_2x1_bitwise"])
+          and restored["restored_one_process_bitwise"],
+          "the sharded checkpoint did not restore bitwise on (2, 1) or in "
+          "one process")
+    return out
+
+
+def tp_bench_phase():
+    """(b): `tools/bench.py --model lm --nproc 4 --model-axis 2`. Returns
+    each rank's launches of kernels 1, 3 and 4 over the run."""
+    from bigdl_tpu_torch.tools.bench import bench_dp
+    backend = _tp_backend(4)
+    res = bench_dp("lm", 4, batch_size=8, warmup=TP_WARMUP, iters=TP_ITERS,
+                   sync=TP_SYNC, backend=backend, device="cuda",
+                   timeout_s=TP_CHILD_TIMEOUT_S, model_axis=2)
+    ranks = res["ranks"]
+    keep = ("rank", "coords", "ms_per_step", "tokens_per_sec",
+            "collectives_per_step", "n_buckets", "stored_param_bytes",
+            "stored_bytes", "flash_launches_per_step", "flops_per_step")
+    print("tensor parallel lm " + json.dumps({
+        **{k: v for k, v in res.items() if k != "ranks"},
+        "seq": ranks[0]["seq"], "precision": "bfloat16 compute, f32 masters",
+        "clip_l2": 1.0, "sharded_params": len(ranks[0]["sharded"]),
+        "ranks": [{k: r[k] for k in keep} for r in ranks],
+        "note": "four ranks sharing one card through host-staged gloo: a "
+                "check that the path works, not a scaling figure"
+                if backend == "gloo" else "one rank a card over NCCL"}),
+        flush=True)
+    want = {k: LM_LAYERS for k in ("flash_attention_fwd",
+                                   "flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkv")}
+    for r in ranks:
+        losses = r["losses"]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"tensor-parallel lm rank {r['rank']}: losses {losses}")
+        check(r["flash_launches_per_step"] == want,
+              f"tensor-parallel lm rank {r['rank']}: flash launches a step "
+              f"{r['flash_launches_per_step']}, not {want}")
+        per = r["collectives_per_step"]
+        check(per.get("gather") == 26 and per.get("grad") == r["n_buckets"],
+              f"tensor-parallel lm rank {r['rank']}: collectives a step "
+              f"{per}")
+    steps = TP_WARMUP + TP_ITERS
+    return {k: [int(r["kernel_launches_per_step"][k] * steps) for r in ranks]
+            for k in want}
+
+
 # 15. Wide&Deep (`BASELINE.md` config 5): the f32 pair's steps and limits;
 # the benchmark's warm-up, timed steps and sync; the served requests; the
 # example's accuracy floor
@@ -3364,6 +3708,8 @@ def main() -> int:
         return resume_child(*sys.argv[2:4])
     if sys.argv[1:2] == ["--dp-child"]:
         return dp_child(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--tp-child"]:
+        return tp_child(*sys.argv[2:5])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3476,6 +3822,13 @@ def main() -> int:
     wd_serving_phase()
     wd_dp_phase()
     print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 16. tensor parallelism and sharded checkpoints
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp_parity_phase(tmp)
+    tp_launches = tp_bench_phase()
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
     zoo_launches = {
         "launches_inception_v1": zoo_bench["inception_v1"]["launches"],
         "launches_inception_v2": zoo_bench["inception_v2"]["launches"],
@@ -3487,15 +3840,18 @@ def main() -> int:
          "training_shape": {**bwd_rows["fwd_training_shape"],
                             "design": DESIGN[torch.bfloat16]},
          "long_context_shape": long_context,
+         "launches_tp_ranks": tp_launches["flash_attention_fwd"],
          "build": tc_build["flash_attention_fwd"]},
         {**CARRY_ROW, "launches": carry_launches, **carry_row,
          "design": DESIGN[torch.bfloat16],
          "build": tc_build["flash_attention_carry"], "status": "ok"},
         {**DQ_ROW, "launches": lm_launches["flash_attention_bwd_dq"],
          **bwd_rows["dq"], "design": DESIGN[torch.bfloat16],
+         "launches_tp_ranks": tp_launches["flash_attention_bwd_dq"],
          "build": tc_build["flash_attention_bwd_dq"], "status": "ok"},
         {**DKV_ROW, "launches": lm_launches["flash_attention_bwd_dkv"],
          **bwd_rows["dkv"], "design": DESIGN[torch.bfloat16],
+         "launches_tp_ranks": tp_launches["flash_attention_bwd_dkv"],
          "build": tc_build["flash_attention_bwd_dkv"], "status": "ok"},
         {**BN_FWD_ROW, "launches": bn_launches["bn_relu_fwd"],
          **bn_rows["fwd"], "design": "cuda_cores_f32", "status": "ok",

@@ -385,10 +385,16 @@ def test_memory_store_round_trip_through_the_io_retry(monkeypatch):
 
 
 def test_set_checkpoint_refuses_what_is_not_ported():
+    """`sharded=True` is ported (`sharded_checkpoint.py`, through
+    `torch.distributed.checkpoint`) to local paths: a URI is what it
+    refuses, at configure time."""
     opt = toptim.LocalOptimizer(_port_model(), LocalDataSet([]),
                                 tnn.ClassNLLCriterion(), device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        opt.set_checkpoint("x", toptim.several_iteration(1), sharded=True)
+    opt.set_checkpoint("x", toptim.several_iteration(1), sharded=True)
+    assert opt.checkpoint_sharded and opt.checkpoint_path == "x"
+    with pytest.raises(ValueError, match="local path"):
+        opt.set_checkpoint("memory://ckpts", toptim.several_iteration(1),
+                           sharded=True)
     with pytest.raises(ValueError):
         opt.set_checkpoint("x", toptim.several_iteration(1), keep_last_n=0)
 
@@ -594,9 +600,27 @@ def test_no_retry_without_a_checkpoint_path():
 
 
 def test_distri_optimizer_signature_refuses_sharding_rules():
-    with pytest.raises(NotImplementedError, match="sharding_rules"):
-        toptim.DistriOptimizer(_port_model(), LocalDataSet([]),
-                               tnn.ClassNLLCriterion(), None, object())
+    """`sharding_rules` are ported (the reference's fifth positional
+    parameter; `ShardingRules()` when None, as the reference's): without a
+    model axis they place nothing. What is refused is a model axis that
+    does not divide the ranks."""
+    from bigdl_tpu_torch.parallel.mesh import process_mesh_shape
+    from bigdl_tpu_torch.parallel.sharding import ShardingRules
+    rules = ShardingRules(min_shard_dim=16)
+    opt = toptim.DistriOptimizer(_port_model(), LocalDataSet([]),
+                                 tnn.ClassNLLCriterion(), None, rules,
+                                 devices=["cpu"])
+    assert opt.rules is rules and opt.model_size == 1
+    assert opt.data_size == 1 and opt.sharded is None
+    default = toptim.DistriOptimizer(_port_model(), LocalDataSet([]),
+                                     tnn.ClassNLLCriterion(),
+                                     devices=["cpu"])
+    assert default.rules.min_shard_dim == 256
+    assert process_mesh_shape(None, 2, 4) == (2, 2)
+    with pytest.raises(ValueError, match="does not divide"):
+        process_mesh_shape(None, 3, 4)
+    with pytest.raises(ValueError, match="2x2 != 8"):
+        process_mesh_shape(2, 2, 8)
 
 
 def test_factory_refuses_retry_settings_for_the_local_loop():
