@@ -121,12 +121,17 @@ class BatchNormalization(Module):
         the card one kernel each way instead of a normalize pass and a ReLU
         pass. Statistics, state updates and the folded coefficients are
         those of `forward`. The kernel reads x as an [N, C] matrix, so a
-        non-NHWC-contiguous x is made contiguous first."""
+        non-NHWC-contiguous x is made contiguous first. It reads x in its
+        own dtype: a bf16 x goes to the kernels as it is (`source=`), and
+        its f32 copy, which the statistics use, stays the differentiable
+        input, so autograd joins the kernel's dx with the statistics'
+        gradient in f32 before the one cast back."""
         from bigdl_tpu_torch.ops.bn_relu_kernel import bn_relu
         if not x.is_contiguous():
             x = x.contiguous()
-        x, scale, shift, out_dtype = self._stats_scale_shift(x)
-        return bn_relu(x, scale, shift, relu, out_dtype)
+        x32, scale, shift, out_dtype = self._stats_scale_shift(x)
+        return bn_relu(x32, scale, shift, relu, out_dtype,
+                       source=None if x32 is x else x)
 
 
 class SpatialBatchNormalization(BatchNormalization):

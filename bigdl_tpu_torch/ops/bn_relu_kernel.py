@@ -13,8 +13,9 @@ coefficients `scale`, `shift` ([C] f32):
   `bn_relu_backward_plain`. They never fall back: a CUDA tensor launches
   the kernel or raises. Each counts its launches (`.launches`).
 - `BnReluFunction`: the `torch.autograd.Function` around the pair, the
-  counterpart of the `custom_vjp` `bn_relu_pallas`. It saves
-  `(x, scale, shift)` only; the backward recomputes the pre-activation.
+  counterpart of the `custom_vjp` `bn_relu_pallas`. It saves the tensor
+  the kernels read, `scale` and `shift` only; the backward recomputes the
+  pre-activation.
   Autograd carries dscale/dshift on through the batch statistics.
 - `bn_relu`: the router the BN layers call (`nn/normalization.py`).
 
@@ -23,9 +24,24 @@ expression with `jax.nn.relu`'s zero gradient at 0. The port runs the
 Function on every device; on the CPU its plain versions are that same
 unfused expression, the mask `pre > 0` giving the same zero at 0.
 
-Both kernels take x as the f32 upcast the BN layer hands over
-(`_stats_scale_shift`), so a bf16 activation is read as f32 here; reading
-the bf16 activation directly is a later optimisation.
+The kernels read x in its own dtype. The BN layer computes its statistics
+on an f32 copy of a bf16 activation and passes that copy as `x`, the
+Function's differentiable input (autograd joins the kernel's f32 dx with
+the statistics' gradient there, before the one cast back to bf16), and
+the bf16 activation itself as `source=`: the kernels read and the
+Function saves the source, 2 bytes an element where the copy has 4. The
+upcast is exact, so every output is the same bits either way.
+
+The backward reads g with its row stride: a channel slice of a wider NHWC
+gradient (a `Concat` branch's share of the joined gradient) goes to the
+kernel in place. Only a g whose rows cannot be seen as one [N, C] matrix
+with unit column stride (an NCHW-permuted one, an expanded one) is copied
+first, and counted in `BnReluFunction.g_copies`.
+
+The partition of the backward (`bwd_partition`: column groups of at most
+64 columns, row lanes, row tiles) is a function of (N, C) alone, which
+fixes the summation order of dscale and dshift; its sum over tiles is
+finished inside the one launch.
 
 Each launch (or, on the CPU, plain version) counts `bn_relu_flops` in
 `observability.costs.count_flops`; inside a count, a `meta` tensor only
@@ -35,7 +51,8 @@ counts.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,10 +60,17 @@ from bigdl_tpu_torch.observability import costs
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: elements of the [N, C] matrix one backward tile covers (about): the
-#: row tile is picked from N and C alone, which fixes the summation order
-_BWD_TILE_ELEMS = 16384
-_BWD_MAX_TILE_N = 4096
+#: columns a kernel thread owns, and the octets of a column group (64
+#: columns at most)
+_OCTET = 8
+_MAX_GROUP_OCTETS = 8
+_MAX_THREADS = 256
+#: the H100's SMs, and the blocks of the backward an SM holds at once
+#: (its launch bounds): the backward's tiling aims at one full wave. A
+#: constant, so that the tiling (and so the bits of dscale and dshift)
+#: depends on (N, C) alone
+_SMS = 132
+_BWD_BLOCKS_PER_SM = 4
 
 
 def bn_relu_forward_plain(x2, scale, shift, relu: bool = True,
@@ -76,13 +100,47 @@ def bn_relu_flops(n: int, c: int, backward: bool) -> int:
     return (7 if backward else 3) * n * c
 
 
-def bwd_tile_rows(n: int, c: int) -> int:
-    """Rows per backward tile for an [n, c] matrix: about
-    `_BWD_TILE_ELEMS` elements, a multiple of 8, at most
-    `_BWD_MAX_TILE_N` rows. A function of (n, c) only."""
-    rows = -(-_BWD_TILE_ELEMS // c)
-    rows = min(max(8, -(-rows // 8) * 8), _BWD_MAX_TILE_N)
-    return min(rows, n)
+class BwdPartition(NamedTuple):
+    """How the backward kernel splits an [N, C] matrix: `n_groups` column
+    groups of `group_octets` octets (8 columns each; the last group may
+    be short) by `n_tiles` row tiles of `tile_rows` rows (the last may be
+    short); a block is `group_octets` x `lanes_y` threads."""
+    n_groups: int
+    group_octets: int
+    lanes_y: int
+    tile_rows: int
+    n_tiles: int
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(n: int, c: int) -> Tuple[int, int, int]:
+    """(n_groups, group_octets, lanes_y) of both kernels for [n, c]: the
+    octets split evenly into groups of at most 64 columns; row lanes a
+    power of 2, as many as fit 256 threads a block, halved (down to a
+    warp a block) while a pass of them over the rows would leave SMs
+    without a block."""
+    octets = -(-c // _OCTET)
+    n_groups = -(-octets // _MAX_GROUP_OCTETS)
+    group_octets = -(-octets // n_groups)
+    lanes_y = 1 << (_MAX_THREADS // group_octets).bit_length() - 1
+    while group_octets * lanes_y > 32 and \
+            -(-n // lanes_y) * n_groups < _SMS:
+        lanes_y //= 2
+    return n_groups, group_octets, lanes_y
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_partition(n: int, c: int) -> BwdPartition:
+    """The backward's partition of an [n, c] matrix, a function of (n, c)
+    alone: `_layout`'s groups and lanes, and row tiles, a multiple of the
+    row lanes each, as many as make about one full wave of blocks
+    (`_SMS` x `_BWD_BLOCKS_PER_SM`) with the column groups."""
+    n_groups, group_octets, lanes_y = _layout(n, c)
+    tiles_wanted = max(1, _SMS * _BWD_BLOCKS_PER_SM // n_groups)
+    tile_rows = -(-n // tiles_wanted)
+    tile_rows = -(-tile_rows // lanes_y) * lanes_y
+    return BwdPartition(n_groups, group_octets, lanes_y, tile_rows,
+                        -(-n // tile_rows))
 
 
 # --------------------------------------------------------------------------
@@ -90,6 +148,9 @@ def bwd_tile_rows(n: int, c: int) -> int:
 # --------------------------------------------------------------------------
 
 _FNS = {}
+#: per (device index, stream): the backward's ticket counters, one a
+#: column group, zero between launches (each launch leaves them at 0)
+_TICKETS = {}
 
 
 def _kernel_fn(name: str):
@@ -98,10 +159,16 @@ def _kernel_fn(name: str):
         from bigdl_tpu_torch.ops._build import load_kernel
         lib = load_kernel(name)
         fn = getattr(lib, name)
-        n_ptrs = 4 if name == "bn_relu_fwd" else 7
-        n_ints = 4 if name == "bn_relu_fwd" else 5
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_longlong]
-                       + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+        P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        if name == "bn_relu_fwd":
+            # x, scale, shift, y, n_rows, c, group_octets, lanes_y,
+            # x_dtype, y_dtype, relu, stream
+            fn.argtypes = [P] * 4 + [L] + [I] * 6 + [P]
+        else:
+            # x, scale, shift, g, ldg, dx, ds_part, db_part, ds, db,
+            # tickets, n_rows, c, group_octets, lanes_y, tile_rows,
+            # n_tiles, x_dtype, g_dtype, relu, stream
+            fn.argtypes = [P] * 4 + [L] + [P] * 6 + [L] + [I] * 8 + [P]
         fn.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
@@ -110,7 +177,9 @@ def _kernel_fn(name: str):
     return fns
 
 
-def _check_2d(name, t, c=None):
+def _check_2d(name, t, c=None, row_stride=False):
+    """t is an [N, C] f32 or bf16 matrix, contiguous, or with
+    `row_stride` rows at least C elements apart and unit column stride."""
     if t.dim() != 2:
         raise ValueError(f"{name} must be [N, C], got shape {tuple(t.shape)}")
     if t.dtype not in _DTYPE_CODES:
@@ -119,10 +188,37 @@ def _check_2d(name, t, c=None):
         raise ValueError(f"{name} is empty: shape {tuple(t.shape)}")
     if c is not None and t.shape[1] != c:
         raise ValueError(f"{name} has {t.shape[1]} columns, expected {c}")
-    if not t.is_contiguous():
+    if row_stride:
+        if _row_stride(t) is None:
+            raise ValueError(
+                f"{name} must be an [N, C] view with contiguous rows (unit "
+                f"column stride, rows at least C apart), got strides "
+                f"{t.stride()}")
+    elif not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous [N, C] view (strides "
                          f"{t.stride()}); the kernels never reinterpret "
                          "strides")
+
+
+def _row_stride(t2) -> Optional[int]:
+    """The distance in elements between the rows of an [N, C] matrix whose
+    columns are contiguous, or None if its layout is not that."""
+    n, c = t2.shape
+    if c > 1 and t2.stride(1) != 1:
+        return None
+    if n == 1:
+        return c
+    return t2.stride(0) if t2.stride(0) >= c else None
+
+
+def _rows(t, c) -> Optional[torch.Tensor]:
+    """t (any leading rank, C trailing) as an [N, C] matrix with unit
+    column stride, without a copy; None where no such view exists."""
+    try:
+        t2 = t.view(-1, c)
+    except RuntimeError:
+        return None
+    return t2 if _row_stride(t2) is not None else None
 
 
 def _check_coeffs(x2, scale, shift):
@@ -136,9 +232,8 @@ def _check_coeffs(x2, scale, shift):
             raise ValueError(f"{name} is on {t.device}, x on {x2.device}")
 
 
-def _run(name, args):
+def _run(name, device, args):
     fn, err_str = _kernel_fn(name)
-    device = args[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -146,6 +241,17 @@ def _run(name, args):
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{err_str(code).decode()} (cudaError {code})")
+
+
+def _tickets(device, n_groups):
+    """The backward's ticket counters for the current stream of `device`:
+    zeroed once, then left at 0 by every launch."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n_groups:
+        t = _TICKETS[key] = torch.zeros(max(n_groups, 64),
+                                        dtype=torch.int32, device=device)
+    return t
 
 
 def bn_relu_forward(x2, scale, shift, relu: bool = True, out_dtype=None):
@@ -173,9 +279,11 @@ def bn_relu_forward(x2, scale, shift, relu: bool = True, out_dtype=None):
     if x2.device.type != "cuda":
         raise NotImplementedError(
             f"no bn_relu forward for device type {x2.device.type!r}")
+    _, group_octets, lanes_y = _layout(n, c)
     y2 = torch.empty((n, c), dtype=out_dtype, device=x2.device)
-    _run("bn_relu_fwd", [x2, scale, shift, y2, n, c, _DTYPE_CODES[x2.dtype],
-                         _DTYPE_CODES[out_dtype], int(bool(relu))])
+    _run("bn_relu_fwd", x2.device,
+         [x2, scale, shift, y2, n, c, group_octets, lanes_y,
+          _DTYPE_CODES[x2.dtype], _DTYPE_CODES[out_dtype], int(bool(relu))])
     bn_relu_forward.launches += 1
     costs.tally_kernel(flops)
     return y2
@@ -187,12 +295,14 @@ bn_relu_forward.launches = 0
 def bn_relu_backward(x2, scale, shift, g2, relu: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused backward: (dx [N, C] f32, dscale [C], dshift [C]) from the
-    forward's input x2 and the cotangent g2 [N, C] (f32 or bf16, the
-    forward output's dtype). The CUDA kernel on a CUDA tensor, its plain
-    version on a CPU tensor; the kernel's per-tile partial sums are reduced
-    here with `torch.sum`. `bn_relu_backward.launches` counts launches."""
+    forward's input x2 (contiguous) and the cotangent g2 [N, C] (f32 or
+    bf16, the forward output's dtype; its rows may lie further apart than
+    C, as a channel slice's do, its columns contiguous). The CUDA kernel on
+    a CUDA tensor, one launch that also sums dscale and dshift over the
+    rows; its plain version on a CPU tensor. `bn_relu_backward.launches`
+    counts launches."""
     _check_2d("x", x2)
-    _check_2d("g", g2, c=x2.shape[1])
+    _check_2d("g", g2, c=x2.shape[1], row_stride=True)
     _check_coeffs(x2, scale, shift)
     if g2.shape[0] != x2.shape[0] or g2.device != x2.device:
         raise ValueError(f"g {tuple(g2.shape)} on {g2.device} does not "
@@ -212,63 +322,80 @@ def bn_relu_backward(x2, scale, shift, g2, relu: bool = True
     if x2.device.type != "cuda":
         raise NotImplementedError(
             f"no bn_relu backward for device type {x2.device.type!r}")
-    tile_n = bwd_tile_rows(n, c)
-    n_tiles = -(-n // tile_n)
+    part = bwd_partition(n, c)
     dx = torch.empty((n, c), dtype=torch.float32, device=x2.device)
-    parts = torch.empty((2, n_tiles, c), dtype=torch.float32,
+    parts = torch.empty((2, part.n_tiles, c), dtype=torch.float32,
                         device=x2.device)
-    _run("bn_relu_bwd", [x2, scale, shift, g2, dx, parts[0], parts[1], n, c,
-                         tile_n, _DTYPE_CODES[x2.dtype],
-                         _DTYPE_CODES[g2.dtype], int(bool(relu))])
+    sums = torch.empty((2, c), dtype=torch.float32, device=x2.device)
+    tickets = _tickets(x2.device, part.n_groups)
+    _run("bn_relu_bwd", x2.device,
+         [x2, scale, shift, g2, _row_stride(g2), dx, parts[0], parts[1],
+          sums[0], sums[1], tickets, n, c, part.group_octets, part.lanes_y,
+          part.tile_rows, part.n_tiles, _DTYPE_CODES[x2.dtype],
+          _DTYPE_CODES[g2.dtype], int(bool(relu))])
     bn_relu_backward.launches += 1
     costs.tally_kernel(flops)
-    ds, db = torch.sum(parts, dim=1)
-    return dx, ds, db
+    return dx, sums[0], sums[1]
 
 
 bn_relu_backward.launches = 0
 
 
 class BnReluFunction(torch.autograd.Function):
-    """`bn_relu` with the fused backward: saves (x, scale, shift), no mask
-    and no pre-activation. `BnReluFunction.g_copies` counts the backward
-    calls whose incoming gradient was not NHWC-contiguous and had to be
-    copied before the kernel could read it as [N, C] (as a `Concat`'s
-    gradient slice is); a `meta` tensor, which holds no data, is not
-    counted, as a kernel launch is not."""
+    """`bn_relu` with the fused backward: saves (the tensor the kernels
+    read, scale, shift), no mask and no pre-activation.
+    `BnReluFunction.g_copies` counts the backward calls whose incoming
+    gradient could not be read in place as an [N, C] matrix with unit
+    column stride and had to be copied first (an NCHW-permuted one; a
+    `Concat`'s channel slice is read in place); a `meta` tensor, which
+    holds no data, is not counted, as a kernel launch is not."""
 
     g_copies = 0
 
     @staticmethod
-    def forward(ctx, x, scale, shift, relu: bool, out_dtype):
-        if not x.is_contiguous():
+    def forward(ctx, x, scale, shift, relu: bool, out_dtype, source):
+        src = x if source is None else source
+        if source is not None and (source.shape != x.shape
+                                   or source.device != x.device):
+            raise ValueError(
+                f"source {tuple(source.shape)} on {source.device} does not "
+                f"match x {tuple(x.shape)} on {x.device}")
+        if not src.is_contiguous():
             raise ValueError(
                 f"bn_relu takes an NHWC-contiguous x (a channels_last "
-                f"activation), got strides {x.stride()}")
-        c = x.shape[-1]
-        y2 = bn_relu_forward(x.view(-1, c), scale, shift, relu, out_dtype)
-        ctx.save_for_backward(x, scale, shift)
+                f"activation), got strides {src.stride()}")
+        c = src.shape[-1]
+        y2 = bn_relu_forward(src.view(-1, c), scale, shift, relu, out_dtype)
+        ctx.save_for_backward(src, scale, shift)
         ctx.relu = relu
-        return y2.view(x.shape)
+        return y2.view(src.shape)
 
     @staticmethod
     def backward(ctx, g):
-        x, scale, shift = ctx.saved_tensors
-        c = x.shape[-1]
-        if not g.is_contiguous():
+        src, scale, shift = ctx.saved_tensors
+        c = src.shape[-1]
+        g2 = _rows(g, c)
+        if g2 is None:
             if g.device.type != "meta":
                 BnReluFunction.g_copies += 1
-            g = g.contiguous()
-        dx2, ds, db = bn_relu_backward(x.view(-1, c), scale, shift,
-                                       g.view(-1, c), ctx.relu)
-        return dx2.view(x.shape), ds, db, None, None
+            g2 = g.contiguous().view(-1, c)
+        dx2, ds, db = bn_relu_backward(src.view(-1, c), scale, shift, g2,
+                                       ctx.relu)
+        return dx2.view(src.shape), ds, db, None, None, None
 
 
 def bn_relu(x, scale, shift, relu: bool = True,
-            out_dtype: Optional[torch.dtype] = None):
+            out_dtype: Optional[torch.dtype] = None, *,
+            source: Optional[torch.Tensor] = None):
     """Fused `activation(x * scale + shift)` over the trailing channel axis
     of an NHWC-contiguous x (any leading rank): the kernels on a CUDA
     tensor, the plain versions on a CPU tensor, with the fused backward in
-    both cases. With scale = 1 this is the bias+activation tail."""
-    return BnReluFunction.apply(x, scale, shift, relu,
-                                out_dtype or x.dtype)
+    both cases. With scale = 1 this is the bias+activation tail.
+
+    `source`: the tensor x was upcast from (the BN layer's bf16 input, of
+    which x is the exact f32 copy), NHWC-contiguous. The kernels then read
+    it in its own dtype, and the Function saves it in place of x; the
+    gradient still goes to x, in f32."""
+    return BnReluFunction.apply(
+        x, scale, shift, relu, out_dtype or x.dtype,
+        None if source is None else source.detach())

@@ -64,7 +64,8 @@ reference; `Inception_v2_NoAuxClassifier(1000)` and `Vgg_16(1000)` at
 b32. Dropout draws from the optimizer's step generator. `--profile` works
 for both Inceptions; it adds the `torch.cat` copies and the copies and
 casts as kinds of their own, the BN+ReLU gradient copies a step
-(`BnReluFunction.g_copies`) and the LRN layers' device time (every zoo
+(`BnReluFunction.g_copies`: 0 where every `Concat` slice is read in
+place) and the LRN layers' device time (every zoo
 model takes it).
 
 `--model ptb_lstm` is `BASELINE.md` config 4, the PTB LSTM language
@@ -95,8 +96,10 @@ window; `mfu` is that count over the measured time, against
 `costs.peak_flops` of the card (the dense bf16 peak; None off the
 registry, on the CPU for one).
 
-prints one JSON object. `--profile` gives device time by kind of kernel.
-The benchmark needs a CUDA device unless called with `device="cpu"`; the
+prints one JSON object. `--profile` gives device time by kind of kernel,
+and by the op that launched each kernel (`ms_per_step_by_op`: the
+autograd node of a backward kernel, `VarBackward0` and the like, else the
+outermost aten op, `aten::var` and the like). The benchmark needs a CUDA device unless called with `device="cpu"`; the
 profile always does.
 """
 
@@ -915,21 +918,78 @@ def _profile(opt: DistriOptimizer, warmup: int, steps: int, top: int,
     return _profiled(opt.optimize, steps, top, device, kinds)
 
 
+# spin kernels launched at the start of each profiler window and left out
+# of its counts and times: on an H100, some minutes into a process that
+# profiles, every other window loses its first 9-12 device records
+PROFILE_MARKERS = 64
+# idle host time after the markers and at the window's end: a device
+# timestamp has read up to 0.33 ms earlier than the host's clock, and the
+# profiler keeps only the device events inside its window
+PROFILE_MARGIN_S = 0.01
+
+
+def open_profile_window(device=None) -> None:
+    """Call first inside a `torch.profiler.profile` block: launch
+    PROFILE_MARKERS spin kernels on the current stream, drain the device,
+    idle PROFILE_MARGIN_S."""
+    for _ in range(PROFILE_MARKERS):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize(device)
+    time.sleep(PROFILE_MARGIN_S)
+
+
+def close_profile_window(device=None) -> None:
+    """Call last inside the block: drain the device, idle
+    PROFILE_MARGIN_S."""
+    torch.cuda.synchronize(device)
+    time.sleep(PROFILE_MARGIN_S)
+
+
+def is_profile_marker(name: str) -> bool:
+    """Whether a device event's name is `open_profile_window`'s kernel."""
+    return "spin_kernel" in name
+
+
+def _launching_op(evt) -> str:
+    """The op a device kernel was launched from, for `evt`, the profiler's
+    CPU event that launched it: the autograd node it ran under in a
+    backward (`VarBackward0`, ...), else the outermost aten op
+    (`aten::var`, ...)."""
+    name, e = evt.name, evt
+    while e is not None:
+        if e.name.startswith("autograd::engine::evaluate_function: "):
+            return e.name.split(": ", 1)[1]
+        if e.name.startswith("aten::"):
+            name = e.name
+        e = e.cpu_parent
+    return name
+
+
 def _profiled(run, steps: int, top: int, device: torch.device,
               kinds=_KERNEL_KINDS) -> Dict:
     """Run `run()` (`steps` steps, the device drained before) under
-    `torch.profiler` and summarise where its device time goes."""
+    `torch.profiler` and summarise where its device time goes, also by
+    the op that launched each kernel (`_launching_op`)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        open_profile_window(device)
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize(device)
         wall_ms = 1e3 * (time.perf_counter() - t0)
+        close_profile_window(device)
     by_name: Dict[str, list] = {}
+    by_op: Dict[str, float] = {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.kernels:
+            op = _launching_op(e)
+            by_op[op] = by_op.get(op, 0.0) + sum(
+                k.duration for k in e.kernels
+                if not is_profile_marker(k.name)) / 1e3 / steps
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or is_profile_marker(e.name)):
             continue
         acc = by_name.setdefault(e.name, [0, 0.0])
         acc[0] += 1
@@ -954,6 +1014,8 @@ def _profiled(run, steps: int, top: int, device: torch.device,
                              "calls_per_step": n / steps,
                              "ms_per_step": ms / steps}
                             for name, (n, ms) in ranked],
+            "ms_per_step_by_op": dict(sorted(
+                by_op.items(), key=lambda kv: -kv[1])[:max(top, 25)]),
             "device": torch.cuda.get_device_name(device)}
 
 
@@ -1124,8 +1186,9 @@ def _launch_us(run, part: str, device: torch.device) -> list:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        open_profile_window(device)
         run()
-        torch.cuda.synchronize(device)
+        close_profile_window(device)
     events = sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and part in e.name),

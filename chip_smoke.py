@@ -35,8 +35,13 @@ Phases:
    stem, N = 128*112*112, C = 64; the last stage, N = 128*7*7, C = 512),
    for x f32 / out bf16, x f32 / out f32 and x bf16 / out bf16, with and
    without the ReLU: forward and dx bitwise, dscale/dshift within
-   1e-5 * sum|terms| per channel; time each beside its plain version and
-   its bound;
+   1e-5 * sum|terms| per channel, a second backward launch bitwise equal,
+   one device kernel a backward call; time each beside its plain version
+   and its bound. Then each of the eight distinct ResNet-50 b128 sites with x,
+   y and g in bf16 (the main path's dtypes): the same checks, a second
+   backward launch bitwise equal, exactly one device kernel a backward
+   call (the profiler), and its forward and backward device times beside
+   their bounds, summed over the step's 33 sites;
 6. training: ResNet-50 (1000 classes, s2d stem, full width and depth,
    random weights from a seed). First an f32 parity pair at b8, 224x224:
    the model and a twin with the same weights under `fusion_scope(False)`
@@ -162,8 +167,9 @@ Phases:
    b64 shape (x2 [64, 112, 112, 12], O = 64; f32, and bf16 with the bias
    as the bf16 copy of its master), and kernels 6-7 at Inception-v2's 7x7
    C=352 and 28x28 C=96 sites and VggForCifar10's 2-D [32, 512] site (x
-   f32, y and g bf16, the backward's g a channel slice of a wider Concat
-   gradient, copied once by the Function), each against its plain
+   bf16 as the main path hands it, and f32; y and g bf16, the backward's g
+   a channel slice of a wider Concat gradient, read in place with no
+   copy), each against its plain
    version with phases 10's and 5's limits, timed beside its bound
    (kernels 6-7 there also by the profiler: their device time is below
    a launch's host cost, which back-to-back CUDA events measure).
@@ -180,7 +186,7 @@ Phases:
    compute, f32 masters) for 8 warm-up and 24 timed steps: imgs/s,
    ms/step, the FLOP count, mfu in (0, 1), a finite first loss and a
    last loss below it, and exact launches (kernel 5 once a step for
-   Inception-v1, kernels 6-7 69 times and 36 gradient copies a step for
+   Inception-v1, kernels 6-7 69 times and no gradient copy for
    Inception-v2). (d) Phase 12's wall time.
 
 13. the recurrent path and the rest of the training loop; no kernel of
@@ -206,7 +212,8 @@ Phases:
 14. data parallel over `torch.distributed`, one process a rank, every
    rank running kernels 6-7 at ResNet-50's 33 fused sites with the BN
    statistics taken over the global batch. First kernels 6-7 against
-   their plain versions at a rank's b64 shapes, as in phase 5. (a)
+   their plain versions at a rank's b64 shapes (x bf16, as the main path
+   hands it, and f32), as in phase 5. (a)
    ResNet-50 b128 bf16 (phase 6's configuration, 4 steps, deterministic)
    under an NCCL group of world size 1 against no group: no collective
    issued, losses and parameters within PARITY_RTOL (in practice the same
@@ -272,7 +279,10 @@ Phases:
    bitwise. (d) Phase 16's wall time.
 
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
-measure ran: `tensor_cores` or `cuda_cores_f32`; rows 5-7 with their
+measure ran: `tensor_cores` or `cuda_cores_f32` for rows 1-5, the octet
+designs of rows 6-7 (`BN_DESIGN`); rows 6-7 at the main path's dtypes
+(x, y and g bf16) with the x-f32 stem case beside them and the eight
+ResNet-50 sites (`resnet50_sites`); rows 5-7 with their
 launches on the zoo's paths and their zoo shapes; rows 6-7 with their
 launches on each rank of phase 14(b) and their time at a rank's b64
 stem site; rows 1, 3 and 4 with their launches on each rank of phase
@@ -346,9 +356,15 @@ BWD_RTOL = {torch.float32: 0.0, torch.bfloat16: 2 ** -7}
 BWD_ATOL = 1e-4
 # which design of kernels 1-4 a dtype runs (the .cu files' entry points
 # dispatch by dtype): bf16 on the tensor cores, f32 on the CUDA cores.
-# Kernels 6-7 have only the CUDA-core design; kernel 5 picks by its
-# dtypes and width (`stem_design`).
+# Kernel 5 picks by its dtypes and width (`stem_design`).
 DESIGN = {torch.float32: "cuda_cores_f32", torch.bfloat16: "tensor_cores"}
+# kernels 6-7, memory-bound on the CUDA cores in every dtype: a thread owns
+# 8 columns (16-byte accesses), the grid fills the SMs (forward) or is
+# (row tiles x column groups) with dscale/dshift finished in the launch
+# by the last tile (backward); x read in its own dtype, g with its row
+# stride
+BN_DESIGN = {"bn_relu_fwd": "cuda_cores_octets_sm_filled",
+             "bn_relu_bwd": "cuda_cores_octets_2d_grid_one_launch"}
 # the kernels with a bf16 tensor-core design beside a CUDA-core one
 TC_KERNELS = ("flash_attention_fwd", "flash_attention_carry",
               "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
@@ -360,6 +376,12 @@ LM_LAYERS = 4
 BN_SUM_RTOL = 1e-5
 # ResNet-50: the stem's BN and bn1/bn2 of each of the 16 bottlenecks
 BN_SITES = 33
+# ResNet-50 b128's eight distinct fused sites: (N, C) of the [N, C] view
+# and the launches a step of each (33 in all)
+RESNET_BN_SITES = [(128 * 112 * 112, 64, 1), (128 * 56 * 56, 64, 6),
+                   (128 * 56 * 56, 128, 1), (128 * 28 * 28, 128, 7),
+                   (128 * 28 * 28, 256, 1), (128 * 14 * 14, 256, 11),
+                   (128 * 14 * 14, 512, 1), (128 * 7 * 7, 512, 5)]
 # f32 kernel-vs-twin losses after 3 steps: the twin differs only in the
 # summation order of dscale/dshift (~1e-7 relative a step)
 PARITY_RTOL = 1e-4
@@ -717,7 +739,9 @@ BN_DTYPES = [(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
 
 def bn_relu_phase(bk, shapes=BN_SHAPES, dtypes=BN_DTYPES, main="stem"):
     """Both BN+ReLU kernels against their plain versions. Returns the rows
-    for the main path's site `main` (x f32, y and g bf16, ReLU)."""
+    for the main path's site `main` with the ReLU: "fwd" and "bwd" with x,
+    y and g bf16 (the main path's dtypes), "fwd_x_f32" and "bwd_x_f32"
+    with x f32, where `dtypes` has them."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
     for label, n, c in shapes:
@@ -732,7 +756,11 @@ def bn_relu_phase(bk, shapes=BN_SHAPES, dtypes=BN_DTYPES, main="stem"):
                         f"{str(y_dt)[6:]} relu={relu}")
                 y = bk.bn_relu_forward(x, scale, shift, relu, y_dt)
                 dx, ds, db = bk.bn_relu_backward(x, scale, shift, g, relu)
+                _, ds2, db2 = bk.bn_relu_backward(x, scale, shift, g, relu)
                 torch.cuda.synchronize()
+                again = torch.equal(ds, ds2) and torch.equal(db, db2)
+                bwd_k = device_profile(lambda: bk.bn_relu_backward(
+                    x, scale, shift, g, relu), reps=5)[1]
                 y_ref = bk.bn_relu_forward_plain(x, scale, shift, relu, y_dt)
                 dx_ref, ds_ref, db_ref = bk.bn_relu_backward_plain(
                     x, scale, shift, g, relu)
@@ -759,7 +787,9 @@ def bn_relu_phase(bk, shapes=BN_SHAPES, dtypes=BN_DTYPES, main="stem"):
                     x, scale, shift, g, relu), iters)
                 fwd_bound = bn_relu_bound(n, c, x_dt, y_dt, False)
                 bwd_bound = bn_relu_bound(n, c, x_dt, y_dt, True)
-                row = {"case": name, "ok": ok, "max_abs_err_y": err_y,
+                row = {"case": name, "ok": ok, "second_launch_equal": again,
+                       "bwd_kernels_per_call": bwd_k,
+                       "max_abs_err_y": err_y,
                        "max_abs_err_dx": err_dx,
                        "max_abs_err_dscale": float((ds - ds_ref).abs().max()),
                        "max_abs_err_dshift": float((db - db_ref).abs().max()),
@@ -774,20 +804,100 @@ def bn_relu_phase(bk, shapes=BN_SHAPES, dtypes=BN_DTYPES, main="stem"):
                           f"plain version (y {err_y:.3e}, dx {err_dx:.3e}, "
                           "or dscale/dshift beyond "
                           f"{BN_SUM_RTOL} * sum|terms|)")
-                if label == main and x_dt == torch.float32 \
-                        and y_dt == torch.bfloat16 and relu:
-                    rows["fwd"] = {"max_abs_err": err_y, "ms": fwd_ms,
-                                   "plain_ms": fwd_plain_ms,
-                                   "bound_ms": fwd_bound[0],
-                                   "bound_by": fwd_bound[1],
-                                   "library_ms": None}
-                    rows["bwd"] = {"max_abs_err": err_dx, "ms": bwd_ms,
-                                   "plain_ms": bwd_plain_ms,
-                                   "bound_ms": bwd_bound[0],
-                                   "bound_by": bwd_bound[1],
-                                   "library_ms": None}
+                check(again and bwd_k == 1,
+                      f"{name}: a second backward launch gave other "
+                      f"dscale/dshift bits ({again}) or the backward took "
+                      f"{bwd_k} device kernels a call")
+                if label == main and y_dt == torch.bfloat16 and relu:
+                    tag = "" if x_dt == torch.bfloat16 else "_x_f32"
+                    rows["fwd" + tag] = {
+                        "max_abs_err": err_y, "ms": fwd_ms,
+                        "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0],
+                        "bound_by": fwd_bound[1], "library_ms": None}
+                    rows["bwd" + tag] = {
+                        "max_abs_err": err_dx, "ms": bwd_ms,
+                        "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0],
+                        "bound_by": bwd_bound[1], "library_ms": None}
         del x32, g32, x, g
     return rows
+
+
+def bn_sites_phase(bk):
+    """5(b): kernels 6-7 at each of ResNet-50 b128's eight distinct sites
+    with x, y and g bf16 (the main path's dtypes): y and dx bitwise
+    against the plain versions, dscale/dshift within BN_SUM_RTOL, a second
+    backward launch bitwise equal, exactly one device kernel a backward
+    call, and the device times (the profiler) and CUDA-event times beside
+    the bounds. Returns the sites' rows and the step's sums."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf = torch.bfloat16
+    sites = []
+    step = {"fwd_device_ms": 0.0, "bwd_device_ms": 0.0, "fwd_bound_ms": 0.0,
+            "bwd_bound_ms": 0.0, "launches": 0}
+    for n, c, per_step in RESNET_BN_SITES:
+        x = torch.randn((n, c), generator=gen, device="cuda").to(bf)
+        scale = torch.rand((c,), generator=gen, device="cuda") + 0.5
+        shift = torch.randn((c,), generator=gen, device="cuda") * 0.5
+        g = torch.randn((n, c), generator=gen, device="cuda").to(bf)
+        y = bk.bn_relu_forward(x, scale, shift, True, bf)
+        dx, ds, db = bk.bn_relu_backward(x, scale, shift, g, True)
+        _, ds2, db2 = bk.bn_relu_backward(x, scale, shift, g, True)
+        torch.cuda.synchronize()
+        y_ref = bk.bn_relu_forward_plain(x, scale, shift, True, bf)
+        dx_ref, ds_ref, db_ref = bk.bn_relu_backward_plain(
+            x, scale, shift, g, True)
+        gm = torch.where((x * scale + shift).to(bf) > 0, g.float(), 0.0)
+        ok = (torch.equal(y, y_ref) and torch.equal(dx, dx_ref)
+              and bool(((ds - ds_ref).abs() <= BN_SUM_RTOL
+                        * (gm * x.float()).abs().sum(0)).all())
+              and bool(((db - db_ref).abs()
+                        <= BN_SUM_RTOL * gm.abs().sum(0)).all()))
+        again = torch.equal(ds, ds2) and torch.equal(db, db2)
+        del y_ref, dx_ref, gm, dx
+        iters = 20 if n * c > 1 << 22 else 50
+        fwd_dev, fwd_k = device_profile(lambda: bk.bn_relu_forward(
+            x, scale, shift, True, bf))
+        bwd_dev, bwd_k = device_profile(lambda: bk.bn_relu_backward(
+            x, scale, shift, g, True))
+        fwd_bound = bn_relu_bound(n, c, bf, bf, False)
+        bwd_bound = bn_relu_bound(n, c, bf, bf, True)
+        part = bk.bwd_partition(n, c)
+        row = {"site": [n, c], "launches_per_step": per_step, "ok": ok,
+               "second_launch_equal": again,
+               "bwd_partition": part._asdict(),
+               "fwd_kernels_per_call": fwd_k, "bwd_kernels_per_call": bwd_k,
+               "fwd_device_ms": fwd_dev, "fwd_ms": cuda_ms(
+                   lambda: bk.bn_relu_forward(x, scale, shift, True, bf),
+                   iters),
+               "fwd_bound_ms": fwd_bound[0],
+               "fwd_share_of_bound": fwd_bound[0] / fwd_dev,
+               "bwd_device_ms": bwd_dev, "bwd_ms": cuda_ms(
+                   lambda: bk.bn_relu_backward(x, scale, shift, g, True),
+                   iters),
+               "bwd_bound_ms": bwd_bound[0],
+               "bwd_share_of_bound": bwd_bound[0] / bwd_dev,
+               "max_abs_err_dscale": float((ds - ds_ref).abs().max()),
+               "max_abs_err_dshift": float((db - db_ref).abs().max())}
+        print("bn_relu site " + json.dumps(row), flush=True)
+        check(ok, f"site [{n}, {c}]: a BN+ReLU kernel disagrees with its "
+                  "plain version")
+        check(again, f"site [{n}, {c}]: a second backward launch gave "
+                     "other dscale/dshift bits")
+        check(fwd_k == 1 and bwd_k == 1,
+              f"site [{n}, {c}]: {fwd_k} forward and {bwd_k} backward "
+              "device kernels a call, not one each")
+        for k in ("fwd_device_ms", "bwd_device_ms", "fwd_bound_ms",
+                  "bwd_bound_ms"):
+            step[k] += per_step * row[k]
+        step["launches"] += per_step
+        sites.append(row)
+        del x, g
+    torch.cuda.empty_cache()
+    check(step["launches"] == BN_SITES, f"{step['launches']} site launches")
+    step["fwd_share_of_bound"] = step["fwd_bound_ms"] / step["fwd_device_ms"]
+    step["bwd_share_of_bound"] = step["bwd_bound_ms"] / step["bwd_device_ms"]
+    print("bn_relu resnet50 step " + json.dumps(step), flush=True)
+    return {"sites": sites, "step": step}
 
 
 def _reset_bn_counts(bk):
@@ -2369,9 +2479,10 @@ def route_counts():
 # 69 convolutions) and VggForCifar10 (13 convolution blocks and the 1-D BN)
 V2_SITES = 69
 CIFAR_VGG_SITES = 14
-# Inception-v2's Concat gradient slices a step: the last BN+ReLU of each
-# branch that has one (4 in each of 8 blocks, 2 in the 2 reduction blocks)
-V2_G_COPIES = 36
+# Inception-v2's Concat gradient slices a step (the last BN+ReLU of each
+# branch that has one: 4 in each of 8 blocks, 2 in the 2 reduction blocks)
+# are read in place by kernel 7; the gradient copies a step that remain
+V2_G_COPIES = 0
 # kernels 6-7 at the zoo's new sites, (label, N, C) of the [N, C] view
 ZOO_BN_SHAPES = [("v2 7x7 C=352", 32 * 7 * 7, 352),
                  ("v2 28x28 C=96", 32 * 28 * 28, 96),
@@ -2384,34 +2495,78 @@ ZOO_G_SLICES = {"v2 7x7 C=352": (1024, 0), "v2 28x28 C=96": (256, 64),
 ZOO_BENCH = ("lenet", "inception_v1", "inception_v2", "vgg16")
 
 
-def device_ms(fn, reps=20):
-    """Device time (ms) of one call of `fn`: every kernel it launches,
-    summed over `reps` calls under `torch.profiler` and divided by
-    `reps`. Back-to-back CUDA events time the host's issue rate instead
-    when a call's kernels take less time than its launches. A profile that
-    lost a device event (CUPTI has dropped one in 20 on the card) is taken
-    again, up to 3 times in all; one that never sees every call fails."""
+# (lead_us, tail_us, events seen, calls) of each profile window taken
+# since the last `profile_window_summary`: lead is how long after the
+# first measured call's host time its first device event starts
+# (negative where a device timestamp reads earlier than the host's
+# clock), tail how long before the host saw the device drained the last
+# event ends
+PROFILE_WINDOWS = []
+
+
+def device_profile(fn, reps=20):
+    """(device ms, device kernels) of one call of `fn`: every kernel it
+    launches, summed over `reps` calls under `torch.profiler` and divided
+    by `reps`. Back-to-back CUDA events time the host's issue rate instead
+    when a call's kernels take less time than its launches. Each window
+    opens with `tools.bench.open_profile_window`'s spin kernels, left out
+    of the count: some minutes into the run, every other window on the
+    card loses its first 9-12 device records. A profile that still lost
+    a device event is taken again, up to 3 times in all; one that never
+    sees every call fails."""
     from torch.profiler import ProfilerActivity, profile
+    from bigdl_tpu_torch.tools.bench import (close_profile_window,
+                                             is_profile_marker,
+                                             open_profile_window)
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t_in = time.perf_counter()
+            open_profile_window()
+            t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-        if len(us) >= reps:
+            t1 = time.perf_counter()
+            close_profile_window()
+        ev = [e.time_range for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not is_profile_marker(e.name)]
+        us = [r.elapsed_us() for r in ev]
+        if ev:
+            PROFILE_WINDOWS.append(
+                (min(r.start for r in ev) - 1e6 * (t0 - t_in),
+                 1e6 * (t1 - t_in) - max(r.end for r in ev), len(ev), reps))
+        if len(us) >= reps and len(us) % reps == 0:
             break
     check(len(us) >= reps, f"the profiler saw {len(us)} device events in "
                            f"{reps} calls, three times")
-    return sum(us) / reps / 1e3
+    return sum(us) / reps / 1e3, len(us) / reps
+
+
+def profile_window_summary():
+    """The profile windows taken since the last call, as one JSON-able
+    dict; empties PROFILE_WINDOWS."""
+    w = PROFILE_WINDOWS[:]
+    PROFILE_WINDOWS.clear()
+    return {"windows": len(w),
+            "min_lead_us": min((x[0] for x in w), default=None),
+            "min_tail_us": min((x[1] for x in w), default=None),
+            "short": sum(1 for x in w if x[2] < x[3] or x[2] % x[3])}
+
+
+def device_ms(fn, reps=20):
+    """Device time (ms) of one call of `fn` (`device_profile`)."""
+    return device_profile(fn, reps)[0]
 
 
 def zoo_kernel_phase(sk, bk):
     """12(a): kernel 5 with its bias at Inception-v1's b64 shape, kernels
-    6-7 at Inception-v2's and VggForCifar10's sites (the backward given a
-    channel slice of a Concat gradient), each against its plain version
+    6-7 at Inception-v2's and VggForCifar10's sites (x bf16 and f32; the
+    backward given a channel slice of a Concat gradient, read in place,
+    with the same dscale/dshift bits as on the contiguous copy), each
+    against its plain version
     with phases 5's and 10's limits, timed beside its bound. Kernels 6-7
     at these sites take less device time than a launch: `ms` (CUDA
     events over back-to-back calls) is then the host's issue rate, and
@@ -2462,71 +2617,85 @@ def zoo_kernel_phase(sk, bk):
 
     for label, n, c in ZOO_BN_SHAPES:
         width, offset = ZOO_G_SLICES[label]
-        x2 = torch.randn((n, c), generator=gen, device="cuda")
+        x32 = torch.randn((n, c), generator=gen, device="cuda")
         scale = torch.rand((c,), generator=gen, device="cuda") + 0.5
         shift = torch.randn((c,), generator=gen, device="cuda") * 0.5
         g = torch.randn((n, width), generator=gen, device="cuda").to(
             torch.bfloat16)[:, offset:offset + c]
-        # the fused tail as a layer calls it: the Function copies the
-        # strided slice, then launches kernel 7 on it
-        xr = x2.clone().requires_grad_()
-        copies = bk.BnReluFunction.g_copies
-        y = bk.bn_relu(xr, scale, shift, True, torch.bfloat16)
-        dx = torch.autograd.grad(y, xr, g)[0]
-        torch.cuda.synchronize()
-        check(bk.BnReluFunction.g_copies == copies + 1,
-              f"{label}: the strided gradient was not copied once")
         gc = g.contiguous()
-        y_ref = bk.bn_relu_forward_plain(x2, scale, shift, True,
-                                         torch.bfloat16)
-        dx_k, ds, db = bk.bn_relu_backward(x2, scale, shift, gc, True)
-        dx_ref, ds_ref, db_ref = bk.bn_relu_backward_plain(
-            x2, scale, shift, gc, True)
-        gm = torch.where((x2 * scale + shift).to(torch.bfloat16) > 0,
-                         gc.float(), 0.0)
-        ok = (torch.equal(y, y_ref) and torch.equal(dx, dx_ref)
-              and torch.equal(dx_k, dx_ref)
-              and bool(((ds - ds_ref).abs()
-                        <= BN_SUM_RTOL * (gm * x2).abs().sum(0)).all())
-              and bool(((db - db_ref).abs()
-                        <= BN_SUM_RTOL * gm.abs().sum(0)).all()))
-        fwd_bound = bn_relu_bound(n, c, torch.float32, torch.bfloat16, False)
-        bwd_bound = bn_relu_bound(n, c, torch.float32, torch.bfloat16, True)
-        iters = 50
-        fwd = {"case": f"{label} x float32 y bfloat16",
-               "max_abs_err": float((y.float() - y_ref.float()).abs().max()),
-               "ms": cuda_ms(lambda: bk.bn_relu_forward(
-                   x2, scale, shift, True, torch.bfloat16), iters),
-               "plain_ms": cuda_ms(lambda: bk.bn_relu_forward_plain(
-                   x2, scale, shift, True, torch.bfloat16), iters),
-               "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-               "library_ms": None}
-        bwd = {"case": f"{label} x float32 g bfloat16 (a slice of "
-                       f"[{n}, {width}])",
-               "max_abs_err": float((dx - dx_ref).abs().max()),
-               "max_abs_err_dscale": float((ds - ds_ref).abs().max()),
-               "max_abs_err_dshift": float((db - db_ref).abs().max()),
-               "ms": cuda_ms(lambda: bk.bn_relu_backward(
-                   x2, scale, shift, gc, True), iters),
-               "plain_ms": cuda_ms(lambda: bk.bn_relu_backward_plain(
-                   x2, scale, shift, gc, True), iters),
-               "g_copy_ms": cuda_ms(lambda: g.contiguous(), iters),
-               "g_copy_device_ms": device_ms(lambda: g.contiguous()),
-               "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-               "library_ms": None}
-        fwd["device_ms"] = device_ms(lambda: bk.bn_relu_forward(
-            x2, scale, shift, True, torch.bfloat16))
-        bwd["device_ms"] = device_ms(lambda: bk.bn_relu_backward(
-            x2, scale, shift, gc, True))
-        for row in (fwd, bwd):
-            row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
-        print("zoo bn_relu case " + json.dumps({"ok": ok, "fwd": fwd,
-                                                "bwd": bwd}), flush=True)
-        check(ok, f"{label}: a BN+ReLU kernel disagrees with its plain "
-                  "version (y or dx not bitwise, or dscale/dshift beyond "
-                  f"{BN_SUM_RTOL} * sum|terms|)")
-        rows["fwd"].append(fwd)
-        rows["bwd"].append(bwd)
+        # x bf16 as the main path hands it, then f32 as earlier slices did
+        for x_dt in (torch.bfloat16, torch.float32):
+            x2 = x32.to(x_dt)
+            xf = x2.float()
+            # the fused tail as a BN layer calls it: the f32 copy is the
+            # differentiable input, the kernels read x2 (`source`), and
+            # the Function hands kernel 7 the strided slice in place
+            xr = xf.clone().requires_grad_()
+            copies = bk.BnReluFunction.g_copies
+            y = bk.bn_relu(xr, scale, shift, True, torch.bfloat16,
+                           source=None if x_dt == torch.float32 else x2)
+            dx = torch.autograd.grad(y, xr, g)[0]
+            y = y.detach()
+            torch.cuda.synchronize()
+            check(bk.BnReluFunction.g_copies == copies,
+                  f"{label}: the Concat gradient slice was copied")
+            y_ref = bk.bn_relu_forward_plain(x2, scale, shift, True,
+                                             torch.bfloat16)
+            dx_k, ds, db = bk.bn_relu_backward(x2, scale, shift, g, True)
+            _, ds_c, db_c = bk.bn_relu_backward(x2, scale, shift, gc, True)
+            dx_ref, ds_ref, db_ref = bk.bn_relu_backward_plain(
+                x2, scale, shift, gc, True)
+            gm = torch.where((x2 * scale + shift).to(torch.bfloat16) > 0,
+                             gc.float(), 0.0)
+            ok = (torch.equal(y, y_ref) and torch.equal(dx, dx_ref)
+                  and torch.equal(dx_k, dx_ref)
+                  and torch.equal(ds, ds_c) and torch.equal(db, db_c)
+                  and bool(((ds - ds_ref).abs()
+                            <= BN_SUM_RTOL * (gm * xf).abs().sum(0)).all())
+                  and bool(((db - db_ref).abs()
+                            <= BN_SUM_RTOL * gm.abs().sum(0)).all()))
+            fwd_bound = bn_relu_bound(n, c, x_dt, torch.bfloat16, False)
+            bwd_bound = bn_relu_bound(n, c, x_dt, torch.bfloat16, True)
+            iters = 50
+            fwd = {"case": f"{label} x {str(x_dt)[6:]} y bfloat16",
+                   "max_abs_err": float(
+                       (y.float() - y_ref.float()).abs().max()),
+                   "ms": cuda_ms(lambda: bk.bn_relu_forward(
+                       x2, scale, shift, True, torch.bfloat16), iters),
+                   "plain_ms": cuda_ms(lambda: bk.bn_relu_forward_plain(
+                       x2, scale, shift, True, torch.bfloat16), iters),
+                   "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+                   "library_ms": None}
+            bwd = {"case": f"{label} x {str(x_dt)[6:]} g bfloat16 (a slice "
+                           f"of [{n}, {width}], read in place)",
+                   "max_abs_err": float((dx - dx_ref).abs().max()),
+                   "max_abs_err_dscale": float((ds - ds_ref).abs().max()),
+                   "max_abs_err_dshift": float((db - db_ref).abs().max()),
+                   "ms": cuda_ms(lambda: bk.bn_relu_backward(
+                       x2, scale, shift, g, True), iters),
+                   "plain_ms": cuda_ms(lambda: bk.bn_relu_backward_plain(
+                       x2, scale, shift, gc, True), iters),
+                   "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+                   "library_ms": None}
+            fwd["device_ms"], fwd["kernels_per_call"] = device_profile(
+                lambda: bk.bn_relu_forward(x2, scale, shift, True,
+                                           torch.bfloat16))
+            bwd["device_ms"], bwd["kernels_per_call"] = device_profile(
+                lambda: bk.bn_relu_backward(x2, scale, shift, g, True))
+            for row in (fwd, bwd):
+                row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+            print("zoo bn_relu case " + json.dumps({"ok": ok, "fwd": fwd,
+                                                    "bwd": bwd}), flush=True)
+            check(ok, f"{label} x {x_dt}: a BN+ReLU kernel disagrees with "
+                      "its plain version (y or dx not bitwise, dscale/"
+                      f"dshift beyond {BN_SUM_RTOL} * sum|terms|, or the "
+                      "slice's sums not the contiguous copy's bits)")
+            check(fwd["kernels_per_call"] == bwd["kernels_per_call"] == 1,
+                  f"{label}: {fwd['kernels_per_call']} forward and "
+                  f"{bwd['kernels_per_call']} backward device kernels a "
+                  "call, not one each")
+            rows["fwd"].append(fwd)
+            rows["bwd"].append(bwd)
     return rows
 
 
@@ -3754,7 +3923,12 @@ def main() -> int:
     launches = generation_phase(ak)
 
     # 5. BN+ReLU kernels
+    t0 = time.perf_counter()
     bn_rows = bn_relu_phase(bk)
+    bn_sites = bn_sites_phase(bk)
+    print("phase 5 profile windows "
+          + json.dumps(profile_window_summary()), flush=True)
+    print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 6. training
     bn_launches, resnet_res = training_phase(bk)
@@ -3789,6 +3963,8 @@ def main() -> int:
     # 12. the feed-forward zoo
     t0 = time.perf_counter()
     zoo_rows = zoo_kernel_phase(sk, bk)
+    print("phase 12 profile windows "
+          + json.dumps(profile_window_summary()), flush=True)
     zoo_pairs = zoo_parity_phase(sk, bk)
     zoo_bench = zoo_bench_phase(sk, bk)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3805,7 +3981,8 @@ def main() -> int:
     dp_rows = bn_relu_phase(
         bk, [("stem b64", 64 * 112 * 112, 64),
              ("last stage b64", 64 * 7 * 7, 512)],
-        [(torch.float32, torch.bfloat16)], main="stem b64")
+        [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)],
+        main="stem b64")
     dp_one_rank_phase(bk)
     with tempfile.TemporaryDirectory() as tmp:
         dp_full, _ = dp_phase(bk, tmp)
@@ -3853,18 +4030,19 @@ def main() -> int:
          **bwd_rows["dkv"], "design": DESIGN[torch.bfloat16],
          "launches_tp_ranks": tp_launches["flash_attention_bwd_dkv"],
          "build": tc_build["flash_attention_bwd_dkv"], "status": "ok"},
-        {**BN_FWD_ROW, "launches": bn_launches["bn_relu_fwd"],
-         **bn_rows["fwd"], "design": "cuda_cores_f32", "status": "ok",
-         **{k: v["bn_relu_fwd"] for k, v in zoo_launches.items()},
-         "zoo_shapes": zoo_rows["fwd"],
-         "launches_dp_ranks": [l["fwd"] * dp_steps for l in dp_launches],
-         "dp_rank_shape": dp_rows["fwd"]},
-        {**BN_BWD_ROW, "launches": bn_launches["bn_relu_bwd"],
-         **bn_rows["bwd"], "design": "cuda_cores_f32", "status": "ok",
-         **{k: v["bn_relu_bwd"] for k, v in zoo_launches.items()},
-         "zoo_shapes": zoo_rows["bwd"],
-         "launches_dp_ranks": [l["bwd"] * dp_steps for l in dp_launches],
-         "dp_rank_shape": dp_rows["bwd"]},
+        *[{**row, "launches": bn_launches[row["name"]],
+           **bn_rows[d], "design": BN_DESIGN[row["name"]], "status": "ok",
+           "x_f32_stem": bn_rows[f"{d}_x_f32"],
+           "resnet50_sites": [{"site": r["site"],
+                               "device_ms": r[f"{d}_device_ms"],
+                               "bound_ms": r[f"{d}_bound_ms"]}
+                              for r in bn_sites["sites"]],
+           "resnet50_step_device_ms": bn_sites["step"][f"{d}_device_ms"],
+           **{k: v[row["name"]] for k, v in zoo_launches.items()},
+           "zoo_shapes": zoo_rows[d],
+           "launches_dp_ranks": [l[d] * dp_steps for l in dp_launches],
+           "dp_rank_shape": dp_rows[d]}
+          for row, d in ((BN_FWD_ROW, "fwd"), (BN_BWD_ROW, "bwd"))],
         {**STEM_ROW, "launches": stem_launches, **stem_row,
          "build": tc_build["stem_conv"], "status": "ok",
          **{k: v["stem_conv"] for k, v in zoo_launches.items()},

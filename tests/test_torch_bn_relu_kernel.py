@@ -13,7 +13,8 @@ output is bf16; dx atol 1e-6 (the same product); dscale/dshift atol 1e-5
 (sums of up to a few hundred terms of size ~1 in another order).
 
 The CUDA kernels themselves are held against the plain versions on the
-card by `tests/test_torch_cuda.py` and `chip_smoke.py`.
+card by `tests/test_torch_cuda.py` and `chip_smoke.py`; here their
+partition of the matrix is checked (`bwd_partition`).
 """
 
 import numpy as np
@@ -84,13 +85,48 @@ def test_plain_backward_matches_interpret_kernel(n, c, gdt, relu):
                                atol=ATOL_SUM)
 
 
-def test_backward_tiles_cover_every_row():
-    """The backward's row tile depends on (N, C) alone and the tiles cover
-    N; the reference's own tile-size quirks do not carry over."""
-    for n, c in [(7, 5), (1, 129), (1605632, 64), (6272, 512), (100, 3)]:
-        t = tbk.bwd_tile_rows(n, c)
-        assert 1 <= t <= n and -(-n // t) * t >= n
-        assert t == tbk.bwd_tile_rows(n, c)
+#: ResNet-50 b128's eight fused sites, the zoo's three (Inception-v2 b32
+#: at 7x7 C=352 and 28x28 C=96, VggForCifar10's [32, 512]), a data-parallel
+#: rank's b64 stem, and ragged shapes
+PARTITION_SHAPES = [
+    (1605632, 64), (401408, 64), (401408, 128), (100352, 128),
+    (100352, 256), (25088, 256), (25088, 512), (6272, 512),
+    (1568, 352), (25088, 96), (32, 512), (802816, 64),
+    (7, 5), (1, 129), (2, 12), (16, 130), (100, 3), (1000, 2049)]
+
+
+@pytest.mark.parametrize("n,c", PARTITION_SHAPES)
+def test_backward_tiles_cover_every_row(n, c):
+    """The backward's partition (row tiles x column groups, and each
+    thread's octet of columns within its group, as the kernel maps them)
+    covers every (row, column) exactly once, leaves no tile or group
+    empty, keeps a block within 256 threads with power-of-2 row lanes,
+    and depends on (N, C) alone; the reference's own tile-size quirks do
+    not carry over."""
+    part = tbk.bwd_partition(n, c)
+    tbk.bwd_partition.cache_clear()
+    tbk._layout.cache_clear()
+    assert tbk.bwd_partition(n, c) == part
+    ng, go, ly, tr, nt = part
+    assert go * ly <= 256 and ly & (ly - 1) == 0 and 1 <= go <= 8
+    assert tr % ly == 0 and (nt - 1) * tr < n <= nt * tr
+    rows = np.zeros(n, np.int64)
+    for t in range(nt):
+        rows[t * tr:min((t + 1) * tr, n)] += 1
+    assert (rows == 1).all()
+    cols = np.zeros(c, np.int64)
+    for grp in range(ng):
+        owned = [col for tx in range(go) for col in
+                 range((grp * go + tx) * 8, (grp * go + tx + 1) * 8)
+                 if col < c]
+        assert owned, f"column group {grp} is empty"
+        cols[owned] += 1
+    assert (cols == 1).all()
+    # enough blocks for every SM wherever a warp a block allows it
+    warps = n * -(-c // 8) // 32
+    assert nt * ng >= min(tbk._SMS, warps)
+    # the forward's blocks take the same column groups and row lanes
+    assert tbk._layout(n, c) == (ng, go, ly)
 
 
 @pytest.mark.parametrize("relu", [True, False])

@@ -46,8 +46,8 @@ second launch gives the same bits. Kernels 1 and 5 in bf16 (with O % 8
 ones; bf16 inputs 2 bytes past a 16-byte boundary take element-wise
 copies and give the same bits. The zoo's shapes: kernel 5 with its bias
 at Inception-v1's b64, and kernel 7 given a channel slice of a `Concat`
-gradient at Inception-v2's and `VggForCifar10`'s sites, with the
-tolerances above.
+gradient at Inception-v2's and `VggForCifar10`'s sites, read in place
+with the tolerances above, and one device kernel a backward call.
 """
 
 import numpy as np
@@ -228,6 +228,11 @@ def test_bn_relu_kernels_reject_strided_input(cuda_device):
         tbk.bn_relu_forward(strided, s, b)
     with pytest.raises(ValueError, match="contiguous"):
         tbk.bn_relu_backward(x, s, b, strided)
+    # a row-strided g (rows 10 apart, columns contiguous) is read in place
+    rows = torch.randn((8, 10), device=cuda_device)[:, 2:8]
+    dx, ds, db = tbk.bn_relu_backward(x, s, b, rows)
+    dx_ref, _, _ = tbk.bn_relu_backward_plain(x, s, b, rows)
+    assert torch.equal(dx, dx_ref)
     # an NCHW-contiguous activation seen as NHWC is not channels_last
     nhwc = torch.randn((2, 6, 2, 2), device=cuda_device).permute(0, 2, 3, 1)
     with pytest.raises(ValueError, match="contiguous"):
@@ -607,10 +612,13 @@ def test_stem_kernel_with_bias_at_inception_v1_shape(cuda_device, dtype):
 def test_bn_relu_backward_takes_a_concat_gradient_slice(cuda_device, shape,
                                                         offset, width):
     """The fused tail inside a `Concat`: the gradient reaching it is a
-    channel slice of the joined gradient (not contiguous), which the
-    Function copies once (`g_copies`) before kernel 7 reads it as [N, C].
+    channel slice of the joined gradient (not contiguous), which kernel 7
+    reads in place with its row stride: no copy (`g_copies`), one launch.
     dx, dscale, dshift against the plain backward on the same slice: dx
-    bitwise, the sums within 1e-5 of the terms' magnitudes per channel."""
+    bitwise, the sums within 1e-5 of the terms' magnitudes per channel,
+    and the same bits as the kernel on the contiguous copy (the partition
+    depends on (N, C) alone); also at an offset that breaks the 16-byte
+    alignment (element-wise loads)."""
     gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
     c = shape[-1]
     x = torch.randn(shape, generator=gen, device=cuda_device)
@@ -619,24 +627,61 @@ def test_bn_relu_backward_takes_a_concat_gradient_slice(cuda_device, shape,
     x.requires_grad_()
     s.requires_grad_()
     b.requires_grad_()
-    y = tbk.bn_relu(x, s, b, True, torch.bfloat16)
-    g = torch.randn((*shape[:-1], width), generator=gen,
-                    device=cuda_device).to(torch.bfloat16)[
-        ..., offset:offset + c]
-    assert not g.is_contiguous()
-    copies = tbk.BnReluFunction.g_copies
-    launches = tbk.bn_relu_backward.launches
-    dx, ds, db = torch.autograd.grad(y, (x, s, b), g)
-    assert tbk.BnReluFunction.g_copies == copies + 1
-    assert tbk.bn_relu_backward.launches == launches + 1
-    x2, g2 = x.detach().reshape(-1, c), g.contiguous().reshape(-1, c)
-    dx_ref, ds_ref, db_ref = tbk.bn_relu_backward_plain(
-        x2, s.detach(), b.detach(), g2, True)
-    assert torch.equal(dx.reshape(-1, c), dx_ref)
-    gm = torch.where((x2 * s.detach() + b.detach()).to(torch.bfloat16) > 0,
-                     g2.float(), 0.0)
-    assert ((ds - ds_ref).abs() <= 1e-5 * (gm * x2).abs().sum(0)).all()
-    assert ((db - db_ref).abs() <= 1e-5 * gm.abs().sum(0)).all()
+    full = torch.randn((*shape[:-1], width + 1), generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    for off in (offset, offset + 1):
+        y = tbk.bn_relu(x, s, b, True, torch.bfloat16)
+        g = full[..., off:off + c]
+        assert not g.is_contiguous()
+        copies = tbk.BnReluFunction.g_copies
+        launches = tbk.bn_relu_backward.launches
+        dx, ds, db = torch.autograd.grad(y, (x, s, b), g)
+        assert tbk.BnReluFunction.g_copies == copies
+        assert tbk.bn_relu_backward.launches == launches + 1
+        x2, g2 = x.detach().reshape(-1, c), g.contiguous().reshape(-1, c)
+        dx_ref, ds_ref, db_ref = tbk.bn_relu_backward_plain(
+            x2, s.detach(), b.detach(), g2, True)
+        assert torch.equal(dx.reshape(-1, c), dx_ref)
+        gm = torch.where(
+            (x2 * s.detach() + b.detach()).to(torch.bfloat16) > 0,
+            g2.float(), 0.0)
+        assert ((ds - ds_ref).abs() <= 1e-5 * (gm * x2).abs().sum(0)).all()
+        assert ((db - db_ref).abs() <= 1e-5 * gm.abs().sum(0)).all()
+        _, ds_c, db_c = tbk.bn_relu_backward(x2, s.detach(), b.detach(),
+                                             g2, True)
+        assert torch.equal(ds, ds_c) and torch.equal(db, db_c)
+
+
+@pytest.mark.parametrize("x_dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,c", [(128 * 112 * 112, 64), (32 * 7 * 7, 352)])
+def test_bn_relu_backward_is_one_device_kernel(cuda_device, n, c, x_dt):
+    """Kernel 7 sums dscale and dshift inside its one launch: the profiler
+    sees exactly one device kernel a call (after a first call, which may
+    zero the ticket counters once), at ResNet-50's stem site and
+    Inception-v2's 7x7 C=352 site."""
+    from torch.profiler import ProfilerActivity, profile
+    from bigdl_tpu_torch.tools.bench import (close_profile_window,
+                                             is_profile_marker,
+                                             open_profile_window)
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+    x = torch.randn((n, c), generator=gen, device=cuda_device).to(x_dt)
+    s = torch.rand((c,), generator=gen, device=cuda_device) + 0.5
+    b = torch.randn((c,), generator=gen, device=cuda_device) * 0.5
+    g = torch.randn((n, c), generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    tbk.bn_relu_backward(x, s, b, g, True)
+    torch.cuda.synchronize()
+    calls = 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        open_profile_window()
+        for _ in range(calls):
+            tbk.bn_relu_backward(x, s, b, g, True)
+        close_profile_window()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not is_profile_marker(e.name)]
+    assert len(kernels) == calls, kernels
+    assert all("bn_relu_bwd" in k for k in kernels), kernels
 
 
 def test_stem_kernel_rejects_what_it_does_not_take(cuda_device):
