@@ -83,6 +83,19 @@ reference's) decide which parameter is split over "model"
 The compute is replicated across a model group: the Megatron split of
 the matmuls is not ported (`ROADMAP.md` queue 2).
 
+Observability (`set_telemetry`, `set_tracer`, `set_health_monitors`), as
+`LocalOptimizer`'s, over the ranks:
+- rank 0 alone writes the `run_*`, `step` and `event` records (a step
+  record has no rank field); every rank keeps its own spans;
+- the NaN guard's flag is agreed over the data group with one all-reduce
+  before a skip reverts the update, so that the replicas stay equal; the
+  gradient and parameter norms are the whole parameters' under a model
+  axis (`collectives.whole_norms`);
+- the monitors run on every rank on the same synced values, so a
+  `NanGuard("raise")` fails every rank at the same step, and the retry
+  path (with a checkpoint set) reloads on all of them: a `run_retry` and
+  a `retry` event a retry, a `run_abort` when the run fails for good.
+
 At world size 1 no collective is issued: the step is the local one, run
 inside the reference's retry loop (on a failure the error is classified
 by the `RetryPolicy`, the loop backs off, reloads the newest valid
@@ -210,6 +223,31 @@ class DistriOptimizer(BaseOptimizer):
         every rank's device."""
         return self.world
 
+    @property
+    def _lead_telemetry(self):
+        return self.telemetry if collectives.rank() == 0 else None
+
+    @property
+    def _loop_name(self) -> str:
+        return "distri"
+
+    def _agree_bad(self, bad: torch.Tensor) -> torch.Tensor:
+        """Non-finite on any data replica is non-finite on all: one
+        all-reduce over the data group, so that every replica skips the
+        same steps."""
+        if self.data_size == 1:
+            return bad
+        n = collectives.all_reduce_(bad.to(torch.int32).reshape(1),
+                                    "guard", self._data_group)
+        return (n > 0).reshape(())
+
+    def _global_norm(self, tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if self.sharded is None:
+            return super()._global_norm(tensors)
+        norms = collectives.whole_norms(
+            {k: [t] for k, t in tensors.items() if t.is_floating_point()})
+        return torch.sqrt(sum(n[0].float() ** 2 for n in norms.values()))
+
     def _log_suffix(self) -> str:
         if self.model_size > 1:
             return f" ({self.world} ranks, mesh {self.data_size}x" \
@@ -288,6 +326,21 @@ class DistriOptimizer(BaseOptimizer):
                              for n, g in zip(names, grads) if n not in dims),
                             zero)
 
+    def _meta_twin(self):
+        """Inside a tensor-parallel run the model holds its shards: the
+        twin holds whole meta parameters instead and no placement, so
+        that the count is the whole (replicated) step's, as before the
+        run."""
+        twin = super()._meta_twin()
+        if self.sharded is not None:
+            for name in self.sharded.dims:
+                owner, _, leaf = name.rpartition(".")
+                twin.model.get_submodule(owner)._parameters[leaf] = \
+                    torch.nn.Parameter(torch.empty(
+                        self.sharded.full_shapes[name], device="meta"))
+            twin.sharded = None
+        return twin
+
     def _sharded_leaf(self, name: str, t: torch.Tensor, conv: bool):
         if self.sharded is None or name not in self.sharded.dims:
             return super()._sharded_leaf(name, t, conv)
@@ -326,12 +379,15 @@ class DistriOptimizer(BaseOptimizer):
         return collectives.bucket_all_reduce_mean(
             grads, plan.buckets, self.data_size, self._data_group)
 
-    def _synced_loss(self, loss: torch.Tensor) -> float:
+    def _loss_tensor(self, loss: torch.Tensor) -> torch.Tensor:
+        """The loss summed over the data replicas (at a sync point)."""
         if self.data_size == 1:
-            return float(loss)
+            return loss
         t = loss.detach().float().reshape(1).clone()
-        return float(collectives.all_reduce_(t, "loss", self._data_group)) \
-            / self.data_size
+        return collectives.all_reduce_(t, "loss", self._data_group)
+
+    def _loss_value(self, v: float) -> float:
+        return v / self.data_size if self.data_size > 1 else v
 
     def _epoch_size(self) -> int:
         num_hosts = getattr(self.dataset, "num_hosts", 1)
@@ -400,6 +456,9 @@ class DistriOptimizer(BaseOptimizer):
                 self._restore_pristine()
                 raise
             except Exception as e:
+                # close the failed attempt's root span before the next
+                # attempt opens its own
+                self._end_run_trace()
                 attempt += 1
                 # failures far apart start a fresh count and budget
                 if time.time() - last_failure > 120:
@@ -418,6 +477,7 @@ class DistriOptimizer(BaseOptimizer):
                     # a permanent error, retries used up, the budget gone,
                     # nothing to reload from, or peers that did not fail
                     # with this rank
+                    self._telemetry_run_abort(e)
                     self._unplace(gather=False)
                     self._restore_pristine()
                     raise
@@ -427,6 +487,13 @@ class DistriOptimizer(BaseOptimizer):
                     f"Optimization failed ({e!r}); retry {attempt}/"
                     f"{policy.max_retries} from latest checkpoint in "
                     f"{delay:.3f}s")
+                tel = self._lead_telemetry
+                if tel is not None:
+                    # the aborted attempt's end in the stream
+                    tel.event("run_retry", attempt=attempt, error=repr(e))
+                    tel.event("retry", policy=policy.name, attempt=attempt,
+                              delay_s=round(delay, 6), error=repr(e),
+                              transient=True)
                 if not self.resume_from_latest_checkpoint():
                     # failed before the first checkpoint: start again from
                     # the model as this attempt found it

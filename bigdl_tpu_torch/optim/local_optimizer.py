@@ -62,8 +62,33 @@ model's output upcast to f32.
   schedule when it takes one (`Plateau.record`), as the reference's loop
   does.
 
-Not ported (`ROADMAP.md` lists them): telemetry and tracing, summaries,
-NaN/step guards, prefetch, preemption, graph optimisation, and the
+Observability (`observability/`), as the reference's loop:
+- `set_tracer(SpanTracer)`: the loop's phases ("data fetch", "step
+  dispatch", "loss sync", "validation", "checkpoint") are spans under one
+  root trace a run (`optimize/local`, `optimize/distri`); `export_trace`
+  writes it.
+- `set_telemetry(Telemetry)`: `run_start` (`backend` the device type,
+  `n_devices` the ranks), one `step` record a sync point, `run_end` with
+  `metrics.as_dict()`, and a `run_abort` event on every failure. A step
+  record carries `flops_per_step` (`step_flops`, counted once for each
+  batch signature on a meta copy of the step) and `mfu`;
+  `bytes_accessed` is null, since nothing here models the bytes a step
+  moves. `Telemetry(grad_norms=True)` adds the global gradient and
+  parameter L2 norms.
+- `set_health_monitors(...)` (`NanGuard`, `StragglerDetector`,
+  `ThroughputMonitor`) observe each step record. With a `NanGuard` the
+  step flags itself non-finite on the device (`~isfinite(loss) |
+  ~isfinite(grad norm)`); under `NanGuard("skip")` it reverts its own
+  update there, `torch.where(bad, old, new)` over the parameters, every
+  optimizer slot (a step count is then kept on the device) and the
+  buffers (the BN running statistics, taken before the forward that
+  moves them). The step generator is not put back, as the reference's
+  key chain is not. The flags and norms, like the loss, come back to the
+  host once a sync point, in one device-to-host copy with the loss. With
+  no guard and no norms asked for, the step does nothing of this.
+
+Not ported (`ROADMAP.md` lists them): summaries, prefetch, preemption,
+graph optimisation, the compile records of `CompiledFunction`, and the
 donation the JAX step uses (the port updates in place instead, and keeps a host
 snapshot of the model at the start of each run so that a failed run can
 put it back).
@@ -72,6 +97,7 @@ put it back).
 from __future__ import annotations
 
 import contextlib
+import copy
 import itertools
 import logging
 import time
@@ -83,6 +109,7 @@ from torch.func import functional_call
 
 from bigdl_tpu_torch._device import resolve_device
 from bigdl_tpu_torch.nn.dropout import lend_generator
+from bigdl_tpu_torch.observability import costs
 from bigdl_tpu_torch.optim.metrics import Metrics, Timer
 from bigdl_tpu_torch.optim.optim_method import OptimMethod, SGD
 from bigdl_tpu_torch.optim.trigger import Trigger, every_epoch
@@ -136,6 +163,84 @@ def _cast_floats(x, dtype: torch.dtype):
     if isinstance(x, torch.Tensor) and x.is_floating_point():
         return x.to(dtype)
     return x
+
+
+def _batch_signature(x):
+    """What a step's FLOP count depends on: the shapes and dtypes of a
+    batch's inputs or targets (a `Table` or list of them, host columns
+    included)."""
+    if x is None:
+        return None
+    if isinstance(x, (list, tuple, Table)):
+        return tuple(_batch_signature(v) for v in x)
+    return (tuple(x.shape), str(x.dtype))
+
+
+def _tensor_slots(node, out: List) -> List:
+    """(dict, key) of every tensor in a tree of dicts, in order."""
+    for k, v in node.items():
+        if isinstance(v, dict):
+            _tensor_slots(v, out)
+        elif isinstance(v, torch.Tensor):
+            out.append((node, k))
+    return out
+
+
+def _flat_views(ts: List[torch.Tensor]):
+    """A [2, n] buffer for the tensors `ts` (one device and dtype, n their
+    elements) and two lists of views, one into each row, each view with
+    its tensor's shape and (for a dense tensor) strides, so that copies
+    between them take the multi-tensor fast path."""
+    sizes = [t.numel() for t in ts]
+    flat = ts[0].new_empty((2, sum(sizes)))
+    rows = ([], [])
+    off = 0
+    for t, n in zip(ts, sizes):
+        dense = t.is_contiguous() or (
+            t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last))
+        for row, views in zip(flat, rows):
+            chunk = row[off:off + n]
+            views.append(chunk.as_strided(t.shape, t.stride(),
+                                          chunk.storage_offset())
+                         if dense else chunk.view(t.shape))
+        off += n
+    return flat, rows[0], rows[1]
+
+
+def _counts_on(node, device: torch.device):
+    """The state tree with each int (a step count) a 0-d int64 tensor on
+    `device`, which a reverted step can leave where it was without the
+    host knowing."""
+    if isinstance(node, dict):
+        return {k: _counts_on(v, device) for k, v in node.items()}
+    if isinstance(node, int) and not isinstance(node, bool):
+        return torch.tensor(node, dtype=torch.int64, device=device)
+    return node
+
+
+def _meta(model: torch.nn.Module) -> torch.nn.Module:
+    """A copy of `model` on the meta device: shapes without data."""
+    return copy.deepcopy(model).to("meta")
+
+
+def step_flops(opt: "BaseOptimizer", batch=None) -> int:
+    """FLOPs of one training step of `opt` on `batch` (default: its
+    dataset's first batch): the step the optimizer runs (`_build_step`,
+    with its precision, accumulation, clipping and guards), counted by
+    `costs.count_flops` on a copy of the model and the method on the meta
+    device. Nothing runs and nothing launches (the kernel wrappers count
+    by their formulas), so the run itself is untouched, as the reference
+    lowers its step a second time without running it."""
+    twin = opt._meta_twin()
+    params = dict(twin.model.named_parameters())
+    opt_state = twin.optim_method.init_state_with_masters(params)
+    if batch is None:
+        batch = next(iter(opt.dataset.data(train=False)))
+    meta = torch.device("meta")
+    x = _to_device(batch.get_input(), meta)
+    y = _to_device(batch.get_target(), meta)
+    return costs.count_flops(twin._build_step(), opt_state, x, y,
+                             twin.optim_method.current_lr())
 
 
 def _micro_batches(x, steps: int):
@@ -201,6 +306,15 @@ class BaseOptimizer:
         # step (keyed by that step's neval), for the retry path
         self._generator_at_start: Optional[torch.Tensor] = None
         self._generator_commits: Dict[int, torch.Tensor] = {}
+        # observability: the collector, the span tracer, the monitors
+        self.telemetry = None
+        self.tracer = None
+        self.health_monitors: List = []
+        #: the step's aux fields (`_build_step`): "nonfinite",
+        #: "grad_norm", "param_norm", as armed
+        self._aux_fields: List[str] = []
+        # a step's FLOPs by batch signature (`step_flops`)
+        self._flops: Dict = {}
 
     # fluent setters
     def set_gradient_accumulation(self, steps: int):
@@ -311,6 +425,50 @@ class BaseOptimizer:
         self.iteration_hook = fn
         return self
 
+    def set_telemetry(self, telemetry):
+        """Attach a `Telemetry`: `run_start` / `run_end`, a `step` record
+        a sync point with its cost attribution, and the monitors' and the
+        retry path's events (see the module docstring)."""
+        self.telemetry = telemetry
+        self._link_flight()
+        return self
+
+    setTelemetry = set_telemetry
+
+    def set_tracer(self, tracer):
+        """Attach a `SpanTracer`: the loop's phases as nested spans under
+        one root trace a run."""
+        self.tracer = tracer
+        self._link_flight()
+        return self
+
+    setTracer = set_tracer
+
+    def _link_flight(self):
+        """Give the telemetry's flight recorder (when both are attached)
+        the tracer, so that its dumps carry the span tail."""
+        flight = getattr(self.telemetry, "flight", None)
+        if flight is not None and self.tracer is not None:
+            flight.attach_tracer(self.tracer)
+
+    def set_health_monitors(self, *monitors):
+        """Attach health monitors (`observability.health`), each shown
+        every sync point's step record. A `NanGuard` also makes the step
+        flag non-finite steps, and with action "skip" revert them; set it
+        before `optimize()`."""
+        self.health_monitors = list(monitors)
+        return self
+
+    setHealthMonitors = set_health_monitors
+
+    def export_trace(self, path: str) -> str:
+        """Write the tracer's Chrome trace to `path` (needs
+        `set_tracer`)."""
+        if self.tracer is None:
+            raise ValueError("no tracer attached; call set_tracer first")
+        from bigdl_tpu_torch.observability.spans import export_merged
+        return export_merged(path, [self.tracer])
+
     @property
     def _mixed_bf16(self) -> bool:
         return self.compute_precision == "bfloat16"
@@ -329,7 +487,8 @@ class BaseOptimizer:
             load_latest_valid, restore_optim_method)
         if self.checkpoint_path is None:
             return False
-        got = load_latest_valid(self.checkpoint_path)
+        got = load_latest_valid(self.checkpoint_path,
+                                telemetry=self._lead_telemetry)
         if got is None:
             return False
         _, params, mstate, oblob = got
@@ -364,6 +523,9 @@ class BaseOptimizer:
                 return {k: conv(v) for k, v in node.items()}
             if isinstance(node, int) and not isinstance(node, bool):
                 return np.asarray(node, dtype=np.int32)
+            if isinstance(node, torch.Tensor) and node.ndim == 0 \
+                    and not node.is_floating_point():
+                return np.asarray(int(node), dtype=np.int32)  # a step count
             return node
 
         return conv(opt_state)
@@ -627,10 +789,243 @@ class BaseOptimizer:
         a forward takes."""
         return None
 
+    # -- observability ------------------------------------------------------
+
+    @property
+    def _lead_telemetry(self):
+        """The telemetry this process writes to: the attached one (the
+        distributed loop: on rank 0 only)."""
+        return self.telemetry
+
+    @property
+    def _loop_name(self) -> str:
+        return "local"
+
+    @property
+    def _n_compute_devices(self) -> int:
+        """Devices a step runs on (the MFU denominator): 1 here; the
+        ranks in the distributed loop."""
+        return 1
+
+    def _span(self, name: str, **args):
+        """A tracer span, or a free null context without a tracer."""
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name, **args)
+
+    def _nan_guard(self):
+        from bigdl_tpu_torch.observability.health import NanGuard
+        for m in self.health_monitors:
+            if isinstance(m, NanGuard):
+                return m
+        return None
+
+    def _skips(self) -> bool:
+        """Whether a `NanGuard("skip")` is armed."""
+        guard = self._nan_guard()
+        return guard is not None and guard.action == "skip"
+
+    def _aux_flags(self):
+        """(the NaN guard or None, whether the step computes the global
+        norms): what the step computes besides its update."""
+        guard = self._nan_guard()
+        need_norms = bool(
+            (self.telemetry is not None and self.telemetry.grad_norms)
+            or (guard is not None and guard.check_grads))
+        return guard, need_norms
+
+    @staticmethod
+    def _lr_scalar(lr) -> float:
+        """The learning rate as one number (a per-submodule method's
+        tuple of rates: their mean, as the reference logs it)."""
+        if isinstance(lr, tuple):
+            return float(np.mean([v for v in lr if v]) if any(lr) else 0.0)
+        return float(lr)
+
+    def _global_norm(self, tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global L2 norm of the float tensors (f32, on the device):
+        each tensor's norm in one multi-tensor launch, then theirs."""
+        ts = [t.float() for t in tensors.values() if t.is_floating_point()]
+        if not ts:
+            return torch.zeros((), device=self.device)
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(ts)))
+
+    def _agree_bad(self, bad: torch.Tensor) -> torch.Tensor:
+        """The non-finite flag as every replica holds it (one process:
+        its own)."""
+        return bad
+
+    def _revert_snapshot(self, params: Dict[str, torch.Tensor], opt_state,
+                         held: Dict):
+        """What a skipped step puts back, taken before the forward (which
+        moves the BN running statistics): the (dict, key) slots of the
+        parameters, the optimizer state's tensors and the buffers, grouped
+        by device and dtype, each group's values copied into row 0 of a
+        [2, n] buffer of `held` (kept from one step to the next, with its
+        views: row 1 is the revert's scratch). One multi-tensor copy a
+        group: the step is often bound by the host's launches and ops."""
+        buffers = dict(self.model.named_buffers())
+        slots = [(params, k) for k in params] + \
+            _tensor_slots(opt_state if isinstance(opt_state, dict) else {},
+                          []) + [(buffers, k) for k in buffers]
+        groups: Dict = {}
+        for d, k in slots:
+            t = d[k]
+            groups.setdefault((t.device, t.dtype), []).append((d, k))
+        with torch.no_grad():
+            for key, members in groups.items():
+                ts = [d[k] for d, k in members]
+                layout = [(t.shape, t.stride()) for t in ts]
+                if key not in held or held[key][0] != layout:
+                    held[key] = (layout, *_flat_views(ts))
+                torch._foreach_copy_(held[key][2], ts)
+        return groups, buffers, held
+
+    def _step_guards(self, guard, need_norms: bool, loss, grads,
+                     params: Dict[str, torch.Tensor], opt_state, old):
+        """The step's tail when a guard or the norms are armed: the
+        non-finite flag (agreed over the replicas) and, under skip, the
+        revert of this step's update to `old`; then the norms. Returns
+        the 1-D f32 device tensor of `_aux_fields`; nothing is synced."""
+        out = []
+        gnorm = self._global_norm(dict(zip(params, grads))) \
+            if need_norms else None
+        if guard is not None:
+            bad = ~torch.isfinite(loss)
+            if guard.check_grads:
+                bad = bad | ~torch.isfinite(gnorm)
+            bad = self._agree_bad(bad)
+            out.append(bad)
+            if old is not None:
+                groups, buffers, held = old
+                # the state tree's entries may be new tensors (a step
+                # count), the buffers re-registered: read them again
+                buffers.update(self.model.named_buffers())
+                with torch.no_grad():
+                    for key, members in groups.items():
+                        _, flat, kept, scratch = held[key]
+                        ts = [d[k] for d, k in members]
+                        torch._foreach_copy_(scratch, ts)
+                        torch.where(bad, flat[0], flat[1], out=flat[1])
+                        torch._foreach_copy_(ts, scratch)
+        if need_norms:
+            out += [gnorm, self._global_norm(params)]
+        return torch.stack([t.detach().float().reshape(()) for t in out])
+
+    def _telemetry_run_start(self):
+        if self.tracer is not None:
+            # the run's root trace: every loop span is its child
+            self.tracer.begin_trace(f"optimize/{self._loop_name}",
+                                    cat="train", loop=self._loop_name)
+        tel = self._lead_telemetry
+        if tel is None:
+            return
+        tel.run_start(loop=self._loop_name, model=type(self.model).__name__,
+                      optim_method=type(self.optim_method).__name__,
+                      backend=self.device.type,
+                      n_devices=self._n_compute_devices,
+                      sync_interval=self.sync_interval)
+
+    def _end_run_trace(self):
+        if self.tracer is not None:
+            self.tracer.end_trace()
+
+    def _telemetry_run_end(self, loop_state):
+        self._end_run_trace()
+        tel = self._lead_telemetry
+        if tel is None:
+            return
+        tel.run_end(step=loop_state["neval"], epoch=loop_state["epoch"],
+                    loss=loop_state.get("loss"),
+                    metrics=self.metrics.as_dict())
+
+    def _telemetry_run_abort(self, error):
+        """The stream's end marker of a run that failed: every run_start
+        pairs with a run_end, a run_retry or a run_abort."""
+        self._end_run_trace()
+        tel = self._lead_telemetry
+        if tel is not None:
+            tel.event("run_abort", error=repr(error))
+
+    def _meta_twin(self) -> "BaseOptimizer":
+        """A shallow copy of this optimizer over a meta copy of the model
+        and a copy of the method, whose step `step_flops` counts."""
+        twin = copy.copy(self)
+        twin.model = _meta(self.model)
+        twin.optim_method = copy.deepcopy(self.optim_method)
+        return twin
+
+    def _step_flops(self, batch) -> Optional[int]:
+        """The FLOPs of a step on `batch`, over every device it runs on:
+        counted once for each batch signature (`step_flops`)."""
+        sig = (_batch_signature(batch.get_input()),
+               _batch_signature(batch.get_target()))
+        if sig not in self._flops:
+            try:
+                self._flops[sig] = step_flops(self, batch) \
+                    * self._n_compute_devices
+            except Exception as e:  # attribution never fails a run
+                logger.warning("step FLOP count failed (%r)", e)
+                self._flops[sig] = None
+        return self._flops[sig]
+
+    def _device_kind(self) -> str:
+        return torch.cuda.get_device_name(self.device) \
+            if self.device.type == "cuda" else self.device.type
+
+    def _sync(self, loss: torch.Tensor, aux_pending: List[torch.Tensor]):
+        """The synced loss and the rows of the window's aux values, read
+        in one device-to-host copy; empties `aux_pending`."""
+        if not aux_pending:
+            return self._synced_loss(loss), []
+        t = self._loss_tensor(loss).detach().float().reshape(1)
+        flat = torch.cat([t, *aux_pending]).tolist()
+        aux_pending.clear()
+        k = len(self._aux_fields)
+        rows = [flat[i:i + k] for i in range(1, len(flat), k)]
+        return self._loss_value(flat[0]), rows
+
+    def _observe_sync(self, loop_state, loss_val, lr, throughput,
+                      step_time_s, records, aux_rows, flops):
+        """The host side of a sync point: the step record from the synced
+        values, the health monitors, the telemetry. A no-op with neither
+        attached."""
+        tel = self._lead_telemetry
+        if tel is None and not self.health_monitors:
+            return
+        rec = {"step": loop_state["neval"],
+               "epoch": loop_state["epoch"] + 1,
+               "loss": loss_val, "lr": self._lr_scalar(lr),
+               "throughput": throughput, "step_time_s": step_time_s,
+               "records": records}
+        if tel is not None:
+            rec["flops_per_step"] = flops
+            rec["bytes_accessed"] = None
+            rec["mfu"] = costs.mfu(flops, step_time_s,
+                                   device_kind=self._device_kind(),
+                                   n_devices=self._n_compute_devices)
+        if aux_rows:
+            fields = self._aux_fields
+            if "nonfinite" in fields:
+                i = fields.index("nonfinite")
+                rec["nonfinite_steps"] = int(sum(r[i] for r in aux_rows))
+            if "grad_norm" in fields:
+                last = dict(zip(fields, aux_rows[-1]))
+                rec["grad_norm"] = last["grad_norm"]
+                rec["param_norm"] = last["param_norm"]
+        for m in self.health_monitors:
+            m.observe(rec, tel)
+        if tel is not None:
+            tel.step(**rec)
+
+    # -- the step ------------------------------------------------------------
+
     def _build_step(self):
-        """step(opt_state, x, y, lr) -> the loss (a 0-d device tensor, not
-        synced). Updates the parameters and the optimizer state in place;
-        the BN layers update their running stats during the forward(s)."""
+        """step(opt_state, x, y, lr) -> (loss, aux): the loss a 0-d device
+        tensor, not synced; aux None, or, with a NaN guard or the norms
+        armed, a 1-D f32 device tensor of `self._aux_fields`. Updates the
+        parameters and the optimizer state in place; the BN layers update
+        their running stats during the forward(s)."""
         model, criterion = self.model, self.criterion
         optim = self.optim_method
         mixed = self._mixed_bf16
@@ -640,6 +1035,11 @@ class BaseOptimizer:
         params = dict(model.named_parameters())
         leaves = list(params.values())
         gather = self._gather_params
+        guard, need_norms = self._aux_flags()
+        skip = guard is not None and guard.action == "skip"
+        held: Dict = {}  # the skip's flat copies, reused
+        self._aux_fields = (["nonfinite"] if guard is not None else []) \
+            + (["grad_norm", "param_norm"] if need_norms else [])
 
         def loss_and_grads(x, y):
             if mixed:
@@ -667,6 +1067,8 @@ class BaseOptimizer:
 
         def train_step(opt_state, x, y, lr):
             model.train()
+            old = self._revert_snapshot(params, opt_state, held) \
+                if skip else None
             if accum > 1:
                 # the micro-batches in order, their gradients and losses
                 # summed, then averaged (the reference's scan)
@@ -686,7 +1088,10 @@ class BaseOptimizer:
                 grads = self._clip_grads(grads)
             optim.update_with_masters(dict(zip(params, grads)), opt_state,
                                       params, lr)
-            return loss
+            if guard is None and not need_norms:
+                return loss, None
+            return loss, self._step_guards(guard, need_norms, loss, grads,
+                                           params, opt_state, old)
 
         return step
 
@@ -712,10 +1117,18 @@ class BaseOptimizer:
         snapshot, before the optimizer state is built (from the
         parameters as this leaves them)."""
 
+    def _loss_tensor(self, loss: torch.Tensor) -> torch.Tensor:
+        """The device tensor a sync point reads the loss from."""
+        return loss
+
+    def _loss_value(self, v: float) -> float:
+        """The loss to log and record, from `_loss_tensor`'s value."""
+        return v
+
     def _synced_loss(self, loss: torch.Tensor) -> float:
         """The loss to log and record at a sync point (waits for the
         step)."""
-        return float(loss)
+        return self._loss_value(float(self._loss_tensor(loss)))
 
     def _epoch_size(self) -> int:
         return self.dataset.size()
@@ -765,6 +1178,10 @@ class BaseOptimizer:
             opt_state, self._resume_slots = self._resume_slots, None
         else:
             opt_state = self.optim_method.init_state_with_masters(params)
+        if self._skips():
+            # a step count a skipped step must not advance stays on the
+            # device, as the skip's flag does
+            opt_state = _counts_on(opt_state, self.device)
         self.opt_state = opt_state
         step = self._build_step()
         loop_state = self.optim_method.state
@@ -772,10 +1189,12 @@ class BaseOptimizer:
         data_iter = self._fast_forward_data(self.dataset.data(train=True),
                                             loop_state)
         self._init_cursor_positions()
+        tel = self._lead_telemetry
 
         def fetch_and_place():
             """The next batch, its inputs and targets on the device."""
-            with Timer(self.metrics, "data fetch time"):
+            with Timer(self.metrics, "data fetch time"), \
+                    self._span("data fetch"):
                 batch = next(data_iter, None)
                 if batch is None:
                     logger.warning("training data stream exhausted before "
@@ -786,19 +1205,28 @@ class BaseOptimizer:
                         _to_device(batch.get_target(), self.device))
 
         sync_every = self.sync_interval
+        self._telemetry_run_start()
         win = self._SyncWindow()
         loss_val = float("nan")
-        loss = None
+        loss = lr = flops = None
+        aux_pending: List[torch.Tensor] = []
         pending = fetch_and_place()
         while pending is not None and not self.end_trigger(loop_state):
             batch, x, y = pending
             faults.fire("train.step", step=loop_state["neval"] + 1)
             lr = self.optim_method.current_lr()
-            loss = self.last_loss = step(opt_state, x, y, lr)
+            if tel is not None:
+                flops = self._step_flops(batch)
+            with self._span("step dispatch", step=loop_state["neval"] + 1):
+                loss, aux = step(opt_state, x, y, lr)
+            self.last_loss = loss
+            if aux is not None:
+                aux_pending.append(aux)
             pending = fetch_and_place()  # queued while the step runs
             do_sync = (loop_state["neval"] + 1) % sync_every == 0
             if do_sync:
-                loss_val = self._synced_loss(loss)  # waits for the step
+                with self._span("loss sync"):  # waits for the step
+                    loss_val, aux_rows = self._sync(loss, aux_pending)
             n = self._records(batch)
             loop_state["neval"] += 1
             loop_state["recordsProcessedThisEpoch"] += n
@@ -806,6 +1234,8 @@ class BaseOptimizer:
             win.add(n)
             if do_sync:
                 throughput = win.throughput(self.metrics)
+                self._observe_sync(loop_state, loss_val, lr, throughput,
+                                   win.step_time_s, n, aux_rows, flops)
                 logger.info(
                     f"[Epoch {loop_state['epoch'] + 1} "
                     f"{loop_state['recordsProcessedThisEpoch']}/"
@@ -816,10 +1246,12 @@ class BaseOptimizer:
                 loop_state["epoch"] += 1
                 loop_state["recordsProcessedThisEpoch"] = 0
                 self.dataset.shuffle()
-            self._validate(loop_state)
+            with self._span("validation"):
+                self._validate(loop_state)
             if self.checkpoint_trigger is not None \
                     and self.checkpoint_trigger(loop_state):
-                with Timer(self.metrics, "checkpoint time"):
+                with Timer(self.metrics, "checkpoint time"), \
+                        self._span("checkpoint"):
                     self._save_checkpoint(opt_state,
                                           tag=f"iter{loop_state['neval']}")
             if self.iteration_hook is not None:
@@ -828,7 +1260,13 @@ class BaseOptimizer:
                 win.restart()  # keep the tail work out of the next window
         if sync_every > 1 and loss is not None and \
                 loop_state["neval"] % sync_every != 0:
-            loop_state["loss"] = self._synced_loss(loss)  # the final loss
+            # the final loss, and the guard's view of the window's tail
+            loss_val, aux_rows = self._sync(loss, aux_pending)
+            loop_state["loss"] = loss_val
+            if aux_rows:
+                self._observe_sync(loop_state, loss_val, lr, float("nan"),
+                                   float("nan"), 0, aux_rows, flops)
+        self._telemetry_run_end(loop_state)
         self.opt_state = None
         return self.model
 
@@ -848,6 +1286,10 @@ class LocalOptimizer(BaseOptimizer):
         self._start_run()
         try:
             return self._optimize_impl()
-        except BaseException:
+        except (KeyboardInterrupt, SystemExit):
+            self._restore_pristine()
+            raise
+        except BaseException as e:
+            self._telemetry_run_abort(e)
             self._restore_pristine()
             raise

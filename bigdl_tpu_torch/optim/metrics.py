@@ -18,10 +18,32 @@ class Metrics:
         self._sum[name] += value
         self._count[name] += 1
 
+    def set(self, name: str, value: float):
+        """Replace `name`'s values by the one `value`."""
+        self._sum[name] = value
+        self._count[name] = 1
+
     def get(self, name: str) -> float:
         """Mean of the values added under `name` (0 if none)."""
         c = self._count.get(name, 0)
         return self._sum[name] / c if c else 0.0
+
+    def as_dict(self, unit_scale: float = 1e9
+                ) -> Dict[str, Dict[str, float]]:
+        """The table as {name: {mean, count, total}}, scaled as `summary`
+        (default ns -> s): the `run_end` record's `metrics`."""
+        return {name: {"mean": self.get(name) / unit_scale,
+                       "count": self._count.get(name, 0),
+                       "total": self._sum[name] / unit_scale}
+                for name in sorted(self._sum)}
+
+    def summary(self, unit_scale: float = 1e9) -> str:
+        """The table as the reference prints it, one mean a line."""
+        lines = ["========== Metrics Summary =========="]
+        for name in sorted(self._sum):
+            lines.append(f"{name} : {self.get(name) / unit_scale} s")
+        lines.append("=====================================")
+        return "\n".join(lines)
 
     def reset(self):
         self._sum.clear()

@@ -28,6 +28,18 @@ from bigdl_tpu_torch.parallel import collectives
 Tree = Dict[str, torch.Tensor]
 
 
+def _bias_correction(beta: float, t):
+    """1 - beta^t in f32, as the reference computes it: a float for a step
+    count `t`, or a 0-d f32 tensor on t's device when `t` is a 0-d tensor
+    (the step count a skipping NaN guard keeps on the device, so that a
+    reverted step does not advance it and no step waits for the host)."""
+    if isinstance(t, torch.Tensor):
+        return 1.0 - torch.pow(
+            torch.tensor(beta, dtype=torch.float32, device=t.device),
+            t.float())
+    return float(np.float32(1.0) - np.float32(beta) ** np.float32(t))
+
+
 class OptimMethod:
     """Base optimization method; `state` mirrors the reference's state
     table (epoch, neval, recordsProcessedThisEpoch, ...)."""
@@ -185,9 +197,7 @@ class Adam(OptimMethod):
         the reference computes them (1 - 0.999 differs by 1.3e-5 relative
         between f32 and f64)."""
         t = opt_state["t"] = opt_state["t"] + 1
-        one, tf = np.float32(1.0), np.float32(t)
-        return (float(one - np.float32(self.beta1) ** tf),
-                float(one - np.float32(self.beta2) ** tf))
+        return _bias_correction(self.beta1, t), _bias_correction(self.beta2, t)
 
     def update(self, grads: Tree, opt_state, params: Tree, lr: float):
         b1, b2 = self.beta1, self.beta2
@@ -368,8 +378,11 @@ class Adamax(OptimMethod):
             grads = self._decay(grads, params)
             t = opt_state["t"] = opt_state["t"] + 1
             # lr / (1 - beta1^t) in f32, as the reference computes it
-            bc = np.float32(1.0) - np.float32(b1) ** np.float32(t)
-            step = float(np.float32(lr) / bc)
+            bc = _bias_correction(b1, t)
+            step = float(np.float32(lr) / np.float32(bc)) \
+                if not isinstance(bc, torch.Tensor) \
+                else torch.tensor(lr, dtype=torch.float32,
+                                  device=bc.device) / bc
             for k, p in params.items():
                 g, m, u = grads[k], opt_state["m"][k], opt_state["u"][k]
                 m.mul_(b1).add_((1 - b1) * g)

@@ -14,12 +14,13 @@ Sites the port instruments:
     ckpt.write.manifest / ckpt.commit      serialization/checkpoint.py
     train.step                             both optimizers' training loops
     fs.remote_io                           utils/filesystem.py remote ops
+    telemetry.sink                         observability/telemetry.py emit
 
-The reference's other sites (`mesh.*`, `prefetch.worker`, `serve.*`,
-`telemetry.sink`) belong to subsystems the port has not ported yet; a
-`FaultSpec` naming one raises, since it would never fire. The port has no
-telemetry, so an injector's `telemetry` is None unless the caller passes
-an object with an `event(kind, **fields)` method.
+The reference's other sites (`mesh.*`, `prefetch.worker`, `serve.*`)
+belong to subsystems the port has not ported yet; a `FaultSpec` naming
+one raises, since it would never fire. An injector given a `Telemetry`
+emits a `fault_injected` event for each fault it raises; that emission
+does not fire the `telemetry.sink` site again.
 
 Example: crash the 3rd training step once, transiently:
 
@@ -44,7 +45,7 @@ logger = logging.getLogger("bigdl_tpu_torch.resilience")
 KNOWN_SITES = (
     "ckpt.write.params", "ckpt.write.state", "ckpt.write.optim",
     "ckpt.write.manifest", "ckpt.commit",
-    "train.step", "fs.remote_io",
+    "train.step", "fs.remote_io", "telemetry.sink",
 )
 
 _EXTRA_SITES: set = set()

@@ -57,8 +57,8 @@ class RetryPolicy:
         retry, as the reference's retry-everything loop does).
     seed : seeds the jitter rng.
     sleep : the sleep function.
-    telemetry : an object with `event(kind, **fields)`, or None (the port
-        has no telemetry yet).
+    telemetry : a `Telemetry` (or any object with `event(kind,
+        **fields)`) that gets a `retry` event a retry, or None.
     """
 
     def __init__(self, max_retries: int = 5, base_delay_s: float = 0.1,

@@ -16,14 +16,29 @@ row up to a bucket, runs one forward of a `LocalPredictor` (the converted
 serving copy of the model), and keeps up to `inflight` batches dispatched
 ahead of the blocking device-to-host fetch.
 
-Not ported yet: the per-bucket circuit breaker (`breaker`,
-`ServingUnavailableError`, `health()`), telemetry and the span tracer,
-per-request trace records, the fault sites, `session` / `replica_id`, and
-the MFU / FLOPs stats.
+Telemetry and tracing (`telemetry=`, `tracer=`), as the reference's: a
+request gets a `TraceContext` at admission (only when one of them is
+attached, so an engine without them pays nothing), and one `trace` record
+when it finishes, whether ok, timed out, failed or cancelled, with its
+phase split (queue, batch form, dispatch, forward, fetch); with a tracer,
+its spans lie on one of 16 request lanes, flow-linked to the batch's
+"serve dispatch" span. `trace_sample=N` keeps every Nth completed
+request's record and spans (each kept record has `sample_weight` N); a
+request that did not complete always traces. A `serving_stats` record
+every `emit_every` batches and a `serving_summary` on close. A failing
+sink is logged and never stops serving.
+
+Not ported yet (`ROADMAP.md` queue 1 item 6): the per-bucket circuit
+breaker (`breaker`, `ServingUnavailableError`, `health()`; the `shed`
+counter stays 0), the fault sites, `session` / `replica_id`, and the MFU /
+FLOPs stats.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
+import logging
 import threading
 import time
 import weakref
@@ -36,8 +51,11 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.dataset.sample import Sample
+from bigdl_tpu_torch.observability.spans import TraceContext
 from bigdl_tpu_torch.optim.predictor import LocalPredictor, to_numpy_rows
 from bigdl_tpu_torch.serving.stats import WindowedHistogram
+
+logger = logging.getLogger("bigdl_tpu_torch.serving")
 
 # Engines still open at interpreter exit get a drain-less close, so their
 # non-daemon dispatcher cannot hang shutdown. A regular atexit hook runs
@@ -100,23 +118,35 @@ class ServingEngine:
         deadline); "reject" raises `QueueFullError` at once.
     start : spawn the dispatcher now; `False` lets a caller stage a queue
         first and `start()` later.
+    telemetry / tracer : an `observability.Telemetry` / `SpanTracer`, or
+        None (see the module docstring).
+    emit_every : a `serving_stats` record every this many batches.
+    hist_window : observations kept by each latency histogram.
+    trace_sample : trace every Nth completed request (1: all).
     """
 
-    #: observations kept by each latency histogram
-    HIST_WINDOW = 8192
-
     def __init__(self, max_batch_size: int = 32, queue_capacity: int = 256,
-                 admission: str = "block", start: bool = True):
+                 admission: str = "block", start: bool = True, *,
+                 telemetry=None, tracer=None, emit_every: int = 50,
+                 hist_window: int = 8192, trace_sample: int = 1):
         if queue_capacity < 1:
             raise ValueError(
                 f"queue_capacity must be >= 1, got {queue_capacity}")
         if admission not in ("block", "reject"):
             raise ValueError(
                 f"admission must be 'block' or 'reject', got {admission!r}")
+        if trace_sample < 1:
+            raise ValueError(
+                f"trace_sample must be >= 1, got {trace_sample}")
         self.buckets = default_buckets(max_batch_size)
         self.max_batch_size = self.buckets[-1]
         self.queue_capacity = queue_capacity
         self.admission = admission
+        self.telemetry = telemetry
+        self.tracer = tracer
+        self.emit_every = max(1, int(emit_every))
+        self.trace_sample = int(trace_sample)
+        self._req_seq = itertools.count()
 
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
@@ -129,15 +159,17 @@ class ServingEngine:
 
         # stats have their own lock: stats() must not contend with admission
         self._slock = threading.Lock()
-        self.queue_wait = WindowedHistogram(self.HIST_WINDOW)   # seconds
-        self.latency = WindowedHistogram(self.HIST_WINDOW)      # seconds
-        self.batch_sizes = WindowedHistogram(self.HIST_WINDOW)  # per batch
+        self.queue_wait = WindowedHistogram(hist_window)   # seconds
+        self.latency = WindowedHistogram(hist_window)      # seconds
+        self.batch_sizes = WindowedHistogram(hist_window)  # per batch
         self._n = {"submitted": 0, "completed": 0, "failed": 0,
                    "timed_out": 0, "rejected": 0, "cancelled": 0,
-                   "batches": 0, "bucket_hits": 0, "rows": 0,
+                   "shed": 0, "batches": 0, "bucket_hits": 0, "rows": 0,
                    "padded_rows": 0}
         self._compiled = set()  # (shape, bucket) pairs seen or warmed
         self._t0_mono = time.monotonic()
+        # perf_counter twin of _t0_mono: a trace record's arrival offset
+        self._t0_perf = time.perf_counter()
 
         _LIVE_ENGINES.add(self)
         if start:
@@ -177,12 +209,66 @@ class ServingEngine:
         _LIVE_ENGINES.discard(self)
         # leftover requests (never-started engine, or drain=False)
         self._fail_queued(EngineClosedError("engine closed"))
+        self._emit_safe({"type": "serving_summary", **self.stats()})
 
     def _run(self):
         raise NotImplementedError
 
     def _fail_queued(self, exc: BaseException):
         raise NotImplementedError
+
+    # ------------------------------------------------------------ telemetry
+    def _new_context(self) -> Optional[TraceContext]:
+        """A request's trace identity, minted at admission, only when a
+        telemetry or a tracer is attached."""
+        if self.telemetry is None and self.tracer is None:
+            return None
+        return TraceContext.new_trace()
+
+    def _emit_safe(self, record: Dict):
+        """Emit to the telemetry; a failing sink is logged, never raised
+        into the dispatcher (an observability failure is not a serving
+        failure)."""
+        if self.telemetry is None:
+            return
+        try:
+            self.telemetry.emit(record)
+        except Exception:
+            logger.exception("serving telemetry sink failed; record dropped")
+
+    def _span(self, name: str, **args):
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name, cat="serving", **args)
+
+    def _traced(self, r, status: str) -> bool:
+        """Whether request `r`'s trace is kept: every non-ok one, and
+        every `trace_sample`th completed one."""
+        return r.ctx is not None and (status != "ok"
+                                      or r.seq % self.trace_sample == 0)
+
+    def _emit_trace(self, r, kind: str, status: str, total_ms: float,
+                    phases, fields: Dict, error: Optional[str]):
+        """The `trace` record of request `r`: `phases` (name, start, end,
+        record field) on the perf_counter clock give its critical path."""
+        rec = {"type": "trace", "trace_id": r.ctx.trace_id, "kind": kind,
+               "status": status, "latency_ms": round(total_ms, 3),
+               "arrival_offset_ms":
+                   round((r.t_submit - self._t0_perf) * 1e3, 3), **fields}
+        if status == "ok" and self.trace_sample > 1:
+            # this record stands for trace_sample completed requests
+            rec["sample_weight"] = self.trace_sample
+        path = []
+        for name, a, b, field in phases:
+            ms = (b - a) * 1e3
+            path.append({"name": name, "ms": round(ms, 3),
+                         "frac": round(ms / total_ms, 4)
+                         if total_ms > 0 else None})
+            rec[field] = round(ms, 3)
+        rec["critical_path"] = path
+        if error is not None:
+            rec["error"] = error
+        self._emit_safe(rec)
 
     def __enter__(self):
         return self
@@ -256,14 +342,21 @@ class ServingEngine:
 
 
 class _Request:
-    __slots__ = ("features", "future", "t_submit", "deadline")
+    __slots__ = ("features", "future", "t_submit", "deadline", "ctx", "seq",
+                 "t_gather", "deadline_budget_ms")
 
     def __init__(self, features: List[np.ndarray],
-                 deadline: Optional[float]):
+                 deadline: Optional[float],
+                 ctx: Optional[TraceContext] = None, seq: int = 0,
+                 deadline_budget_ms: Optional[float] = None):
         self.features = features
         self.future: Future = Future()
         self.t_submit = time.perf_counter()
         self.deadline = deadline  # absolute perf_counter seconds, or None
+        self.ctx = ctx            # trace identity, carried across threads
+        self.seq = seq
+        self.t_gather: Optional[float] = None  # when its batch closed
+        self.deadline_budget_ms = deadline_budget_ms  # as given
 
     def signature(self):
         return _signature(self.features)
@@ -314,6 +407,11 @@ class InferenceEngine(ServingEngine):
     buckets : ascending pad targets; None = `default_buckets(...)`. The
         largest bucket is the dispatch cap.
     inflight : dispatched-but-unfetched batches kept in flight.
+    telemetry / tracer / emit_every / hist_window / trace_sample : as
+        `ServingEngine` (the module docstring says what they record).
+    breaker / replica_id : the reference's circuit breaker and fleet
+        identity, not ported: anything but None raises
+        `NotImplementedError`.
     device : where the engine runs; the model must live there. Default
         CUDA (see `resolve_device`).
     queue_capacity / admission / start : as `ServingEngine`.
@@ -323,8 +421,15 @@ class InferenceEngine(ServingEngine):
                  max_wait_ms: float = 2.0, queue_capacity: int = 256,
                  admission: str = "block",
                  buckets: Optional[Sequence[int]] = None,
-                 inflight: int = 2, convert: bool = True, *, device=None,
-                 start: bool = True):
+                 inflight: int = 2, convert: bool = True,
+                 telemetry=None, tracer=None, emit_every: int = 50,
+                 hist_window: int = 8192, breaker: Optional[Dict] = None,
+                 trace_sample: int = 1, replica_id: Optional[str] = None,
+                 *, device=None, start: bool = True):
+        if breaker is not None or replica_id is not None:
+            raise NotImplementedError(
+                "the circuit breaker and replica_id are not ported yet "
+                "(ROADMAP.md queue 1 item 6)")
         if max_wait_ms < 0:
             raise ValueError(f"max_wait_ms must be >= 0, got {max_wait_ms}")
         if inflight < 1:
@@ -340,7 +445,9 @@ class InferenceEngine(ServingEngine):
                                     convert=convert, device=device)
         super().__init__(max_batch_size=max_batch_size,
                          queue_capacity=queue_capacity, admission=admission,
-                         start=False)
+                         start=False, telemetry=telemetry, tracer=tracer,
+                         emit_every=emit_every, hist_window=hist_window,
+                         trace_sample=trace_sample)
         if buckets is not None:
             self.buckets = buckets
         self.model = self._pred.model  # the converted serving copy
@@ -359,7 +466,8 @@ class InferenceEngine(ServingEngine):
         life: admission (block mode) and batching both observe it."""
         deadline = time.perf_counter() + deadline_ms / 1e3 \
             if deadline_ms is not None else None
-        req = _Request(_features(sample), deadline)
+        req = _Request(_features(sample), deadline, self._new_context(),
+                       next(self._req_seq), deadline_ms)
         self._admit(req)
         return req.future
 
@@ -459,7 +567,9 @@ class InferenceEngine(ServingEngine):
                 _resolve(r.future, exc=ServingTimeoutError(
                     "deadline lapsed in the serving queue "
                     f"({(now - r.t_submit) * 1e3:.1f} ms queued)"))
+                self._finish_trace([r], None, now, status="timeout")
             else:
+                r.t_gather = now
                 self.queue_wait.record(now - r.t_submit)
                 alive.append(r)
         return alive
@@ -487,14 +597,18 @@ class InferenceEngine(ServingEngine):
         n = len(reqs)
         bucket = self._bucket_for(n)
         sig = reqs[0].signature()
+        meta = {"bucket": bucket, "n": n, "t_d0": time.perf_counter(),
+                "disp_tid": threading.get_ident() % 2 ** 31}
         try:
-            cols = [np.stack(c) for c in zip(*(r.features for r in reqs))]
-            if bucket > n:
-                # the last row, not zeros: always in the model's domain
-                cols = [np.concatenate(
-                    [a, np.repeat(a[-1:], bucket - n, axis=0)])
-                    for a in cols]
-            y = self._forward_arrays(cols)
+            with self._span("serve dispatch", n=n, bucket=bucket):
+                cols = [np.stack(c)
+                        for c in zip(*(r.features for r in reqs))]
+                if bucket > n:
+                    # the last row, not zeros: always in the model's domain
+                    cols = [np.concatenate(
+                        [a, np.repeat(a[-1:], bucket - n, axis=0)])
+                        for a in cols]
+                y = self._forward_arrays(cols)
         except Exception as e:
             with self._slock:  # count before resolving
                 self._n["failed"] += n
@@ -502,7 +616,10 @@ class InferenceEngine(ServingEngine):
             for r in reqs:
                 _resolve(r.future, exc=ServingError(
                     f"batch forward failed: {e!r}"))
+            self._finish_trace(reqs, meta, time.perf_counter(),
+                               status="error", error=repr(e))
             return None
+        meta["t_d1"] = time.perf_counter()
         self.batch_sizes.record(n)
         with self._slock:
             hit = (sig, bucket) in self._compiled
@@ -511,27 +628,112 @@ class InferenceEngine(ServingEngine):
             self._n["bucket_hits"] += int(hit)
             self._n["rows"] += bucket
             self._n["padded_rows"] += bucket - n
-        return reqs, y
+        return reqs, y, meta
 
     def _complete(self, batch):
         """Blocking device-to-host fetch of the oldest in-flight batch;
         newer batches keep the device busy meanwhile."""
-        reqs, y = batch
+        reqs, y, meta = batch
+        meta["t_f0"] = time.perf_counter()
         try:
-            arr = to_numpy_rows(y)
+            with self._span("serve fetch", n=len(reqs)):
+                arr = to_numpy_rows(y)
         except Exception as e:
             with self._slock:  # count before resolving
                 self._n["failed"] += len(reqs)
             for r in reqs:
                 _resolve(r.future, exc=ServingError(
                     f"batch fetch failed: {e!r}"))
+            self._finish_trace(reqs, meta, time.perf_counter(),
+                               status="error", error=repr(e))
             return
         now = time.perf_counter()
         with self._slock:
             self._n["completed"] += len(reqs)
+            batches = self._n["batches"]
         for i, r in enumerate(reqs):
             self.latency.record(now - r.t_submit)
             _resolve(r.future, value=arr[i])
+        self._finish_trace(reqs, meta, now, status="ok")
+        if batches % self.emit_every == 0:
+            self._emit_safe({"type": "serving_stats", **self.stats()})
+
+    # ------------------------------------------------------------ tracing
+    def _finish_trace(self, reqs: List[_Request], meta: Optional[Dict],
+                      t_done: float, status: str,
+                      error: Optional[str] = None):
+        """Close each request's trace: its phase split (queue, batch form,
+        dispatch, forward, fetch) from its timestamps, one `trace` record
+        each, and with a tracer its spans on a request lane, flow-linked
+        to the batch's dispatch span. Never raises: tracing must not take
+        the dispatcher down."""
+        if self.telemetry is None and self.tracer is None:
+            return
+        try:
+            self._finish_trace_impl(reqs, meta or {}, t_done, status,
+                                    error)
+        except Exception:
+            logger.exception("request trace emission failed; dropped")
+
+    def _finish_trace_impl(self, reqs, meta, t_done, status, error):
+        t_d0, t_d1, t_f0 = meta.get("t_d0"), meta.get("t_d1"), \
+            meta.get("t_f0")
+        bucket = meta.get("bucket")
+        tracer = self.tracer
+        # the engine times phases on perf_counter, the tracer on its own
+        # epoch-anchored clock: one offset for the whole batch
+        off = tracer.now_us() - time.perf_counter() * 1e6 \
+            if tracer is not None else 0.0
+
+        def us(t):
+            return t * 1e6 + off
+
+        for r in reqs:
+            if not self._traced(r, status):
+                continue  # sampled out: neither record nor spans
+            phases = [("queue", r.t_submit,
+                       r.t_gather if r.t_gather is not None else t_done,
+                       "queue_wait_ms")]
+            if r.t_gather is not None and t_d0 is not None:
+                phases.append(("batch form", r.t_gather, t_d0,
+                               "batch_form_ms"))
+            if t_d0 is not None and t_d1 is not None:
+                phases.append(("dispatch", t_d0, t_d1, "dispatch_ms"))
+                if t_f0 is not None:
+                    phases.append(("forward", t_d1, t_f0, "forward_ms"))
+                    phases.append(("fetch", t_f0, t_done, "fetch_ms"))
+                else:
+                    phases.append(("forward", t_d1, t_done, "forward_ms"))
+            if tracer is not None:
+                # 16 request lanes; the trace_id keeps identity exact
+                tid = tracer.lane(f"request-{r.seq % 16}")
+                tracer.add_span("request", us(r.t_submit),
+                                (t_done - r.t_submit) * 1e6,
+                                cat="serving", tid=tid, ctx=r.ctx,
+                                status=status, bucket=bucket)
+                for name, a, b, _ in phases:
+                    tracer.add_span(name, us(a), (b - a) * 1e6,
+                                    cat="serving", tid=tid,
+                                    ctx=r.ctx.child())
+                if r.t_gather is not None and t_d0 is not None:
+                    # this request's lane -> the batch's dispatch span
+                    tracer.add_flow(r.seq, "batched", us(r.t_gather),
+                                    tid, us(t_d0), meta["disp_tid"])
+            if self.telemetry is None:
+                continue
+            fields = {}
+            if r.deadline_budget_ms is not None:
+                fields["deadline_budget_ms"] = round(r.deadline_budget_ms, 3)
+            if r.features:
+                fields["shape"] = [int(d) for d in
+                                   np.asarray(r.features[0]).shape]
+            if bucket is not None:
+                fields["bucket"] = int(bucket)
+            if meta.get("n") is not None:
+                fields["batch"] = int(meta["n"])
+            self._emit_trace(r, "serving_request", status,
+                             (t_done - r.t_submit) * 1e3, phases, fields,
+                             error)
 
     def _fail_queued(self, exc: BaseException):
         with self._lock:
@@ -542,3 +744,7 @@ class InferenceEngine(ServingEngine):
             self._n["cancelled"] += len(left)
         for r in left:
             _resolve(r.future, exc=exc)
+        if left:
+            # a shutdown that failed queued work traces it
+            self._finish_trace(left, None, time.perf_counter(),
+                               status="cancelled", error=repr(exc))

@@ -23,6 +23,15 @@ The dispatcher thread runs the model under `torch.inference_mode()`,
 which it enters itself: grad mode is per thread. The KV cache is written
 in place; a failed prefill or decode leaves it unknown, so the engine
 then fails the active streams and allocates a fresh cache.
+
+Telemetry (`telemetry=`, `tracer=`, `emit_every`, `hist_window`,
+`trace_sample`, as `ServingEngine`'s): a `generation` record every
+`emit_every` decode steps and a last one when the dispatcher stops, a
+`serving_summary` on close, and one `trace` record per request (kind
+"generate": `queue_wait_ms`, `prefill_ms` from leaving the queue to the
+first token, `decode_ms` after it, `tokens`, `prompt_tokens`); with a
+tracer, "generate prefill" and "generate decode" spans and each request's
+spans on a request lane.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch._device import resolve_device
+from bigdl_tpu_torch.observability.spans import TraceContext
 from bigdl_tpu_torch.serving.engine import (EngineClosedError, ServingEngine,
                                             ServingError,
                                             ServingTimeoutError)
@@ -175,16 +185,24 @@ class TokenStream:
 
 class _GenRequest:
     __slots__ = ("prompt", "max_new_tokens", "eos_id", "stream", "deadline",
-                 "t_submit", "tokens_out", "slot", "pos")
+                 "ctx", "seq", "t_submit", "t_gather", "t_prefill1",
+                 "tokens_out", "slot", "pos", "deadline_budget_ms")
 
     def __init__(self, prompt: np.ndarray, max_new_tokens: int,
-                 eos_id: Optional[int], deadline: Optional[float]):
+                 eos_id: Optional[int], deadline: Optional[float],
+                 ctx: Optional[TraceContext] = None, seq: int = 0,
+                 deadline_budget_ms: Optional[float] = None):
         self.prompt = prompt
         self.max_new_tokens = max_new_tokens
         self.eos_id = eos_id
         self.stream = TokenStream()
         self.deadline = deadline  # absolute perf_counter seconds, or None
+        self.ctx = ctx
+        self.seq = seq
         self.t_submit = time.perf_counter()
+        self.t_gather: Optional[float] = None    # left the queue (prefill)
+        self.t_prefill1: Optional[float] = None  # its prefill landed
+        self.deadline_budget_ms = deadline_budget_ms  # as given
         self.tokens_out: List[int] = []
         self.slot: Optional[int] = None
         self.pos = 0  # next decode position (= prompt length after prefill)
@@ -215,7 +233,8 @@ class GenerationEngine(ServingEngine):
         `default_seq_buckets(max_len)`; `max_len` is always appended.
     device : where the engine runs; it must be the model's device.
         Default CUDA (see `resolve_device`).
-    queue_capacity / admission / start : as `ServingEngine`.
+    queue_capacity / admission / start / telemetry / tracer / emit_every /
+        hist_window / trace_sample : as `ServingEngine`.
     """
 
     def __init__(self, model, *, slots: int = 8, max_len: int = 256,
@@ -223,6 +242,8 @@ class GenerationEngine(ServingEngine):
                  prefill_batch: int = 4,
                  seq_buckets: Optional[Sequence[int]] = None,
                  queue_capacity: int = 256, admission: str = "block",
+                 telemetry=None, tracer=None, emit_every: int = 50,
+                 hist_window: int = 8192, trace_sample: int = 1,
                  device=None, start: bool = True):
         for attr in ("init_cache", "apply_prefill", "apply_step"):
             if not hasattr(model, attr):
@@ -243,7 +264,9 @@ class GenerationEngine(ServingEngine):
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
         super().__init__(max_batch_size=prefill_batch,
                          queue_capacity=queue_capacity, admission=admission,
-                         start=False)
+                         start=False, telemetry=telemetry, tracer=tracer,
+                         emit_every=emit_every, hist_window=hist_window,
+                         trace_sample=trace_sample)
         self.model = model
         # an id past the vocabulary would index the embedding out of range,
         # which on CUDA is a device-side assert that ends the process's
@@ -311,7 +334,8 @@ class GenerationEngine(ServingEngine):
             if deadline_ms is not None else None
         req = _GenRequest(prompt, n_new,
                           self.default_eos_id if eos_id is None else eos_id,
-                          deadline)
+                          deadline, self._new_context(), next(self._req_seq),
+                          deadline_ms)
         self._admit(req)
         return req.stream
 
@@ -380,6 +404,8 @@ class GenerationEngine(ServingEngine):
                         self._decode_once()
             finally:
                 self._abort_slots(EngineClosedError("engine closed"))
+                self._emit_safe({"type": "generation",
+                                 **self.generation_stats()})
 
     def _admit_into_slots(self):
         """Move queued requests into free slots and prefill them, between
@@ -408,6 +434,7 @@ class GenerationEngine(ServingEngine):
             self._not_full.notify_all()
         for r, status, exc in dropped:
             r.stream._finish(status, exc)
+            self._gen_trace(r, status)
         groups: Dict[int, List[_GenRequest]] = {}
         for r in take:
             groups.setdefault(self._seq_bucket(r.prompt.size),
@@ -437,9 +464,13 @@ class GenerationEngine(ServingEngine):
             lengths[j] = lengths[n - 1]
         t0 = time.perf_counter()
         for r in rs:
+            r.t_gather = t0
             self.queue_wait.record(t0 - r.t_submit)
         try:
-            first = self._prefill(self._cache, tokens, slot_ids, lengths)
+            with self._span("generate prefill", n=n, bucket=bucket,
+                            t_pad=t_pad):
+                first = self._prefill(self._cache, tokens, slot_ids,
+                                      lengths)
         except Exception as e:  # contain the failure to this group
             self._prefill_failed(rs, slots, free, e)
             return
@@ -459,6 +490,7 @@ class GenerationEngine(ServingEngine):
             self._active += n
         for j, r in enumerate(rs):
             r.slot = slots[j]
+            r.t_prefill1 = t1
             r.pos = r.prompt.size  # the first decode writes here
             self._slot_req[r.slot] = r
             tok = int(first[j])
@@ -482,6 +514,7 @@ class GenerationEngine(ServingEngine):
         exc = ServingError(f"prefill failed: {e!r}")
         for r in rs:
             r.stream._finish("error", exc)
+            self._gen_trace(r, "error", error=repr(e))
         self._reset_cache(exc)
 
     def _decode_once(self):
@@ -495,7 +528,8 @@ class GenerationEngine(ServingEngine):
             positions[r.slot] = r.pos
         t0 = time.perf_counter()
         try:
-            nxt = self._decode(self._cache, tokens, positions)
+            with self._span("generate decode", n=len(active)):
+                nxt = self._decode(self._cache, tokens, positions)
         except Exception as e:  # contain: fail the streams, keep serving
             logger.warning("decode step failed (%r)", e)
             # each active stream is counted "failed" once, by _retire
@@ -508,6 +542,7 @@ class GenerationEngine(ServingEngine):
             self._g["decode_slot_steps"] += len(active)
             self._g["decode_s"] += dt
             self._g["tokens"] += len(active)
+            steps = self._g["decode_steps"]
         for r in active:
             tok = int(nxt[r.slot])
             r.tokens_out.append(tok)
@@ -518,6 +553,9 @@ class GenerationEngine(ServingEngine):
             elif tok == r.eos_id \
                     or len(r.tokens_out) >= r.max_new_tokens:
                 self._retire(r, "ok")
+        if steps % self.emit_every == 0:
+            self._emit_safe({"type": "generation",
+                             **self.generation_stats()})
 
     def _retire(self, r: _GenRequest, status: str,
                 exc: Optional[BaseException] = None):
@@ -533,6 +571,8 @@ class GenerationEngine(ServingEngine):
         if status == "ok":
             self.latency.record(time.perf_counter() - r.t_submit)
         r.stream._finish(status, exc)
+        self._gen_trace(r, status,
+                        error=repr(exc) if exc is not None else None)
 
     def _reset_cache(self, exc: BaseException):
         """Fail every active stream (its KV history is gone) and allocate
@@ -556,6 +596,7 @@ class GenerationEngine(ServingEngine):
             self._n["cancelled"] += len(left)
         for r in left:
             r.stream._finish("cancelled", exc)
+            self._gen_trace(r, "cancelled", error=repr(exc))
 
     # ------------------------------------------------------------ stats
     def generation_stats(self) -> Dict:
@@ -584,6 +625,50 @@ class GenerationEngine(ServingEngine):
             "slot_joins": g["slot_joins"],
             "slot_leaves": g["slot_leaves"],
         }
+
+    def _gen_trace(self, r: _GenRequest, status: str,
+                   error: Optional[str] = None):
+        """One `trace` record per request (kind "generate"): queue ->
+        prefill -> decode, and with a tracer its spans on a request lane.
+        Never raises."""
+        if self.telemetry is None and self.tracer is None:
+            return
+        try:
+            self._gen_trace_impl(r, status, error)
+        except Exception:
+            logger.exception("generation trace emission failed; dropped")
+
+    def _gen_trace_impl(self, r: _GenRequest, status: str,
+                        error: Optional[str]):
+        if not self._traced(r, status):
+            return  # sampled out; a request that did not complete traces
+        t_done = time.perf_counter()
+        phases = [("queue", r.t_submit,
+                   r.t_gather if r.t_gather is not None else t_done,
+                   "queue_wait_ms")]
+        if r.t_gather is not None and r.t_prefill1 is not None:
+            phases.append(("prefill", r.t_gather, r.t_prefill1,
+                           "prefill_ms"))
+            phases.append(("decode", r.t_prefill1, t_done, "decode_ms"))
+        tracer = self.tracer
+        if tracer is not None:
+            off = tracer.now_us() - time.perf_counter() * 1e6
+            tid = tracer.lane(f"request-{r.seq % 16}")
+            tracer.add_span("generate", r.t_submit * 1e6 + off,
+                            (t_done - r.t_submit) * 1e6, cat="serving",
+                            tid=tid, ctx=r.ctx, status=status,
+                            tokens=len(r.tokens_out))
+            for name, a, b, _ in phases:
+                tracer.add_span(name, a * 1e6 + off, (b - a) * 1e6,
+                                cat="serving", tid=tid, ctx=r.ctx.child())
+        if self.telemetry is None:
+            return
+        fields = {"tokens": len(r.tokens_out),
+                  "prompt_tokens": int(r.prompt.size)}
+        if r.deadline_budget_ms is not None:
+            fields["deadline_budget_ms"] = round(r.deadline_budget_ms, 3)
+        self._emit_trace(r, "generate", status, (t_done - r.t_submit) * 1e3,
+                         phases, fields, error)
 
 
 def greedy_decode_reference(model, prompt, max_new_tokens: int,

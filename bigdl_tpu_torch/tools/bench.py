@@ -30,6 +30,15 @@ warm-up. The result also carries every step's loss.
     python -m bigdl_tpu_torch.tools.bench --nproc 2 [--backend gloo|nccl]
     python -m bigdl_tpu_torch.tools.bench --model wide_n_deep --nproc 2
     python -m bigdl_tpu_torch.tools.bench --model lm --nproc 4 --model-axis 2
+    python -m bigdl_tpu_torch.tools.bench --model lm --telemetry out/lm
+
+`--telemetry STEM` (any training path) attaches a `Telemetry` with the
+gradient norms and a `SpanTracer` to every training run: the records go
+to `STEM.jsonl` (one `run_start`, a `step` record a sync point, a
+`run_end`; rank 0 of a data-parallel run), the spans to
+`STEM.trace.json` (other ranks: `STEM.rank<r>.trace.json`), which
+Perfetto opens. The timed numbers then include what the instrumentation
+costs.
 
 `--nproc N` (ResNet-50 or Wide&Deep) is the data-parallel configuration:
 it starts N ranks, one process each (`Engine.init(distributed=True)`,
@@ -124,7 +133,7 @@ from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
                                           TimeDistributedCriterion)
 from bigdl_tpu_torch.observability import costs
 from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
-from bigdl_tpu_torch.optim.local_optimizer import BaseOptimizer, _to_device
+from bigdl_tpu_torch.optim.local_optimizer import _meta, step_flops
 from bigdl_tpu_torch.parallel import collectives
 
 
@@ -162,32 +171,6 @@ def _token_batch(vocab: int, seq: int, batch_size: int):
     return toks[:, :-1], toks[:, 1:]
 
 
-def _meta(model: torch.nn.Module) -> torch.nn.Module:
-    """A copy of `model` on the meta device: shapes without data."""
-    return copy.deepcopy(model).to("meta")
-
-
-def step_flops(opt: BaseOptimizer) -> int:
-    """FLOPs of one training step of `opt` on its dataset's first batch:
-    the step the optimizer runs (`_build_step`, with its precision,
-    accumulation and clipping), counted by `costs.count_flops` on a copy
-    of the model and the method on the meta device. Nothing runs and
-    nothing launches (the kernel wrappers count by their formulas), so
-    the run itself is untouched, as the reference lowers its step a
-    second time without running it (`bench_cli.py:52-87`)."""
-    twin = copy.copy(opt)
-    twin.model = _meta(opt.model)
-    twin.optim_method = copy.deepcopy(opt.optim_method)
-    params = dict(twin.model.named_parameters())
-    opt_state = twin.optim_method.init_state_with_masters(params)
-    batch = next(iter(opt.dataset.data(train=False)))
-    meta = torch.device("meta")
-    x = _to_device(batch.get_input(), meta)
-    y = _to_device(batch.get_target(), meta)
-    return costs.count_flops(twin._build_step(), opt_state, x, y,
-                             twin.optim_method.current_lr())
-
-
 def _mfu(flops, ms: float, device: torch.device):
     """`costs.mfu` of `flops` in `ms` on `device` (None on the CPU)."""
     return costs.mfu(flops, ms * 1e-3, device_kind=_device_name(device))
@@ -212,9 +195,47 @@ def _timed_run(opt: DistriOptimizer, warmup: int, iters: int, sync: int,
             opt.metrics.reset()  # keep the warm-up out of the phase table
 
     opt.set_iteration_hook(hook)
-    opt.optimize()
+    with _bench_telemetry(opt):
+        opt.optimize()
     intervals = np.diff(times[warmup // sync - 1:])
     return float(np.median(intervals)), [float(v) for v in losses]
+
+
+#: the environment variable `--telemetry STEM` sets (the ranks a
+#: data-parallel run starts inherit it)
+TELEMETRY_ENV = "BIGDL_TPU_TELEMETRY"
+
+
+@contextlib.contextmanager
+def _bench_telemetry(opt: DistriOptimizer):
+    """With `$BIGDL_TPU_TELEMETRY` set to a stem (`--telemetry STEM`), the
+    run inside streams its records to `STEM.jsonl` (appended) through a
+    `Telemetry` with the grad norms, and its spans to `STEM.trace.json`
+    (written when the run ends, failed or not); a rank other than 0 of a
+    data-parallel run writes `STEM.rank<r>.trace.json` (rank 0 alone
+    writes records). Without the variable, nothing."""
+    stem = os.environ.get(TELEMETRY_ENV)
+    if not stem:
+        yield
+        return
+    from bigdl_tpu_torch.observability import (JsonlSink, SpanTracer,
+                                               Telemetry)
+    rank = collectives.rank()
+    if rank:
+        stem = f"{stem}.rank{rank}"
+    telemetry = Telemetry(JsonlSink(stem + ".jsonl"), grad_norms=True) \
+        if rank == 0 else None
+    tracer = SpanTracer(process_name=f"bench[rank {rank}]")
+    opt.set_telemetry(telemetry)
+    opt.set_tracer(tracer)
+    try:
+        yield
+    finally:
+        if telemetry is not None:
+            telemetry.close()
+        tracer.export(stem + ".trace.json")
+        opt.set_telemetry(None)
+        opt.set_tracer(None)
 
 
 def _device_name(device: torch.device) -> str:
@@ -911,11 +932,12 @@ def _profile(opt: DistriOptimizer, warmup: int, steps: int, top: int,
     the `top` kernels by device time."""
     opt.set_sync_interval(warmup)
     opt.set_end_when(max_iteration(warmup))
-    opt.optimize()
-    torch.cuda.synchronize(device)
-    opt.set_sync_interval(steps)
-    opt.set_end_when(max_iteration(warmup + steps))
-    return _profiled(opt.optimize, steps, top, device, kinds)
+    with _bench_telemetry(opt):
+        opt.optimize()
+        torch.cuda.synchronize(device)
+        opt.set_sync_interval(steps)
+        opt.set_end_when(max_iteration(warmup + steps))
+        return _profiled(opt.optimize, steps, top, device, kinds)
 
 
 # spin kernels launched at the start of each profiler window and left out
@@ -1242,6 +1264,9 @@ def main(argv=None) -> None:
     p.add_argument("--model-axis", type=int, default=1,
                    help="with --model lm --nproc N: ranks on the mesh's "
                    "model axis (tensor parallel)")
+    p.add_argument("--telemetry", metavar="STEM", default=None,
+                   help="stream every training run's records to "
+                   "STEM.jsonl and its spans to STEM.trace.json")
     p.add_argument("--dp-child", action="store_true",
                    help=argparse.SUPPRESS)
     for flag, default in (("--batch-size", 128), ("--warmup", 8),
@@ -1250,6 +1275,8 @@ def main(argv=None) -> None:
                        help=argparse.SUPPRESS)
     p.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.telemetry:
+        os.environ[TELEMETRY_ENV] = os.path.abspath(args.telemetry)
     if args.dp_child:
         return _dp_child(args)
     if args.model_axis > 1 and (args.model != "lm" or args.nproc < 2):

@@ -278,6 +278,33 @@ Phases:
    launch and this process (no group) restore the step-2 parameters
    bitwise. (d) Phase 16's wall time.
 
+17. the observability core (`bigdl_tpu_torch.observability`) on the
+   main paths. (a) Phase 8's LM recipe (b8, T=2048, bf16 compute with
+   f32 masters, SGD momentum 0.9, kernels 1, 3 and 4) through
+   `DistriOptimizer` for 5 steps syncing every step, under
+   `Telemetry(JsonlSink, InMemorySink, grad_norms=True)`, a `SpanTracer`,
+   `NanGuard("skip")`, `StragglerDetector` and `ThroughputMonitor`, with
+   the third batch poisoned (token ids carry no NaN: the model multiplies
+   a float gate into its embeddings, 1.0 on clean batches and NaN on the
+   poisoned one), under phase 11's deterministic settings: every record
+   validates and the JSONL file is strict JSON, the steps are numbered
+   1..5, exactly one non-finite step, finite losses after it, 4
+   launches of each kernel a step, the trace has the loop's spans, and
+   the parameters and momentum after [clean, clean, poisoned] equal, bit
+   for bit, those after [clean, clean] (within a relative 1e-3, with the
+   ops named, if an op warned that it is not deterministic). (b) Phase
+   4's generation configuration, every request queued before the
+   dispatcher starts, without and then with a telemetry and a tracer:
+   the same greedy tokens, one `trace` record per request, kernel 1 once
+   a layer a prefill batch. (c) Phase 10(b)'s served ResNet-50 burst of
+   96 with a telemetry (a `serving_stats` record a batch) and a tracer:
+   one `trace` record per request, the records validate, kernels 5 and 6
+   once a batch and a warm-up bucket. (d) The ms a step of the LM (b8,
+   T=2048, clipped at 1.0 as in 11(d)) and of ResNet-50 (b128) with and
+   without (a)'s instrumentation, in turns from the same weights:
+   printed, not gated.
+   `python3 chip_smoke.py --phase17` runs phases 1, 2 and 17 alone.
+
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
 measure ran: `tensor_cores` or `cuda_cores_f32` for rows 1-5, the octet
 designs of rows 6-7 (`BN_DESIGN`); rows 6-7 at the main path's dtypes
@@ -286,7 +313,8 @@ ResNet-50 sites (`resnet50_sites`); rows 5-7 with their
 launches on the zoo's paths and their zoo shapes; rows 6-7 with their
 launches on each rank of phase 14(b) and their time at a rank's b64
 stem site; rows 1, 3 and 4 with their launches on each rank of phase
-16(b), `launches_tp_ranks`), then as its last line
+16(b), `launches_tp_ranks`, and in phase 17(a), `launches_observed_lm`),
+then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
 """
 
@@ -3868,6 +3896,421 @@ def wd_dp_phase():
     return res
 
 
+# --------------------------------------------------------------------------
+# 17. the observability core on the main paths
+# --------------------------------------------------------------------------
+
+# (a): the LM recipe of phase 8 for [clean, clean, poisoned, clean, clean]
+# under a skipping NaN guard, every step a sync point
+P17_STEPS = 5
+P17_POISON = 3
+# (d): plain and instrumented runs in turns (plain first), each over a
+# fresh copy of the same weights: warm-up, then timed steps, syncing every
+# `sync` (the median window after the warm-up)
+P17_TURNS = 2
+P17_COST = dict(warmup=4, iters=12, sync=4)
+
+
+def _gated_lm(**kw):
+    """Phase 17(a)'s LM: `TransformerLM` taking the 1-based `Table` (ids,
+    gate), the gate [B, 1, 1] f32 multiplied into the embeddings. Token
+    ids cannot carry a NaN; the gate is 1.0 on a clean batch (x * 1.0 is
+    x, in bf16 too) and NaN on the poisoned one."""
+    from bigdl_tpu_torch.models import TransformerLM
+
+    class GatedLM(TransformerLM):
+        def forward(self, inp):
+            x = self._embed(inp[1]) * inp[2]
+            for blk in self.blocks:
+                x = blk(x)
+            return torch.log_softmax(x @ self.head, dim=-1)
+
+    return GatedLM(**kw)
+
+
+class _Resident:
+    """A dataset of resident batches fed in order, looping (no shuffle)."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def data(self, train):
+        def looped():
+            while True:
+                yield from self.batches
+        return looped() if train else iter(self.batches)
+
+    def size(self):
+        return sum(b.size() for b in self.batches)
+
+    def shuffle(self):
+        pass
+
+
+def _instrument(opt, sink, tmp, **tel):
+    """Phase 17's instrumentation on `opt`: a `Telemetry` with the grad
+    norms (a JSONL file under `tmp` and `sink`), a `SpanTracer`, a
+    skipping `NanGuard`, a `StragglerDetector` and a `ThroughputMonitor`.
+    Returns the tracer."""
+    from bigdl_tpu_torch.observability import (FlightRecorder, JsonlSink,
+                                               NanGuard, SpanTracer,
+                                               StragglerDetector, Telemetry,
+                                               ThroughputMonitor)
+    tracer = SpanTracer(process_name="chip_smoke phase 17")
+    sinks = [sink] if tmp is None else [
+        JsonlSink(os.path.join(tmp, "run.jsonl")), sink]
+    opt.set_telemetry(Telemetry(*sinks, grad_norms=True,
+                                flight=FlightRecorder(dump_dir=tmp), **tel))
+    opt.set_tracer(tracer)
+    opt.set_health_monitors(NanGuard("skip"), StragglerDetector(),
+                            ThroughputMonitor())
+    return tracer
+
+
+def _lm_guard_run(batches, steps, keep_at, sink=None, tmp=None):
+    """The LM recipe (phase 8: b8 T=2048, bf16 compute with f32 masters,
+    SGD momentum 0.9, the loss summed over T) over `batches` for `steps`
+    steps, weights from seed 0, under `NanGuard("skip")` (and, with
+    `sink`, the whole instrumentation). Returns the optimizer, the
+    tracer, every step's synced loss and host copies of the parameters
+    and the momentum after step `keep_at`."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.observability import NanGuard
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
+    model = _gated_lm(**LM_CFG, device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+    opt = DistriOptimizer(model, _Resident(batches),
+                          TimeDistributedCriterion(ClassNLLCriterion()),
+                          devices=["cuda"])
+    opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+    opt.set_compute_precision("bfloat16")
+    opt.set_end_when(max_iteration(steps))
+    tracer = None
+    if sink is not None:
+        tracer = _instrument(opt, sink, tmp)
+    else:
+        opt.set_health_monitors(NanGuard("skip"))
+    losses, kept = [], {}
+
+    def hook(state):
+        losses.append(state["loss"])
+        if state["neval"] == keep_at:
+            kept["params"] = {k: p.detach().cpu().clone()
+                              for k, p in model.named_parameters()}
+            kept["velocity"] = {k: v.cpu().clone() for k, v in
+                                opt.opt_state["velocity"].items()}
+
+    opt.set_iteration_hook(hook)
+    opt.optimize()
+    return opt, tracer, losses, kept
+
+
+def _strict_json_lines(path):
+    """Every line of a JSONL file parsed as strict JSON (a bare NaN or
+    Infinity token fails)."""
+    def refuse(token):
+        raise ValueError(f"non-strict JSON token {token}")
+
+    with open(path) as f:
+        return [json.loads(line, parse_constant=refuse) for line in f]
+
+
+def observed_lm_phase(ak, tmp):
+    """17(a). Returns the launches of kernels 1, 3 and 4."""
+    from bigdl_tpu_torch.dataset import MiniBatch
+    from bigdl_tpu_torch.observability import InMemorySink, validate_record
+    from bigdl_tpu_torch.tools.bench import _token_batch
+    x, y = _token_batch(LM_CFG["vocab_size"], 2048, 8)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    clean = MiniBatch([x, torch.ones(8, 1, 1, device="cuda")], y)
+    bad = MiniBatch([x, torch.full((8, 1, 1), float("nan"),
+                                   device="cuda")], y)
+    stream = [bad if i + 1 == P17_POISON else clean
+              for i in range(P17_STEPS)]
+    sink = InMemorySink()
+    with Deterministic() as det:
+        _reset_flash_counts(ak)
+        t0 = time.perf_counter()
+        opt, tracer, losses, skipped = _lm_guard_run(
+            stream, P17_STEPS, P17_POISON, sink, tmp)
+        run_s = time.perf_counter() - t0
+        counts = _flash_counts(ak)
+        opt.telemetry.close()
+        trace_path = opt.export_trace(os.path.join(tmp, "trace.json"))
+        del opt
+        torch.cuda.empty_cache()
+        _, _, clean_losses, want = _lm_guard_run(
+            [clean], P17_POISON - 1, P17_POISON - 1)
+    torch.cuda.empty_cache()
+    recs = sink.records
+    for r in recs:
+        validate_record(r)
+    on_disk = _strict_json_lines(os.path.join(tmp, "run.jsonl"))
+    steps = [r for r in recs if r["type"] == "step"]
+    events = [r for r in recs if r["type"] == "event"]
+    with open(trace_path) as f:
+        spans = {e["name"] for e in json.load(f)["traceEvents"]
+                 if e["ph"] == "X"}
+    diff = {}
+    for part in ("params", "velocity"):
+        for k, v in want[part].items():
+            d = float((skipped[part][k] - v).abs().max())
+            if d or not torch.equal(skipped[part][k], v):
+                diff[f"{part}/{k}"] = d
+    rtol = NONDET_RTOL if det.ops else 0.0
+    rel = max((float((skipped[p][k] - v).abs().max())
+               / max(float(v.abs().max()), 1e-30))
+              for p in ("params", "velocity") for k, v in want[p].items())
+    out = {"batch": 8, "seq": 2048, "steps": P17_STEPS,
+           "poisoned_step": P17_POISON, "losses": losses,
+           "clean_losses": clean_losses,
+           "nonfinite_steps": [r.get("nonfinite_steps") for r in steps],
+           "grad_norms": [r.get("grad_norm") for r in steps],
+           "param_norms": [r.get("param_norm") for r in steps],
+           "mfu": [r.get("mfu") for r in steps],
+           "flops_per_step": steps[0].get("flops_per_step"),
+           "events": [e["event"] for e in events],
+           "record_types": [r["type"] for r in recs],
+           "jsonl_records": len(on_disk), "spans": sorted(spans),
+           "launches_fwd_dq_dkv": counts, "tensors_differing": len(diff),
+           "max_abs_diff": max(diff.values(), default=0.0),
+           "max_rel_diff": rel, "nondeterministic_ops": det.ops,
+           "run_s": run_s}
+    print("observed lm " + json.dumps(out), flush=True)
+    check([r["step"] for r in steps] == list(range(1, P17_STEPS + 1)),
+          f"step records {[r['step'] for r in steps]}")
+    check(len(on_disk) == len(recs), f"{len(on_disk)} JSONL lines for "
+          f"{len(recs)} records")
+    check(sum(r["nonfinite_steps"] for r in steps) == 1
+          and steps[P17_POISON - 1]["nonfinite_steps"] == 1,
+          f"non-finite steps {out['nonfinite_steps']}")
+    check(all(math.isfinite(v) for i, v in enumerate(losses)
+              if i + 1 != P17_POISON), f"losses {losses}")
+    check(events and all(e["event"] == "nan_guard" and e["action"] == "skip"
+                         for e in events if e["event"] == "nan_guard"),
+          f"events {out['events']}")
+    check(recs[0]["type"] == "run_start" and recs[-1]["type"] == "run_end",
+          f"record types {out['record_types']}")
+    check({"data fetch", "step dispatch", "loss sync", "validation",
+           "optimize/distri"} <= spans, f"spans {sorted(spans)}")
+    check(counts == (LM_LAYERS * P17_STEPS,) * 3,
+          f"flash launches (fwd, dq, dkv) {counts} != {LM_LAYERS} x "
+          f"{P17_STEPS} each")
+    if rtol == 0:
+        check(not diff, f"the skipped step changed {len(diff)} tensors "
+              f"(largest {out['max_abs_diff']:.3e}): not a no-op")
+    else:
+        check(rel <= rtol, f"the skipped step's tensors differ by {rel:.2e} "
+              f"> {rtol} (ops not deterministic: {det.ops})")
+    return dict(zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"), counts))
+
+
+def observed_generation_phase(ak):
+    """17(b): phase 4's configuration with and without telemetry, every
+    request queued before the dispatcher starts (the same batching in
+    both runs)."""
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.observability import (InMemorySink, SpanTracer,
+                                               Telemetry, validate_record)
+    from bigdl_tpu_torch.serving import GenerationEngine
+    cfg = dict(vocab_size=1024, embed_dim=512, n_layer=4, n_head=8)
+    model = TransformerLM(**cfg, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+    n_new = 32
+    lengths = [3, 9, 17, 40, 100, 250, 500, 900, 1300, 1900]
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(1, cfg["vocab_size"] + 1, size=n).astype(np.int32)
+               for n in lengths]
+    sink = InMemorySink()
+    tracer = SpanTracer(process_name="chip_smoke generation")
+    runs = {}
+    for name in ("plain", "telemetry"):
+        kw = {} if name == "plain" else dict(
+            telemetry=Telemetry(sink, flight=False), tracer=tracer,
+            emit_every=8)
+        with GenerationEngine(model, slots=8, max_len=2048, prefill_batch=4,
+                              max_new_tokens=n_new, device="cuda",
+                              start=False, **kw) as eng:
+            streams = [eng.generate(p) for p in prompts]
+            ak.flash_attention_forward.launches = 0
+            t0 = time.perf_counter()
+            eng.start()
+            toks = [s.result(timeout=600) for s in streams]
+            wall = time.perf_counter() - t0
+            launches = ak.flash_attention_forward.launches
+            stats = eng.generation_stats()
+        runs[name] = {"tokens": toks, "wall_s": wall, "launches": launches,
+                      "prefill_batches": stats["prefill_batches"]}
+    traces = [r for r in sink.records if r["type"] == "trace"]
+    for r in sink.records:
+        validate_record(r)
+    kinds = [r["type"] for r in sink.records]
+    out = {"requests": len(prompts), "tokens": n_new,
+           "wall_s": {k: v["wall_s"] for k, v in runs.items()},
+           "launches": {k: v["launches"] for k, v in runs.items()},
+           "prefill_batches": runs["telemetry"]["prefill_batches"],
+           "trace_records": len(traces),
+           "generation_records": kinds.count("generation"),
+           "prefill_ms": [r.get("prefill_ms") for r in traces],
+           "decode_ms": [r.get("decode_ms") for r in traces],
+           "spans": len(tracer.events)}
+    print("observed generation " + json.dumps(out), flush=True)
+    check(runs["telemetry"]["tokens"] == runs["plain"]["tokens"],
+          "the telemetered engine's greedy tokens differ from the plain "
+          "engine's")
+    check(len(traces) == len(prompts)
+          and all(r["status"] == "ok" and r["tokens"] == n_new
+                  and r["kind"] == "generate" for r in traces),
+          f"{len(traces)} trace records for {len(prompts)} requests")
+    check(sorted(r["prompt_tokens"] for r in traces) == lengths,
+          "the trace records' prompt sizes differ from the requests'")
+    for v in runs.values():
+        check(v["launches"] == v["prefill_batches"] * cfg["n_layer"] > 0,
+              f"flash launches {v['launches']} != prefill batches "
+              f"{v['prefill_batches']} x {cfg['n_layer']} layers")
+    check(kinds.count("generation") >= 1 and kinds[-1] == "serving_summary",
+          f"record types {sorted(set(kinds))}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def observed_serving_phase(sk, bk, model):
+    """17(c): phase 10(b)'s served ResNet-50 burst with telemetry and a
+    tracer."""
+    from bigdl_tpu_torch.observability import (InMemorySink, SpanTracer,
+                                               Telemetry, validate_record)
+    from bigdl_tpu_torch.serving import InferenceEngine
+    images = np.random.RandomState(0).rand(
+        SERVE_BURST, SERVE_HW, SERVE_HW, 3).astype(np.float32)
+    sink = InMemorySink()
+    tracer = SpanTracer(process_name="chip_smoke serving")
+    os.environ[STEM_ENV] = "1"
+    try:
+        with InferenceEngine(model, max_batch_size=SERVE_BATCH,
+                             max_wait_ms=2.0,
+                             telemetry=Telemetry(sink, flight=False),
+                             tracer=tracer, emit_every=1,
+                             device="cuda") as eng:
+            _reset_stem_counts(sk, bk)
+            eng.warmup(images[0])
+            t0 = time.perf_counter()
+            futs = [eng.submit(images[i]) for i in range(SERVE_BURST)]
+            got = [f.result(300) for f in futs]
+            wall = time.perf_counter() - t0
+            launches = _stem_counts(sk, bk)
+            stats = eng.stats()
+            buckets = len(eng.buckets)
+    finally:
+        os.environ.pop(STEM_ENV, None)
+    for r in sink.records:
+        validate_record(r)
+    traces = [r for r in sink.records if r["type"] == "trace"]
+    kinds = [r["type"] for r in sink.records]
+    out = {"requests": SERVE_BURST, "wall_s": wall,
+           "requests_per_sec": SERVE_BURST / wall,
+           "batches": stats["batches"], "trace_records": len(traces),
+           "serving_stats_records": kinds.count("serving_stats"),
+           "latency_ms_p50": stats.get("latency_ms_p50"),
+           "trace_latency_ms_p50": float(np.median(
+               [r["latency_ms"] for r in traces])) if traces else None,
+           "forward_ms_p50": float(np.median(
+               [r["forward_ms"] for r in traces])) if traces else None,
+           "launches": {"stem_conv": launches[0],
+                        "bn_relu_fwd": launches[1]},
+           "spans": len(tracer.events)}
+    print("observed serving " + json.dumps(out), flush=True)
+    check(all(np.isfinite(g).all() and g.shape == (1000,) for g in got),
+          "served rows not finite or not 1000 wide")
+    check(len(traces) == SERVE_BURST
+          and all(r["status"] == "ok" for r in traces),
+          f"{len(traces)} trace records for {SERVE_BURST} requests")
+    check(kinds.count("serving_stats") == stats["batches"]
+          and kinds[-1] == "serving_summary",
+          f"{kinds.count('serving_stats')} serving_stats records for "
+          f"{stats['batches']} batches; last {kinds[-1]}")
+    want = stats["batches"] + buckets
+    check(launches == (want, want),
+          f"launches (stem, BN+ReLU) {launches} != batches "
+          f"{stats['batches']} + warm-up buckets {buckets} each")
+
+
+def instrumentation_cost_phase(resnet):
+    """17(d): ms a step with and without the instrumentation (telemetry
+    with the grad norms, the tracer, the three monitors), in turns, at LM
+    b8 T=2048 and ResNet-50 b128 (phases 8 and 6's recipes, the LM with
+    phase 11(d)'s L2 clipping at 1.0, so that no turn trains on NaN
+    weights; the weights put back before every turn). Printed, not
+    gated."""
+    from bigdl_tpu_torch.nn import (ClassNLLCriterion,
+                                    TimeDistributedCriterion)
+    from bigdl_tpu_torch.observability import InMemorySink
+    from bigdl_tpu_torch.tools import bench
+    device = torch.device("cuda")
+    lm = bench._lm(LM_CFG["vocab_size"], device,
+                   torch.Generator().manual_seed(0))
+    configs = {
+        "lm": (lm, bench._token_batch(LM_CFG["vocab_size"], 2048, 8),
+               lambda: TimeDistributedCriterion(ClassNLLCriterion()), 1.0),
+        "resnet50": (resnet, bench._image_batch((224, 224, 3), 1000, 128),
+                     ClassNLLCriterion, None)}
+    out = {}
+    for name, (model, batch, crit, clip) in configs.items():
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        turns = []
+        for turn in range(2 * P17_TURNS):
+            instrumented = turn % 2 == 1
+            with torch.no_grad():
+                for k, v in model.state_dict().items():
+                    v.copy_(start[k])
+            opt = bench._resident_optimizer(model, *batch, crit(), device)
+            if clip is not None:
+                opt.set_gradient_clipping_by_l2_norm(clip)
+            sink = InMemorySink()
+            if instrumented:
+                _instrument(opt, sink, None, resources=True)
+            window_s, losses = bench._timed_run(opt, **P17_COST)
+            turns.append({"instrumented": instrumented,
+                          "ms_per_step": 1e3 * window_s / P17_COST["sync"],
+                          "records": len(sink.records),
+                          "finite_losses": int(np.isfinite(losses).sum())})
+            del opt
+        plain = [t["ms_per_step"] for t in turns if not t["instrumented"]]
+        inst = [t["ms_per_step"] for t in turns if t["instrumented"]]
+        out[name] = {"turns": turns, "plain_ms": plain,
+                     "instrumented_ms": inst,
+                     "overhead_ms": float(np.mean(inst) - np.mean(plain)),
+                     "overhead_rel": float(np.mean(inst) / np.mean(plain)
+                                           - 1)}
+        with torch.no_grad():
+            for k, v in model.state_dict().items():
+                v.copy_(start[k])
+    out["recipe"] = {**P17_COST, "turns": 2 * P17_TURNS,
+                     "precision": "bfloat16 compute, f32 masters",
+                     "lm_clip": 1.0}
+    print("instrumentation cost " + json.dumps(out), flush=True)
+    del lm
+    torch.cuda.empty_cache()
+    return out
+
+
+def observability_phase(ak, sk, bk):
+    """17: the phase's four parts; returns 17(a)'s kernel launches."""
+    from bigdl_tpu_torch.models import ResNet50
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = observed_lm_phase(ak, tmp)
+    observed_generation_phase(ak)
+    resnet = ResNet50(class_num=1000, s2d_stem=True, device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+    observed_serving_phase(sk, bk, resnet)
+    instrumentation_cost_phase(resnet)
+    del resnet
+    torch.cuda.empty_cache()
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3915,6 +4358,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     tc_build = build_phase(_build)
+
+    if sys.argv[1:2] == ["--phase17"]:
+        observability_phase(ak, sk, bk)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # 3. kernel
     main_row = kernel_phase(ak)
@@ -4006,6 +4456,9 @@ def main() -> int:
         tp_parity_phase(tmp)
     tp_launches = tp_bench_phase()
     print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 17. the observability core
+    obs_launches = observability_phase(ak, sk, bk)
     zoo_launches = {
         "launches_inception_v1": zoo_bench["inception_v1"]["launches"],
         "launches_inception_v2": zoo_bench["inception_v2"]["launches"],
@@ -4018,6 +4471,7 @@ def main() -> int:
                             "design": DESIGN[torch.bfloat16]},
          "long_context_shape": long_context,
          "launches_tp_ranks": tp_launches["flash_attention_fwd"],
+         "launches_observed_lm": obs_launches["flash_attention_fwd"],
          "build": tc_build["flash_attention_fwd"]},
         {**CARRY_ROW, "launches": carry_launches, **carry_row,
          "design": DESIGN[torch.bfloat16],
@@ -4025,10 +4479,12 @@ def main() -> int:
         {**DQ_ROW, "launches": lm_launches["flash_attention_bwd_dq"],
          **bwd_rows["dq"], "design": DESIGN[torch.bfloat16],
          "launches_tp_ranks": tp_launches["flash_attention_bwd_dq"],
+         "launches_observed_lm": obs_launches["flash_attention_bwd_dq"],
          "build": tc_build["flash_attention_bwd_dq"], "status": "ok"},
         {**DKV_ROW, "launches": lm_launches["flash_attention_bwd_dkv"],
          **bwd_rows["dkv"], "design": DESIGN[torch.bfloat16],
          "launches_tp_ranks": tp_launches["flash_attention_bwd_dkv"],
+         "launches_observed_lm": obs_launches["flash_attention_bwd_dkv"],
          "build": tc_build["flash_attention_bwd_dkv"], "status": "ok"},
         *[{**row, "launches": bn_launches[row["name"]],
            **bn_rows[d], "design": BN_DESIGN[row["name"]], "status": "ok",

@@ -6,7 +6,10 @@ Mirrors `tests/test_multihost.py`: a rank script (`_RANK_SCRIPT`) runs in
 real processes, two ranks joined by `Engine.init(distributed=True)` from
 the launcher's environment, and writes its results for the tests to
 read. Three launches serve the whole file (module-scoped fixtures):
-- `runs`: every scenario of one healthy 2-rank run;
+- `runs`: every scenario of one healthy 2-rank run, and the NaN guard's
+  skip with rank 1's third batch poisoned (its flag agreed over the ranks
+  with one all-reduce, so both ranks revert; rank 0 alone writes the
+  telemetry records);
 - `resumed`: a fresh 2-rank launch resuming from `runs`' checkpoint;
 - `one_rank_fault`: a transient fault on rank 1 alone;
 - `widedeep`: Wide&Deep (`BASELINE.md` config 5) at global b16, each
@@ -203,6 +206,57 @@ def conv_batch():
     return x[rows], y[rows]
 
 
+class Ordered:
+    """These batches in order, looping, each pull a fresh copy."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def data(self, train):
+        def looped():
+            while True:
+                for x, y in self.batches:
+                    yield MiniBatch(x.copy(), y.copy())
+        return looped()
+
+    def size(self):
+        return sum(len(x) for x, _ in self.batches)
+
+    def shuffle(self):
+        pass
+
+
+def guarded(key, check_grads, poisoned):
+    """Under NanGuard("skip"): [clean, clean, rank 1's batch NaN] when
+    `poisoned`, else [clean, clean]; this rank's telemetry records and its
+    final parameters and BN state."""
+    from bigdl_tpu_torch.observability import (InMemorySink, NanGuard,
+                                               Telemetry)
+    if key == "conv":
+        xb, yb = conv_batch()
+    else:
+        xb = mask_data()[0][rows]
+        yb = (np.arange(4, dtype=np.int32) + rank) % 5 + 1
+    bad = xb.copy()
+    if rank == 1:
+        bad[:] = np.nan
+    batches = [(xb, yb), (xb, yb)] + ([(bad, yb)] if poisoned else [])
+    model = model_of(conv_net if key == "conv" else mask_net, key)
+    opt = optim.DistriOptimizer(model, Ordered(batches),
+                                nn.ClassNLLCriterion(), devices=["cpu"])
+    opt.set_optim_method(optim.SGD(learning_rate=0.1, momentum=0.9))
+    opt.set_end_when(optim.max_iteration(len(batches)))
+    sink = InMemorySink()
+    opt.set_telemetry(Telemetry(sink, grad_norms=True, resources=False,
+                                flight=False))
+    opt.set_health_monitors(NanGuard("skip", check_grads=check_grads))
+    collectives.reset_counts()
+    opt.optimize()
+    return {"records": sink.records, "counts": dict(collectives.counts),
+            "params": copy_tree(module_params_tree(model)),
+            "state": copy_tree(module_state(model))}
+
+
 res = {"rank": rank, "world": world}
 scenario = os.environ["SCENARIO"]
 try:
@@ -267,6 +321,11 @@ try:
             else:
                 res[run], _ = train(m, (xd[rows], yd[rows]), 6, **kw)
         res["masks"] = masks
+        res["guard"] = {name: guarded(*args) for name, args in (
+            ("linear", ("mask", False, True)),
+            ("linear_clean", ("mask", False, False)),
+            ("conv", ("conv", True, True)),
+            ("conv_clean", ("conv", True, False)))}
     elif scenario == "widedeep":
         x, y = widedeep_data()
         wrows = slice(8 * rank, 8 * rank + 8)
@@ -572,6 +631,34 @@ def test_lockstep_retry_is_bit_identical_and_keeps_the_masks(runs):
     assert len(masks["clean"]) == 6 and len(masks["faulted"]) == 7
     for a, b in zip(masks["faulted"][-4:], masks["clean"][-4:]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["linear", "conv"])
+def test_the_skip_is_agreed_over_the_ranks(runs, name):
+    """Rank 1's third batch is NaN. Without the gradient check (the
+    linear model) rank 0's own loss stays finite, so only the agreed flag
+    makes it skip; the conv model's BN takes NaN statistics over the
+    global batch on both. Either way both ranks end on the clean run's
+    parameters and BN state, bit for bit, each with one "guard"
+    all-reduce a step; rank 0 alone writes the records."""
+    from bigdl_tpu_torch.observability import validate_record
+    for r in (0, 1):
+        got, clean = runs[r]["guard"][name], runs[r]["guard"][name + "_clean"]
+        _equal_tree(got["params"], clean["params"])
+        _equal_tree(got["state"], clean["state"])
+        assert got["counts"]["guard"] == 3
+    _equal_tree(runs[0]["guard"][name]["params"],
+                runs[1]["guard"][name]["params"])
+    assert runs[1]["guard"][name]["records"] == []
+    recs = runs[0]["guard"][name]["records"]
+    for rec in recs:
+        validate_record(rec)
+    assert [r.get("event", r["type"]) for r in recs] == \
+        ["run_start", "step", "step", "nan_guard", "step", "run_end"]
+    steps = [r for r in recs if r["type"] == "step"]
+    assert [r["nonfinite_steps"] for r in steps] == [0, 0, 1]
+    assert recs[0]["loop"] == "distri" and recs[0]["n_devices"] == 2
+    assert np.isnan(steps[2]["loss"])
 
 
 def test_dropout_masks_differ_across_ranks(runs):

@@ -7,7 +7,8 @@ own data-parallel run.
 A rank script (`_RANK_SCRIPT`) runs in real processes, as in
 `tests/test_torch_distributed.py`. Three launches serve the file:
 - `tp` (4 ranks, mesh (2, 2)): every scenario of one healthy run (plain
-  with a sharded checkpoint at step 2, with L2 clipping, under LAMB, with
+  with a sharded checkpoint at step 2, observed by a telemetry with the
+  gradient norms and a skipping NaN guard, with L2 clipping, under LAMB, with
   a format v2 checkpoint at step 2, with the conv split too and its
   sharded checkpoint, with dropout), recording each rank's stored shard
   and slot shapes; a run that fails at step 2; a `DistributedDataSet`
@@ -148,8 +149,16 @@ def optimizer(model, dataset=None, rules=RULES):
 
 
 def train(model, steps=STEPS, clip=None, ckpt_dir=None, sharded=False,
-          resume=False, hook=None, rules=RULES, method=None):
+          resume=False, hook=None, rules=RULES, method=None, observe=False):
     opt = optimizer(model, rules=rules)
+    sink = None
+    if observe:
+        from bigdl_tpu_torch.observability import (InMemorySink, NanGuard,
+                                                   Telemetry)
+        sink = InMemorySink()
+        opt.set_telemetry(Telemetry(sink, grad_norms=True, resources=False,
+                                    flight=False))
+        opt.set_health_monitors(NanGuard("skip"))
     opt.set_optim_method(method or optim.SGD(learning_rate=LR, momentum=0.9))
     opt.set_end_when(optim.max_iteration(steps))
     if clip is not None:
@@ -167,8 +176,11 @@ def train(model, steps=STEPS, clip=None, ckpt_dir=None, sharded=False,
             hook(opt, s)
     opt.set_iteration_hook(on_step)
     opt.optimize()
-    return {"losses": losses, "params": copy_tree(module_params_tree(model)),
-            "state": copy_tree(module_state(model))}
+    out = {"losses": losses, "params": copy_tree(module_params_tree(model)),
+           "state": copy_tree(module_state(model))}
+    if sink is not None:
+        out["records"] = sink.records
+    return out
 
 
 def shapes(opt, s, into):
@@ -199,6 +211,7 @@ try:
         res["plain"]["counts"] = dict(collectives.counts)
         res["plain"]["stored"] = stored
         res["clip"] = train(model_of(), clip=0.05)
+        res["observed"] = train(model_of(), observe=True)
         collectives.reset_counts()
         res["lamb"] = train(model_of(),
                             method=optim.LAMB(learning_rate=0.01))
@@ -487,6 +500,35 @@ def test_lamb_norms_are_the_whole_parameters(tp, dp):
     assert tp[0]["lamb"]["counts"]["norm"] == STEPS
     assert dp[0]["lamb"]["counts"].get("norm", 0) == 0
     assert tp[0]["lamb"]["losses"][-1] != tp[0]["plain"]["losses"][-1]
+
+
+def test_observed_run_norms_are_the_whole_parameters(tp, dp):
+    """Telemetry with the gradient norms and a skipping NaN guard at
+    (2, 2): rank 0 alone writes; its records validate; the norms are the
+    whole parameters' (those of the (2, 1) run within a relative 1e-6);
+    the FLOPs a step count every rank's step; and a guard that never
+    fires leaves the run bit for bit the plain one."""
+    from bigdl_tpu_torch.observability import validate_record
+    want = [r for r in dp[0]["observed"]["records"] if r["type"] == "step"]
+    for rank in range(4):
+        got = tp[rank]["observed"]
+        _equal_tree(got["params"], tp[rank]["plain"]["params"])
+        assert got["losses"] == tp[rank]["plain"]["losses"]
+        if rank:
+            assert got["records"] == []
+    recs = tp[0]["observed"]["records"]
+    for r in recs:
+        validate_record(r)
+    assert recs[0]["n_devices"] == 4 and dp[0]["observed"]["records"][0][
+        "n_devices"] == 2
+    steps = [r for r in recs if r["type"] == "step"]
+    assert [r["step"] for r in steps] == list(range(1, STEPS + 1))
+    for g, w in zip(steps, want):
+        assert g["nonfinite_steps"] == 0
+        for key in ("grad_norm", "param_norm"):
+            assert g[key] == pytest.approx(w[key], rel=1e-6), key
+        # each rank of a model group runs the whole replicated step
+        assert g["flops_per_step"] == 2 * w["flops_per_step"] > 0
 
 
 def test_a_failed_run_gives_back_the_start_of_run_weights(setup, tp):
