@@ -87,7 +87,16 @@ Observability (`observability/`), as the reference's loop:
   host once a sync point, in one device-to-host copy with the loss. With
   no guard and no norms asked for, the step does nothing of this.
 
-Not ported (`ROADMAP.md` lists them): summaries, prefetch, preemption,
+Preemption (`set_preemption_handler`, `resilience/preemption.py`): while
+`optimize()` runs, SIGTERM opens a grace window; at the next iteration
+boundary (after the iteration hook) the loop drains the step in flight,
+writes a checkpoint (format v2, with the data cursor) when a path is set,
+emits `preempted` (`checkpointed`, `grace_remaining_s`) and a `run_abort`,
+and `optimize()` returns without raising and without `run_end`. The
+handler is installed at the start of `optimize()` (its latch cleared) and
+the previous disposition is restored on every exit.
+
+Not ported (`ROADMAP.md` lists them): summaries, prefetch,
 graph optimisation, the compile records of `CompiledFunction`, and the
 donation the JAX step uses (the port updates in place instead, and keeps a host
 snapshot of the model at the start of each run so that a failed run can
@@ -315,6 +324,14 @@ class BaseOptimizer:
         self._aux_fields: List[str] = []
         # a step's FLOPs by batch signature (`step_flops`)
         self._flops: Dict = {}
+        # the armed `PreemptionHandler` (None: none)
+        self._preemption = None
+        #: worker id -> the `SpanTracer` of its lane (the elastic loop's
+        #: shard dispatches)
+        self.worker_tracers: Dict = {}
+        # False while a replay feeds kept batches: the stream is then
+        # ahead of the trained position, and a checkpoint takes no cursor
+        self._cursor_valid = True
 
     # fluent setters
     def set_gradient_accumulation(self, steps: int):
@@ -425,6 +442,75 @@ class BaseOptimizer:
         self.iteration_hook = fn
         return self
 
+    def set_preemption_handler(self, handler=None, grace_s: float = 30.0):
+        """Arm preemption handling (see the module docstring): a
+        configured `PreemptionHandler`, or by default one for SIGTERM with
+        a grace window of `grace_s`. `handler=False` disarms."""
+        if handler is False:
+            self._preemption = None
+            return self
+        if handler is None:
+            from bigdl_tpu_torch.resilience.preemption import \
+                PreemptionHandler
+            handler = PreemptionHandler(grace_s=grace_s)
+        self._preemption = handler
+        return self
+
+    setPreemptionHandler = set_preemption_handler
+
+    def _arm_preemption(self):
+        """At the start of `optimize()`: clear a latch a previous
+        preempted run left set (a second run must train) and install."""
+        if self._preemption is not None:
+            self._preemption.reset()
+            self._preemption.install()
+
+    def _disarm_preemption(self):
+        """On every exit of `optimize()`: the previous disposition back."""
+        if self._preemption is not None:
+            self._preemption.uninstall()
+
+    def _agree_preempted(self, triggered: bool) -> bool:
+        """Whether to stop for preemption (one process: its own latch)."""
+        return triggered
+
+    def _check_preemption(self, opt_state, loop_state, loss) -> bool:
+        """The iteration boundary's poll of the preemption latch. When it
+        is set: drain the step in flight, write the checkpoint, emit
+        `preempted` and `run_abort`, and return True (the loop stops)."""
+        h = self._preemption
+        if h is None or not self._agree_preempted(h.triggered):
+            return False
+        step = loop_state.get("neval", 0)
+        logger.warning(
+            "preemption (signal %s): draining and checkpointing at "
+            "iteration %d (%.1fs of grace remaining)", h.signum, step,
+            h.deadline_remaining() or 0.0)
+        if loss is not None:
+            try:  # the loss read waits for the step
+                float(loss)
+            except Exception:
+                pass
+        checkpointed = False
+        if self.checkpoint_path is not None:
+            try:
+                self._save_checkpoint(opt_state, tag=f"iter{step}")
+                checkpointed = True
+            except Exception:
+                logger.exception("preemption checkpoint failed; stopping "
+                                 "without one")
+        tel = self._lead_telemetry
+        if tel is not None:
+            tel.event("preempted", step=step, signal=h.signum,
+                      checkpointed=checkpointed,
+                      grace_remaining_s=round(
+                          h.deadline_remaining() or 0.0, 3))
+        from bigdl_tpu_torch.resilience.preemption import PreemptedError
+        self._telemetry_run_abort(PreemptedError(
+            f"preempted by signal {h.signum}" if h.signum is not None
+            else "preempted: a peer rank received the signal"))
+        return True
+
     def set_telemetry(self, telemetry):
         """Attach a `Telemetry`: `run_start` / `run_end`, a `step` record
         a sync point with its cost attribution, and the monitors' and the
@@ -462,12 +548,14 @@ class BaseOptimizer:
     setHealthMonitors = set_health_monitors
 
     def export_trace(self, path: str) -> str:
-        """Write the tracer's Chrome trace to `path` (needs
+        """Write one Chrome trace to `path`: the tracer's lane and every
+        worker's (`worker_tracers`), each a process of its own (needs
         `set_tracer`)."""
         if self.tracer is None:
             raise ValueError("no tracer attached; call set_tracer first")
         from bigdl_tpu_torch.observability.spans import export_merged
-        return export_merged(path, [self.tracer])
+        return export_merged(path,
+                             [self.tracer, *self.worker_tracers.values()])
 
     @property
     def _mixed_bf16(self) -> bool:
@@ -618,7 +706,7 @@ class BaseOptimizer:
         the loop's lookahead), or None when the dataset has none or the
         capture fails: a checkpoint never fails over its cursor."""
         cur = getattr(self.dataset, "cursor", None)
-        if cur is None:
+        if cur is None or not self._cursor_valid:
             return None
         try:
             return cur(position=self._cursor_prev_pos)
@@ -629,13 +717,16 @@ class BaseOptimizer:
 
     def _init_cursor_positions(self):
         """Anchor the position trackers before a run's first pull."""
+        self._cursor_valid = True
         pos = getattr(self.dataset, "position", None)
         p = pos() if pos is not None else None
         self._cursor_prev_pos = self._cursor_last_pos = p
 
     def _note_pull(self):
         """After a pull: the previous position points at the last trained
-        batch, the one a checkpoint's cursor must name."""
+        batch, the one a checkpoint's cursor must name. A real pull also
+        ends a replay: everything kept has been trained again by then."""
+        self._cursor_valid = True
         pos = getattr(self.dataset, "position", None)
         if pos is None:
             return
@@ -807,11 +898,34 @@ class BaseOptimizer:
         ranks in the distributed loop."""
         return 1
 
+    @property
+    def _step_batches(self) -> int:
+        """Batches like the loop's one a step trains on, over every
+        device (a step's FLOPs are one batch's times this)."""
+        return self._n_compute_devices
+
     def _span(self, name: str, **args):
         """A tracer span, or a free null context without a tracer."""
         if self.tracer is None:
             return contextlib.nullcontext()
         return self.tracer.span(name, **args)
+
+    def _worker_span(self, worker_id, name: str, **args):
+        """A span on the lane of worker `worker_id` (a tracer of its own,
+        made at its first span, process `worker:<id>`), joined to the
+        loop's open trace, so one step's shard dispatches filter together
+        across lanes. A free null context without a tracer."""
+        if self.tracer is None or worker_id is None:
+            return contextlib.nullcontext()
+        wt = self.worker_tracers.get(worker_id)
+        if wt is None:
+            from bigdl_tpu_torch.observability.spans import SpanTracer
+            wt = SpanTracer(process_name=f"worker:{worker_id}",
+                            annotate=False)
+            self.worker_tracers[worker_id] = wt
+        cur = self.tracer.current_context()
+        return wt.span(name, cat="elastic",
+                       ctx=cur.child() if cur is not None else None, **args)
 
     def _nan_guard(self):
         from bigdl_tpu_torch.observability.health import NanGuard
@@ -963,7 +1077,7 @@ class BaseOptimizer:
         if sig not in self._flops:
             try:
                 self._flops[sig] = step_flops(self, batch) \
-                    * self._n_compute_devices
+                    * self._step_batches
             except Exception as e:  # attribution never fails a run
                 logger.warning("step FLOP count failed (%r)", e)
                 self._flops[sig] = None
@@ -1026,40 +1140,18 @@ class BaseOptimizer:
         armed, a 1-D f32 device tensor of `self._aux_fields`. Updates the
         parameters and the optimizer state in place; the BN layers update
         their running stats during the forward(s)."""
-        model, criterion = self.model, self.criterion
+        model = self.model
         optim = self.optim_method
-        mixed = self._mixed_bf16
         accum = self.grad_accum_steps
         clip = self.grad_clip_const is not None \
             or self.grad_clip_norm is not None
         params = dict(model.named_parameters())
-        leaves = list(params.values())
-        gather = self._gather_params
         guard, need_norms = self._aux_flags()
         skip = guard is not None and guard.action == "skip"
         held: Dict = {}  # the skip's flat copies, reused
         self._aux_fields = (["nonfinite"] if guard is not None else []) \
             + (["grad_norm", "param_norm"] if need_norms else [])
-
-        def loss_and_grads(x, y):
-            if mixed:
-                # the bf16 copies per forward: each backward frees its
-                # graph, the casts included
-                low = {k: p.to(torch.bfloat16) for k, p in params.items()
-                       if p.is_floating_point()}
-                if gather is not None:
-                    low = gather(low)
-                out = functional_call(model, low,
-                                      (_cast_floats(x, torch.bfloat16),))
-                out = _cast_floats(out, torch.float32)
-            elif gather is not None:
-                out = functional_call(model, gather(params), (x,))
-            else:
-                out = model(x)
-            loss = criterion(out, y)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
-            return loss.detach(), list(grads)
+        loss_and_grads = self._loss_and_grads(model)
 
         def step(opt_state, x, y, lr):
             with lend_generator(self._step_generator()), self._step_scope():
@@ -1094,6 +1186,40 @@ class BaseOptimizer:
                                            params, opt_state, old)
 
         return step
+
+    def _loss_and_grads(self, model: torch.nn.Module):
+        """loss_and_grads(x, y) -> (loss, grads) on `model`: the forward
+        in the run's precision (under bf16, on bf16 copies of the f32
+        parameters, inside the differentiated function), the criterion's
+        loss (detached) and the gradients of every parameter of `model`
+        (f32 under bf16 compute), in `named_parameters()` order."""
+        criterion = self.criterion
+        mixed = self._mixed_bf16
+        params = dict(model.named_parameters())
+        leaves = list(params.values())
+        gather = self._gather_params
+
+        def loss_and_grads(x, y):
+            if mixed:
+                # the bf16 copies per forward: each backward frees its
+                # graph, the casts included
+                low = {k: p.to(torch.bfloat16) for k, p in params.items()
+                       if p.is_floating_point()}
+                if gather is not None:
+                    low = gather(low)
+                out = functional_call(model, low,
+                                      (_cast_floats(x, torch.bfloat16),))
+                out = _cast_floats(out, torch.float32)
+            elif gather is not None:
+                out = functional_call(model, gather(params), (x,))
+            else:
+                out = model(x)
+            loss = criterion(out, y)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+            return loss.detach(), list(grads)
+
+        return loss_and_grads
 
     # hooks the data-parallel loop overrides; here, one process alone
     def _log_suffix(self) -> str:
@@ -1209,6 +1335,7 @@ class BaseOptimizer:
         win = self._SyncWindow()
         loss_val = float("nan")
         loss = lr = flops = None
+        preempted = False
         aux_pending: List[torch.Tensor] = []
         pending = fetch_and_place()
         while pending is not None and not self.end_trigger(loop_state):
@@ -1256,6 +1383,9 @@ class BaseOptimizer:
                                           tag=f"iter{loop_state['neval']}")
             if self.iteration_hook is not None:
                 self.iteration_hook(loop_state)
+            if self._check_preemption(opt_state, loop_state, loss):
+                preempted = True
+                break
             if do_sync:
                 win.restart()  # keep the tail work out of the next window
         if sync_every > 1 and loss is not None and \
@@ -1266,7 +1396,8 @@ class BaseOptimizer:
             if aux_rows:
                 self._observe_sync(loop_state, loss_val, lr, float("nan"),
                                    float("nan"), 0, aux_rows, flops)
-        self._telemetry_run_end(loop_state)
+        if not preempted:  # a preempted run closed with run_abort
+            self._telemetry_run_end(loop_state)
         self.opt_state = None
         return self.model
 
@@ -1284,6 +1415,7 @@ class LocalOptimizer(BaseOptimizer):
 
     def optimize(self) -> torch.nn.Module:
         self._start_run()
+        self._arm_preemption()
         try:
             return self._optimize_impl()
         except (KeyboardInterrupt, SystemExit):
@@ -1293,3 +1425,5 @@ class LocalOptimizer(BaseOptimizer):
             self._telemetry_run_abort(e)
             self._restore_pristine()
             raise
+        finally:
+            self._disarm_preemption()

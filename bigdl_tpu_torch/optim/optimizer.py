@@ -5,9 +5,10 @@ training set and picks the loop, as the reference does: `DistriOptimizer`
 when the process group has more than one rank (one process per GPU,
 `Engine.init(distributed=True)`), with `drop_remainder=True` so every
 rank's shard steps in equal batches; otherwise `LocalOptimizer` on one
-device. A single process that sees several cards gets `DistriOptimizer`
-over them all, which raises: several devices in one process are not
-ported (`ROADMAP.md` queue 1 item 3). `local=False` takes
+device. A single process that sees several cards raises: data parallelism
+in the port is one process per GPU, and the one single-controller loop
+over several devices is `DistriOptimizer`'s elastic mode, built directly
+(`DistriOptimizer(..., devices=...).set_elastic()`). `local=False` takes
 `DistriOptimizer` on one device. Further keywords (the retry
 settings `retry_times`, `retry_interval_s`, `retry_policy`) go to
 `DistriOptimizer`, as in the reference; where the reference's
@@ -42,16 +43,21 @@ def Optimizer(model: torch.nn.Module, training_set, criterion,
     unless its items are already MiniBatches. `local=None` picks
     `DistriOptimizer` on `device` when the process group has more than one
     rank, `LocalOptimizer` when one device is visible (the CPU, or a
-    single card), and `DistriOptimizer` over all the cards otherwise;
-    with `local=False` on one device, `DistriOptimizer` on it. `kw` goes
-    to `DistriOptimizer`."""
+    single card), and raises when one process sees several cards; with
+    `local=False`, `DistriOptimizer` on `device`. `kw` goes to
+    `DistriOptimizer`."""
     device = resolve_device(device)
     devices = [device]
     if device.type == "cuda" and collectives.world_size() == 1:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
+    if len(devices) > 1:
+        raise NotImplementedError(
+            f"{len(devices)} cards in one process: start one process per "
+            "GPU (Engine.init(distributed=True)), or build "
+            "DistriOptimizer(..., devices=...) and arm set_elastic")
     if local is None:
-        local = len(devices) <= 1 and collectives.world_size() == 1
+        local = collectives.world_size() == 1
     if drop_remainder is None:
         drop_remainder = not local  # equal shards per step across devices
     dataset = _as_batched_dataset(training_set, batch_size, drop_remainder)

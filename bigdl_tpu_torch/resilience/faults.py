@@ -13,12 +13,13 @@ Sites the port instruments:
     ckpt.write.params / ckpt.write.state / ckpt.write.optim /
     ckpt.write.manifest / ckpt.commit      serialization/checkpoint.py
     train.step                             both optimizers' training loops
+    mesh.device_loss / mesh.collective     DistriOptimizer's elastic loop
     fs.remote_io                           utils/filesystem.py remote ops
     telemetry.sink                         observability/telemetry.py emit
 
-The reference's other sites (`mesh.*`, `prefetch.worker`, `serve.*`)
-belong to subsystems the port has not ported yet; a `FaultSpec` naming
-one raises, since it would never fire. An injector given a `Telemetry`
+The reference's other sites (`prefetch.worker`, `serve.*`) belong to
+subsystems the port has not ported yet; a `FaultSpec` naming one raises,
+since it would never fire. An injector given a `Telemetry`
 emits a `fault_injected` event for each fault it raises; that emission
 does not fire the `telemetry.sink` site again.
 
@@ -45,7 +46,8 @@ logger = logging.getLogger("bigdl_tpu_torch.resilience")
 KNOWN_SITES = (
     "ckpt.write.params", "ckpt.write.state", "ckpt.write.optim",
     "ckpt.write.manifest", "ckpt.commit",
-    "train.step", "fs.remote_io", "telemetry.sink",
+    "train.step", "mesh.device_loss", "mesh.collective",
+    "fs.remote_io", "telemetry.sink",
 )
 
 _EXTRA_SITES: set = set()

@@ -31,6 +31,17 @@ warm-up. The result also carries every step's loss.
     python -m bigdl_tpu_torch.tools.bench --model wide_n_deep --nproc 2
     python -m bigdl_tpu_torch.tools.bench --model lm --nproc 4 --model-axis 2
     python -m bigdl_tpu_torch.tools.bench --model lm --telemetry out/lm
+    python -m bigdl_tpu_torch.tools.bench --chaos [--chaos-crash-at N]
+    python -m bigdl_tpu_torch.tools.bench --device-loss [--device cpu]
+
+`--chaos` is the job-level crash drill (`bench_chaos`: a transient
+`train.step` fault at step 8 of 16 of an MNIST-shaped MLP checkpointed
+every 4, the retry policy's reload; MTTR off the telemetry stream) and
+`--device-loss` the elastic drill (`bench_chaos_device_loss`: the MLP
+over a 2-worker `SimulatedCluster` on two slots of the device, worker1
+lost at step 5 and back at step 12, bucketing on; MTTR, replayed
+batches, whether it grew back, the degraded throughput). Each prints one
+JSON line with the reference's keys and the `device` it ran on.
 
 `--telemetry STEM` (any training path) attaches a `Telemetry` with the
 gradient norms and a `SpanTracer` to every training run: the records go
@@ -1247,6 +1258,170 @@ def profile_attention(seq: int = 8192, calls: int = 4, top: int = 8,
     return out
 
 
+def _chaos_mlp(device: torch.device) -> torch.nn.Module:
+    """The drills' MNIST-shaped MLP: 784 -> 128 -> tanh -> 10."""
+    from bigdl_tpu_torch import nn
+    return (nn.Sequential().add(nn.Reshape([784]))
+            .add(nn.Linear(784, 128, device=device)).add(nn.Tanh())
+            .add(nn.Linear(128, 10, device=device)).add(nn.LogSoftMax()))
+
+
+def bench_chaos(crash_at: int = 8, iters: int = 16, ckpt_every: int = 4,
+                batch_size: int = 64, n_samples: int = 1024,
+                keep_last_n: int = 3, device=None) -> Dict:
+    """The job-level crash drill (`--chaos`): an MNIST-shaped MLP through
+    the `Optimizer` factory's `DistriOptimizer` with a checkpoint every
+    `ckpt_every` steps, a transient `train.step` fault at step
+    `crash_at`, and the retry policy's backoff and reload. MTTR is read
+    off the telemetry stream: from the `fault_injected` event to the first
+    `step` record after it. Prints and returns one JSON object: MTTR,
+    retries, backoff, the steps trained again (`lost_iterations`) and the
+    final step."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.observability import InMemorySink, Telemetry
+    from bigdl_tpu_torch.optim import Optimizer, several_iteration
+    from bigdl_tpu_torch.resilience import (FaultInjector, FaultSpec,
+                                            RetryPolicy)
+    device = resolve_device(device)
+    rs = np.random.RandomState(0)
+    X = rs.rand(n_samples, 28, 28).astype(np.float32)
+    Y = (rs.randint(0, 10, n_samples) + 1).astype(np.int32)
+    sink = InMemorySink()
+    telemetry = Telemetry(sink, resources=False, flight=False)
+    ckpt_dir = tempfile.mkdtemp(prefix="bigdl_tpu_torch_chaos_")
+    opt = Optimizer(_chaos_mlp(device), (X, Y), ClassNLLCriterion(),
+                    batch_size=batch_size, local=False, device=device,
+                    retry_policy=RetryPolicy(max_retries=3,
+                                             base_delay_s=0.05, seed=0,
+                                             name="chaos"))
+    opt.set_optim_method(SGD(learning_rate=0.05, momentum=0.9))
+    opt.set_end_when(max_iteration(iters))
+    opt.set_checkpoint(ckpt_dir, several_iteration(ckpt_every),
+                       keep_last_n=keep_last_n)
+    opt.set_telemetry(telemetry)
+    try:
+        with FaultInjector(FaultSpec("train.step", at_hit=crash_at),
+                           telemetry=telemetry):
+            opt.optimize()
+    finally:
+        telemetry.close()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t_fault = next((r["time"] for r in sink.records
+                    if r.get("event") == "fault_injected"), None)
+    post = [r for r in sink.records if r.get("type") == "step"
+            and t_fault is not None and r["time"] > t_fault]
+    retries = [r for r in sink.records if r.get("event") == "retry"]
+    final_step = int(opt.optim_method.state.get("neval", 0))
+    out = {
+        "metric": "chaos_mttr",
+        "fault_site": "train.step",
+        "crash_at_iteration": crash_at,
+        "recovered": bool(post) and final_step >= iters,
+        "mttr_s": round(post[0]["time"] - t_fault, 4) if post else None,
+        "retries": len(retries),
+        "backoff_s": round(sum(r.get("delay_s", 0.0) for r in retries), 4),
+        "lost_iterations": (crash_at - 1) - min(
+            (int(r["step"]) for r in post), default=crash_at) + 1
+        if post else None,
+        "final_step": final_step,
+        "checkpoint_every": ckpt_every,
+        "device": _device_name(device),
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def bench_chaos_device_loss(lose_at: int = 5, rejoin_at: int = 12,
+                            iters: int = 18, batch_size: int = 64,
+                            n_samples: int = 512, sync: int = 2,
+                            device=None) -> Dict:
+    """The elastic drill (`--device-loss`): the MLP through
+    `DistriOptimizer.set_elastic` over a 2-worker `SimulatedCluster` on
+    two slots of `device`, with gradient bucketing set (in elastic mode
+    the setter only reports the plan). Worker1 is
+    lost at step `lose_at` (`mesh.device_loss`); the loop shrinks to the
+    survivor, rolls back to the committed boundary, replays, and trains on
+    degraded; at step `rejoin_at` worker1 heartbeats back and the loop
+    grows at the next committed boundary. MTTR: from the `worker_lost`
+    event to the first `step` record after it; the degraded throughput:
+    step records inside the shrink..grow window against the others.
+    Prints and returns one JSON object."""
+    from bigdl_tpu_torch.dataset import Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.observability import InMemorySink, Telemetry
+    from bigdl_tpu_torch.parallel import build_mesh
+    from bigdl_tpu_torch.resilience import (DeviceLossError, FaultInjector,
+                                            FaultSpec, SimulatedCluster)
+    device = resolve_device(device)
+    rs = np.random.RandomState(0)
+    samples = [Sample(rs.rand(28, 28).astype(np.float32),
+                      np.int32(rs.randint(0, 10) + 1))
+               for _ in range(n_samples)]
+    sink = InMemorySink()
+    telemetry = Telemetry(sink, resources=False, flight=False)
+    cluster = SimulatedCluster(2, devices=[device] * 2, telemetry=telemetry)
+    ds = LocalDataSet(samples).transform(
+        SampleToMiniBatch(batch_size, drop_remainder=True))
+    opt = DistriOptimizer(_chaos_mlp(device), ds, ClassNLLCriterion(),
+                          build_mesh(data=2, devices=[device] * 2),
+                          retry_times=0)
+    opt.set_optim_method(SGD(learning_rate=0.05, momentum=0.9))
+    opt.set_end_when(max_iteration(iters))
+    opt.set_sync_interval(sync)
+    opt.set_elastic(registry=cluster.registry)
+    opt.set_gradient_bucketing()
+    opt.set_telemetry(telemetry)
+    opt.set_iteration_hook(
+        lambda s: cluster.restore("worker1")
+        if s["neval"] == rejoin_at else None)
+    try:
+        with FaultInjector(FaultSpec(
+                "mesh.device_loss", at_hit=lose_at,
+                exc=lambda ctx: DeviceLossError("injected preemption",
+                                                lost=("worker1",))),
+                telemetry=telemetry):
+            opt.optimize()
+    finally:
+        telemetry.close()
+    t_lost = next((r["time"] for r in sink.records
+                   if r.get("event") == "worker_lost"), None)
+    t_grow = next((r["time"] for r in sink.records
+                   if r.get("event") == "elastic_grow"), None)
+    steps = [r for r in sink.records if r.get("type") == "step"]
+    post = [r for r in steps if t_lost is not None and r["time"] > t_lost]
+    degraded = [r for r in post if t_grow is None or r["time"] <= t_grow]
+    healthy = [r for r in steps if r not in degraded]
+    replays = [r for r in sink.records if r.get("event") == "elastic_replay"]
+
+    def mean_tp(rows):
+        vals = [r["throughput"] for r in rows
+                if isinstance(r.get("throughput"), (int, float))]
+        return float(np.mean(vals)) if vals else None
+
+    tp_d, tp_h = mean_tp(degraded), mean_tp(healthy)
+    final_step = int(opt.optim_method.state.get("neval", 0))
+    out = {
+        "metric": "chaos_device_loss",
+        "fault_site": "mesh.device_loss",
+        "lost_at_iteration": lose_at,
+        "rejoin_at_iteration": rejoin_at,
+        "recovered": bool(post) and final_step >= iters,
+        "mttr_s": round(post[0]["time"] - t_lost, 4) if post else None,
+        "replayed_batches": int(sum(r.get("batches", 0) for r in replays)),
+        "grew_back": t_grow is not None,
+        "degraded_throughput": round(tp_d, 1) if tp_d else None,
+        "degraded_throughput_frac":
+            round(tp_d / tp_h, 3) if tp_d and tp_h else None,
+        "final_step": final_step,
+        "device": _device_name(device),
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main(argv=None) -> None:
     import argparse
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1267,18 +1442,37 @@ def main(argv=None) -> None:
     p.add_argument("--telemetry", metavar="STEM", default=None,
                    help="stream every training run's records to "
                    "STEM.jsonl and its spans to STEM.trace.json")
+    p.add_argument("--chaos", action="store_true",
+                   help="the crash drill: a train.step fault, the retry "
+                   "policy's reload, MTTR")
+    p.add_argument("--chaos-crash-at", type=int, default=None,
+                   help="the step the crash drill faults (implies --chaos)")
+    p.add_argument("--device-loss", action="store_true",
+                   help="the elastic drill: a worker lost and back "
+                   "(implies --chaos)")
     p.add_argument("--dp-child", action="store_true",
                    help=argparse.SUPPRESS)
     for flag, default in (("--batch-size", 128), ("--warmup", 8),
                           ("--iters", 16), ("--sync", 8)):
         p.add_argument(flag, type=int, default=default,
                        help=argparse.SUPPRESS)
-    p.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of --chaos / --device-loss "
+                   "(default: the card)")
     args = p.parse_args(argv)
     if args.telemetry:
         os.environ[TELEMETRY_ENV] = os.path.abspath(args.telemetry)
     if args.dp_child:
         return _dp_child(args)
+    if args.chaos or args.device_loss or args.chaos_crash_at is not None:
+        # --device-loss alone runs the elastic drill (never the default
+        # benchmark), as the reference's flag does
+        if args.device_loss:
+            bench_chaos_device_loss(device=args.device)
+        else:
+            bench_chaos(crash_at=args.chaos_crash_at or 8,
+                        device=args.device)
+        return
     if args.model_axis > 1 and (args.model != "lm" or args.nproc < 2):
         p.error("--model-axis takes --model lm and --nproc")
     if args.nproc > 1:

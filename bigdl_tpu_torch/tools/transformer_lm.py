@@ -14,8 +14,16 @@ length-free, so the same weights extend).
     python -m bigdl_tpu_torch.tools.transformer_lm              # on the card
     python -m bigdl_tpu_torch.tools.transformer_lm --device cpu
 
-`--sequence-parallel` (ring, Ulysses, zigzag attention over several
-devices) is not ported yet.
+    python -m bigdl_tpu_torch.tools.transformer_lm --sequence-parallel ring
+
+`--sequence-parallel {ring,zigzag,ulysses}` then checks that scheme, as
+the reference's example does: `make_sequence_parallel_attention(...,
+causal=True)` over a mesh of every card when there are two or more, else
+of 4 shards on the one device (`["cpu"] * 4` with `--device cpu`), on
+seeded f32 q, k, v of [1, H, `--long-len`, 16] (H the heads; for Ulysses
+at least the shards), against `naive_attention` at rtol 1e-4, atol 1e-5.
+On the card ring and zigzag run the flash carry kernel (kernel 2) for
+each hop.
 """
 
 from __future__ import annotations
@@ -57,11 +65,6 @@ def main(argv=None) -> float:
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA device)")
     args = p.parse_args(argv)
-    if args.sequence_parallel:
-        raise NotImplementedError(
-            f"--sequence-parallel {args.sequence_parallel} is not ported "
-            "yet: it needs the flash carry kernel (kernel 2) and a process "
-            "group over several cards, ROADMAP.md slice 4")
 
     from bigdl_tpu_torch import nn, optim
     from bigdl_tpu_torch._device import resolve_device
@@ -108,7 +111,46 @@ def main(argv=None) -> float:
     print(f"long-context forward ok: T={args.long_len} "
           f"(trained at T={args.seq_len}), logp shape "
           f"{tuple(lp_long.shape)}")
+    if args.sequence_parallel:
+        sequence_parallel_check(args.sequence_parallel, args.long_len,
+                                args.heads, device)
     return ppl
+
+
+def sequence_parallel_check(scheme: str, length: int, heads: int,
+                            device: torch.device, shards: int = 4) -> float:
+    """`scheme`'s causal attention over the sequence-parallel mesh (every
+    card when there are two or more, else `shards` shards on `device`)
+    against `naive_attention` on one device, at the reference's tolerance;
+    prints the result and returns the largest absolute difference. Raises
+    `RuntimeError` when they disagree."""
+    from bigdl_tpu_torch.ops.attention_kernel import naive_attention
+    from bigdl_tpu_torch.parallel import build_mesh
+    from bigdl_tpu_torch.parallel.sequence import \
+        make_sequence_parallel_attention
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    devices = [torch.device("cuda", i) for i in range(n_cards)] \
+        if n_cards >= 2 else [device] * shards
+    n = len(devices)
+    h = heads if scheme in ("ring", "zigzag") else max(heads, n)
+    rs = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rs.randn(1, h, length, 16)
+                                .astype(np.float32)).to(device)
+               for _ in range(3))
+    attn = make_sequence_parallel_attention(
+        build_mesh(data=n, devices=devices), scheme=scheme,
+        axis_name="data", causal=True)
+    with torch.no_grad():
+        got = attn(q, k, v).to(device)
+        want = naive_attention(q, k, v, causal=True)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+        raise RuntimeError(
+            f"sequence-parallel ({scheme}) attention over {n} devices "
+            f"differs from single-device by {err:.3e}")
+    print(f"sequence-parallel ({scheme}) attention over {n} devices "
+          f"matches single-device (T={length}, max abs err {err:.3e})")
+    return err
 
 
 if __name__ == "__main__":

@@ -304,6 +304,36 @@ Phases:
    without (a)'s instrumentation, in turns from the same weights:
    printed, not gated.
    `python3 chip_smoke.py --phase17` runs phases 1, 2 and 17 alone.
+18. elastic training and preemption (`DistriOptimizer.set_elastic`,
+   `set_preemption_handler`, `resilience/{membership,elastic,
+   preemption}.py`). (a) Phase 6's ResNet-50 (cuDNN stem, kernels 6-7 at
+   33 sites) at global b128 224x224x3, bf16 compute with f32 masters, SGD
+   momentum 0.9, elastic over 4 logical replicas on `SimulatedCluster(4)`
+   over four slots of the card, bucketing on, sync every 2, 12 steps, 4
+   distinct seeded batches fed in order, under phase 11's deterministic
+   settings: `mesh.device_loss` loses worker3 at hit 5, the iteration
+   hook restores it at step 8, `mesh.collective` fails at hit 10. The run
+   reaches step 12; `fault_injected`, `worker_lost`, `elastic_shrink` (4
+   -> 3, degraded 0.25), `elastic_replay`, `elastic_grow` (3 -> 4) and
+   `elastic_rebuild` come in that order; the synced losses, parameters,
+   momentum and BN statistics equal an uninterrupted elastic run's bit
+   for bit (within a relative 1e-3, with the ops named, if an op warned
+   that it is not deterministic); kernels 6 and 7 launch 33 times a shard
+   dispatch; it prints the MTTR (`worker_lost` to the first step record
+   after it), the replayed batches, the commit ms and the ms a step. (b)
+   Phase 8's LM recipe clipped at 1.0 through `DistriOptimizer` with a
+   preemption handler and a checkpoint directory, SIGTERM from the hook
+   at step 3 of 6: `optimize()` returns at step 3, one `preempted`
+   (checkpointed) then `run_abort`, the disposition restored, a fresh
+   optimizer resumed from the checkpoint ends with the uninterrupted
+   run's losses of steps 4-6 and parameters bit for bit (the same
+   fallback), 4 launches of each of kernels 1, 3, 4 a step. (c)
+   `tools/bench.py --device-loss` on the card: recovered, grown back, a
+   replayed batch. (d) `tools/transformer_lm.py --sequence-parallel ring`
+   and `zigzag` at `--long-len 2048` on the repeated card match
+   `naive_attention`, kernel 2 launching n^2 and n(2n+1) times. (e) the
+   phase's wall time. `python3 chip_smoke.py --phase18` runs phases 1, 2
+   and 18 alone.
 
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
 measure ran: `tensor_cores` or `cuda_cores_f32` for rows 1-5, the octet
@@ -313,7 +343,9 @@ ResNet-50 sites (`resnet50_sites`); rows 5-7 with their
 launches on the zoo's paths and their zoo shapes; rows 6-7 with their
 launches on each rank of phase 14(b) and their time at a rank's b64
 stem site; rows 1, 3 and 4 with their launches on each rank of phase
-16(b), `launches_tp_ranks`, and in phase 17(a), `launches_observed_lm`),
+16(b), `launches_tp_ranks`, in phase 17(a), `launches_observed_lm`, and
+in phase 18(b), `launches_preempt_lm`; rows 6-7 with their launches in
+phase 18(a), `launches_elastic`),
 then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
 """
@@ -4311,6 +4343,349 @@ def observability_phase(ak, sk, bk):
     return launches
 
 
+# -- 18. elastic training and preemption ---------------------------------------
+
+P18_SLOTS = 4
+P18_STEPS = 12
+P18_SYNC = 2
+P18_LOSE_AT = 5      # mesh.device_loss hit that loses worker3
+P18_REJOIN_AT = 8    # the step whose hook restores worker3
+P18_COLLECTIVE_AT = 10  # mesh.collective hit that fails
+P18_LM_STEPS = 6
+P18_PREEMPT_AT = 3
+#: the events 18(a) wants, in this causal order
+P18_ORDER = ("fault_injected", "worker_lost", "elastic_shrink",
+             "elastic_replay", "elastic_grow", "elastic_rebuild")
+
+
+def _p18_batches():
+    """18(a)'s data: 4 distinct b128 batches of 224x224x3 images and
+    1-based labels (RandomState(0)), on the card, fed in order."""
+    from bigdl_tpu_torch.dataset import MiniBatch
+    rs = np.random.RandomState(0)
+    out = []
+    for _ in range(4):
+        x = rs.rand(128, 224, 224, 3).astype(np.float32)
+        y = (rs.randint(0, 1000, 128) + 1).astype(np.int32)
+        out.append(MiniBatch(torch.from_numpy(x).cuda(),
+                             torch.from_numpy(y).cuda()))
+    return out
+
+
+def _p18_resnet_run(batches, chaos):
+    """18(a)'s run: ResNet-50 (phase 6's model, weights from seed 0) at
+    global b128, bf16 compute with f32 masters, SGD momentum 0.9, elastic
+    over 4 logical replicas on `SimulatedCluster(4)` over four slots of
+    the card, bucketing on, sync every 2, 12 steps. With `chaos`, worker3
+    is lost at `mesh.device_loss` hit 5, restored by the hook at step 8,
+    and `mesh.collective` fails at hit 10. Returns the optimizer, the
+    telemetry records, the loss of each step (a replayed step's last), the
+    final state (host copies of the parameters, buffers and momentum),
+    the kernels 6-7 launches and the wall seconds."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.observability import InMemorySink, Telemetry
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
+    from bigdl_tpu_torch.parallel import build_mesh
+    from bigdl_tpu_torch.resilience import (CollectiveError, DeviceLossError,
+                                            FaultInjector, FaultSpec,
+                                            SimulatedCluster)
+    from bigdl_tpu_torch.ops import bn_relu_kernel as bk
+    slots = [torch.device("cuda", 0)] * P18_SLOTS
+    sink = InMemorySink()
+    tel = Telemetry(sink, resources=False, flight=False)
+    cluster = SimulatedCluster(P18_SLOTS, devices=slots, telemetry=tel)
+    model = p11_model("cuda")
+    opt = DistriOptimizer(model, _Resident(batches), ClassNLLCriterion(),
+                          build_mesh(data=P18_SLOTS, devices=slots))
+    opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+    opt.set_compute_precision("bfloat16")
+    opt.set_end_when(max_iteration(P18_STEPS))
+    opt.set_sync_interval(P18_SYNC)
+    opt.set_elastic(P18_SLOTS, registry=cluster.registry)
+    opt.set_gradient_bucketing()
+    opt.set_telemetry(tel)
+    losses, velocity = {}, {}
+
+    def hook(s):
+        losses[s["neval"]] = s["loss"]
+        if chaos and s["neval"] == P18_REJOIN_AT:
+            cluster.restore(f"worker{P18_SLOTS - 1}")
+        if s["neval"] == P18_STEPS:
+            velocity.update({k: v.detach().cpu().clone() for k, v in
+                             opt.opt_state["velocity"].items()})
+
+    opt.set_iteration_hook(hook)
+    plan = FaultInjector(
+        FaultSpec("mesh.device_loss", at_hit=P18_LOSE_AT,
+                  exc=lambda ctx: DeviceLossError(
+                      "preempted", lost=(f"worker{P18_SLOTS - 1}",))),
+        FaultSpec("mesh.collective", at_hit=P18_COLLECTIVE_AT,
+                  exc=CollectiveError), telemetry=tel)
+    _reset_bn_counts(bk)
+    t0 = time.perf_counter()
+    if chaos:
+        with plan:
+            opt.optimize()
+    else:
+        opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (bk.bn_relu_forward.launches, bk.bn_relu_backward.launches)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    state.update({f"velocity/{k}": v for k, v in velocity.items()})
+    return opt, sink.records, losses, state, launches, wall
+
+
+def _p18_diff(got, want):
+    """(the tensors that differ, the largest difference relative to each
+    tensor's largest element)."""
+    diff = [k for k in want if not torch.equal(got[k], want[k])]
+    rel = max((float((got[k].float() - want[k].float()).abs().max())
+               / max(float(want[k].float().abs().max()), 1e-30))
+              for k in want)
+    return diff, rel
+
+
+def elastic_resnet_phase():
+    """18(a). Returns the chaos run's launches of kernels 6 and 7."""
+    batches = _p18_batches()
+    with Deterministic() as det:
+        opt_o, recs_o, losses_o, want, _, oracle_s = _p18_resnet_run(
+            batches, False)
+        del opt_o
+        torch.cuda.empty_cache()
+        opt, recs, losses, got, launches, chaos_s = _p18_resnet_run(
+            batches, True)
+    stats = dict(opt.elastic_stats)
+    del opt
+    torch.cuda.empty_cache()
+    events = [r for r in recs if r["type"] == "event"]
+    kinds = [e["event"] for e in events]
+    t_lost = next(r["time"] for r in recs if r.get("event") == "worker_lost")
+    after = [r for r in recs if r["type"] == "step" and r["time"] > t_lost]
+    mttr = after[0]["time"] - t_lost if after else None
+    shrink = next((e for e in events if e["event"] == "elastic_shrink"), {})
+    grow = next((e for e in events if e["event"] == "elastic_grow"), {})
+    rebuild = next((e for e in events if e["event"] == "elastic_rebuild"),
+                   {})
+    diff, rel = _p18_diff(got, want)
+    rtol = NONDET_RTOL if det.ops else 0.0
+    dispatches = stats["shard_dispatches"]
+    # ms a step over each sync window (the commits and the tail left out)
+    step_ms = [[1e3 * r["step_time_s"] for r in rs if r["type"] == "step"]
+               for rs in (recs, recs_o)]
+    # the synced losses (every second step; the others repeat the last)
+    synced = [losses.get(k) for k in range(P18_SYNC, P18_STEPS + 1,
+                                            P18_SYNC)]
+    synced_o = [losses_o.get(k) for k in range(P18_SYNC, P18_STEPS + 1,
+                                               P18_SYNC)]
+    out = {"model": "ResNet50 s2d (cuDNN stem)", "global_batch": 128,
+           "logical_replicas": P18_SLOTS, "slots": P18_SLOTS,
+           "precision": "bfloat16 compute, f32 masters", "sync": P18_SYNC,
+           "steps": P18_STEPS, "bucketing": True, "synced_losses": synced,
+           "oracle_synced_losses": synced_o, "events": kinds,
+           "shrink": {k: shrink.get(k) for k in (
+               "step", "n_active_before", "n_active", "degraded_capacity")},
+           "grow": {k: grow.get(k) for k in (
+               "step", "n_active_before", "n_active", "degraded_capacity")},
+           "rebuild_step": rebuild.get("step"), "mttr_s": mttr,
+           "replayed_batches": stats["replayed_batches"],
+           "recoveries": stats["recoveries"],
+           "shard_dispatches": dispatches,
+           "shard_dispatches_per_step": dispatches / P18_STEPS,
+           "commits": stats["commits"],
+           "commit_ms": 1e3 * stats["commit_s"] / max(stats["commits"], 1),
+           "launches_fwd_bwd": launches,
+           "tensors_compared": len(want), "tensors_differing": len(diff),
+           "max_rel_diff": rel, "nondeterministic_ops": det.ops,
+           "step_ms": step_ms[0], "oracle_step_ms": step_ms[1],
+           "oracle_s": oracle_s, "chaos_s": chaos_s}
+    print("elastic resnet " + json.dumps(out), flush=True)
+    check(sorted(losses) == list(range(1, P18_STEPS + 1))
+          and all(v is not None and math.isfinite(v) for v in synced),
+          f"the run did not reach step {P18_STEPS} with finite losses: "
+          f"{synced}")
+    check(all(k in kinds for k in P18_ORDER), f"events {kinds}")
+    order = [kinds.index(k) for k in P18_ORDER]
+    check(order == sorted(order), f"events out of causal order: {kinds}")
+    check((shrink.get("n_active_before"), shrink.get("n_active"),
+           shrink.get("degraded_capacity")) == (4, 3, 0.25),
+          f"shrink {out['shrink']}")
+    check((grow.get("n_active_before"), grow.get("n_active")) == (3, 4),
+          f"grow {out['grow']}")
+    check(stats["replayed_batches"] >= 1 and mttr is not None,
+          f"replayed {stats['replayed_batches']}, MTTR {mttr}")
+    if rtol == 0:
+        check(synced == synced_o and not diff,
+              f"losses {synced} vs the uninterrupted {synced_o}; "
+              f"{len(diff)} tensors differ (largest {rel:.2e}): not bit "
+              "for bit")
+    else:
+        check(_same(synced, synced_o, rtol) and rel <= rtol,
+              f"losses {synced} vs {synced_o}, tensors {rel:.2e} > {rtol} "
+              f"(ops not deterministic: {det.ops})")
+    check(launches == (BN_SITES * dispatches,) * 2,
+          f"BN+ReLU launches {launches} != {BN_SITES} x {dispatches} shard "
+          "dispatches each")
+    return dict(zip(("bn_relu_fwd", "bn_relu_bwd"), launches))
+
+
+def _p18_lm_run(x, y, ckpt, preempt, resume=False):
+    """18(b)'s run: phase 8's LM recipe (b8, T=2048, bf16 compute with f32
+    masters, SGD momentum 0.9) clipped at 1.0, through `DistriOptimizer`
+    to step 6 with a checkpoint directory and, with `preempt`, a
+    preemption handler and SIGTERM from the hook at step 3. Returns the
+    optimizer, its records, the losses by step and the parameters."""
+    from bigdl_tpu_torch.dataset import MiniBatch
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.observability import InMemorySink, Telemetry
+    from bigdl_tpu_torch.optim import (SGD, DistriOptimizer, max_iteration,
+                                       several_iteration)
+    import signal
+    model = TransformerLM(**LM_CFG, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+    opt = DistriOptimizer(model, _Resident([MiniBatch(x, y)]),
+                          TimeDistributedCriterion(ClassNLLCriterion()),
+                          devices=["cuda"])
+    opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+    opt.set_compute_precision("bfloat16")
+    opt.set_gradient_clipping_by_l2_norm(1.0)
+    opt.set_end_when(max_iteration(P18_LM_STEPS))
+    opt.set_checkpoint(ckpt, several_iteration(1000))
+    sink = InMemorySink()
+    opt.set_telemetry(Telemetry(sink, resources=False, flight=False))
+    if resume:
+        check(opt.resume_from_latest_checkpoint(),
+              f"nothing to resume from under {ckpt}")
+    losses = {}
+
+    def hook(s):
+        losses[s["neval"]] = s["loss"]
+        if preempt and s["neval"] == P18_PREEMPT_AT:
+            signal.raise_signal(signal.SIGTERM)
+
+    opt.set_iteration_hook(hook)
+    if preempt:
+        opt.set_preemption_handler(grace_s=30.0)
+    opt.optimize()
+    params = {k: p.detach().cpu().clone()
+              for k, p in model.named_parameters()}
+    return opt, sink.records, losses, params
+
+
+def preemption_lm_phase(ak, tmp):
+    """18(b). Returns the preempted and resumed runs' launches of kernels
+    1, 3 and 4."""
+    import signal
+    from bigdl_tpu_torch.tools.bench import _token_batch
+    x, y = _token_batch(LM_CFG["vocab_size"], 2048, 8)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    prior = signal.getsignal(signal.SIGTERM)
+    with Deterministic() as det:
+        _, _, losses_o, want = _p18_lm_run(x, y, os.path.join(tmp, "o"),
+                                           False)
+        torch.cuda.empty_cache()
+        _reset_flash_counts(ak)
+        t0 = time.perf_counter()
+        opt, recs, losses_p, _ = _p18_lm_run(x, y, os.path.join(tmp, "p"),
+                                             True)
+        stop_s = time.perf_counter() - t0
+        stopped = opt.optim_method.state["neval"]
+        preempted_counts = _flash_counts(ak)
+        del opt
+        torch.cuda.empty_cache()
+        _reset_flash_counts(ak)
+        opt, _, losses_r, got = _p18_lm_run(x, y, os.path.join(tmp, "p"),
+                                            False, resume=True)
+        resumed_counts = _flash_counts(ak)
+        del opt
+    torch.cuda.empty_cache()
+    restored = signal.getsignal(signal.SIGTERM) == prior
+    kinds = [r.get("event", r["type"]) for r in recs]
+    pre = [r for r in recs if r.get("event") == "preempted"]
+    diff, rel = _p18_diff(got, want)
+    rtol = NONDET_RTOL if det.ops else 0.0
+    tail = [losses_o[k] for k in sorted(losses_o) if k > P18_PREEMPT_AT]
+    rest = [losses_r[k] for k in sorted(losses_r)]
+    out = {"batch": 8, "seq": 2048, "steps": P18_LM_STEPS,
+           "sigterm_at": P18_PREEMPT_AT, "stopped_at": stopped,
+           "records": kinds, "preempted": pre,
+           "disposition_restored": restored,
+           "losses_uninterrupted": [losses_o[k] for k in sorted(losses_o)],
+           "losses_preempted": [losses_p[k] for k in sorted(losses_p)],
+           "losses_resumed": rest, "tensors_differing": len(diff),
+           "max_rel_diff": rel, "nondeterministic_ops": det.ops,
+           "launches_fwd_dq_dkv_preempted": preempted_counts,
+           "launches_fwd_dq_dkv_resumed": resumed_counts,
+           "preempted_run_s": stop_s}
+    print("preemption lm " + json.dumps(out), flush=True)
+    check(stopped == P18_PREEMPT_AT, f"stopped at step {stopped}")
+    check(len(pre) == 1 and pre[0]["checkpointed"] is True
+          and kinds[-2:] == ["preempted", "run_abort"]
+          and "run_end" not in kinds, f"records {kinds}")
+    check(restored, "the SIGTERM disposition was not restored")
+    if rtol == 0:
+        check(rest == tail and not diff,
+              f"resumed losses {rest} vs {tail}, {len(diff)} tensors "
+              "differ: not bit for bit")
+    else:
+        check(_same(rest, tail, rtol) and rel <= rtol,
+              f"resumed losses {rest} vs {tail}, params {rel:.2e} > {rtol} "
+              f"(ops not deterministic: {det.ops})")
+    for counts in (preempted_counts, resumed_counts):
+        check(counts == (LM_LAYERS * P18_PREEMPT_AT,) * 3,
+              f"flash launches (fwd, dq, dkv) {counts} != {LM_LAYERS} x "
+              f"{P18_PREEMPT_AT} each")
+    return dict(zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"),
+                    [a + b for a, b in zip(preempted_counts,
+                                           resumed_counts)]))
+
+
+def drill_phase():
+    """18(c): `tools/bench.py --device-loss` on the card."""
+    from bigdl_tpu_torch.tools.bench import bench_chaos_device_loss
+    out = bench_chaos_device_loss(device="cuda")
+    print("device loss drill " + json.dumps(out), flush=True)
+    check(out["recovered"] and out["grew_back"]
+          and out["replayed_batches"] >= 1, f"drill {out}")
+
+
+def sp_repair_phase(ak):
+    """18(d): `tools/transformer_lm.py --sequence-parallel ring` and
+    `zigzag` at `--long-len 2048` on the repeated card."""
+    from bigdl_tpu_torch.tools import transformer_lm
+    n = len(sp_mesh_devices())
+    want = {"ring": n * n, "zigzag": n * (2 * n + 1)}
+    out = {}
+    for scheme in ("ring", "zigzag"):
+        ak.flash_attention_carry.launches = 0
+        ppl = transformer_lm.main(["--sequence-parallel", scheme,
+                                   "--long-len", "2048"])
+        out[scheme] = {"ppl": ppl,
+                       "carry_launches": ak.flash_attention_carry.launches}
+    print("sequence parallel repair " + json.dumps(out), flush=True)
+    for scheme, w in want.items():
+        check(out[scheme]["carry_launches"] == w,
+              f"{scheme}: kernel 2 launched "
+              f"{out[scheme]['carry_launches']} times, not {w}")
+
+
+def elastic_phase(ak):
+    """18: the phase's five parts; returns 18(a)'s launches of kernels 6
+    and 7 and 18(b)'s of kernels 1, 3 and 4."""
+    t0 = time.perf_counter()
+    bn = elastic_resnet_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        lm = preemption_lm_phase(ak, tmp)
+    drill_phase()
+    sp_repair_phase(ak)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
+    return bn, lm
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4359,8 +4734,11 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     tc_build = build_phase(_build)
 
-    if sys.argv[1:2] == ["--phase17"]:
-        observability_phase(ak, sk, bk)
+    if sys.argv[1:2] in (["--phase17"], ["--phase18"]):
+        if sys.argv[1] == "--phase17":
+            observability_phase(ak, sk, bk)
+        else:
+            elastic_phase(ak)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -4459,6 +4837,9 @@ def main() -> int:
 
     # 17. the observability core
     obs_launches = observability_phase(ak, sk, bk)
+
+    # 18. elastic training and preemption
+    elastic_launches, preempt_launches = elastic_phase(ak)
     zoo_launches = {
         "launches_inception_v1": zoo_bench["inception_v1"]["launches"],
         "launches_inception_v2": zoo_bench["inception_v2"]["launches"],
@@ -4472,6 +4853,7 @@ def main() -> int:
          "long_context_shape": long_context,
          "launches_tp_ranks": tp_launches["flash_attention_fwd"],
          "launches_observed_lm": obs_launches["flash_attention_fwd"],
+         "launches_preempt_lm": preempt_launches["flash_attention_fwd"],
          "build": tc_build["flash_attention_fwd"]},
         {**CARRY_ROW, "launches": carry_launches, **carry_row,
          "design": DESIGN[torch.bfloat16],
@@ -4480,11 +4862,13 @@ def main() -> int:
          **bwd_rows["dq"], "design": DESIGN[torch.bfloat16],
          "launches_tp_ranks": tp_launches["flash_attention_bwd_dq"],
          "launches_observed_lm": obs_launches["flash_attention_bwd_dq"],
+         "launches_preempt_lm": preempt_launches["flash_attention_bwd_dq"],
          "build": tc_build["flash_attention_bwd_dq"], "status": "ok"},
         {**DKV_ROW, "launches": lm_launches["flash_attention_bwd_dkv"],
          **bwd_rows["dkv"], "design": DESIGN[torch.bfloat16],
          "launches_tp_ranks": tp_launches["flash_attention_bwd_dkv"],
          "launches_observed_lm": obs_launches["flash_attention_bwd_dkv"],
+         "launches_preempt_lm": preempt_launches["flash_attention_bwd_dkv"],
          "build": tc_build["flash_attention_bwd_dkv"], "status": "ok"},
         *[{**row, "launches": bn_launches[row["name"]],
            **bn_rows[d], "design": BN_DESIGN[row["name"]], "status": "ok",
@@ -4497,6 +4881,7 @@ def main() -> int:
            **{k: v[row["name"]] for k, v in zoo_launches.items()},
            "zoo_shapes": zoo_rows[d],
            "launches_dp_ranks": [l[d] * dp_steps for l in dp_launches],
+           "launches_elastic": elastic_launches[row["name"]],
            "dp_rank_shape": dp_rows[d]}
           for row, d in ((BN_FWD_ROW, "fwd"), (BN_BWD_ROW, "bwd"))],
         {**STEM_ROW, "launches": stem_launches, **stem_row,

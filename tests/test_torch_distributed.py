@@ -326,6 +326,37 @@ try:
             ("linear_clean", ("mask", False, False)),
             ("conv", ("conv", True, True)),
             ("conv_clean", ("conv", True, False)))}
+        # preemption: SIGTERM reaches rank 1 alone at step 3 of 6; the
+        # ranks agree on the latch, stop together, rank 0 writes the
+        # checkpoint; then both resume from it to step 6
+        import signal
+        from bigdl_tpu_torch.observability import InMemorySink, Telemetry
+        pdir = os.environ["CKPT"] + "_preempt"
+        popt = optim.DistriOptimizer(
+            model_of(conv_net, "conv"), LocalDataSet([MiniBatch(
+                *conv_batch())]), nn.ClassNLLCriterion(), devices=["cpu"],
+            retry_interval_s=0.0)
+        popt.set_optim_method(optim.SGD(learning_rate=0.1, momentum=0.9))
+        popt.set_end_when(optim.max_iteration(6))
+        popt.set_checkpoint(pdir, optim.several_iteration(1000))
+        popt.set_preemption_handler(grace_s=30.0)
+        psink = InMemorySink()
+        popt.set_telemetry(Telemetry(psink, resources=False, flight=False))
+        popt.set_iteration_hook(
+            lambda s: signal.raise_signal(signal.SIGTERM)
+            if rank == 1 and s["neval"] == 3 else None)
+        collectives.reset_counts()
+        popt.optimize()
+        res["preempt_run"] = {
+            "neval": popt.optim_method.state["neval"],
+            "records": [r.get("event", r["type"]) for r in psink.records],
+            "preempted": [r for r in psink.records
+                          if r.get("event") == "preempted"],
+            "allreduces": collectives.counts["preempt"],
+            "restored": signal.getsignal(signal.SIGTERM) == signal.SIG_DFL}
+        res["preempt_resumed"], _ = train(model_of(conv_net, "conv"),
+                                          conv_batch(), 6, ckpt=pdir,
+                                          resume=True)
     elif scenario == "widedeep":
         x, y = widedeep_data()
         wrows = slice(8 * rank, 8 * rank + 8)
@@ -550,6 +581,32 @@ def test_accumulation_and_clipping_match_the_jax_mesh(setup, runs):
     np.testing.assert_allclose(got["losses"], j_losses, rtol=RTOL)
     _close_tree(got["params"], j_params)
     _close_tree(_state_of(got["state"]), _state_of(j_state))
+
+
+def test_sigterm_on_one_rank_stops_both_and_resumes_bitwise(runs):
+    """SIGTERM on rank 1 alone at step 3 of 6: one "preempt" all-reduce
+    an iteration boundary while the handler is armed (none in a run
+    without one), both ranks stop at step 3 with the disposition put back,
+    rank 0 records `preempted` and `run_abort` (no `run_end`), and the
+    run resumed from rank 0's checkpoint ends with the uninterrupted
+    6-step run's losses and parameters, bit for bit, on both ranks."""
+    for r in (0, 1):
+        got = runs[r]["preempt_run"]
+        assert got["neval"] == 3 and got["restored"]
+        assert got["allreduces"] == 3
+        assert "preempt" not in runs[r]["plain"]["counts"]
+        whole = runs[r]["ckpt"]
+        resumed = runs[r]["preempt_resumed"]
+        assert resumed["losses"] == whole["losses"][3:]
+        _equal_tree(resumed["params"], whole["params"])
+        _equal_tree(_state_of(resumed["state"]), _state_of(whole["state"]))
+    records = runs[0]["preempt_run"]["records"]
+    assert records[-2:] == ["preempted", "run_abort"]
+    assert "run_end" not in records
+    pre = runs[0]["preempt_run"]["preempted"][0]
+    assert pre["checkpointed"] is True and pre["step"] == 3
+    assert pre["signal"] is None  # the signal reached rank 1 only
+    assert runs[1]["preempt_run"]["records"] == []
 
 
 def test_collectives_a_step(runs):

@@ -499,6 +499,11 @@ def test_example_learns_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert 1 < ppl < 100  # chance is ~200
     assert "T=80" in out
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    # --sequence-parallel checks each scheme against naive_attention over
+    # 4 shards of the CPU, as the reference's example does
+    for scheme in ("ring", "zigzag", "ulysses"):
         transformer_lm.main(["--device", "cpu", "--sequence-parallel",
-                             "ring"])
+                             scheme, "--max-iteration", "2",
+                             "--long-len", "64"])
+        assert f"sequence-parallel ({scheme}) attention over 4 devices " \
+            "matches" in capsys.readouterr().out

@@ -317,14 +317,43 @@ def test_optimizers_take_the_reference_positions():
     ds = LocalDataSet([])
     one = DistriOptimizer(model, ds, crit, build_mesh(devices=["cpu"]))
     assert [str(d) for d in one.devices] == ["cpu"]
+    two = DistriOptimizer(model, ds, crit, build_mesh(devices=["cpu"] * 2))
+    assert len(two.devices) == 2  # elastic mode's device list
     with pytest.raises(NotImplementedError, match="one process per GPU"):
-        DistriOptimizer(model, ds, crit, build_mesh(devices=["cpu", "cpu"]))
+        two.optimize()
     with pytest.raises(ValueError, match="not both"):
         DistriOptimizer(model, ds, crit, build_mesh(devices=["cpu"]),
                         devices=["cpu"])
     assert LocalOptimizer(model, ds, crit, 16, device="cpu").batch_size == 16
     with pytest.raises(TypeError):
         LocalOptimizer(model, ds, crit, 16, "cpu")
+
+
+#: methods of the elastic and preemption slice, ("module", "Class",
+#: "method"), whose positional parameters equal the reference's (the walk
+#: above compares constructors and functions only)
+METHODS = [
+    ("optim.distri_optimizer", "DistriOptimizer", m)
+    for m in ("set_elastic", "set_gradient_bucketing")] + [
+    ("optim.local_optimizer", "BaseOptimizer", "set_preemption_handler")] + [
+    ("resilience.membership", "WorkerRegistry", m)
+    for m in ("register", "heartbeat", "mark_lost", "mark_device_lost",
+              "remove", "sweep", "worker_for_device", "snapshot")] + [
+    ("resilience.membership", "SimulatedCluster", m)
+    for m in ("fail", "restore", "shard")] + [
+    ("resilience.elastic", "ElasticController", m)
+    for m in ("plan", "shard_device", "replay_boundary", "split_batch")] + [
+    ("resilience.preemption", "PreemptionHandler", m)
+    for m in ("install", "uninstall", "deadline_remaining", "reset")]
+
+
+@pytest.mark.parametrize("module,cls,method", METHODS,
+                         ids=[".".join(m) for m in METHODS])
+def test_elastic_methods_take_the_reference_positions(module, cls, method):
+    port, ref = (getattr(getattr(importlib.import_module(f"{pkg}.{module}"),
+                                 cls), method)
+                 for pkg in ("bigdl_tpu_torch", "bigdl_tpu"))
+    assert _positional(port) == _positional(ref)
 
 
 def test_attention_port_only_parameters_are_keywords():
