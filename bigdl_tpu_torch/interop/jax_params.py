@@ -11,7 +11,9 @@ gradients and running stats back in the JAX layout. `params_tree` and
 `load_params` pick the right one of the two for a model, and
 `tree_from_named` / `named_from_tree` carry any tensors keyed by the
 port's parameter names (an optimizer's slots) to the JAX layout and back:
-checkpoints go through these four.
+checkpoints go through these four. A quantized model (`nn/quantized.py`)
+carries the same way: its int8 weights keep the JAX layout (HWIO, [in,
+out]) and are copied as they are, and come back as int8.
 
 The trees are the JAX package's nested dicts, with their leaves converted
 by the caller to numpy arrays (`np.asarray`), so nothing here needs JAX.
@@ -174,19 +176,21 @@ def _export(targets: Mapping, leaf) -> Dict:
 
 
 def _leaf(grad: bool):
-    """A parameter (or its .grad) as an f32 CPU tensor."""
+    """A parameter (or its .grad) as a CPU tensor: floats as f32, an int8
+    leaf (a quantized layer's weight) as it is."""
     def leaf(p):
         t = p.grad if grad else p
         if t is None:
             raise ValueError("a parameter has no .grad")
-        return t.detach().float().cpu()
+        t = t.detach().cpu()
+        return t.float() if t.is_floating_point() else t
     return leaf
 
 
 def module_params_tree(model, grad: bool = False) -> Dict:
     """The model's parameters (or, with `grad=True`, their `.grad`) as the
-    JAX package's tree: nested dicts of f32 numpy arrays, conv kernels
-    HWIO. The inverse of `load_module_params`, for comparing the two."""
+    JAX package's tree: nested dicts of f32 numpy arrays (a quantized
+    layer's int8 weight stays int8), conv kernels HWIO. The inverse of `load_module_params`, for comparing the two."""
     return _export(_module_targets(model), _leaf(grad))
 
 

@@ -1,5 +1,6 @@
 """Layers (counterpart of `bigdl_tpu.nn`): the transformer, the ResNet,
-the feed-forward model zoo's, the recurrent and the Wide&Deep paths."""
+the feed-forward model zoo's, the recurrent and the Wide&Deep paths, and
+the int8 quantized layers."""
 
 from bigdl_tpu_torch.nn.activation import LogSoftMax, ReLU, Sigmoid, Tanh
 from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
@@ -9,7 +10,8 @@ from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
 from bigdl_tpu_torch.nn.containers import (CAddTable, Concat, ConcatTable,
                                            Container, Identity, Sequential)
 from bigdl_tpu_torch.nn.conv import (SpaceToDepthStemConvolution,
-                                     SpatialConvolution)
+                                     SpatialConvolution,
+                                     SpatialDilatedConvolution)
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion, MSECriterion,
                                           TimeDistributedCriterion,
                                           TimeDistributedMaskCriterion)
@@ -26,6 +28,10 @@ from bigdl_tpu_torch.nn.normalization import (BatchNormalization,
                                               SpatialBatchNormalization)
 from bigdl_tpu_torch.nn.pooling import (Pooler, SpatialAveragePooling,
                                         SpatialCrossMapLRN, SpatialMaxPooling)
+from bigdl_tpu_torch.nn.quantized import (
+    QuantizedLinear, QuantizedSpatialConvolution,
+    QuantizedSpatialDilatedConvolution, Quantizer, WeightOnlyQuantizedLinear,
+    WeightOnlyQuantizedSpatialConvolution)
 from bigdl_tpu_torch.nn.recurrent import (LSTM, LSTM2, Cell, LSTMCell,
                                           MultiRNNCell, Recurrent, RnnCell,
                                           TimeDistributed)
@@ -38,14 +44,19 @@ __all__ = ["BatchNormalization", "CAddTable", "Cell", "ClassNLLCriterion",
            "LogSoftMax", "LookupTable", "LookupTableSparse", "MSECriterion",
            "Module",
            "MsraFiller", "MultiHeadAttention", "MultiRNNCell", "Pooler",
-           "Mean", "RandomNormal", "RandomUniform", "ReLU", "Recurrent",
+           "Mean", "QuantizedLinear", "QuantizedSpatialConvolution",
+           "QuantizedSpatialDilatedConvolution", "Quantizer",
+           "RandomNormal", "RandomUniform", "ReLU", "Recurrent",
            "Reshape",
            "RnnCell", "ScaledDotProductAttention", "Sequential", "Sigmoid",
            "SpaceToDepthStemConvolution", "SparseJoinTable", "SparseLinear",
            "SpatialAveragePooling",
            "SpatialBatchNormalization", "SpatialConvolution",
+           "SpatialDilatedConvolution",
            "SpatialCrossMapLRN", "SpatialMaxPooling", "Tanh",
            "TimeDistributed", "TimeDistributedCriterion",
-           "TimeDistributedMaskCriterion", "TransformerBlock", "Xavier",
+           "TimeDistributedMaskCriterion", "TransformerBlock",
+           "WeightOnlyQuantizedLinear",
+           "WeightOnlyQuantizedSpatialConvolution", "Xavier",
            "Zeros", "cache_commit", "cache_write", "fusion_enabled",
            "fusion_scope", "lend_generator", "rope", "set_fusion"]

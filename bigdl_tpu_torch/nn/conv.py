@@ -1,7 +1,8 @@
 """Convolution layers (counterpart of `bigdl_tpu/nn/conv.py`).
 
-Ported: `SpatialConvolution` and `SpaceToDepthStemConvolution` (with the
-route to the stem kernel, `ops/stem_kernel.py`).
+Ported: `SpatialConvolution`, `SpatialDilatedConvolution` and
+`SpaceToDepthStemConvolution` (with the route to the stem kernel,
+`ops/stem_kernel.py`).
 
 Layout. Like the JAX package, the layers take and return NHWC tensors.
 The weight is stored OIHW (PyTorch's layout; the carry from the JAX HWIO
@@ -51,6 +52,18 @@ def same_pads(size: int, k: int, s: int):
     return total // 2, total - total // 2
 
 
+def explicit_pads(h: int, w: int, kh: int, kw: int, sh: int, sw: int,
+                  pad_h: PadT, pad_w: PadT, dh: int = 1, dw: int = 1):
+    """(top, bottom, left, right) zero padding of a convolution over an
+    H x W input: SAME from the dilated kernel's extent (k - 1) * d + 1, as
+    XLA's SAME with `rhs_dilation`, else `pad_h` / `pad_w` on both
+    sides."""
+    if _same(pad_h):
+        return (*same_pads(h, (kh - 1) * dh + 1, sh),
+                *same_pads(w, (kw - 1) * dw + 1, sw))
+    return int(pad_h), int(pad_h), int(pad_w), int(pad_w)
+
+
 class SpatialConvolution(Module):
     """2-D convolution over NHWC input, weight stored OIHW (reference
     `SpatialConvolution`, `bigdl_tpu/nn/conv.py:43`). `pad_h`/`pad_w` of -1
@@ -85,20 +98,45 @@ class SpatialConvolution(Module):
         self.bias = nn.Parameter((bias_init or Zeros())(
             g, (n_output_plane,), device=device)) if with_bias else None
 
+    def _dilation(self):
+        """(dilation_h, dilation_w) of the kernel's taps."""
+        return 1, 1
+
     def _conv(self, x_nchw):
+        dh, dw = self._dilation()
         if _same(self.pad_h):
-            h, w = x_nchw.shape[2], x_nchw.shape[3]
-            ph = same_pads(h, self.kh, self.sh)
-            pw = same_pads(w, self.kw, self.sw)
-            x_nchw = F.pad(x_nchw, (*pw, *ph))
+            top, bottom, left, right = explicit_pads(
+                x_nchw.shape[2], x_nchw.shape[3], self.kh, self.kw, self.sh,
+                self.sw, self.pad_h, self.pad_w, dh, dw)
+            x_nchw = F.pad(x_nchw, (left, right, top, bottom))
             padding = (0, 0)
         else:
             padding = (int(self.pad_h), int(self.pad_w))
         return F.conv2d(x_nchw, self.weight, self.bias, (self.sh, self.sw),
-                        padding, 1, self.groups)
+                        padding, (dh, dw), self.groups)
 
     def forward(self, x):
         return self._conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class SpatialDilatedConvolution(SpatialConvolution):
+    """Atrous convolution (reference `SpatialDilatedConvolution`,
+    `bigdl_tpu/nn/conv.py:213`): `SpatialConvolution` with its kernel taps
+    `dilation_h` / `dilation_w` pixels apart, one `F.conv2d(...,
+    dilation=)`. SAME padding covers the dilated extent. The keyword
+    arguments go to `SpatialConvolution` (`n_group`, `with_bias`, the
+    initializers, `name`, `device`, `generator`)."""
+
+    def __init__(self, n_input_plane: int, n_output_plane: int, kw: int,
+                 kh: int, dw: int = 1, dh: int = 1, pad_w: PadT = 0,
+                 pad_h: PadT = 0, dilation_w: int = 1, dilation_h: int = 1,
+                 **kw_args):
+        super().__init__(n_input_plane, n_output_plane, kw, kh, dw, dh,
+                         pad_w, pad_h, **kw_args)
+        self.dil_w, self.dil_h = dilation_w, dilation_h
+
+    def _dilation(self):
+        return self.dil_h, self.dil_w
 
 
 def space_to_depth(x):

@@ -23,6 +23,15 @@ class Module(nn.Module):
         super().__init__()
         self.name = name or type(self).__name__
 
+    def quantize(self, weight_only: bool = False) -> "Module":
+        """Post-training int8 quantization of the supported layers
+        (reference `Module.quantize`): a new model from
+        `nn.quantized.Quantizer.quantize`, this one left intact.
+        `weight_only=True` stores int8 weights and keeps bf16 / f32
+        compute."""
+        from bigdl_tpu_torch.nn.quantized import Quantizer
+        return Quantizer.quantize(self, weight_only=weight_only)
+
 
 def check_nhwc(data_format: str, layer: str) -> None:
     """The port's spatial layers take NHWC only; the reference's

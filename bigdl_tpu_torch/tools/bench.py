@@ -23,6 +23,7 @@ warm-up. The result also carries every step's loss.
     python -m bigdl_tpu_torch.tools.bench [--model lm] --profile
     python -m bigdl_tpu_torch.tools.bench --model attention [--profile]
     python -m bigdl_tpu_torch.tools.bench --model serve [--profile]
+    python -m bigdl_tpu_torch.tools.bench --model int8_serving [--profile]
     python -m bigdl_tpu_torch.tools.bench --model inception_v1 [--profile]
     python -m bigdl_tpu_torch.tools.bench --model lenet|inception_v2|vgg16
     python -m bigdl_tpu_torch.tools.bench --model ptb_lstm [--profile]
@@ -102,6 +103,17 @@ ids, wide values of 1, 1-based categorical ids, continuous features; the
 model takes their 1-based `Table`), labels 1 or 2, the same recipe; it
 reports records/s. With `--nproc N` each rank holds its rows of all four
 tensors. No kernel of the port runs on this path.
+
+`--model int8_serving` is the reference's int8 serving A/B
+(`bench_int8_serving`): ResNet-50 (plain stem) at b256 on 224x224x3 in
+bf16, weight-only int8 and full int8 (`nn/quantized.py`), 10 timed
+forwards each: images/s, the parameters' MB, the launches a forward of
+kernel 6, `torch._int_mm` and the weight-only cuBLAS / cuDNN calls, and
+each int8 variant's top-1 agreement with bf16;
+`bench_int8_serving(model="lenet", device="cpu")` runs it at the
+reference's CPU scale (LeNet-5 on 28x28). With `--profile`, each variant's device time by kind of kernel (the
+int8 GEMMs, the im2col's `torch.cat` and the casts on their own) and by
+launching op.
 
 `--model serve` times one b32 forward of the served ResNet-50
 (`LocalPredictor` over `ResNet50(class_num=1000, s2d_stem=True)`, f32,
@@ -1422,12 +1434,136 @@ def bench_chaos_device_loss(lose_at: int = 5, rejoin_at: int = 12,
     return out
 
 
+def _cast_floats(model: torch.nn.Module, dtype: torch.dtype):
+    """`model` with its floating parameters cast to `dtype` in place (the
+    reference casts the params tree; BN statistics, buffers here, stay
+    f32), returned."""
+    for p in model.parameters():
+        if p.is_floating_point():
+            p.data = p.data.to(dtype)
+    return model
+
+
+def _params_mb(model: torch.nn.Module) -> float:
+    """MB (1e6 bytes) of the model's parameter leaves, the reference's
+    figure (the params tree; BN statistics are not in it)."""
+    return sum(p.numel() * p.element_size() for p in model.parameters()) / 1e6
+
+
+def _int8_variants(model: str, batch_size: int, device: torch.device,
+                   generator: Optional[torch.Generator]):
+    """`bench_int8_serving`'s three eval-mode variants of `model` and its
+    seeded bf16 batch on `device`."""
+    from bigdl_tpu_torch.models import LeNet5, ResNet
+    from bigdl_tpu_torch.nn.quantized import Quantizer
+    if model == "lenet":
+        float_model = LeNet5(10, device=device, generator=generator)
+        in_shape = (28, 28)
+    elif model == "resnet50":
+        float_model = ResNet(class_num=1000, depth=50, device=device,
+                             generator=generator)
+        in_shape = (224, 224, 3)
+    else:
+        raise ValueError(f"model must be resnet50 or lenet, got {model!r}")
+    variants = {
+        "bf16": _cast_floats(copy.deepcopy(float_model), torch.bfloat16),
+        "weight-only int8": _cast_floats(
+            Quantizer.quantize(float_model, weight_only=True),
+            torch.bfloat16),
+        "full int8": Quantizer.quantize(float_model)}
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        batch_size, *in_shape).astype(np.float32)).to(device).bfloat16()
+    return {k: m.eval() for k, m in variants.items()}, x
+
+
+def bench_int8_serving(batch_size: int = 256, iters: int = 10,
+                       model: str = "resnet50", device=None,
+                       generator: Optional[torch.Generator] = None) -> Dict:
+    """The served model in three variants (the reference's
+    `bench_int8_serving`, `bench_cli.py:366`): "bf16" (floating
+    parameters cast to bf16), "weight-only int8"
+    (`Quantizer.quantize(m, weight_only=True)`, floats cast to bf16) and
+    "full int8" (`Quantizer.quantize(m)`, floats kept f32), each in eval
+    mode on one seeded bf16 batch (`np.random.RandomState(0)`): one
+    forward to build and drain, then `iters` forwards, each reduced to
+    `sum(out.float())`, timed on the host clock up to the last sum's
+    fetch. Per variant: images/s, ms a forward, the parameters' MB, and a
+    forward's launches of kernel 6 (33 at ResNet-50's fused BN+ReLU
+    sites; 0 on the CPU, where the plain version runs), of
+    `torch._int_mm` (`nn.quantized.int8_mm`; 54 in full int8: 53
+    convolutions and the classifier) and of the weight-only layers'
+    cuBLAS / cuDNN products (`nn.quantized.float_product`); for the int8
+    variants, the top-1 agreement with the bf16 variant on the batch and
+    the largest |output difference|. `model`: "resnet50"
+    (`ResNet(class_num=1000, depth=50)`, plain stem, 224x224x3) or
+    "lenet" (`LeNet5(10)` on 28x28, the reference's CPU-scale model)."""
+    from bigdl_tpu_torch.nn.quantized import float_product, int8_mm
+    from bigdl_tpu_torch.ops import bn_relu_kernel as bk
+    device = resolve_device(device)
+    variants, x = _int8_variants(model, batch_size, device, generator)
+    counters = {"bn_relu_fwd": bk.bn_relu_forward, "int8_mm": int8_mm,
+                "float_product": float_product}
+    out = {"model": model, "batch_size": batch_size, "iters": iters,
+           "device": _device_name(device),
+           "timer": "host_clock_to_fetch", "variants": {}}
+    logits = {}
+    with torch.inference_mode():
+        for name, m in variants.items():
+            float(torch.sum(m(x).float()))  # build, warm and drain
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                s = torch.sum(m(x).float())
+            float(s)
+            dt = (time.perf_counter() - t0) / iters
+            row = out["variants"][name] = {
+                "images_per_s": batch_size / dt, "ms_per_forward": dt * 1e3,
+                "params_mb": _params_mb(m),
+                **{f"{k}_per_forward": fn.launches / iters
+                   for k, fn in counters.items()}}
+            logits[name] = m(x).float().cpu()
+            if name != "bf16":
+                ref = logits["bf16"]
+                row["top1_agreement_with_bf16"] = float(
+                    (logits[name].argmax(1) == ref.argmax(1)).float().mean())
+                row["max_abs_diff_vs_bf16"] = float(
+                    (logits[name] - ref).abs().max())
+    return out
+
+
+#: the int8 profile also files `torch._int_mm`'s cuBLASLt kernels, the
+#: im2col's `torch.cat` and the casts on their own
+_INT8_KINDS = (("int8 GEMM (torch._int_mm, cuBLASLt)",
+                ("imma", "s8s8", "i8i8", "int8")),) + _ZOO_KINDS
+
+
+def profile_int8_serving(batch_size: int = 256, forwards: int = 4,
+                         top: int = 15, model: str = "resnet50", device=None,
+                         generator: Optional[torch.Generator] = None
+                         ) -> Dict:
+    """`_profiled` of each of `bench_int8_serving`'s variants: `forwards`
+    forwards after one warm-up; a "step" in each summary is one
+    forward."""
+    device = _cuda_only(device, "profile_int8_serving")
+    variants, x = _int8_variants(model, batch_size, device, generator)
+    out = {"model": model, "batch_size": batch_size, "variants": {}}
+    with torch.inference_mode():
+        for name, m in variants.items():
+            m(x)
+            torch.cuda.synchronize(device)
+            out["variants"][name] = _profiled(
+                lambda: [m(x) for _ in range(forwards)], forwards, top,
+                device, _INT8_KINDS)
+    return out
+
+
 def main(argv=None) -> None:
     import argparse
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", choices=("resnet50", "serve", "lm",
                                        "attention", "ptb_lstm",
-                                       "wide_n_deep", *ZOO),
+                                       "wide_n_deep", "int8_serving", *ZOO),
                    default="resnet50")
     p.add_argument("--profile", action="store_true",
                    help="device time by kind of kernel (torch.profiler)")
@@ -1484,7 +1620,9 @@ def main(argv=None) -> None:
                                   backend=args.backend,
                                   model_axis=args.model_axis, **kw)))
         return
-    if args.model == "attention":
+    if args.model == "int8_serving":
+        fn = profile_int8_serving if args.profile else bench_int8_serving
+    elif args.model == "attention":
         fn = profile_attention if args.profile else bench_attention
     elif args.model == "serve":
         fn = profile_resnet50_serving if args.profile \

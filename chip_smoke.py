@@ -334,6 +334,32 @@ Phases:
    `naive_attention`, kernel 2 launching n^2 and n(2n+1) times. (e) the
    phase's wall time. `python3 chip_smoke.py --phase18` runs phases 1, 2
    and 18 alone.
+19. int8 post-training quantization (`nn/quantized.py`: the int8 x int8
+   -> int32 products through `torch._int_mm`, cuBLASLt on the card; no
+   TPU kernel of the reference computes them). (a) Each full-int8 layer
+   on the card against the same module's forward on the CPU:
+   `QuantizedLinear` 2048->1000 at M = 1, 17 and 256, and
+   `QuantizedSpatialConvolution` at ResNet-50's stem (7x7/s2, K = 147,
+   b8 224x224x3), a 3x3 C=64 site and a 1x1/s2 shortcut (b8 56x56), and a
+   grouped (g=2) dilated (d=2) SAME convolution: int8 weights, scales and
+   int32 sums equal, the output bitwise for an f32 x and within 1e-6
+   relative for a bf16 x (reported bitwise or not); the weight-only twin
+   within 0.03 relative of its float layer (f32, the reference's bound);
+   each layer's device ms in bf16 beside the bf16 float layer's. (b)
+   `tools/bench.py --model int8_serving`: ResNet-50 (plain stem) b256 in
+   bf16, weight-only int8 and full int8, 10 timed forwards each: images/s,
+   the parameters' MB, 33 launches of kernel 6 a forward in each, 54
+   `_int_mm` calls a full-int8 forward and 54 cuBLAS / cuDNN products a
+   weight-only one, each int8 variant's top-1 agreement with bf16. (c)
+   `ResNet(1000, depth=50, s2d_stem=True)` (f32, randomized BN state,
+   TF32 off, `BIGDL_TPU_PALLAS_STEM=1`: the stem stays float and runs
+   kernel 5) quantized both ways, a burst of 96 through
+   `InferenceEngine(convert=False, max_batch_size=32, max_wait_ms=2)`:
+   every row bitwise equal to `LocalPredictor(convert=False)`'s in full
+   int8, within 1e-2 relative in weight-only; kernel 5 once, kernel 6 33
+   times and the products 53 times a batch; requests/s, latency
+   p50/p95/p99, batch-size p50. (d) The phase's wall time.
+   `python3 chip_smoke.py --phase19` runs phases 1, 2 and 19 alone.
 
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
 measure ran: `tensor_cores` or `cuda_cores_f32` for rows 1-5, the octet
@@ -345,7 +371,8 @@ launches on each rank of phase 14(b) and their time at a rank's b64
 stem site; rows 1, 3 and 4 with their launches on each rank of phase
 16(b), `launches_tp_ranks`, in phase 17(a), `launches_observed_lm`, and
 in phase 18(b), `launches_preempt_lm`; rows 6-7 with their launches in
-phase 18(a), `launches_elastic`),
+phase 18(a), `launches_elastic`; rows 5-6 with their launches in phase
+19(b)-(c), `launches_int8_serving`),
 then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
 """
@@ -4686,6 +4713,202 @@ def elastic_phase(ak):
     return bn, lm
 
 
+# ---------------------------------------------------------------- phase 19
+# int8 post-training quantization. Full int8 against the same module on the
+# CPU: the weights, scales and int32 sums are the same integers, and the
+# epilogue the same f32 arithmetic, so an f32 x gives the same bits; a bf16
+# x within P19_BF16_RTOL (reported bitwise or not). Weight-only against its
+# float module: the reference's bound (tests/test_quantized.py:168-174).
+P19_BF16_RTOL = 1e-6
+P19_WEIGHT_ONLY_RTOL = 0.03
+# served weight-only rows against LocalPredictor's: cuDNN / cuBLAS in f32
+# at other batch shapes
+P19_SERVE_WO_RTOL = 1e-2
+# ResNet-50 (plain stem): 53 convolutions + the classifier; the served s2d
+# stem stays float (Quantizer converts exact SpatialConvolutions only)
+P19_PRODUCTS = 54
+P19_SERVED_PRODUCTS = 53
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def quant_layer_phase():
+    """19(a): each full-int8 layer on the card against the same module's
+    forward on the CPU, and the weight-only twin against its float layer;
+    each layer's device ms beside the bf16 float layer's."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.nn.quantized import Quantizer
+    conv = functools.partial(nn.SpatialConvolution, with_bias=False,
+                             device="cuda")
+    cases = [
+        ("linear 2048->1000 M=1", lambda g: nn.Linear(
+            2048, 1000, device="cuda", generator=g), (1, 2048)),
+        ("linear 2048->1000 M=17", lambda g: nn.Linear(
+            2048, 1000, device="cuda", generator=g), (17, 2048)),
+        ("linear 2048->1000 M=256", lambda g: nn.Linear(
+            2048, 1000, device="cuda", generator=g), (256, 2048)),
+        ("stem 7x7/s2 K=147", lambda g: conv(3, 64, 7, 7, 2, 2, 3, 3,
+                                             generator=g), (8, 224, 224, 3)),
+        ("3x3 C=64", lambda g: conv(64, 64, 3, 3, 1, 1, 1, 1, generator=g),
+         (8, 56, 56, 64)),
+        ("1x1/s2 shortcut", lambda g: conv(256, 512, 1, 1, 2, 2, 0, 0,
+                                           generator=g), (8, 56, 56, 256)),
+        ("3x3 g=2 d=2 SAME", lambda g: nn.SpatialDilatedConvolution(
+            64, 64, 3, 3, 1, 1, -1, -1, 2, 2, n_group=2, device="cuda",
+            generator=g), (8, 28, 28, 64)),
+    ]
+    rows = []
+    for i, (label, make, shape) in enumerate(cases):
+        f = make(torch.Generator().manual_seed(i)).eval()
+        q = Quantizer.quantize(f)
+        qc = Quantizer.quantize(copy.deepcopy(f).to("cpu"))
+        wo = Quantizer.quantize(f, weight_only=True)
+        check(torch.equal(q.weight.cpu(), qc.weight)
+              and torch.equal(q.scale.cpu(), qc.scale),
+              f"{label}: int8 weights or scales differ from the CPU's")
+        x = torch.from_numpy(np.random.RandomState(i).randn(*shape).astype(
+            np.float32))
+        row = {"layer": label, "x": list(shape)}
+        with torch.inference_mode():
+            for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                xc = x.to(dt)
+                xg = xc.cuda()
+                acc, xs = q.accumulate(xg)
+                acc_c, xs_c = qc.accumulate(xc)
+                check(torch.equal(acc.cpu(), acc_c)
+                      and torch.equal(xs.cpu(), xs_c),
+                      f"{label} {tag}: int32 sums or scales differ")
+                y, yc = q(xg).cpu(), qc(xc)
+                bitwise = torch.equal(y, yc)
+                row[f"{tag}_bitwise"] = bitwise
+                row[f"{tag}_rel_err"] = _rel(y, yc)
+                check(bitwise if tag == "f32"
+                      else row["bf16_rel_err"] <= P19_BF16_RTOL,
+                      f"{label} {tag}: the card's output is off the CPU's "
+                      f"({row[f'{tag}_rel_err']:.3e})")
+            xg = x.cuda()
+            row["weight_only_rel_err"] = _rel(wo(xg), f(xg))
+            check(row["weight_only_rel_err"] <= P19_WEIGHT_ONLY_RTOL,
+                  f"{label}: weight-only off its float layer "
+                  f"({row['weight_only_rel_err']:.3e})")
+            xb = xg.bfloat16()
+            fb = copy.deepcopy(f).to(torch.bfloat16)
+            wb = copy.deepcopy(wo).to(torch.bfloat16)
+            row["ms"] = {"full_int8": cuda_ms(lambda: q(xb), 10),
+                         "weight_only": cuda_ms(lambda: wb(xb), 10),
+                         "bf16": cuda_ms(lambda: fb(xb), 10)}
+        rows.append(row)
+        print("int8 layer " + json.dumps(row), flush=True)
+    return rows
+
+
+def quant_bench_phase(bk):
+    """19(b): `tools/bench.py --model int8_serving` (ResNet-50 b256);
+    returns its kernel 6 launches."""
+    from bigdl_tpu_torch.tools.bench import bench_int8_serving
+    out = bench_int8_serving()
+    print("int8 serving bench " + json.dumps(out), flush=True)
+    v = out["variants"]
+    for name, row in v.items():
+        check(row["bn_relu_fwd_per_forward"] == BN_SITES,
+              f"{name}: kernel 6 launched {row['bn_relu_fwd_per_forward']} "
+              f"times a forward, not {BN_SITES}")
+        check(row["images_per_s"] > 0, f"{name}: {row['images_per_s']}")
+    check(v["full int8"]["int8_mm_per_forward"] == P19_PRODUCTS
+          and v["full int8"]["float_product_per_forward"] == 0,
+          f"full int8: {v['full int8']}")
+    check(v["weight-only int8"]["float_product_per_forward"] == P19_PRODUCTS
+          and v["weight-only int8"]["int8_mm_per_forward"] == 0,
+          f"weight-only int8: {v['weight-only int8']}")
+    for name in ("weight-only int8", "full int8"):
+        check(math.isfinite(v[name]["max_abs_diff_vs_bf16"]),
+              f"{name}: outputs not finite")
+    return sum(round(r["bn_relu_fwd_per_forward"] * out["iters"])
+               for r in v.values())
+
+
+def quant_serving_phase(sk, bk):
+    """19(c): `ResNet(1000, depth=50, s2d_stem=True)` (f32, randomized BN
+    state, the stem switch set) quantized both ways, a burst of 96 through
+    `InferenceEngine(convert=False)` against `LocalPredictor(convert=
+    False)`. Returns kernels 5 and 6's launches."""
+    from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.nn.quantized import Quantizer, float_product, int8_mm
+    from bigdl_tpu_torch.optim import LocalPredictor
+    from bigdl_tpu_torch.serving import InferenceEngine
+    model = ResNet(class_num=1000, depth=50, s2d_stem=True, device="cuda",
+                   generator=torch.Generator().manual_seed(0))
+    _randomize_bn_state(model, 2)
+    images = np.random.RandomState(0).rand(
+        SERVE_BURST, SERVE_HW, SERVE_HW, 3).astype(np.float32)
+    launches = {"stem_conv": 0, "bn_relu_fwd": 0}
+    os.environ[STEM_ENV] = "1"
+    try:
+        for weight_only in (False, True):
+            label = "weight-only int8" if weight_only else "full int8"
+            q = Quantizer.quantize(model, weight_only=weight_only)
+            ref = np.stack(LocalPredictor(q, batch_size=SERVE_BATCH,
+                                          convert=False,
+                                          device="cuda").predict(images))
+            products = float_product if weight_only else int8_mm
+            with InferenceEngine(q, max_batch_size=SERVE_BATCH,
+                                 max_wait_ms=2.0, convert=False,
+                                 device="cuda") as eng:
+                eng.warmup(images[0])
+                _reset_stem_counts(sk, bk)
+                products.launches = 0
+                t0 = time.perf_counter()
+                futs = [eng.submit(img) for img in images]
+                got = np.stack([f.result(300) for f in futs])
+                wall = time.perf_counter() - t0
+                counts = _stem_counts(sk, bk)
+                stats = eng.stats()
+            diff = np.abs(got - ref)
+            rel = float(diff.max() / np.abs(ref).max())
+            out = {"model": label, "requests": SERVE_BURST, "wall_s": wall,
+                   "requests_per_sec": SERVE_BURST / wall,
+                   **{k: stats.get(k) for k in (
+                       "latency_ms_p50", "latency_ms_p95", "latency_ms_p99",
+                       "batch_size_p50", "batches", "completed", "failed")},
+                   "bitwise": bool((diff == 0).all()), "rel_err": rel,
+                   "launches": {"stem_conv": counts[0],
+                                "bn_relu_fwd": counts[1],
+                                "products": products.launches},
+                   "argmax_agreement": float(
+                       (got.argmax(1) == ref.argmax(1)).mean())}
+            print("int8 serving " + json.dumps(out), flush=True)
+            b = stats["batches"]
+            check(stats["completed"] == SERVE_BURST and np.isfinite(got).all(),
+                  f"{label}: {stats['completed']} of {SERVE_BURST} served")
+            check(counts == (b, BN_SITES * b)
+                  and products.launches == P19_SERVED_PRODUCTS * b,
+                  f"{label}: launches {out['launches']} for {b} batches")
+            check(rel <= (P19_SERVE_WO_RTOL if weight_only else 0.0),
+                  f"{label}: served rows off offline predict ({rel:.3e})")
+            launches["stem_conv"] += counts[0]
+            launches["bn_relu_fwd"] += counts[1]
+    finally:
+        os.environ.pop(STEM_ENV, None)
+    del model, q
+    torch.cuda.empty_cache()
+    return launches
+
+
+def quantization_phase(sk, bk):
+    """19: (a)-(c) and the phase's wall time; returns the launches of
+    kernels 5 and 6 in (b) and (c)."""
+    t0 = time.perf_counter()
+    quant_layer_phase()
+    bench_bn = quant_bench_phase(bk)
+    served = quant_serving_phase(sk, bk)
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"stem_conv": served["stem_conv"],
+            "bn_relu_fwd": bench_bn + served["bn_relu_fwd"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4734,11 +4957,13 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     tc_build = build_phase(_build)
 
-    if sys.argv[1:2] in (["--phase17"], ["--phase18"]):
+    if sys.argv[1:2] in (["--phase17"], ["--phase18"], ["--phase19"]):
         if sys.argv[1] == "--phase17":
             observability_phase(ak, sk, bk)
-        else:
+        elif sys.argv[1] == "--phase18":
             elastic_phase(ak)
+        else:
+            quantization_phase(sk, bk)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -4840,6 +5065,9 @@ def main() -> int:
 
     # 18. elastic training and preemption
     elastic_launches, preempt_launches = elastic_phase(ak)
+
+    # 19. int8 post-training quantization
+    int8_launches = quantization_phase(sk, bk)
     zoo_launches = {
         "launches_inception_v1": zoo_bench["inception_v1"]["launches"],
         "launches_inception_v2": zoo_bench["inception_v2"]["launches"],
@@ -4882,10 +5110,13 @@ def main() -> int:
            "zoo_shapes": zoo_rows[d],
            "launches_dp_ranks": [l[d] * dp_steps for l in dp_launches],
            "launches_elastic": elastic_launches[row["name"]],
+           **({"launches_int8_serving": int8_launches["bn_relu_fwd"]}
+              if d == "fwd" else {}),
            "dp_rank_shape": dp_rows[d]}
           for row, d in ((BN_FWD_ROW, "fwd"), (BN_BWD_ROW, "bwd"))],
         {**STEM_ROW, "launches": stem_launches, **stem_row,
          "build": tc_build["stem_conv"], "status": "ok",
+         "launches_int8_serving": int8_launches["stem_conv"],
          **{k: v["stem_conv"] for k, v in zoo_launches.items()},
          "zoo_shapes": zoo_rows["stem"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {

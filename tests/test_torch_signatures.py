@@ -101,7 +101,36 @@ def test_the_walk_sees_the_ported_modules():
     names = {p for p, _ in PAIRS}
     assert {"bigdl_tpu_torch.nn.normalization", "bigdl_tpu_torch.nn.pooling",
             "bigdl_tpu_torch.optim.distri_optimizer",
-            "bigdl_tpu_torch.ops.attention_kernel"} <= names
+            "bigdl_tpu_torch.ops.attention_kernel",
+            "bigdl_tpu_torch.nn.quantized",
+            "bigdl_tpu_torch.tensor.quantized"} <= names
+
+
+#: (module path under both packages, class, method) of the quantization
+#: API's methods, which the class walk above does not reach
+QUANT_METHODS = [
+    ("nn.quantized", "QuantizedLinear", "from_float"),
+    ("nn.quantized", "QuantizedSpatialConvolution", "from_float"),
+    ("nn.quantized", "WeightOnlyQuantizedLinear", "from_float"),
+    ("nn.quantized", "WeightOnlyQuantizedSpatialConvolution", "from_float"),
+    ("nn.quantized", "Quantizer", "quantize"),
+    ("nn.module", "Module", "quantize"),
+    ("tensor.quantized", "QuantizedTensor", "from_float"),
+    ("tensor.quantized", "QuantizedTensor", "matmul_t"),
+]
+
+
+@pytest.mark.parametrize("path,cls,method", QUANT_METHODS,
+                         ids=[f"{c}.{m}" for _, c, m in QUANT_METHODS])
+def test_quantization_methods_take_the_reference_positionals(path, cls,
+                                                             method):
+    """`from_float(module, params)` keeps the reference's positional
+    `params` (None: the module's own), `quantize(module, weight_only)`
+    and the tensor's methods theirs."""
+    port, ref = (getattr(importlib.import_module(f"{pkg}.{path}"), cls)
+                 for pkg in ("bigdl_tpu_torch", "bigdl_tpu"))
+    assert _positional(getattr(port, method)) == \
+        _positional(getattr(ref, method))
 
 
 @pytest.mark.parametrize("port_name,ref_name", PAIRS,
