@@ -44,7 +44,7 @@ Example:
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -141,23 +141,42 @@ class _Session:
         self.hidden_flops = 0
 
 
-#: the active `count_flops` sessions (outermost first); the kernel
-#: wrappers read this on every call, so the disabled path is one global
-#: load and a truth test
-_SESSIONS: List[_Session] = []
+#: the active `count_flops` sessions, (counter, session) pairs, outermost
+#: first. A kernel wrapper adds to the sessions whose counter is on ITS
+#: thread's dispatch-mode stack (`_active`): a serving engine counting a
+#: bucket on the meta device must not take in the kernels another replica
+#: launches meanwhile, while the backward of a counted step, which
+#: autograd runs on its own thread on the card, inherits that stack and
+#: counts. With no count anywhere the check is one global load and a
+#: truth test.
+_SESSIONS: List[Tuple[object, _Session]] = []
+
+
+def _active() -> List[_Session]:
+    """The sessions whose counter is active on the calling thread."""
+    if not _SESSIONS:
+        return []
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    ids = set()
+    for mode in _get_current_dispatch_mode_stack():
+        # FlopCounterMode pushes an inner mode that holds it as `counter`
+        ids.update((id(mode), id(getattr(mode, "counter", None))))
+    return [s for c, s in _SESSIONS if id(c) in ids]
 
 
 def counting() -> bool:
-    """True inside `count_flops`: a kernel wrapper given `meta` tensors
-    then only counts (outside a count, the meta device has no kernel)."""
-    return bool(_SESSIONS)
+    """True inside `count_flops` on this thread (or an autograd thread of
+    it): a kernel wrapper given `meta` tensors then only counts (outside a
+    count, the meta device has no kernel)."""
+    return bool(_active())
 
 
 def tally_kernel(flops: Callable[[], float]) -> None:
     """A kernel wrapper's launch: add `flops()` to every active count."""
-    if _SESSIONS:
+    sessions = _active()
+    if sessions:
         n = int(flops())
-        for s in _SESSIONS:
+        for s in sessions:
             s.kernel_flops += n
 
 
@@ -165,12 +184,13 @@ def plain_route(flops: Callable[[], float], fn, *args, **kwargs):
     """Run a kernel's plain version `fn(*args, **kwargs)` in place of the
     kernel: while a count is active, its aten ops are hidden from the
     counter and the kernel's formula `flops()` is added instead."""
-    if not _SESSIONS:
+    sessions = _active()
+    if not sessions:
         return fn(*args, **kwargs)
     with _counter() as inner:
         out = fn(*args, **kwargs)
     seen, n = inner.get_total_flops(), int(flops())
-    for s in _SESSIONS:
+    for s in sessions:
         s.hidden_flops += seen
         s.kernel_flops += n
     return out
@@ -183,10 +203,11 @@ def count_flops(fn, *args, **kwargs) -> int:
     Elementwise aten ops count nothing, as in `FlopCounterMode`."""
     session = _Session()
     with _counter() as counter:
-        _SESSIONS.append(session)
+        entry = (counter, session)
+        _SESSIONS.append(entry)
         try:
             fn(*args, **kwargs)
         finally:
-            _SESSIONS.remove(session)
+            _SESSIONS.remove(entry)
     return (counter.get_total_flops() - session.hidden_flops
             + session.kernel_flops)

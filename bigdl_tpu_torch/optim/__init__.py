@@ -4,8 +4,8 @@ optimization methods (`SGD`, the Adam family, `LAMB`, `Adagrad`,
 learning-rate schedules, triggers, metrics, the
 regularizers, the validation methods and `Evaluator`, `LocalOptimizer`,
 the data-parallel `DistriOptimizer` (one process per device) with its
-gradient buckets (`GradientBucketPlan`), the `Optimizer` factory, and
-`LocalPredictor`."""
+gradient buckets (`GradientBucketPlan`), the `Optimizer` factory,
+`LocalPredictor` and the `PredictionService` facade."""
 
 from bigdl_tpu_torch.optim.bucketing import GradientBucketPlan
 from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
@@ -19,7 +19,8 @@ from bigdl_tpu_torch.optim.optim_method import (LAMB, LBFGS, SGD, Adadelta,
                                                 CompositeOptimMethod, Ftrl,
                                                 OptimMethod, RMSprop)
 from bigdl_tpu_torch.optim.optimizer import Optimizer
-from bigdl_tpu_torch.optim.predictor import LocalPredictor, Predictor
+from bigdl_tpu_torch.optim.predictor import (LocalPredictor,
+                                             PredictionService, Predictor)
 from bigdl_tpu_torch.optim.regularizer import (L1L2Regularizer,
                                                L1Regularizer, L2Regularizer,
                                                Regularizer)
@@ -53,7 +54,8 @@ __all__ = ["AccuracyResult", "Adadelta", "Adagrad", "Adam", "Adamax",
            "LAMB", "LBFGS", "LearningRateSchedule", "LocalOptimizer",
            "LocalPredictor", "LocalValidator", "Loss", "LossResult", "MAE",
            "Metrics", "MultiStep", "NDCG", "NaturalExp", "OptimMethod",
-           "Optimizer", "Plateau", "Poly", "Predictor", "RMSprop", "Regime",
+           "Optimizer", "Plateau", "Poly", "PredictionService", "Predictor",
+           "RMSprop", "Regime",
            "Regularizer", "SGD", "SequentialSchedule", "Step", "Timer",
            "Top1Accuracy", "Top5Accuracy", "TreeNNAccuracy", "Trigger",
            "ValidationMethod", "ValidationResult", "Warmup",

@@ -10,8 +10,12 @@ fold, noise elision, the space-to-depth stem restatement) and leaves the
 caller's model untouched. A batch of several inputs reaches the model
 as the 1-based `Table`, as in the training loop.
 
-Not ported yet: `DistriPredictor` (the mesh-sharded predictor) and the
-`PredictionService` facade.
+`PredictionService` is the reference's thread-safe `predict(sample)`
+facade over a `serving.InferenceEngine`: concurrent callers coalesce into
+padded micro-batches of one forward each.
+
+Not ported yet: `DistriPredictor` (the mesh-sharded predictor,
+`ROADMAP.md` queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from __future__ import annotations
 import copy
 import itertools
 from collections import deque
-from typing import Iterable, List
+from typing import Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -132,3 +136,42 @@ class LocalPredictor:
 #: distributed predict is local predict on each host's shard; alias for
 #: parity with the reference
 Predictor = LocalPredictor
+
+
+class PredictionService:
+    """Thread-safe serving (the reference's `PredictionService`): a facade
+    over the micro-batching `serving.InferenceEngine`, so concurrent
+    `predict` calls coalesce into padded batches of one forward each
+    rather than one forward per caller.
+
+    `predict(sample) -> np.ndarray` gives one sample's output row;
+    `close()` (or the context manager) joins the engine's non-daemon
+    dispatcher. Engine knobs (`max_wait_ms`, `admission`, `buckets`,
+    `device`, ...) pass through as keyword arguments. `max_wait_ms`
+    defaults to 0 here: a serial caller blocked on its own future cannot
+    send a second request, so holding the window open would only add
+    latency; concurrent callers still coalesce through the backlog that
+    builds while the previous batch runs. The service serves the engine's
+    converted copy (`model`), never the caller's module."""
+
+    def __init__(self, model: torch.nn.Module, batch_size: int = 32,
+                 **engine_kw):
+        from bigdl_tpu_torch.serving import InferenceEngine
+        engine_kw.setdefault("max_wait_ms", 0.0)
+        self.engine = InferenceEngine(model, max_batch_size=batch_size,
+                                      **engine_kw)
+        self.predictor = self.engine._pred
+        self.model = self.engine.model
+
+    def predict(self, sample, timeout: Optional[float] = None) -> np.ndarray:
+        return self.engine.predict(sample, timeout=timeout)
+
+    def close(self):
+        """Serve the queued requests and join the dispatcher thread."""
+        self.engine.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

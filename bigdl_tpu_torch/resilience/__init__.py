@@ -2,6 +2,9 @@
 
 - `faults`: the seeded `FaultInjector` and the sites the port instruments.
 - `retry`: `RetryPolicy`.
+- `breaker`: `CircuitBreaker`, tripped by consecutive failures, shedding
+  while open, recovering through half-open probes; the serving engines
+  key one per batch bucket.
 - `membership`: `WorkerRegistry` (leases, heartbeats, an injectable
   clock), `SimulatedCluster`, the `Slot`s that give repeated devices an
   identity each, and `DeviceLossError` / `CollectiveError`.
@@ -9,10 +12,10 @@
   replay boundary; `DistriOptimizer.set_elastic` turns it into shrink,
   replay and grow.
 - `preemption`: `PreemptionHandler`, SIGTERM to a checkpoint, a drain and
-  a clean `run_abort`, the previous disposition restored.
+  a clean `run_abort`, the previous disposition restored."""
 
-The circuit breaker is not ported yet (`ROADMAP.md` queue 1 item 6)."""
-
+from bigdl_tpu_torch.resilience.breaker import (CLOSED, HALF_OPEN, OPEN,
+                                                CircuitBreaker)
 from bigdl_tpu_torch.resilience.elastic import (ElasticController,
                                                 ElasticPlan,
                                                 InsufficientCapacityError)
@@ -36,7 +39,7 @@ from bigdl_tpu_torch.resilience.retry import (DEFAULT_PERMANENT,
 __all__ = ["FaultInjector", "FaultSpec", "fire", "active_injector",
            "register_site", "known_sites", "InjectedFault",
            "TransientInjectedFault", "PermanentInjectedFault",
-           "RetryPolicy", "RetryBudgetExhausted",
+           "RetryPolicy", "RetryBudgetExhausted", "CircuitBreaker",
            "WorkerRegistry", "SimulatedCluster", "Slot", "DeviceLossError",
            "CollectiveError", "ElasticController", "ElasticPlan",
            "InsufficientCapacityError", "PreemptionHandler",

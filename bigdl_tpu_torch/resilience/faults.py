@@ -14,14 +14,21 @@ Sites the port instruments:
     ckpt.write.manifest / ckpt.commit      serialization/checkpoint.py
     train.step                             both optimizers' training loops
     mesh.device_loss / mesh.collective     DistriOptimizer's elastic loop
+    serve.forward                          serving/engine.py dispatch and
+                                           generation.py prefill
+    serve.decode                           serving/generation.py (registered
+                                           with register_site on import)
+    serve.replica_crash / serve.route /
+    serve.drain                            serving/fleet.py (registered
+                                           with register_site on import)
     fs.remote_io                           utils/filesystem.py remote ops
     telemetry.sink                         observability/telemetry.py emit
 
-The reference's other sites (`prefetch.worker`, `serve.*`) belong to
-subsystems the port has not ported yet; a `FaultSpec` naming one raises,
-since it would never fire. An injector given a `Telemetry`
-emits a `fault_injected` event for each fault it raises; that emission
-does not fire the `telemetry.sink` site again.
+The reference's `prefetch.worker` belongs to a subsystem the port has not
+ported yet; a `FaultSpec` naming it raises, since it would never fire.
+An injector given a `Telemetry` emits a `fault_injected` event for each
+fault it raises; that emission does not fire the `telemetry.sink` site
+again.
 
 Example: crash the 3rd training step once, transiently:
 
@@ -47,7 +54,7 @@ KNOWN_SITES = (
     "ckpt.write.params", "ckpt.write.state", "ckpt.write.optim",
     "ckpt.write.manifest", "ckpt.commit",
     "train.step", "mesh.device_loss", "mesh.collective",
-    "fs.remote_io", "telemetry.sink",
+    "serve.forward", "fs.remote_io", "telemetry.sink",
 )
 
 _EXTRA_SITES: set = set()

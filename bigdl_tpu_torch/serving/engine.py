@@ -26,17 +26,36 @@ its spans lie on one of 16 request lanes, flow-linked to the batch's
 request's record and spans (each kept record has `sample_weight` N); a
 request that did not complete always traces. A `serving_stats` record
 every `emit_every` batches and a `serving_summary` on close. A failing
-sink is logged and never stops serving.
+sink is logged and never stops serving. `replica_id` (a fleet's replica
+identity) and each request's `session` ride on its `trace` record.
 
-Not ported yet (`ROADMAP.md` queue 1 item 6): the per-bucket circuit
-breaker (`breaker`, `ServingUnavailableError`, `health()`; the `shed`
-counter stays 0), the fault sites, `session` / `replica_id`, and the MFU /
-FLOPs stats.
+The circuit breaker (`breaker=`, the reference's): one
+`resilience.CircuitBreaker` per (feature signature, bucket) batch domain,
+built on first use and labelled `b{bucket}[shape:dtype|...]`. An OPEN
+domain sheds its group at dispatch with `ServingUnavailableError` and no
+forward (counted in `shed`); a batch admitted while HALF_OPEN is the
+probe. A batch's outcome reaches its breaker only when its rows reach the
+host (`_complete`), and a batch dispatched while the circuit was closed
+carries `probe=False`, so with `inflight` 2 a batch that finishes after a
+trip is not probe evidence. Transitions emit `circuit_open` /
+`circuit_half_open` / `circuit_close` events; `health()` reports the open
+domains. The `serve.forward` fault site fires inside the dispatch span
+with `bucket`, `n` and `sig`.
+
+Costs: `stats()` carries `flops_per_step` (the mean FLOPs of a dispatched
+batch) and `mfu` (the lifetime FLOPs over the wall time since the engine
+started, against the card's registry peak; None on the CPU). The port has
+no compiler cost analysis: each (feature signature, bucket) forward is
+counted once, by `observability.costs.count_flops` on a meta-device copy
+of the served model (nothing launches; each kernel wrapper adds its
+formula), and cached. `bytes_accessed` is always None: `count_flops`
+counts operations, not bytes, and no executable reports its traffic.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import itertools
 import logging
 import threading
@@ -51,8 +70,13 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.dataset.sample import Sample
+from bigdl_tpu_torch.observability import costs
 from bigdl_tpu_torch.observability.spans import TraceContext
+from bigdl_tpu_torch.optim.local_optimizer import _meta
 from bigdl_tpu_torch.optim.predictor import LocalPredictor, to_numpy_rows
+from bigdl_tpu_torch.resilience import faults
+from bigdl_tpu_torch.resilience.breaker import (CLOSED, HALF_OPEN, OPEN,
+                                                CircuitBreaker)
 from bigdl_tpu_torch.serving.stats import WindowedHistogram
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
@@ -93,6 +117,13 @@ class EngineClosedError(ServingError):
     """The engine is shut down (or shutting down) and not accepting work."""
 
 
+class ServingUnavailableError(ServingError):
+    """Fast-fail shed: this request's batch domain has its circuit breaker
+    OPEN (too many consecutive batch failures), so it was refused without
+    a forward. Retry after the breaker's reset timeout, or route
+    elsewhere."""
+
+
 def default_buckets(max_batch_size: int) -> List[int]:
     """Powers of two from 2 up to `max_batch_size` (which always caps the
     list): 32 -> [2, 4, 8, 16, 32], 24 -> [2, 4, 8, 16, 24], 1 -> [1]."""
@@ -123,12 +154,19 @@ class ServingEngine:
     emit_every : a `serving_stats` record every this many batches.
     hist_window : observations kept by each latency histogram.
     trace_sample : trace every Nth completed request (1: all).
+    breaker : a dict of `CircuitBreaker` keyword arguments
+        (`failure_threshold`, `reset_timeout_s`, `probe_successes`,
+        `clock`) arming one breaker per batch domain, or None (off).
+    replica_id : the engine's identity in a fleet, written on every
+        `trace` record, or None.
     """
 
     def __init__(self, max_batch_size: int = 32, queue_capacity: int = 256,
                  admission: str = "block", start: bool = True, *,
                  telemetry=None, tracer=None, emit_every: int = 50,
-                 hist_window: int = 8192, trace_sample: int = 1):
+                 hist_window: int = 8192, trace_sample: int = 1,
+                 breaker: Optional[Dict] = None,
+                 replica_id: Optional[str] = None):
         if queue_capacity < 1:
             raise ValueError(
                 f"queue_capacity must be >= 1, got {queue_capacity}")
@@ -167,6 +205,14 @@ class ServingEngine:
                    "shed": 0, "batches": 0, "bucket_hits": 0, "rows": 0,
                    "padded_rows": 0}
         self._compiled = set()  # (shape, bucket) pairs seen or warmed
+        self._breaker_cfg = dict(breaker) if breaker is not None else None
+        self._breakers: Dict[tuple, CircuitBreaker] = {}  # under _slock
+        self.replica_id = replica_id
+        # FLOPs of one forward per batch domain (None: the count failed),
+        # and the sum over dispatched batches, both under _slock
+        self._flops: Dict[tuple, Optional[int]] = {}
+        self._flops_total = 0.0
+        self._meta_model = None  # the meta-device copy the counts run on
         self._t0_mono = time.monotonic()
         # perf_counter twin of _t0_mono: a trace record's arrival offset
         self._t0_perf = time.perf_counter()
@@ -255,6 +301,10 @@ class ServingEngine:
                "status": status, "latency_ms": round(total_ms, 3),
                "arrival_offset_ms":
                    round((r.t_submit - self._t0_perf) * 1e3, 3), **fields}
+        if r.session is not None:
+            rec["session_id"] = str(r.session)
+        if self.replica_id is not None:
+            rec["replica_id"] = self.replica_id
         if status == "ok" and self.trace_sample > 1:
             # this record stands for trace_sample completed requests
             rec["sample_weight"] = self.trace_sample
@@ -321,34 +371,138 @@ class ServingEngine:
                 return b
         return self.buckets[-1]
 
+    # ------------------------------------------------------------ breaker
+    @staticmethod
+    def _bucket_label(sig, bucket: int) -> str:
+        """A batch domain's label: the bucket and each feature's
+        shape:dtype."""
+        shapes = "|".join(
+            "x".join(map(str, shape)) + f":{dtype}" for shape, dtype in sig)
+        return f"b{bucket}[{shapes}]"
+
+    def _breaker_for(self, sig, bucket: int) -> Optional[CircuitBreaker]:
+        """The breaker guarding one (signature, bucket) batch domain, built
+        on first use; None when breakers are off."""
+        if self._breaker_cfg is None:
+            return None
+        key = (sig, bucket)
+        with self._slock:
+            br = self._breakers.get(key)
+            if br is None:
+                br = self._breakers[key] = CircuitBreaker(
+                    name=self._bucket_label(sig, bucket),
+                    on_transition=self._on_breaker_transition,
+                    **self._breaker_cfg)
+            return br
+
+    def _on_breaker_transition(self, old: str, new: str,
+                               br: CircuitBreaker):
+        kind = {OPEN: "circuit_open", CLOSED: "circuit_close"}.get(
+            new, "circuit_half_open")
+        logger.warning("serving circuit %s: %s -> %s", br.name, old, new)
+        self._emit_safe({"type": "event", "event": kind,
+                         "bucket": br.name, "from": old, "to": new})
+
+    def _admit_batch(self, sig, bucket: int, n: int):
+        """The breaker check at dispatch: (breaker, probe, shed). `shed`
+        means the domain is OPEN and the caller must refuse its group (the
+        `shed` counter is already raised); `probe` is whether this batch
+        was admitted HALF_OPEN (the dispatcher alone dispatches, so the
+        state read after `allow()` is the one it admitted under)."""
+        br = self._breaker_for(sig, bucket)
+        if br is not None and not br.allow():
+            with self._slock:  # count before resolving
+                self._n["shed"] += n
+            return br, False, True
+        return br, br is not None and br.state == HALF_OPEN, False
+
+    # ------------------------------------------------------------ costs
+    def _count_flops(self, key, fn) -> Optional[int]:
+        """FLOPs of one forward of batch domain `key`: `fn(meta_model)`
+        counted by `costs.count_flops` once, then cached. A failed count
+        is logged and kept as None (attribution never fails serving)."""
+        with self._slock:
+            if key in self._flops:
+                return self._flops[key]
+        try:
+            if self._meta_model is None:
+                self._meta_model = _meta(self.model)
+            n = costs.count_flops(fn, self._meta_model)
+        except Exception as e:
+            logger.warning("FLOP count of %s failed (%r)", key, e)
+            n = None
+        with self._slock:
+            self._flops[key] = n
+        return n
+
+    def _add_flops(self, n: Optional[int]):
+        if n:
+            with self._slock:
+                self._flops_total += n
+
     # ------------------------------------------------------------ stats
     def stats(self) -> Dict:
         """Flat JSON-safe snapshot: counters, queue depth, bucket hit rate,
-        pad fraction, and ms-scaled p50/p95/p99 of queue wait and
-        end-to-end latency, plus batch-size quantiles."""
+        pad fraction, ms-scaled p50/p95/p99 of queue wait and end-to-end
+        latency, batch-size quantiles, and the costs (the module docstring
+        says how `flops_per_step` and `mfu` are counted)."""
         with self._lock:
             depth = len(self._q)
         with self._slock:
             n = dict(self._n)
+            flops_total = self._flops_total
         out = {"queue_depth": depth, **n}
         out["bucket_hit_rate"] = round(n["bucket_hits"] / n["batches"], 4) \
             if n["batches"] else None
         out["pad_fraction"] = round(n["padded_rows"] / n["rows"], 4) \
             if n["rows"] else None
+        out["flops_per_step"] = round(flops_total / n["batches"], 1) \
+            if n["batches"] and flops_total else None
+        out["bytes_accessed"] = None
+        m = costs.mfu(flops_total or None, time.monotonic() - self._t0_mono,
+                      device_kind=self._device_kind())
+        out["mfu"] = round(m, 6) if m is not None else None
         out.update(self.queue_wait.snapshot("queue_wait_ms", scale=1e3))
         out.update(self.latency.snapshot("latency_ms", scale=1e3))
         out.update(self.batch_sizes.snapshot("batch_size", digits=1))
         return out
 
+    def _device_kind(self) -> str:
+        """The registry key of the engine's device (`self.device`, which
+        each subclass sets)."""
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_name(self.device)
+        return self.device.type
+
+    def health(self) -> Dict:
+        """The load balancer's probe: `status` "ok" (serving, every circuit
+        closed), "degraded" (a batch domain's breaker is open or half open;
+        the others still serve) or "closed"; `open_buckets`, the degraded
+        domains' labels; `breakers`, each domain's
+        `CircuitBreaker.snapshot()`; `queue_depth` / `queue_capacity`."""
+        with self._lock:
+            depth = len(self._q)
+            closing = self._closing
+        with self._slock:
+            breakers = list(self._breakers.values())
+        snaps = {br.name: br.snapshot() for br in breakers}
+        open_buckets = sorted(name for name, s in snaps.items()
+                              if s["state"] != CLOSED)
+        status = "closed" if closing else \
+            ("degraded" if open_buckets else "ok")
+        return {"status": status, "open_buckets": open_buckets,
+                "breakers": snaps, "queue_depth": depth,
+                "queue_capacity": self.queue_capacity}
+
 
 class _Request:
     __slots__ = ("features", "future", "t_submit", "deadline", "ctx", "seq",
-                 "t_gather", "deadline_budget_ms")
+                 "t_gather", "session", "deadline_budget_ms")
 
     def __init__(self, features: List[np.ndarray],
                  deadline: Optional[float],
                  ctx: Optional[TraceContext] = None, seq: int = 0,
-                 deadline_budget_ms: Optional[float] = None):
+                 session=None, deadline_budget_ms: Optional[float] = None):
         self.features = features
         self.future: Future = Future()
         self.t_submit = time.perf_counter()
@@ -356,6 +510,7 @@ class _Request:
         self.ctx = ctx            # trace identity, carried across threads
         self.seq = seq
         self.t_gather: Optional[float] = None  # when its batch closed
+        self.session = session    # echoed into the trace record
         self.deadline_budget_ms = deadline_budget_ms  # as given
 
     def signature(self):
@@ -407,11 +562,9 @@ class InferenceEngine(ServingEngine):
     buckets : ascending pad targets; None = `default_buckets(...)`. The
         largest bucket is the dispatch cap.
     inflight : dispatched-but-unfetched batches kept in flight.
-    telemetry / tracer / emit_every / hist_window / trace_sample : as
-        `ServingEngine` (the module docstring says what they record).
-    breaker / replica_id : the reference's circuit breaker and fleet
-        identity, not ported: anything but None raises
-        `NotImplementedError`.
+    telemetry / tracer / emit_every / hist_window / trace_sample /
+        breaker / replica_id : as `ServingEngine` (the module docstring
+        says what they do).
     device : where the engine runs; the model must live there. Default
         CUDA (see `resolve_device`).
     queue_capacity / admission / start : as `ServingEngine`.
@@ -426,10 +579,6 @@ class InferenceEngine(ServingEngine):
                  hist_window: int = 8192, breaker: Optional[Dict] = None,
                  trace_sample: int = 1, replica_id: Optional[str] = None,
                  *, device=None, start: bool = True):
-        if breaker is not None or replica_id is not None:
-            raise NotImplementedError(
-                "the circuit breaker and replica_id are not ported yet "
-                "(ROADMAP.md queue 1 item 6)")
         if max_wait_ms < 0:
             raise ValueError(f"max_wait_ms must be >= 0, got {max_wait_ms}")
         if inflight < 1:
@@ -447,7 +596,8 @@ class InferenceEngine(ServingEngine):
                          queue_capacity=queue_capacity, admission=admission,
                          start=False, telemetry=telemetry, tracer=tracer,
                          emit_every=emit_every, hist_window=hist_window,
-                         trace_sample=trace_sample)
+                         trace_sample=trace_sample, breaker=breaker,
+                         replica_id=replica_id)
         if buckets is not None:
             self.buckets = buckets
         self.model = self._pred.model  # the converted serving copy
@@ -458,16 +608,19 @@ class InferenceEngine(ServingEngine):
             self.start()
 
     # ------------------------------------------------------------ admission
-    def submit(self, sample, deadline_ms: Optional[float] = None) -> Future:
+    def submit(self, sample, deadline_ms: Optional[float] = None,
+               session=None) -> Future:
         """Enqueue one request; returns a `concurrent.futures.Future` that
         resolves to the per-sample output row (a numpy array) or raises
         `ServingTimeoutError` / `ServingError`. `sample` is a `Sample` or
         a feature array. `deadline_ms` bounds the request's whole queued
-        life: admission (block mode) and batching both observe it."""
+        life: admission (block mode) and batching both observe it.
+        `session` is the caller's identity, echoed on the request's trace
+        record as `session_id` (affinity is the fleet router's job)."""
         deadline = time.perf_counter() + deadline_ms / 1e3 \
             if deadline_ms is not None else None
         req = _Request(_features(sample), deadline, self._new_context(),
-                       next(self._req_seq), deadline_ms)
+                       next(self._req_seq), session, deadline_ms)
         self._admit(req)
         return req.future
 
@@ -488,14 +641,17 @@ class InferenceEngine(ServingEngine):
     def warmup(self, sample) -> int:
         """Run the forward once at every bucket with `sample`'s features
         (replicated), blocking until each has finished, so that the first
-        request pays no kernel build or library initialisation. Returns
+        request pays no kernel build or library initialisation; each
+        bucket's FLOPs are counted here too, off the serving path. Returns
         `compile_count()`."""
         feats = _features(sample)
         for b in self.buckets:
-            y = self._forward_arrays([np.stack([f] * b) for f in feats])
+            cols = [np.stack([f] * b) for f in feats]
+            y = self._forward_arrays(cols)
             to_numpy_rows(y)  # blocks until the forward has run
             with self._slock:
                 self._compiled.add((_signature(feats), b))
+            self._bucket_flops(_signature(feats), b, cols)
         return self.compile_count()
 
     def compile_count(self) -> int:
@@ -583,24 +739,49 @@ class InferenceEngine(ServingEngine):
             groups.setdefault(r.signature(), []).append(r)
         return list(groups.values())
 
-    def _forward_arrays(self, arrs: List[np.ndarray]):
+    def _forward_arrays(self, arrs: List[np.ndarray], pred=None):
         """One forward of the stacked feature columns: the 1-based `Table`
         of them when there is more than one, as the reference's engine
-        gives a multi-feature model."""
-        return self._pred._forward(
-            self._pred._to_device(arrs[0] if len(arrs) == 1 else arrs))
+        gives a multi-feature model. `pred` (default the engine's
+        predictor) may be a copy over another model (the FLOP count's)."""
+        pred = self._pred if pred is None else pred
+        return pred._forward(
+            pred._to_device(arrs[0] if len(arrs) == 1 else arrs))
+
+    def _bucket_flops(self, sig, bucket: int, cols: List[np.ndarray]):
+        """FLOPs of one forward of the (signature, bucket) domain (counted
+        once, on the meta device)."""
+        def forward(meta_model):
+            twin = copy.copy(self._pred)
+            twin.model = meta_model
+            twin.device = torch.device("meta")
+            self._forward_arrays(cols, twin)
+        return self._count_flops((sig, bucket), forward)
 
     def _dispatch(self, reqs: List[_Request]):
         """Pad a group with its last row up to its bucket and launch one
         forward (asynchronous on the card). A failure resolves only this
-        group's futures."""
+        group's futures; with breakers armed, an OPEN domain sheds its
+        group with `ServingUnavailableError` and no forward."""
         n = len(reqs)
         bucket = self._bucket_for(n)
         sig = reqs[0].signature()
+        br, probe, shed = self._admit_batch(sig, bucket, n)
+        if shed:
+            for r in reqs:
+                _resolve(r.future, exc=ServingUnavailableError(
+                    f"circuit open for batch domain {br.name}; request "
+                    "shed without a forward"))
+            self._finish_trace(reqs, {"bucket": bucket},
+                               time.perf_counter(), status="shed")
+            return None
         meta = {"bucket": bucket, "n": n, "t_d0": time.perf_counter(),
                 "disp_tid": threading.get_ident() % 2 ** 31}
         try:
             with self._span("serve dispatch", n=n, bucket=bucket):
+                # no-op unless a FaultInjector is installed; a plan targets
+                # one domain through the bucket and sig of its context
+                faults.fire("serve.forward", bucket=bucket, n=n, sig=sig)
                 cols = [np.stack(c)
                         for c in zip(*(r.features for r in reqs))]
                 if bucket > n:
@@ -613,6 +794,8 @@ class InferenceEngine(ServingEngine):
             with self._slock:  # count before resolving
                 self._n["failed"] += n
                 self._n["batches"] += 1
+            if br is not None:
+                br.record_failure(probe=probe)
             for r in reqs:
                 _resolve(r.future, exc=ServingError(
                     f"batch forward failed: {e!r}"))
@@ -628,12 +811,15 @@ class InferenceEngine(ServingEngine):
             self._n["bucket_hits"] += int(hit)
             self._n["rows"] += bucket
             self._n["padded_rows"] += bucket - n
-        return reqs, y, meta
+        self._add_flops(self._bucket_flops(sig, bucket, cols))
+        return reqs, y, br, probe, meta
 
     def _complete(self, batch):
         """Blocking device-to-host fetch of the oldest in-flight batch;
-        newer batches keep the device busy meanwhile."""
-        reqs, y, meta = batch
+        newer batches keep the device busy meanwhile. The batch's breaker
+        learns its outcome here: a batch succeeds only once its rows reach
+        the host."""
+        reqs, y, br, probe, meta = batch
         meta["t_f0"] = time.perf_counter()
         try:
             with self._span("serve fetch", n=len(reqs)):
@@ -641,12 +827,16 @@ class InferenceEngine(ServingEngine):
         except Exception as e:
             with self._slock:  # count before resolving
                 self._n["failed"] += len(reqs)
+            if br is not None:
+                br.record_failure(probe=probe)
             for r in reqs:
                 _resolve(r.future, exc=ServingError(
                     f"batch fetch failed: {e!r}"))
             self._finish_trace(reqs, meta, time.perf_counter(),
                                status="error", error=repr(e))
             return
+        if br is not None:
+            br.record_success(probe=probe)
         now = time.perf_counter()
         with self._slock:
             self._n["completed"] += len(reqs)

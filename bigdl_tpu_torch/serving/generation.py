@@ -22,7 +22,21 @@ where two candidates nearly tie.
 The dispatcher thread runs the model under `torch.inference_mode()`,
 which it enters itself: grad mode is per thread. The KV cache is written
 in place; a failed prefill or decode leaves it unknown, so the engine
-then fails the active streams and allocates a fresh cache.
+then fails the active streams and allocates a fresh cache. A fault
+injected before the prefill runs (the `serve.forward` site, fired with
+`bucket`, `n` and `sig` inside the prefill span) fails only its own
+group and leaves the cache alone; one injected before a decode step (the
+`serve.decode` site) fails each active stream once.
+
+Resilience, as `ServingEngine`'s: `breaker=` arms one circuit breaker per
+(seq bucket, batch bucket) prefill domain (an open one sheds its group
+with `ServingUnavailableError`, the stream's status "shed"), `health()`,
+`replica_id` and `generate(..., session=)` on the trace records, and the
+FLOPs / MFU stats (each prefill shape and the decode step counted once on
+the meta device; `flops_per_step` is the FLOPs of prefills and decode
+steps over the prefill batches, as the reference's). `max_wait_ms` holds
+an underfull prefill open for more arrivals, up to that long after its
+oldest request arrived.
 
 Telemetry (`telemetry=`, `tracer=`, `emit_every`, `hist_window`,
 `trace_sample`, as `ServingEngine`'s): a `generation` record every
@@ -46,11 +60,16 @@ import torch
 
 from bigdl_tpu_torch._device import resolve_device
 from bigdl_tpu_torch.observability.spans import TraceContext
+from bigdl_tpu_torch.resilience import faults
 from bigdl_tpu_torch.serving.engine import (EngineClosedError, ServingEngine,
                                             ServingError,
-                                            ServingTimeoutError)
+                                            ServingTimeoutError,
+                                            ServingUnavailableError)
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
+
+#: the decode step's fault site (the prefill fires `serve.forward`)
+SITE_DECODE = faults.register_site("serve.decode")
 
 
 def default_seq_buckets(max_len: int, floor: int = 8) -> List[int]:
@@ -76,7 +95,7 @@ class TokenStream:
     fewer tokens), `cancel()` to stop at the next step boundary.
 
     Thread-safe. `status` is None while streaming, then one of
-    "ok"/"timeout"/"error"/"cancelled". Token ids are 1-based; an EOS
+    "ok"/"timeout"/"error"/"cancelled"/"shed". Token ids are 1-based; an EOS
     token is emitted before the stream finishes.
     """
 
@@ -186,12 +205,12 @@ class TokenStream:
 class _GenRequest:
     __slots__ = ("prompt", "max_new_tokens", "eos_id", "stream", "deadline",
                  "ctx", "seq", "t_submit", "t_gather", "t_prefill1",
-                 "tokens_out", "slot", "pos", "deadline_budget_ms")
+                 "tokens_out", "slot", "pos", "session", "deadline_budget_ms")
 
     def __init__(self, prompt: np.ndarray, max_new_tokens: int,
                  eos_id: Optional[int], deadline: Optional[float],
                  ctx: Optional[TraceContext] = None, seq: int = 0,
-                 deadline_budget_ms: Optional[float] = None):
+                 session=None, deadline_budget_ms: Optional[float] = None):
         self.prompt = prompt
         self.max_new_tokens = max_new_tokens
         self.eos_id = eos_id
@@ -202,6 +221,7 @@ class _GenRequest:
         self.t_submit = time.perf_counter()
         self.t_gather: Optional[float] = None    # left the queue (prefill)
         self.t_prefill1: Optional[float] = None  # its prefill landed
+        self.session = session    # echoed into the trace record
         self.deadline_budget_ms = deadline_budget_ms  # as given
         self.tokens_out: List[int] = []
         self.slot: Optional[int] = None
@@ -231,20 +251,27 @@ class GenerationEngine(ServingEngine):
     prefill_batch : largest prefill batch bucket (`default_buckets`).
     seq_buckets : ascending prompt pad targets; None =
         `default_seq_buckets(max_len)`; `max_len` is always appended.
+    max_wait_ms : how long after its oldest request arrived an underfull
+        prefill (fewer queued requests than free slots and the prefill
+        batch) is held open for more arrivals; 0 (default) prefills at
+        once.
     device : where the engine runs; it must be the model's device.
         Default CUDA (see `resolve_device`).
     queue_capacity / admission / start / telemetry / tracer / emit_every /
-        hist_window / trace_sample : as `ServingEngine`.
+        hist_window / trace_sample / breaker / replica_id : as
+        `ServingEngine` (the breaker guards the prefill domains).
     """
 
     def __init__(self, model, *, slots: int = 8, max_len: int = 256,
                  max_new_tokens: int = 64, eos_id: Optional[int] = None,
                  prefill_batch: int = 4,
                  seq_buckets: Optional[Sequence[int]] = None,
-                 queue_capacity: int = 256, admission: str = "block",
-                 telemetry=None, tracer=None, emit_every: int = 50,
-                 hist_window: int = 8192, trace_sample: int = 1,
-                 device=None, start: bool = True):
+                 max_wait_ms: float = 0.0, queue_capacity: int = 256,
+                 admission: str = "block", telemetry=None, tracer=None,
+                 emit_every: int = 50, hist_window: int = 8192,
+                 breaker: Optional[Dict] = None, trace_sample: int = 1,
+                 replica_id: Optional[str] = None, device=None,
+                 start: bool = True):
         for attr in ("init_cache", "apply_prefill", "apply_step"):
             if not hasattr(model, attr):
                 raise TypeError(
@@ -262,12 +289,16 @@ class GenerationEngine(ServingEngine):
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if max_wait_ms < 0:
+            raise ValueError(f"max_wait_ms must be >= 0, got {max_wait_ms}")
         super().__init__(max_batch_size=prefill_batch,
                          queue_capacity=queue_capacity, admission=admission,
                          start=False, telemetry=telemetry, tracer=tracer,
                          emit_every=emit_every, hist_window=hist_window,
-                         trace_sample=trace_sample)
+                         trace_sample=trace_sample, breaker=breaker,
+                         replica_id=replica_id)
         self.model = model
+        self.max_wait_s = max_wait_ms / 1e3
         # an id past the vocabulary would index the embedding out of range,
         # which on CUDA is a device-side assert that ends the process's
         # CUDA context: reject it at admission
@@ -307,12 +338,14 @@ class GenerationEngine(ServingEngine):
     # ------------------------------------------------------------ admission
     def generate(self, prompt, max_new_tokens: Optional[int] = None,
                  eos_id: Optional[int] = None,
-                 deadline_ms: Optional[float] = None) -> TokenStream:
+                 deadline_ms: Optional[float] = None,
+                 session=None) -> TokenStream:
         """Admit one greedy-decode request; returns its `TokenStream`.
         `prompt` is a 1-D array of 1-based token ids. `deadline_ms` bounds
         the request's queued life (admission and waiting for a free slot);
-        once its prefill lands, a request runs to completion. Raises
-        `ValueError` for an inadmissible request, plus the engine's
+        once its prefill lands, a request runs to completion. `session` is
+        the caller's identity, echoed on the trace record as `session_id`.
+        Raises `ValueError` for an inadmissible request, plus the engine's
         admission errors."""
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if prompt.size < 1:
@@ -335,7 +368,7 @@ class GenerationEngine(ServingEngine):
         req = _GenRequest(prompt, n_new,
                           self.default_eos_id if eos_id is None else eos_id,
                           deadline, self._new_context(), next(self._req_seq),
-                          deadline_ms)
+                          session, deadline_ms)
         self._admit(req)
         return req.stream
 
@@ -343,26 +376,63 @@ class GenerationEngine(ServingEngine):
         """Generator convenience: yields tokens as they are produced."""
         yield from self.generate(prompt, **kw)
 
+    def submit(self, sample, deadline_ms: Optional[float] = None,
+               session=None):
+        """A one-shot forward is `InferenceEngine`'s: raises
+        `ServingError`, as the reference's generation engine does."""
+        raise ServingError(
+            "GenerationEngine serves generate()/stream(); use "
+            "InferenceEngine for one-shot forwards")
+
     # ------------------------------------------------------------ model calls
-    def _prefill(self, cache, tokens, slot_ids, lengths) -> np.ndarray:
-        dev = self.device
-        logp, _ = self.model.apply_prefill(
+    def _prefill(self, cache, tokens, slot_ids, lengths, model=None):
+        """One prefill; the first tokens as a host array (None on the meta
+        device, where the FLOP count runs it)."""
+        model = self.model if model is None else model
+        dev = model.device
+        logp, _ = model.apply_prefill(
             torch.from_numpy(tokens).to(dev), cache,
             slot_ids, torch.from_numpy(lengths).to(dev))
-        return (logp.argmax(dim=-1) + 1).cpu().numpy()
+        return None if dev.type == "meta" \
+            else (logp.argmax(dim=-1) + 1).cpu().numpy()
 
-    def _decode(self, cache, tokens, positions) -> np.ndarray:
-        dev = self.device
-        logp, _ = self.model.apply_step(torch.from_numpy(tokens).to(dev),
-                                        cache,
-                                        torch.from_numpy(positions).to(dev))
-        return (logp.argmax(dim=-1) + 1).cpu().numpy()
+    def _decode(self, cache, tokens, positions, model=None):
+        model = self.model if model is None else model
+        dev = model.device
+        logp, _ = model.apply_step(torch.from_numpy(tokens).to(dev), cache,
+                                   torch.from_numpy(positions).to(dev))
+        return None if dev.type == "meta" \
+            else (logp.argmax(dim=-1) + 1).cpu().numpy()
 
-    def warmup(self) -> int:
+    @staticmethod
+    def _gen_sig(t_pad: int):
+        """A prefill domain's feature signature (the breaker's and the
+        ledger's): one int32 row of `t_pad` tokens."""
+        return (((t_pad,), "int32"),)
+
+    def _prefill_flops(self, t_pad: int, b: int) -> Optional[int]:
+        def forward(meta_model):
+            cache = meta_model.init_cache(self.slots, self.max_len)
+            self._prefill(cache, np.ones((b, t_pad), np.int32),
+                          np.zeros((b,), np.int32), np.ones((b,), np.int32),
+                          meta_model)
+        return self._count_flops((self._gen_sig(t_pad), b), forward)
+
+    def _decode_flops(self) -> Optional[int]:
+        def forward(meta_model):
+            cache = meta_model.init_cache(self.slots, self.max_len)
+            self._decode(cache, np.ones((self.slots,), np.int32),
+                         np.zeros((self.slots,), np.int32), meta_model)
+        return self._count_flops("decode", forward)
+
+    def warmup(self, sample=None) -> int:
         """Run every prefill (batch bucket, seq bucket) shape and the
         decode step once against a scratch cache, so the first request
-        pays no kernel build or library initialisation. Returns the number
-        of shapes run."""
+        pays no kernel build or library initialisation; each shape's FLOPs
+        are counted here too. `sample` is taken for the engine protocol
+        (a fleet re-warms a rejoining replica with one) and ignored: the
+        engine's own buckets fix every shape. Returns the number of shapes
+        run."""
         scratch = self.model.init_cache(self.slots, self.max_len)
         n = 0
         with torch.inference_mode():
@@ -372,10 +442,12 @@ class GenerationEngine(ServingEngine):
                                   np.zeros((b,), np.int32),
                                   np.ones((b,), np.int32))
                     with self._slock:
-                        self._compiled.add((t_pad, b))
+                        self._compiled.add((self._gen_sig(t_pad), b))
+                    self._prefill_flops(t_pad, b)
                     n += 1
             self._decode(scratch, np.ones((self.slots,), np.int32),
                          np.zeros((self.slots,), np.int32))
+            self._decode_flops()
         return n + 1
 
     # ------------------------------------------------------------ loop
@@ -407,12 +479,28 @@ class GenerationEngine(ServingEngine):
                 self._emit_safe({"type": "generation",
                                  **self.generation_stats()})
 
+    def _hold_window(self, target: int):
+        """`max_wait_ms`: wait for the queue to hold `target` requests, up
+        to `max_wait_ms` after its oldest request arrived (a close skips
+        the wait)."""
+        with self._lock:
+            if not self._q:
+                return
+            end = self._q[0].t_submit + self.max_wait_s
+            while len(self._q) < target and not self._closing:
+                remaining = end - time.perf_counter()
+                if remaining <= 0:
+                    break
+                self._not_empty.wait(remaining)
+
     def _admit_into_slots(self):
         """Move queued requests into free slots and prefill them, between
         decode steps and with no drain barrier."""
         free = [i for i, r in enumerate(self._slot_req) if r is None]
         if not free:
             return
+        if self.max_wait_s > 0:
+            self._hold_window(min(len(free), self.max_batch_size))
         take: List[_GenRequest] = []
         dropped: List = []  # (req, status, exc), resolved outside the lock
         now = time.perf_counter()
@@ -448,6 +536,16 @@ class GenerationEngine(ServingEngine):
                        free: List[int]):
         n = len(rs)
         bucket = self._bucket_for(n)
+        sig = self._gen_sig(t_pad)
+        br, probe, shed = self._admit_batch(sig, bucket, n)
+        if shed:
+            exc = ServingUnavailableError(
+                f"circuit open for prefill domain {br.name}; request shed "
+                "without a forward")
+            for r in rs:
+                r.stream._finish("shed", exc)
+                self._gen_trace(r, "shed")
+            return
         slots = [free.pop(0) for _ in rs]
         tokens = np.ones((bucket, t_pad), np.int32)
         slot_ids = np.zeros((bucket,), np.int32)
@@ -466,18 +564,24 @@ class GenerationEngine(ServingEngine):
         for r in rs:
             r.t_gather = t0
             self.queue_wait.record(t0 - r.t_submit)
+        dispatched = False
         try:
             with self._span("generate prefill", n=n, bucket=bucket,
                             t_pad=t_pad):
+                faults.fire("serve.forward", bucket=bucket, n=n, sig=sig)
+                dispatched = True
                 first = self._prefill(self._cache, tokens, slot_ids,
                                       lengths)
         except Exception as e:  # contain the failure to this group
-            self._prefill_failed(rs, slots, free, e)
+            self._prefill_failed(rs, slots, free, br, probe, dispatched, e)
             return
         t1 = time.perf_counter()
+        if br is not None:
+            br.record_success(probe=probe)
+        self._add_flops(self._prefill_flops(t_pad, bucket))
         with self._slock:
-            hit = (t_pad, bucket) in self._compiled
-            self._compiled.add((t_pad, bucket))
+            hit = (sig, bucket) in self._compiled
+            self._compiled.add((sig, bucket))
             self._n["batches"] += 1
             self._n["bucket_hits"] += int(hit)
             self._n["rows"] += bucket
@@ -501,21 +605,26 @@ class GenerationEngine(ServingEngine):
             elif tok == r.eos_id or r.max_new_tokens == 1:
                 self._retire(r, "ok")
 
-    def _prefill_failed(self, rs, slots, free, e: Exception):
-        """A failed prefill fails its own group; its in-place cache writes
-        may have landed partway, so the cache is reallocated and the active
-        streams fail too (they lost their history)."""
-        logger.warning("prefill failed (%r); reallocating the KV cache and "
-                       "aborting active streams", e)
+    def _prefill_failed(self, rs, slots, free, br, probe, dispatched: bool,
+                        e: Exception):
+        """A failed prefill fails its own group. Once the forward ran, its
+        in-place cache writes may have landed partway, so the cache is
+        reallocated and the active streams fail too (they lost their
+        history); a fault before it leaves the cache alone."""
         free.extend(slots)
         with self._slock:
             self._n["failed"] += len(rs)
             self._n["batches"] += 1
+        if br is not None:
+            br.record_failure(probe=probe)
         exc = ServingError(f"prefill failed: {e!r}")
         for r in rs:
             r.stream._finish("error", exc)
             self._gen_trace(r, "error", error=repr(e))
-        self._reset_cache(exc)
+        if dispatched:
+            logger.warning("prefill failed (%r); reallocating the KV cache "
+                           "and aborting active streams", e)
+            self._reset_cache(exc)
 
     def _decode_once(self):
         """ONE fixed-shape decode step over all slots: active slots
@@ -529,6 +638,7 @@ class GenerationEngine(ServingEngine):
         t0 = time.perf_counter()
         try:
             with self._span("generate decode", n=len(active)):
+                faults.fire(SITE_DECODE, n=len(active))
                 nxt = self._decode(self._cache, tokens, positions)
         except Exception as e:  # contain: fail the streams, keep serving
             logger.warning("decode step failed (%r)", e)
@@ -537,6 +647,7 @@ class GenerationEngine(ServingEngine):
             return
         dt = time.perf_counter() - t0
         self.batch_sizes.record(len(active))
+        self._add_flops(self._decode_flops())
         with self._slock:
             self._g["decode_steps"] += 1
             self._g["decode_slot_steps"] += len(active)

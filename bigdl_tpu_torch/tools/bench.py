@@ -23,6 +23,7 @@ warm-up. The result also carries every step's loss.
     python -m bigdl_tpu_torch.tools.bench [--model lm] --profile
     python -m bigdl_tpu_torch.tools.bench --model attention [--profile]
     python -m bigdl_tpu_torch.tools.bench --model serve [--profile]
+    python -m bigdl_tpu_torch.tools.bench --model serve_fleet [--crash]
     python -m bigdl_tpu_torch.tools.bench --model int8_serving [--profile]
     python -m bigdl_tpu_torch.tools.bench --model inception_v1 [--profile]
     python -m bigdl_tpu_torch.tools.bench --model lenet|inception_v2|vgg16
@@ -120,6 +121,15 @@ launching op.
 TF32 off) with the stem kernel off and on; with `--profile`, the device
 time by kind of kernel with it on.
 
+`--model serve_fleet [--crash]` is the reference's serving-fleet drill
+(`bench_serve_fleet`) over that served ResNet-50 with the stem kernel on:
+3 replicas of one device behind a `ServingFleet`, 6 closed-loop clients x
+40 requests with session affinity in windows of 4; with `--crash`,
+replica1 is killed through `serve.replica_crash` once 25-75% of the
+requests resolved. It prints the outcome tallies, reroutes, drains, MTTR
+and degraded throughput off the telemetry stream, requests/s and the
+p50/p99 latency.
+
 Every path also reports its FLOP count and `mfu`: `flops_per_step` (a
 training step, counted on the step the optimizer runs, on a copy of the
 model), `flops_per_forward` (serving) and `flops` (each attention call),
@@ -143,6 +153,7 @@ import functools
 import json
 import math
 import os
+import sys
 import time
 from typing import Dict, Optional, Sequence
 
@@ -1434,6 +1445,196 @@ def bench_chaos_device_loss(lose_at: int = 5, rejoin_at: int = 12,
     return out
 
 
+def serve_fleet_drill(fleet, samples: Sequence, sink, clients: int = 6,
+                      requests_per_client: int = 40, crash: bool = False,
+                      deadline_ms: float = 15_000.0,
+                      maintain_every_s: float = 0.005):
+    """The reference's `bench_serve_fleet` drill over an open `fleet`
+    (which the caller closes), whose telemetry feeds `sink` (an
+    `InMemorySink`): `clients` closed-loop threads, each submitting its
+    `requests_per_client` requests with session affinity (`client<k>`)
+    in windows of 4 (sample `(k * 31 + i) % len(samples)`), while
+    this thread ticks `fleet.maintain()` every `maintain_every_s`. With
+    `crash`, a `serve.replica_crash` plan kills replica1 at its first
+    tick after 25% and before 75% of the requests resolved.
+
+    MTTR is read off the telemetry stream: from the `worker_lost` event
+    to the first status-ok `trace` record after it; the degraded
+    throughput is the ok records' rate in equal windows (<= 1 s) after
+    over before the loss. Returns (the reference's keys plus the wall
+    time, requests/s and the client-side latency p50/p99 of the ok
+    requests, the ok rows as (sample index, row) pairs)."""
+    import threading
+    from concurrent.futures import TimeoutError as FuturesTimeoutError
+
+    from bigdl_tpu_torch.resilience import FaultInjector, FaultSpec
+    from bigdl_tpu_torch.serving import (ServingReroutedError,
+                                         ServingTimeoutError)
+    counts = {"ok": 0, "timed_out": 0, "rerouted": 0, "other": 0}
+    rows, latencies = [], []
+    lock = threading.Lock()
+    total = clients * requests_per_client
+
+    def worker(k):
+        # a window of requests in flight per client (not one blocking
+        # predict at a time), so the fleet carries real queue depth and
+        # the crash catches queued work
+        futs = []
+
+        def collect():
+            for idx, t0, fut in futs:
+                row = None
+                try:
+                    row = fut.result(timeout=60.0)
+                    key = "ok"
+                except ServingReroutedError:
+                    key = "rerouted"
+                except (FuturesTimeoutError, ServingTimeoutError):
+                    key = "timed_out"
+                except Exception as e:  # counted; the drill wants none
+                    key = "other"
+                    print(f"fleet request failed: {e!r}", file=sys.stderr)
+                with lock:
+                    counts[key] += 1
+                    if row is not None:
+                        rows.append((idx, row))
+                        latencies.append(time.perf_counter() - t0)
+            futs.clear()
+
+        for i in range(requests_per_client):
+            idx = (k * 31 + i) % len(samples)
+            try:
+                futs.append((idx, time.perf_counter(), fleet.submit(
+                    samples[idx], deadline_ms=deadline_ms,
+                    session=f"client{k}")))
+            except Exception as e:  # counted; the drill wants none
+                print(f"fleet submit failed: {e!r}", file=sys.stderr)
+                with lock:
+                    counts["other"] += 1
+            if len(futs) >= 4:  # the reference's window
+                collect()
+        collect()
+
+    def mid_traffic(ctx):
+        # only while traffic is mid-flight: a crash before it proves
+        # nothing, one after it leaves no stream to measure recovery on
+        if ctx.get("replica") != "replica1":
+            return False
+        with lock:
+            done = sum(counts.values())
+        return total * 0.25 <= done < total * 0.75
+
+    plan = FaultInjector(FaultSpec("serve.replica_crash", at_hit=1,
+                                   when=mid_traffic),
+                         telemetry=fleet.telemetry)
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    with plan if crash else contextlib.nullcontext():
+        for t in threads:
+            t.start()
+        while any(t.is_alive() for t in threads):
+            fleet.maintain()
+            time.sleep(maintain_every_s)
+        for t in threads:
+            t.join()
+        fleet.maintain()
+    wall = time.perf_counter() - t0
+
+    counters = fleet.fleet_counters()
+    resolved = sum(counts.values())
+    t_lost = next((r["time"] for r in sink.records
+                   if r.get("event") == "worker_lost"), None)
+    ok_times = sorted(r["time"] for r in sink.records
+                      if r.get("type") == "trace"
+                      and r.get("status") == "ok")
+    mttr = degraded = None
+    if t_lost is not None and ok_times:
+        post = [t for t in ok_times if t > t_lost]
+        mttr = round(post[0] - t_lost, 4) if post else None
+        w = min(1.0, t_lost - ok_times[0],
+                (ok_times[-1] - t_lost) if post else 0.0)
+        if w > 0:
+            before = sum(1 for t in ok_times if t_lost - w <= t <= t_lost)
+            after = sum(1 for t in ok_times if t_lost < t <= t_lost + w)
+            if before:
+                degraded = round(after / before, 3)
+    lat = np.asarray(latencies) * 1e3
+    out = {
+        "metric": "serve_fleet",
+        "replicas": counters["replicas_total"],
+        "clients": clients,
+        "requests": total,
+        "chaos_replica_loss": crash,
+        **counts,
+        "reroutes": counters["reroutes_total"],
+        "drains": counters["drains_total"],
+        "mttr_s": mttr,
+        "degraded_throughput_frac": degraded,
+        "recovered": (resolved == total and counts["other"] == 0
+                      and (not crash or mttr is not None)),
+        "wall_s": wall,
+        "requests_per_sec": resolved / wall,
+        "latency_ms_p50": float(np.percentile(lat, 50)) if lat.size
+        else None,
+        "latency_ms_p99": float(np.percentile(lat, 99)) if lat.size
+        else None,
+    }
+    return out, rows
+
+
+def bench_serve_fleet(replicas: int = 3, clients: int = 6,
+                      requests_per_client: int = 40, crash: bool = False,
+                      deadline_ms: float = 15_000.0,
+                      maintain_every_s: float = 0.005, *, device=None,
+                      image_hw: int = 224) -> Dict:
+    """The serving-fleet drill (`--model serve_fleet [--crash]`, the
+    reference's `bench_serve_fleet`) over the served ResNet-50 of `--model
+    serve` (`ResNet50(class_num=1000, s2d_stem=True)`, f32, TF32 off, the
+    stem switch set, so each replica's forward runs kernels 5 and 6): a
+    `ServingFleet` of `replicas` `InferenceEngine`s (max batch 8,
+    `max_wait_ms` 1, queue 256, reject on full; drain grace 0.5 s, lease
+    30 s), warmed with the first of 32 seeded images, driven by
+    `serve_fleet_drill`. The replicas share one device, so the figures are
+    no scaling figures. With `$BIGDL_TPU_TELEMETRY` set to a stem the
+    stream also goes to `STEM.jsonl`. Prints and returns one JSON object:
+    the reference's keys (outcome tallies, reroutes, drains, MTTR,
+    degraded throughput, recovered) plus the wall time, requests/s, the
+    client-side p50/p99 latency and the device."""
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.models.resnet import ResNet50
+    from bigdl_tpu_torch.observability import (InMemorySink, JsonlSink,
+                                               Telemetry)
+    from bigdl_tpu_torch.serving import ServingFleet
+    device = resolve_device(device)
+    model = ResNet50(class_num=1000, s2d_stem=True, device=device)
+    images = np.random.RandomState(0).rand(
+        32, image_hw, image_hw, 3).astype(np.float32)
+    samples = [Sample(x) for x in images]
+    sink = InMemorySink()
+    sinks = [sink]
+    stem = os.environ.get(TELEMETRY_ENV)
+    if stem:
+        sinks.append(JsonlSink(stem + ".jsonl"))
+    telemetry = Telemetry(*sinks, resources=False, flight=False)
+    with _serving_settings(True):
+        fleet = ServingFleet(
+            model, n_replicas=replicas, warmup_sample=samples[0],
+            telemetry=telemetry, drain_grace_s=0.5, lease_s=30.0,
+            engine_kwargs={"max_batch_size": 8, "max_wait_ms": 1.0,
+                           "queue_capacity": 256, "device": device})
+        try:
+            out, _ = serve_fleet_drill(fleet, samples, sink, clients,
+                                       requests_per_client, crash,
+                                       deadline_ms, maintain_every_s)
+        finally:
+            fleet.close()
+            telemetry.close()
+    out["device"] = _device_name(device)
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def _cast_floats(model: torch.nn.Module, dtype: torch.dtype):
     """`model` with its floating parameters cast to `dtype` in place (the
     reference casts the params tree; BN statistics, buffers here, stay
@@ -1561,10 +1762,13 @@ def profile_int8_serving(batch_size: int = 256, forwards: int = 4,
 def main(argv=None) -> None:
     import argparse
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--model", choices=("resnet50", "serve", "lm",
-                                       "attention", "ptb_lstm",
+    p.add_argument("--model", choices=("resnet50", "serve", "serve_fleet",
+                                       "lm", "attention", "ptb_lstm",
                                        "wide_n_deep", "int8_serving", *ZOO),
                    default="resnet50")
+    p.add_argument("--crash", action="store_true",
+                   help="with --model serve_fleet: kill replica1 "
+                   "mid-traffic (serve.replica_crash)")
     p.add_argument("--profile", action="store_true",
                    help="device time by kind of kernel (torch.profiler)")
     p.add_argument("--nproc", type=int, default=1,
@@ -1619,6 +1823,11 @@ def main(argv=None) -> None:
         print(json.dumps(bench_dp(args.model, args.nproc,
                                   backend=args.backend,
                                   model_axis=args.model_axis, **kw)))
+        return
+    if args.model == "serve_fleet":
+        if args.profile:
+            p.error("--model serve_fleet takes no --profile")
+        bench_serve_fleet(crash=args.crash)
         return
     if args.model == "int8_serving":
         fn = profile_int8_serving if args.profile else bench_int8_serving

@@ -360,6 +360,35 @@ Phases:
    times and the products 53 times a batch; requests/s, latency
    p50/p95/p99, batch-size p50. (d) The phase's wall time.
    `python3 chip_smoke.py --phase19` runs phases 1, 2 and 19 alone.
+20. the serving fleet (`serving/fleet.py`, the engines' breaker,
+   `tools/bench.py serve_fleet_drill`). (a) The reference's serve_fleet
+   drill with the crash over phase 10(b)'s served ResNet-50 (224x224,
+   f32, TF32 off, the stem switch set): 3 `InferenceEngine` replicas
+   sharing the card (max batch 8, `max_wait_ms` 1, reject on full; drain
+   grace 0.5 s), 6 closed-loop clients x 40 requests with session
+   affinity in windows of 4, `serve.replica_crash` on replica1 once 25-75%
+   resolved: every request ok, rerouted or timed out (0 other), one
+   drain, a measured MTTR, every ok row within SERVE_ATOL of the
+   cuDNN-stem twin's row for its image; kernels 5 and 6 launch, each,
+   the dispatched batches plus the warm-up buckets of every engine built
+   (the killed one included); `restore("replica1")` re-warms it (2
+   warm-ups) into rotation. It prints MTTR, degraded throughput,
+   reroutes, drains, requests/s and the client-side p50/p99. The
+   replicas share one card: no figure is a scaling figure. (b) One
+   engine with `breaker={"failure_threshold": 2}` and a `serve.forward`
+   plan on bucket 8: two poisoned bursts trip it, `health()` is degraded
+   with that bucket open, the next burst of 8 sheds with
+   `ServingUnavailableError` while kernel 5's count stays put, bucket 2
+   serves throughout (rows against the twin), and after the reset
+   timeout one probe batch closes it. (c) 2 `GenerationEngine` replicas
+   over phase 1's LM (slots 8, max_len 2048, prefill batch 4) through
+   `engine_factory`, 8 sessions of 32 tokens over phase 1's first eight
+   prompt lengths; the replica of session 0 is failed once that stream
+   delivered 3 tokens: every stream completes 32 tokens, at least one
+   restarts on the survivor, each spliced stream passes `check_tokens`,
+   kernel 1 launches 4 times a prefill batch (warm-up included) over
+   both replicas. (d) The phase's wall time. `python3 chip_smoke.py
+   --phase20` runs phases 1, 2 and 20 alone.
 
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
 measure ran: `tensor_cores` or `cuda_cores_f32` for rows 1-5, the octet
@@ -372,7 +401,8 @@ stem site; rows 1, 3 and 4 with their launches on each rank of phase
 16(b), `launches_tp_ranks`, in phase 17(a), `launches_observed_lm`, and
 in phase 18(b), `launches_preempt_lm`; rows 6-7 with their launches in
 phase 18(a), `launches_elastic`; rows 5-6 with their launches in phase
-19(b)-(c), `launches_int8_serving`),
+19(b)-(c), `launches_int8_serving`; rows 1, 5 and 6 with their
+launches in phase 20, `launches_fleet`),
 then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
 """
@@ -4909,6 +4939,290 @@ def quantization_phase(sk, bk):
             "bn_relu_fwd": bench_bn + served["bn_relu_fwd"]}
 
 
+# phase 20: the serving fleet. (a) the reference's drill over the served
+# ResNet-50 (replicas, closed-loop clients x requests, engine batch);
+# (b) the breaker's failure threshold; (c) the generation fleet's
+# replicas, sessions and tokens a stream, and the tokens a stream
+# delivers before its replica is failed
+FLEET_REPLICAS = 3
+FLEET_CLIENTS, FLEET_PER_CLIENT = 6, 40
+FLEET_BATCH = 8
+FLEET_IMAGES = 32
+P20_THRESHOLD = 2
+GEN_FLEET_REPLICAS = 2
+GEN_FLEET_SESSIONS = 8
+GEN_FLEET_NEW = 32
+GEN_FLEET_FAIL_AT = 3
+
+
+def _fleet_images():
+    return np.random.RandomState(0).rand(
+        FLEET_IMAGES, SERVE_HW, SERVE_HW, 3).astype(np.float32)
+
+
+def _fleet_model_and_ref(images):
+    """Phase 10(b)'s served ResNet-50 (f32, seed 0) and the cuDNN-stem
+    twin's rows for `images`."""
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.optim import LocalPredictor
+    model = ResNet50(class_num=1000, s2d_stem=True, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    os.environ.pop(STEM_ENV, None)
+    twin = LocalPredictor(model, batch_size=FLEET_BATCH, device="cuda")
+    twin.model.get_submodule("0_conv1").pallas_stem = False
+    return model, np.stack(twin.predict(images))
+
+
+def fleet_resnet_phase(sk, bk, model, images, ref):
+    """20(a): `tools/bench.py`'s serve_fleet drill with --crash over
+    ResNet-50 at 224x224 (f32, the stem switch set), 3 replicas sharing
+    the card; then replica1 restored. Returns kernels 5 and 6's launches,
+    warm-ups included."""
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.observability import InMemorySink, Telemetry
+    from bigdl_tpu_torch.serving import InferenceEngine, ServingFleet
+    from bigdl_tpu_torch.tools.bench import serve_fleet_drill
+    samples = [Sample(x) for x in images]
+    sink = InMemorySink()
+    tel = Telemetry(sink, resources=False, flight=False)
+    engines = []  # every engine the fleet builds, the killed one included
+
+    def factory(rid):
+        eng = InferenceEngine(model, max_batch_size=FLEET_BATCH,
+                              max_wait_ms=1.0, queue_capacity=256,
+                              admission="reject", telemetry=tel,
+                              replica_id=rid, device="cuda")
+        engines.append(eng)
+        return eng
+
+    _reset_stem_counts(sk, bk)
+    fleet = ServingFleet(engine_factory=factory, n_replicas=FLEET_REPLICAS,
+                         warmup_sample=samples[0], telemetry=tel,
+                         drain_grace_s=0.5, lease_s=30.0)
+    try:
+        out, rows = serve_fleet_drill(fleet, samples, sink, FLEET_CLIENTS,
+                                      FLEET_PER_CLIENT, crash=True)
+        restored = fleet.restore("replica1")
+        warmups = fleet._replicas["replica1"].warmups
+        health = fleet.health()
+    finally:
+        fleet.close()
+        tel.close()
+    launches = _stem_counts(sk, bk)
+    stats = [e.stats() for e in engines]
+    want = sum(st["batches"] + len(e.buckets)
+               for e, st in zip(engines, stats))
+    total = FLEET_CLIENTS * FLEET_PER_CLIENT
+    idx = [i for i, _ in rows]
+    share, clear = _check_rows(np.stack([r for _, r in rows]), ref[idx],
+                               "fleet")
+    out.update({"engines_built": len(engines),
+                "batches": [st["batches"] for st in stats],
+                "warmup_buckets": [len(e.buckets) for e in engines],
+                "launches": {"stem_conv": launches[0],
+                             "bn_relu_fwd": launches[1]},
+                "restored_warmups": warmups,
+                "max_share_of_limit": share, "argmax_rows_checked": clear,
+                "flops_per_batch": stats[0]["flops_per_step"],
+                "mfu": [st["mfu"] for st in stats]})
+    print("fleet serving " + json.dumps(out), flush=True)
+    check(out["ok"] + out["timed_out"] + out["rerouted"] == total
+          and out["other"] == 0 and len(rows) == out["ok"],
+          f"fleet: outcomes {out} do not add up to {total} requests")
+    check(out["drains"] == 1 and out["mttr_s"] is not None
+          and out["recovered"],
+          f"fleet: drains {out['drains']}, MTTR {out['mttr_s']}")
+    check(launches == (want, want),
+          f"fleet: launches (stem, BN+ReLU) {launches} != batches + "
+          f"warm-up buckets {want} over {len(engines)} engines")
+    check(restored and warmups == 2 and len(engines) == FLEET_REPLICAS + 1
+          and health["replicas"]["replica1"]["state"] == "active",
+          f"fleet: restore {restored}, warm-ups {warmups}, engines "
+          f"{len(engines)}")
+    return launches
+
+
+def breaker_phase(sk, bk, model, images, ref):
+    """20(b): one engine with a breaker and a `serve.forward` plan on
+    bucket 8: the bucket trips and sheds with kernel 5 unmoved, bucket 2
+    serves throughout, one probe closes it after the reset timeout."""
+    from bigdl_tpu_torch.resilience import FaultInjector, FaultSpec
+    from bigdl_tpu_torch.serving import (InferenceEngine, ServingError,
+                                         ServingUnavailableError)
+    clock = [0.0]
+    label = f"b{FLEET_BATCH}[{SERVE_HW}x{SERVE_HW}x3:float32]"
+
+    def burst(eng, n=FLEET_BATCH):
+        futs = [eng.submit(images[i]) for i in range(n)]
+        out = []
+        for f in futs:
+            try:
+                out.append(f.result(300))
+            except Exception as e:  # the caller checks the kinds
+                out.append(e)
+        return out
+
+    def single(eng):
+        return eng.predict(images[0], timeout=300)
+
+    plan = FaultInjector(FaultSpec(
+        "serve.forward", times=None, exc=RuntimeError,
+        when=lambda ctx: ctx["bucket"] == FLEET_BATCH))
+    with InferenceEngine(model, max_batch_size=FLEET_BATCH,
+                         max_wait_ms=200.0, device="cuda",
+                         breaker={"failure_threshold": P20_THRESHOLD,
+                                  "reset_timeout_s": 60.0,
+                                  "clock": lambda: clock[0]}) as eng:
+        eng.warmup(images[0])
+        served = [single(eng)]
+        with plan:
+            for _ in range(P20_THRESHOLD):
+                got = burst(eng)
+                check(all(isinstance(g, ServingError) for g in got),
+                      "breaker: a poisoned batch did not fail")
+            health = eng.health()
+            k5 = _stem_counts(sk, bk)
+            shed = burst(eng)
+            k5_after = _stem_counts(sk, bk)
+            served.append(single(eng))
+            stats = eng.stats()
+        clock[0] = 61.0
+        probe = burst(eng)
+        closed = eng.health()
+        served.append(single(eng))
+    out = {"open_buckets": health["open_buckets"],
+           "status": health["status"], "shed": stats["shed"],
+           "launches_while_shedding": [k5, k5_after],
+           "probe_ok": sum(isinstance(g, np.ndarray) for g in probe),
+           "after_probe": closed["status"],
+           "plan_hits": plan.hits("serve.forward")}
+    print("fleet breaker " + json.dumps(out), flush=True)
+    check(health["status"] == "degraded" and health["open_buckets"] == [label],
+          f"breaker: health {health}")
+    check(all(isinstance(g, ServingUnavailableError) for g in shed)
+          and stats["shed"] == FLEET_BATCH,
+          f"breaker: the open bucket did not shed ({stats['shed']})")
+    check(k5_after == k5, f"breaker: kernels 5-6 moved while shedding "
+          f"({k5} -> {k5_after})")
+    check(out["probe_ok"] == FLEET_BATCH and closed["status"] == "ok",
+          f"breaker: the probe did not close the bucket ({out})")
+    _check_rows(np.stack(served), np.stack([ref[0]] * len(served)),
+                "breaker bucket 2")
+
+
+def gen_fleet_phase(ak):
+    """20(c): 2 `GenerationEngine` replicas over phase 1's LM behind a
+    `ServingFleet`, 8 sessions of 32 tokens; the replica of session 0 is
+    failed once it delivered 3 tokens. Returns kernel 1's launches."""
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.serving import (GenerationEngine, ServingFleet,
+                                         greedy_decode_reference)
+    cfg = dict(vocab_size=1024, embed_dim=512, n_layer=LM_LAYERS, n_head=8)
+    model = TransformerLM(**cfg, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+    twin = TransformerLM(**cfg, use_flash=False, device="cuda")
+    twin.load_state_dict(model.state_dict())
+    lengths = [3, 9, 17, 40, 100, 250, 500, 900]
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(1, cfg["vocab_size"] + 1, size=n).astype(np.int32)
+               for n in lengths]
+    engines = []
+
+    def factory(rid):
+        eng = GenerationEngine(model, slots=8, max_len=2048,
+                               prefill_batch=4, max_new_tokens=GEN_FLEET_NEW,
+                               replica_id=rid, device="cuda")
+        engines.append(eng)
+        return eng
+
+    ak.flash_attention_forward.launches = 0
+    fleet = ServingFleet(engine_factory=factory,
+                         n_replicas=GEN_FLEET_REPLICAS,
+                         warmup_sample=prompts[0], drain_grace_s=0.0)
+    results = [None] * len(prompts)
+    delivered = threading.Event()
+    try:
+        streams = [fleet.generate(p, session=f"gen{i}")
+                   for i, p in enumerate(prompts)]
+        victim = streams[0].replica_id
+
+        def consume(i):
+            toks = []
+            try:
+                for tok in streams[i]:
+                    toks.append(tok)
+                    if i == 0 and len(toks) == GEN_FLEET_FAIL_AT:
+                        delivered.set()
+            except Exception as e:  # reported below with the count
+                print(f"stream {i}: {e!r}", file=sys.stderr)
+            results[i] = toks
+
+        # daemon consumers: a stream that hangs fails the check below
+        # without holding the process open
+        threads = [threading.Thread(target=consume, args=(i,), daemon=True)
+                   for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        check(delivered.wait(300), "gen fleet: session 0 never delivered")
+        fleet.fail(victim)
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        counters = fleet.fleet_counters()
+        reroutes = [s.reroutes for s in streams]
+        moved = [s.replica_id for s in streams]
+    finally:
+        fleet.close()
+    launches = ak.flash_attention_forward.launches
+    gstats = [e.generation_stats() for e in engines]
+    warm = len(engines[0].seq_buckets) * len(engines[0].buckets)
+    prefills = sum(g["prefill_batches"] + warm for g in gstats)
+    out = {"victim": victim, "reroutes": reroutes, "replicas": moved,
+           "stream_reroutes_total": counters["stream_reroutes_total"],
+           "tokens": [len(r or []) for r in results], "wall_s": wall,
+           "prefill_batches": [g["prefill_batches"] for g in gstats],
+           "warmup_prefills": warm, "kernel_launches": launches}
+    print("fleet generation " + json.dumps(out), flush=True)
+    check(all(r is not None and len(r) == GEN_FLEET_NEW for r in results),
+          f"gen fleet: tokens {out['tokens']}")
+    check(counters["stream_reroutes_total"] >= 1 and reroutes[0] == 1,
+          f"gen fleet: reroutes {reroutes}")
+    check(launches == prefills * LM_LAYERS,
+          f"gen fleet: kernel 1 launched {launches}, not {prefills} "
+          f"prefill batches x {LM_LAYERS} layers")
+    for i, n in enumerate(reroutes):
+        if n:
+            k = check_tokens(model, twin, prompts[i], results[i],
+                             greedy_decode_reference)
+            print(f"gen fleet: spliced stream {i} (prompt {lengths[i]}): "
+                  f"{k}/{GEN_FLEET_NEW} tokens equal the reference",
+                  flush=True)
+    del model, twin
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fleet_phase(ak, sk, bk):
+    """20: (a)-(c) and the phase's wall time; returns the launches of
+    kernels 1, 5 and 6."""
+    t0 = time.perf_counter()
+    images = _fleet_images()
+    model, ref = _fleet_model_and_ref(images)
+    os.environ[STEM_ENV] = "1"
+    try:
+        stem, bn = fleet_resnet_phase(sk, bk, model, images, ref)
+        breaker_phase(sk, bk, model, images, ref)
+    finally:
+        os.environ.pop(STEM_ENV, None)
+    del model
+    torch.cuda.empty_cache()
+    flash = gen_fleet_phase(ak)
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"flash_attention_fwd": flash, "stem_conv": stem,
+            "bn_relu_fwd": bn}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4957,13 +5271,16 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     tc_build = build_phase(_build)
 
-    if sys.argv[1:2] in (["--phase17"], ["--phase18"], ["--phase19"]):
+    if sys.argv[1:2] in (["--phase17"], ["--phase18"], ["--phase19"],
+                         ["--phase20"]):
         if sys.argv[1] == "--phase17":
             observability_phase(ak, sk, bk)
         elif sys.argv[1] == "--phase18":
             elastic_phase(ak)
-        else:
+        elif sys.argv[1] == "--phase19":
             quantization_phase(sk, bk)
+        else:
+            fleet_phase(ak, sk, bk)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -5068,6 +5385,9 @@ def main() -> int:
 
     # 19. int8 post-training quantization
     int8_launches = quantization_phase(sk, bk)
+
+    # 20. the serving fleet
+    fleet_launches = fleet_phase(ak, sk, bk)
     zoo_launches = {
         "launches_inception_v1": zoo_bench["inception_v1"]["launches"],
         "launches_inception_v2": zoo_bench["inception_v2"]["launches"],
@@ -5082,6 +5402,7 @@ def main() -> int:
          "launches_tp_ranks": tp_launches["flash_attention_fwd"],
          "launches_observed_lm": obs_launches["flash_attention_fwd"],
          "launches_preempt_lm": preempt_launches["flash_attention_fwd"],
+         "launches_fleet": fleet_launches["flash_attention_fwd"],
          "build": tc_build["flash_attention_fwd"]},
         {**CARRY_ROW, "launches": carry_launches, **carry_row,
          "design": DESIGN[torch.bfloat16],
@@ -5110,13 +5431,15 @@ def main() -> int:
            "zoo_shapes": zoo_rows[d],
            "launches_dp_ranks": [l[d] * dp_steps for l in dp_launches],
            "launches_elastic": elastic_launches[row["name"]],
-           **({"launches_int8_serving": int8_launches["bn_relu_fwd"]}
+           **({"launches_int8_serving": int8_launches["bn_relu_fwd"],
+               "launches_fleet": fleet_launches["bn_relu_fwd"]}
               if d == "fwd" else {}),
            "dp_rank_shape": dp_rows[d]}
           for row, d in ((BN_FWD_ROW, "fwd"), (BN_BWD_ROW, "bwd"))],
         {**STEM_ROW, "launches": stem_launches, **stem_row,
          "build": tc_build["stem_conv"], "status": "ok",
          "launches_int8_serving": int8_launches["stem_conv"],
+         "launches_fleet": fleet_launches["stem_conv"],
          **{k: v["stem_conv"] for k, v in zoo_launches.items()},
          "zoo_shapes": zoo_rows["stem"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -330,3 +330,26 @@ def test_stem_formula_counts_the_restated_convolution():
 def test_count_flops_is_off_outside_a_count():
     assert costs._SESSIONS == []
     costs.tally_kernel(lambda: 1 / 0)  # never evaluated without a count
+
+
+def test_a_count_sees_only_its_own_thread():
+    """A serving engine counts a bucket on the meta device while other
+    replicas launch kernels: their tallies must stay out of its count."""
+    import threading
+    inside, done, result = threading.Event(), threading.Event(), []
+
+    def count():
+        def fn():
+            inside.set()
+            done.wait(10)
+            costs.tally_kernel(lambda: 7)
+        result.append(costs.count_flops(fn))
+
+    t = threading.Thread(target=count)
+    t.start()
+    assert inside.wait(10)
+    assert not costs.counting()  # the other thread's count is not ours
+    costs.tally_kernel(lambda: 1 / 0)  # never evaluated here
+    done.set()
+    t.join()
+    assert result == [7]

@@ -241,8 +241,7 @@ def test_trace_record_has_the_reference_fields():
     assert got["shape"] == want["shape"] == [4]
     assert {k for r in sink.records if r["type"] == "serving_summary"
             for k in r} == {k for r in jsink.records
-                            if r["type"] == "serving_summary" for k in r} \
-        - {"flops_per_step", "bytes_accessed", "mfu"}
+                            if r["type"] == "serving_summary" for k in r}
 
 
 def test_queue_timeout_emits_timeout_trace():
@@ -379,10 +378,20 @@ def test_a_failing_sink_never_stops_serving():
     assert plan.hits("telemetry.sink") >= 3 and not _traces(sink)
 
 
-def test_breaker_and_replica_id_are_not_ported():
-    for kw in ({"breaker": {"failure_threshold": 2}}, {"replica_id": "r0"}):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            InferenceEngine(_model(), device="cpu", start=False, **kw)
+def test_breaker_and_replica_id_reach_the_engine():
+    sink = InMemorySink()
+    with InferenceEngine(_model(), max_batch_size=4, max_wait_ms=0.0,
+                         breaker={"failure_threshold": 2},
+                         replica_id="r0", telemetry=_telemetry(sink),
+                         device="cpu") as eng:
+        eng.submit(np.ones(4, np.float32), session="user-7").result(5)
+        health = eng.health()
+    assert eng.replica_id == "r0"
+    assert health["status"] == "ok" and list(health["breakers"]) == \
+        ["b2[4:float32]"]
+    assert health["breakers"]["b2[4:float32]"]["state"] == "closed"
+    (rec,) = _traces(sink)
+    assert rec["replica_id"] == "r0" and rec["session_id"] == "user-7"
 
 
 # ------------------------------------------------------------------ #
