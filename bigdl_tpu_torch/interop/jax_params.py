@@ -11,9 +11,18 @@ gradients and running stats back in the JAX layout. `params_tree` and
 `load_params` pick the right one of the two for a model, and
 `tree_from_named` / `named_from_tree` carry any tensors keyed by the
 port's parameter names (an optimizer's slots) to the JAX layout and back:
-checkpoints go through these four. A quantized model (`nn/quantized.py`)
-carries the same way: its int8 weights keep the JAX layout (HWIO, [in,
-out]) and are copied as they are, and come back as int8.
+checkpoints go through these four. The pipelines carry as the JAX
+package's own trees: `load_gpipe_params` / `gpipe_params_tree` slice and
+stack `GPipe.init`'s leading stage axis over the S stage copies, and
+`load_pipeline_params` / `pipeline_params_tree` carry
+`PipelineStages.init`'s per-stage list (and `train_step_1f1b`'s
+per-stage gradients back) through `load_module_params` /
+`tree_from_named` on each stage. A `MoE` needs nothing of its own: its
+parameters `router`, `w1`, `b1`, `w2`, `b2` are `MoE.init`'s keys, so
+`load_module_params` and `module_params_tree` carry it. A quantized
+model (`nn/quantized.py`) carries the same way: its int8 weights keep
+the JAX layout (HWIO, [in, out]) and are copied as they are, and come
+back as int8.
 
 The trees are the JAX package's nested dicts, with their leaves converted
 by the caller to numpy arrays (`np.asarray`), so nothing here needs JAX.
@@ -309,3 +318,65 @@ def tree_keys(model, child: Optional[str] = None) -> set:
     top-level `child`'s subtree)."""
     targets = _tree_targets(model)
     return set(targets if child is None else targets[child])
+
+
+# --------------------------------------------------------------------------
+# The pipelines (`parallel/pipeline.py`)
+# --------------------------------------------------------------------------
+
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def load_gpipe_params(model, params: Mapping,
+                      state: Optional[Mapping] = None) -> None:
+    """Fill a port `GPipe` from the JAX `GPipe.init` tree, whose every leaf
+    is stacked on a leading stage axis: stage s takes slice s of each leaf
+    (and of each BN statistic of `state`, stacked the same way, if
+    given)."""
+    for s, stage in enumerate(model.stages):
+        load_module_params(
+            stage, _tree_map(lambda a: np.asarray(a)[s], params),
+            None if state is None else {
+                path: {k: np.asarray(v)[s] for k, v in stats.items()}
+                for path, stats in state.items()})
+
+
+def gpipe_params_tree(model, grad: bool = False) -> Dict:
+    """The port `GPipe`'s parameters (or their `.grad`) as the JAX tree:
+    each stage's `module_params_tree`, stacked on a leading stage axis."""
+    trees = [module_params_tree(stage, grad) for stage in model.stages]
+
+    def stack(nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack(nodes)
+
+    return stack(trees)
+
+
+def load_pipeline_params(pipe, params, states=None) -> None:
+    """Fill a port `PipelineStages`' stages from the JAX
+    `PipelineStages.init` per-stage list (and, optionally, a per-stage
+    list of BN states), each through `load_module_params`."""
+    if len(params) != pipe.S:
+        raise ValueError(f"{len(params)} stage trees for {pipe.S} stages")
+    for s, (stage, tree) in enumerate(zip(pipe.stages, params)):
+        load_module_params(stage, tree,
+                           None if states is None else states[s])
+
+
+def pipeline_params_tree(pipe, grads=None) -> list:
+    """The port pipeline's per-stage list in the JAX layout: each stage's
+    parameters (`module_params_tree`), or, given `grads` (the per-stage
+    `{name: tensor}` list `train_step_1f1b` returns), those gradients
+    (`tree_from_named`), as JAX's 1F1B returns its gradient list."""
+    if grads is None:
+        return [module_params_tree(stage) for stage in pipe.stages]
+    if len(grads) != pipe.S:
+        raise ValueError(f"{len(grads)} stage gradients for {pipe.S} "
+                         "stages")
+    return [tree_from_named(stage, g)
+            for stage, g in zip(pipe.stages, grads)]

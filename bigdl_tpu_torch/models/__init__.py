@@ -11,7 +11,8 @@ from bigdl_tpu_torch.models.inception import (Inception_v1,
                                               inception_layer_v2,
                                               inception_module)
 from bigdl_tpu_torch.models.lenet import LeNet5
-from bigdl_tpu_torch.models.resnet import ResNet, ResNet50
+from bigdl_tpu_torch.models.resnet import (ResNet, ResNet50, basic_block,
+                                          bottleneck)
 from bigdl_tpu_torch.models.rnn import PTBModel, SimpleRNN
 from bigdl_tpu_torch.models.transformer import TransformerLM
 from bigdl_tpu_torch.models.vgg import Vgg_16, Vgg_19, VggForCifar10
@@ -19,6 +20,7 @@ from bigdl_tpu_torch.models.widedeep import WideAndDeep
 
 __all__ = ["Autoencoder", "Inception_v1", "Inception_v1_NoAuxClassifier",
            "Inception_v2", "Inception_v2_NoAuxClassifier", "LeNet5",
-           "PTBModel", "ResNet", "ResNet50", "SimpleRNN", "TransformerLM", "Vgg_16", "Vgg_19",
-           "VggForCifar10", "WideAndDeep", "inception_layer_v2",
+           "PTBModel", "ResNet", "ResNet50", "SimpleRNN", "TransformerLM",
+           "Vgg_16", "Vgg_19", "VggForCifar10", "WideAndDeep",
+           "basic_block", "bottleneck", "inception_layer_v2",
            "inception_module"]

@@ -18,7 +18,8 @@ from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion, MSECriterion,
 from bigdl_tpu_torch.nn.dropout import Dropout, lend_generator
 from bigdl_tpu_torch.nn.embedding import (LookupTable, LookupTableSparse,
                                            SparseJoinTable, SparseLinear)
-from bigdl_tpu_torch.nn.fusion import fusion_enabled, fusion_scope, set_fusion
+from bigdl_tpu_torch.nn.fusion import (fusible_activation, fusible_bn,
+                                      fusion_enabled, fusion_scope, set_fusion)
 from bigdl_tpu_torch.nn.initialization import (MsraFiller, RandomNormal,
                                                RandomUniform, Xavier, Zeros)
 from bigdl_tpu_torch.nn.linear import Linear
@@ -58,5 +59,6 @@ __all__ = ["BatchNormalization", "CAddTable", "Cell", "ClassNLLCriterion",
            "TimeDistributedMaskCriterion", "TransformerBlock",
            "WeightOnlyQuantizedLinear",
            "WeightOnlyQuantizedSpatialConvolution", "Xavier",
-           "Zeros", "cache_commit", "cache_write", "fusion_enabled",
+           "Zeros", "cache_commit", "cache_write", "fusible_activation",
+           "fusible_bn", "fusion_enabled",
            "fusion_scope", "lend_generator", "rope", "set_fusion"]

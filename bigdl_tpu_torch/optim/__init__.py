@@ -4,11 +4,13 @@ optimization methods (`SGD`, the Adam family, `LAMB`, `Adagrad`,
 learning-rate schedules, triggers, metrics, the
 regularizers, the validation methods and `Evaluator`, `LocalOptimizer`,
 the data-parallel `DistriOptimizer` (one process per device) with its
-gradient buckets (`GradientBucketPlan`), the `Optimizer` factory,
-`LocalPredictor` and the `PredictionService` facade."""
+gradient buckets (`GradientBucketPlan`) and its parity subclass
+`ParallelOptimizer`, the `Optimizer` factory, `LocalPredictor`, the
+mesh-sharded `DistriPredictor` and the `PredictionService` facade."""
 
 from bigdl_tpu_torch.optim.bucketing import GradientBucketPlan
-from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
+from bigdl_tpu_torch.optim.distri_optimizer import (DistriOptimizer,
+                                                    ParallelOptimizer)
 from bigdl_tpu_torch.optim.evaluator import (DistriValidator, Evaluator,
                                              LocalValidator)
 from bigdl_tpu_torch.optim.local_optimizer import (BaseOptimizer,
@@ -17,9 +19,11 @@ from bigdl_tpu_torch.optim.metrics import Metrics, Timer
 from bigdl_tpu_torch.optim.optim_method import (LAMB, LBFGS, SGD, Adadelta,
                                                 Adagrad, Adam, Adamax, AdamW,
                                                 CompositeOptimMethod, Ftrl,
-                                                OptimMethod, RMSprop)
+                                                OptimMethod, ParallelAdam,
+                                                RMSprop)
 from bigdl_tpu_torch.optim.optimizer import Optimizer
-from bigdl_tpu_torch.optim.predictor import (LocalPredictor,
+from bigdl_tpu_torch.optim.predictor import (DistriPredictor,
+                                             LocalPredictor,
                                              PredictionService, Predictor)
 from bigdl_tpu_torch.optim.regularizer import (L1L2Regularizer,
                                                L1Regularizer, L2Regularizer,
@@ -47,15 +51,15 @@ from bigdl_tpu_torch.optim.validation import (MAE, NDCG, AccuracyResult,
 __all__ = ["AccuracyResult", "Adadelta", "Adagrad", "Adam", "Adamax",
            "AdamW", "BaseOptimizer", "CompositeOptimMethod",
            "ContiguousResult", "CosineDecay", "Default", "DistriOptimizer",
-           "DistriValidator", "EpochDecay", "EpochDecayWithWarmUp",
-           "EpochSchedule", "EpochStep", "Evaluator", "Exponential", "Ftrl",
+           "DistriPredictor", "DistriValidator", "EpochDecay",
+           "EpochDecayWithWarmUp", "EpochSchedule", "EpochStep", "Evaluator", "Exponential", "Ftrl",
            "GradientBucketPlan",
            "HitRatio", "L1L2Regularizer", "L1Regularizer", "L2Regularizer",
            "LAMB", "LBFGS", "LearningRateSchedule", "LocalOptimizer",
            "LocalPredictor", "LocalValidator", "Loss", "LossResult", "MAE",
            "Metrics", "MultiStep", "NDCG", "NaturalExp", "OptimMethod",
-           "Optimizer", "Plateau", "Poly", "PredictionService", "Predictor",
-           "RMSprop", "Regime",
+           "Optimizer", "ParallelAdam", "ParallelOptimizer", "Plateau",
+           "Poly", "PredictionService", "Predictor", "RMSprop", "Regime",
            "Regularizer", "SGD", "SequentialSchedule", "Step", "Timer",
            "Top1Accuracy", "Top5Accuracy", "TreeNNAccuracy", "Trigger",
            "ValidationMethod", "ValidationResult", "Warmup",

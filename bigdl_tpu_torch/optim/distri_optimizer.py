@@ -1122,6 +1122,18 @@ class DistriOptimizer(BaseOptimizer):
                     policy.sleep(delay)
 
 
+
+class ParallelOptimizer(DistriOptimizer):
+    """The reference's `ParallelOptimizer`, a parity subclass that adds
+    nothing to `DistriOptimizer`. The reference's `ParallelOptimizer`
+    overlaps each layer's gradient exchange with the rest of the
+    backward; the port's step still takes every gradient from one
+    `torch.autograd.grad` and then all-reduces the buckets, and that
+    overlap is parked speed work (`ROADMAP.md` queue 2, the bucket
+    overlap). This class exists so that code written for the reference
+    finds the name."""
+
+
 def _host_tree(node):
     """A host copy of an optimizer state tree: its tensors copied to the
     CPU, everything else kept."""

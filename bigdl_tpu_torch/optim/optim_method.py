@@ -212,6 +212,11 @@ class Adam(OptimMethod):
         return params, opt_state
 
 
+#: the reference's `ParallelAdam` runs Adam's update loop over threads; a
+#: device update is already data-parallel, so the name is Adam itself
+ParallelAdam = Adam
+
+
 class AdamW(Adam):
     """Adam with decoupled weight decay: after the Adam step,
     p = p - lr * weight_decay * p_before, the decay taken from the

@@ -10,12 +10,14 @@ fold, noise elision, the space-to-depth stem restatement) and leaves the
 caller's model untouched. A batch of several inputs reaches the model
 as the 1-based `Table`, as in the training loop.
 
+`DistriPredictor` is the mesh-sharded predictor: each batch (a ragged
+last one padded by repeating its last row) splits over the mesh's data
+axis, and each distinct device runs one forward over the shards of its
+positions on its own placed copy of the model.
+
 `PredictionService` is the reference's thread-safe `predict(sample)`
 facade over a `serving.InferenceEngine`: concurrent callers coalesce into
 padded micro-batches of one forward each.
-
-Not ported yet: `DistriPredictor` (the mesh-sharded predictor,
-`ROADMAP.md` queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -136,6 +138,90 @@ class LocalPredictor:
 #: distributed predict is local predict on each host's shard; alias for
 #: parity with the reference
 Predictor = LocalPredictor
+
+
+class DistriPredictor(LocalPredictor):
+    """Mesh-sharded batch inference (reference `DistriPredictor`).
+
+    mesh : a `parallel.Mesh` with a "data" axis; default `build_mesh()`
+        over every CUDA device (raises without one). Each batch is padded
+        by repeating its last row up to a multiple of the data axis, split
+        into one shard a data position (positions along other axes hold
+        the same shard and compute it once), and the result sliced back.
+        A mesh that names one device several times (n positions on one
+        card) runs that device's shards as one forward: one forward per
+        distinct device per batch. A `ProcessMesh` (one process per
+        device) runs the rank's own batch whole on the rank's device, as
+        the reference's multi-host rule feeds each host its shard.
+    model, batch_size, convert : as `LocalPredictor`; the converted model
+        stays on the device the caller's model lives on (the first data
+        position's device for a model without tensors), and each other
+        distinct device gets its own placed copy, placed again when the
+        parameters or buffers change (their version counters), as the
+        reference re-places on a new parameter tree.
+    """
+
+    def __init__(self, model: torch.nn.Module, batch_size: int = 32,
+                 mesh=None, convert: bool = True):
+        from bigdl_tpu_torch.parallel.mesh import ProcessMesh, build_mesh
+        self.mesh = mesh if mesh is not None else build_mesh()
+        if isinstance(self.mesh, ProcessMesh):
+            self._devices = [resolve_device(self.mesh.device_type)]
+        else:
+            self._devices = self.mesh.axis_devices("data")
+        where = model_device(model)
+        super().__init__(model, batch_size, convert,
+                         device=self._devices[0] if where is None else where)
+        self._placed = {}
+        self._placed_src = None
+
+    def _model_on(self, device: torch.device) -> torch.nn.Module:
+        """The served model's copy on `device` (the model itself on its
+        own device), placed again after any parameter or buffer changed."""
+        key = tuple((id(t), t._version) for t in itertools.chain(
+            self.model.parameters(), self.model.buffers()))
+        if key != self._placed_src:
+            self._placed, self._placed_src = {}, key
+        if device not in self._placed:
+            self._placed[device] = self.model if device == self.device \
+                else copy.deepcopy(self.model).to(device)
+        return self._placed[device]
+
+    def _forward(self, x):
+        from bigdl_tpu_torch.parallel.mesh import tree_map
+        n = len(self._devices)
+        lead = _leading_rows(x)
+        padded = -lead % n
+        if padded:
+            x = tree_map(lambda v: torch.cat(
+                [v, v[-1:].expand(padded, *v.shape[1:])]), x)
+        rows = (lead + padded) // n
+        by_device = {}
+        for i, dev in enumerate(self._devices):
+            by_device.setdefault(dev, []).append(i)
+        outs = [None] * n
+        for dev, positions in by_device.items():
+            if positions == list(range(positions[0], positions[-1] + 1)):
+                lo, hi = positions[0] * rows, (positions[-1] + 1) * rows
+                part = tree_map(lambda v: v[lo:hi].to(dev), x)
+            else:
+                part = tree_map(lambda v: torch.cat(
+                    [v[i * rows:(i + 1) * rows] for i in positions]).to(dev),
+                    x)
+            with torch.inference_mode():
+                y = self._model_on(dev)(part)
+            y = y[1] if isinstance(y, Table) else y
+            for i, chunk in zip(positions, y.split(rows)):
+                outs[i] = chunk.to(self.device)
+        y = outs[0] if n == 1 else torch.cat(outs)
+        return y[:lead] if padded else y
+
+
+def _leading_rows(x) -> int:
+    """The batch size of a batch's inputs (a tensor or a `Table`)."""
+    if isinstance(x, Table):
+        return _leading_rows(x[1])
+    return x.shape[0]
 
 
 class PredictionService:

@@ -389,6 +389,44 @@ Phases:
    kernel 1 launches 4 times a prefill batch (warm-up included) over
    both replicas. (d) The phase's wall time. `python3 chip_smoke.py
    --phase20` runs phases 1, 2 and 20 alone.
+21. pipeline and expert parallelism (`parallel/pipeline.py`,
+   `parallel/moe.py`) and `DistriPredictor`, TF32 off. (a) The ImageNet
+   ResNet-50 (224x224, 1000 classes, f32, zero-initialized BN gammas drawn
+   from U(0.05, 0.15)) split by `split_sequential(model, 4)` (the stem's
+   BN -> ReLU pair inside stage 0) as `PipelineStages` over a "pipe" mesh
+   of `["cuda"] * 4`, n_micro 8, a seeded batch of 64, mean
+   `ClassNLLCriterion` over the model's `LogSoftMax`: 4
+   `train_step_1f1b` steps, each followed by p -= 0.05 g, against the
+   microbatch oracle (`tools/pipeline_resnet.py microbatch_oracle`: each
+   microbatch through the stages' sequential forward and backward, loss
+   / M, gradients summed; per-microbatch BN statistics as in 1F1B) run 4
+   steps from the same parameters: step 1's loss within 1e-5 relative,
+   every gradient within 1e-4 of its tensor's largest element, the
+   update after 4 steps within 1e-3 of its norm (cuDNN's f32 backward
+   is not deterministic; the worst tensor is printed); kernel 6
+   528 = 33 x 8 x 2 launches a step (F ticks and B-tick recomputes),
+   kernel 7 264 = 33 x 8; every BN buffer unchanged. It prints ms a step
+   and the peak memory of each step, for both. (b) `GPipe` over 4
+   `TransformerBlock(512, 8, causal=True)` (distinct seeded weights, bf16)
+   on a "pipe" mesh of `["cuda"] * 4`, x 8 x 2048 x 512 bf16, n_micro 4:
+   `pipeline_apply` against the sequential forward per element within
+   2e-2 * max(1, |seq|) (phase 3's bf16 limit; bitwise reported), kernel
+   1 16 = 4 x 4 launches a call, ms a call beside the sequential
+   forward's. (c) `MoE` at Switch-Base-8's width (d_model 768, d_ff 3072,
+   8 experts, capacity factor 1.25), top-1 and top-2, 4096 tokens on an
+   "expert" mesh of `["cuda"] * 4`, the router skewed by 2.0 * N(0, 1)
+   and the tokens N(0.1, 1) (centred tokens drop nothing at this width):
+   `expert_parallel_apply`'s drop masks equal `dense_capacity_apply(
+   n_groups=4)`'s, outputs within 1e-4 of the largest element; dropped
+   units, `apply_with_aux`'s statistics, ms a call of each path. No
+   kernel of the port runs there. (d) `DistriPredictor(model, 32, mesh)`
+   over phase 10(b)'s served ResNet-50 (224, f32, randomized BN state,
+   `BIGDL_TPU_PALLAS_STEM=1`, `convert=True`) on a "data" mesh of every
+   card, or `["cuda"] * 2` on one: 101 seeded images (the last batch of 5
+   padded), every row within SERVE_ATOL of `LocalPredictor`'s, the same
+   `predict_class`, kernels 5 and 6 once per batch per distinct device.
+   (e) The phase's wall time. `python3 chip_smoke.py --phase21` runs
+   phases 1, 2 and 21 alone.
 
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
 measure ran: `tensor_cores` or `cuda_cores_f32` for rows 1-5, the octet
@@ -402,7 +440,8 @@ stem site; rows 1, 3 and 4 with their launches on each rank of phase
 in phase 18(b), `launches_preempt_lm`; rows 6-7 with their launches in
 phase 18(a), `launches_elastic`; rows 5-6 with their launches in phase
 19(b)-(c), `launches_int8_serving`; rows 1, 5 and 6 with their
-launches in phase 20, `launches_fleet`),
+launches in phase 20, `launches_fleet`; rows 1, 5, 6 and 7 with their
+launches on phase 21's paths, `launches_pipeline`),
 then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
 """
@@ -5223,6 +5262,328 @@ def fleet_phase(ak, sk, bk):
             "bn_relu_fwd": bn}
 
 
+# 21: pipeline and expert parallelism, DistriPredictor
+# (a) ResNet-50 through 1F1B: b64 in 8 microbatches over a "pipe" mesh of 4
+# positions, 4 SGD steps; the microbatch oracle runs the same function as
+# one plain loop, so loss and gradients agree to f32 summation order: the
+# loss within PIPE_LOSS_RTOL relative, each gradient within PIPE_GRAD_TOL
+# of its tensor's largest element. cuDNN's f32 backward sums with atomics,
+# so the two 4-step runs drift apart as any two runs do, fastest in a
+# tensor of small values (a BN shift that starts at 0 drifts ~1e-2 of its
+# largest element in 4 steps on an H100); the parameters after 4 steps
+# are held as the update, PIPE_UPDATE_RTOL of its norm over all parameters
+PIPE_BATCH, PIPE_MICRO, PIPE_STAGES, PIPE_STEPS, PIPE_LR = 64, 8, 4, 4, 0.05
+PIPE_LOSS_RTOL = 1e-5
+PIPE_GRAD_TOL = 1e-4
+PIPE_UPDATE_RTOL = 1e-3
+# (b) GPipe over 4 TransformerBlocks at the LM recipe's width, bf16
+GPIPE_BATCH, GPIPE_T, GPIPE_E, GPIPE_HEADS, GPIPE_MICRO = 8, 2048, 512, 8, 4
+# (c) Switch-Base-8's published width (Fedus et al. 2021): d_model 768,
+# d_ff 3072, 8 experts, capacity factor 1.25; 4096 tokens over 4 expert
+# positions; the expert-parallel output against the dense capacity
+# oracle's within MOE_RTOL of the oracle's largest element (f32, TF32 off;
+# the same 768- and 3072-long dot products over other row sets, so summed
+# in another order)
+MOE_D, MOE_H, MOE_E, MOE_CF, MOE_TOKENS = 768, 3072, 8, 1.25, 4096
+MOE_RTOL = 1e-4
+# the tokens' shared mean: the router skewed as the reference's dry run
+# skews it (+2.0 * N(0, 1)) drops no unit of centred tokens at this width
+# (every expert's share of them is ~1/8); a residual stream's mean makes
+# the skewed router favour some experts, so units really drop
+MOE_SHIFT = 0.1
+# (d) DistriPredictor: 101 images in batches of 32 (the last, 5, padded)
+DP_PRED_IMAGES, DP_PRED_BATCH = 101, 32
+
+
+def _max_share(got, want):
+    """max |got - want| / max |want| (0 for two zero tensors)."""
+    den = float(want.abs().max())
+    err = float((got - want).abs().max())
+    return err / den if den else (0.0 if err == 0 else math.inf)
+
+
+def _pipe_resnet():
+    """The ImageNet ResNet-50 (f32, seed 21) with its zero-initialized BN
+    gammas drawn from U(0.05, 0.15), as after some training."""
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.nn import BatchNormalization
+    model = ResNet50(class_num=1000, device="cuda",
+                     generator=torch.Generator().manual_seed(21))
+    gen = torch.Generator().manual_seed(21)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNormalization) and not bool(m.weight.any()):
+                m.weight.copy_(torch.rand(m.n_output, generator=gen) * 0.1
+                               + 0.05)
+    return model
+
+
+def _sgd(pipe, grads, lr):
+    with torch.no_grad():
+        for st, g in zip(pipe.stages, grads):
+            for name, p in st.named_parameters():
+                p -= lr * g[name]
+
+
+def pipeline_1f1b_phase(bk):
+    """21(a). Returns kernels 6 and 7's launches over the 4 steps."""
+    from bigdl_tpu_torch.nn import (ClassNLLCriterion, ReLU,
+                                    SpatialBatchNormalization)
+    from bigdl_tpu_torch.parallel import Mesh, PipelineStages, split_sequential
+    from bigdl_tpu_torch.tools.pipeline_resnet import microbatch_oracle
+    model = _pipe_resnet()
+    stages = split_sequential(model, PIPE_STAGES)
+    first = stages[0].children_in_order()
+    check(isinstance(first[1], SpatialBatchNormalization)
+          and type(first[2]) is ReLU,
+          "split_sequential(model, 4) cut the stem's BN -> ReLU pair")
+    mesh = Mesh(["cuda"] * PIPE_STAGES, ("pipe",))
+    micro_b = PIPE_BATCH // PIPE_MICRO
+    pipe = PipelineStages(stages, PIPE_MICRO, torch.zeros(
+        micro_b, SERVE_HW, SERVE_HW, 3, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.rand(PIPE_BATCH, SERVE_HW, SERVE_HW, 3, generator=gen,
+                   device="cuda")
+    y = torch.randint(1, 1001, (PIPE_BATCH,), generator=gen, device="cuda")
+    crit = ClassNLLCriterion()
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+
+    def run(step_fn, counted):
+        losses, times, peaks, first_grads, counts = [], [], [], None, []
+        for _ in range(PIPE_STEPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if counted:
+                _reset_bn_counts(bk)
+            t0 = time.perf_counter()
+            loss, grads = step_fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            if counted:
+                counts.append((bk.bn_relu_forward.launches,
+                               bk.bn_relu_backward.launches))
+            losses.append(float(loss))
+            if first_grads is None:
+                first_grads = [{n: g.clone() for n, g in st.items()}
+                               for st in grads]
+            _sgd(pipe, grads, PIPE_LR)
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        return losses, times, peaks, first_grads, counts, params
+
+    o_losses, o_ms, o_peak, o_grads, _, o_params = run(
+        lambda: microbatch_oracle(pipe, x, y, crit), False)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(init[n])
+    losses, ms, peak, grads, counts, params = run(
+        lambda: pipe.train_step_1f1b(mesh, x, y, crit), True)
+    loss_err = abs(losses[0] - o_losses[0]) / abs(o_losses[0])
+    grad_share = max(_max_share(g[n], o[n]) for g, o in zip(grads, o_grads)
+                     for n in o)
+    shares = {n: _max_share(params[n], o_params[n]) for n in params}
+    worst = max(shares, key=shares.get)
+    diff = sum(float((params[n] - o_params[n]).double().pow(2).sum())
+               for n in params)
+    update = sum(float((o_params[n] - init[n]).double().pow(2).sum())
+                 for n in params)
+    update_err = math.sqrt(diff / update)
+    unchanged = all(torch.equal(b, buffers[n])
+                    for n, b in model.named_buffers())
+    fwd, bwd = BN_SITES * PIPE_MICRO * 2, BN_SITES * PIPE_MICRO
+    out = {"model": "ResNet-50 224x224 f32", "batch": PIPE_BATCH,
+           "n_micro": PIPE_MICRO, "stages": PIPE_STAGES,
+           "stage_children": [len(st.children_in_order()) for st in stages],
+           "bubble_fraction": pipe.bubble_fraction,
+           "losses": losses, "oracle_losses": o_losses,
+           "loss_rel_err_step1": loss_err,
+           "grad_max_share_step1": grad_share,
+           "update_rel_err_step4": update_err,
+           "param_max_share_step4": [worst, shares[worst]],
+           "ms_per_step": ms, "oracle_ms_per_step": o_ms,
+           "peak_gib": peak, "oracle_peak_gib": o_peak,
+           "bn_relu_launches_per_step": counts,
+           "buffers_unchanged": unchanged}
+    print("pipeline 1f1b " + json.dumps(out), flush=True)
+    check(all(math.isfinite(v) for v in losses + o_losses),
+          "21(a): a loss is not finite")
+    check(loss_err <= PIPE_LOSS_RTOL,
+          f"21(a): loss {losses[0]} vs oracle {o_losses[0]}")
+    check(grad_share <= PIPE_GRAD_TOL,
+          f"21(a): a gradient is {grad_share:.3g} of its largest element "
+          f"off the oracle's (limit {PIPE_GRAD_TOL})")
+    check(update_err <= PIPE_UPDATE_RTOL,
+          f"21(a): the update after {PIPE_STEPS} steps is {update_err:.3g} "
+          f"of its norm off the oracle run's (limit {PIPE_UPDATE_RTOL})")
+    check(all(c == (fwd, bwd) for c in counts),
+          f"21(a): kernels 6/7 launched {counts} a step, want ({fwd}, "
+          f"{bwd}): F ticks and B-tick recomputes must take the fused route")
+    check(unchanged, "21(a): the pipelined steps changed a BN buffer")
+    del pipe, model, stages, init, o_grads, grads
+    torch.cuda.empty_cache()
+    return {"bn_relu_fwd": sum(c[0] for c in counts),
+            "bn_relu_bwd": sum(c[1] for c in counts)}
+
+
+def gpipe_phase(ak):
+    """21(b). Returns kernel 1's launches in one `pipeline_apply`."""
+    from bigdl_tpu_torch.nn import TransformerBlock
+    from bigdl_tpu_torch.parallel import GPipe, Mesh
+    blocks = [TransformerBlock(GPIPE_E, GPIPE_HEADS, causal=True,
+                               device="cuda",
+                               generator=torch.Generator().manual_seed(s))
+              for s in range(4)]
+    gp = GPipe(blocks[0], 4, n_micro=GPIPE_MICRO)
+    for stage, block in zip(gp.stages, blocks):
+        stage.load_state_dict(block.state_dict())
+    gp.to(torch.bfloat16).eval()
+    mesh = Mesh(["cuda"] * 4, ("pipe",))
+    x = torch.randn(GPIPE_BATCH, GPIPE_T, GPIPE_E,
+                    generator=torch.Generator().manual_seed(22)).to(
+        "cuda", torch.bfloat16)
+    with torch.no_grad():
+        seq = gp(x)
+        _reset_flash_counts(ak)
+        got = gp.pipeline_apply(mesh, x)
+        torch.cuda.synchronize()
+        launches = ak.flash_attention_forward.launches
+        ms = cuda_ms(lambda: gp.pipeline_apply(mesh, x), 5)
+        seq_ms = cuda_ms(lambda: gp(x), 5)
+    diff = (got.float() - seq.float()).abs()
+    lim = TOL[torch.bfloat16]["o"] * seq.float().abs().clamp(min=1.0)
+    share = float((diff / lim).max())
+    out = {"blocks": 4, "width": GPIPE_E, "heads": GPIPE_HEADS,
+           "batch": [GPIPE_BATCH, GPIPE_T, GPIPE_E], "dtype": "bfloat16",
+           "n_micro": GPIPE_MICRO, "bubble_fraction": gp.bubble_fraction,
+           "flash_launches_per_call": launches,
+           "bitwise": bool(torch.equal(got, seq)),
+           "max_abs_diff": float(diff.max()), "max_share_of_limit": share,
+           "ms_per_call": ms, "sequential_ms_per_call": seq_ms}
+    print("pipeline gpipe " + json.dumps(out), flush=True)
+    check(bool(torch.isfinite(got.float()).all()), "21(b): not finite")
+    check(share <= 1, f"21(b): pipelined output {share:.3f} of the bf16 "
+          "limit off the sequential forward")
+    check(launches == 4 * GPIPE_MICRO,
+          f"21(b): kernel 1 launched {launches} times a call, want "
+          f"{4 * GPIPE_MICRO}")
+    del gp, blocks
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_phase():
+    """21(c): no kernel of the port runs here (the reference's expert
+    products are plain einsums)."""
+    from bigdl_tpu_torch.parallel import Mesh, MoE
+    mesh = Mesh(["cuda"] * 4, ("expert",))
+    x = (torch.randn(MOE_TOKENS, MOE_D,
+                     generator=torch.Generator().manual_seed(23))
+         + MOE_SHIFT).cuda()
+    for top_k in (1, 2):
+        moe = MoE(MOE_D, MOE_H, MOE_E, MOE_CF, top_k, device="cuda",
+                  generator=torch.Generator().manual_seed(23))
+        with torch.no_grad():
+            moe.router.add_(torch.randn(
+                MOE_D, MOE_E, generator=torch.Generator().manual_seed(24)
+            ).cuda() * 2.0)
+            y, mask = moe.expert_parallel_apply(mesh, x, return_mask=True)
+            want, want_mask = moe.dense_capacity_apply(x, 4,
+                                                       return_mask=True)
+            _, aux = moe.apply_with_aux(x)
+            ep_ms = cuda_ms(lambda: moe.expert_parallel_apply(mesh, x), 3)
+            cap_ms = cuda_ms(lambda: moe.dense_capacity_apply(x, 4), 3)
+            dense_ms = cuda_ms(lambda: moe(x), 3)
+        share = _max_share(y, want)
+        dropped = int((~mask).sum())
+        out = {"top_k": top_k, "d_model": MOE_D, "d_ff": MOE_H,
+               "experts": MOE_E, "capacity_factor": MOE_CF,
+               "tokens": MOE_TOKENS, "capacity": moe.group_capacity(
+                   MOE_TOKENS // 4),
+               "dropped_units": dropped, "units": top_k * MOE_TOKENS,
+               "masks_equal": bool(torch.equal(mask, want_mask)),
+               "max_share": share,
+               "aux": {k: (v.tolist() if v.dim() else float(v))
+                       for k, v in aux.items()},
+               "ms_expert_parallel": ep_ms, "ms_dense_capacity": cap_ms,
+               "ms_dense": dense_ms, "kernels": "none"}
+        print("pipeline moe " + json.dumps(out), flush=True)
+        check(out["masks_equal"], f"21(c) top-{top_k}: drop masks differ")
+        check(dropped > 0, f"21(c) top-{top_k}: the skewed router dropped "
+              "nothing")
+        check(share <= MOE_RTOL and bool(torch.isfinite(y).all()),
+              f"21(c) top-{top_k}: outputs {share:.3g} of the largest "
+              f"element apart (limit {MOE_RTOL})")
+        del moe
+    torch.cuda.empty_cache()
+
+
+def distri_predictor_phase(sk, bk):
+    """21(d). Returns kernels 5 and 6's launches."""
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.optim import DistriPredictor, LocalPredictor
+    from bigdl_tpu_torch.parallel import Mesh
+    n_cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", i) for i in range(n_cards)] \
+        if n_cards > 1 else ["cuda"] * 2
+    mesh = Mesh(devices, ("data",))
+    images = np.random.RandomState(21).rand(
+        DP_PRED_IMAGES, SERVE_HW, SERVE_HW, 3).astype(np.float32)
+    model = ResNet50(class_num=1000, s2d_stem=True, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    _randomize_bn_state(model, 0)
+    os.environ[STEM_ENV] = "1"
+    try:
+        local = LocalPredictor(model, DP_PRED_BATCH, device="cuda")
+        ref = np.stack(local.predict(images))
+        ref_cls = local.predict_class(images)
+        pred = DistriPredictor(model, DP_PRED_BATCH, mesh)
+        _reset_stem_counts(sk, bk)
+        t0 = time.perf_counter()
+        got = np.stack(pred.predict(images))
+        wall = time.perf_counter() - t0
+        launches = _stem_counts(sk, bk)
+        cls = pred.predict_class(images)
+    finally:
+        os.environ.pop(STEM_ENV, None)
+    batches = -(-DP_PRED_IMAGES // DP_PRED_BATCH)
+    distinct = len(set(mesh.axis_devices("data")))
+    share, clear = _check_rows(got, ref, "21(d) DistriPredictor")
+    out = {"images": DP_PRED_IMAGES, "batch_size": DP_PRED_BATCH,
+           "mesh": [str(d) for d in mesh.axis_devices("data")],
+           "batches": batches, "distinct_devices": distinct,
+           "launches": {"stem_conv": launches[0],
+                        "bn_relu_fwd": launches[1]},
+           "max_share_of_limit": share, "argmax_rows_checked": clear,
+           "classes_equal": cls == ref_cls, "wall_s": wall,
+           "images_per_sec": DP_PRED_IMAGES / wall}
+    print("pipeline distri_predictor " + json.dumps(out), flush=True)
+    check(cls == ref_cls, "21(d): predict_class differs from LocalPredictor")
+    check(launches == (batches * distinct, batches * distinct),
+          f"21(d): kernels 5/6 launched {launches}, want "
+          f"{batches * distinct} each (one forward per distinct device per "
+          "batch)")
+    del pred, local, model
+    torch.cuda.empty_cache()
+    return {"stem_conv": launches[0], "bn_relu_fwd": launches[1]}
+
+
+def pipeline_phase(ak, sk, bk):
+    """21: (a)-(d) and the phase's wall time; returns the launches of
+    kernels 1, 5, 6 and 7 on its paths."""
+    t0 = time.perf_counter()
+    bn = pipeline_1f1b_phase(bk)
+    flash = gpipe_phase(ak)
+    moe_phase()
+    served = distri_predictor_phase(sk, bk)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"flash_attention_fwd": {"gpipe_call": flash},
+            "stem_conv": {"distri_predictor": served["stem_conv"]},
+            "bn_relu_fwd": {"1f1b": bn["bn_relu_fwd"],
+                            "distri_predictor": served["bn_relu_fwd"]},
+            "bn_relu_bwd": {"1f1b": bn["bn_relu_bwd"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5272,15 +5633,17 @@ def main() -> int:
     tc_build = build_phase(_build)
 
     if sys.argv[1:2] in (["--phase17"], ["--phase18"], ["--phase19"],
-                         ["--phase20"]):
+                         ["--phase20"], ["--phase21"]):
         if sys.argv[1] == "--phase17":
             observability_phase(ak, sk, bk)
         elif sys.argv[1] == "--phase18":
             elastic_phase(ak)
         elif sys.argv[1] == "--phase19":
             quantization_phase(sk, bk)
-        else:
+        elif sys.argv[1] == "--phase20":
             fleet_phase(ak, sk, bk)
+        else:
+            pipeline_phase(ak, sk, bk)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -5388,6 +5751,9 @@ def main() -> int:
 
     # 20. the serving fleet
     fleet_launches = fleet_phase(ak, sk, bk)
+
+    # 21. pipeline and expert parallelism, DistriPredictor
+    pipe_launches = pipeline_phase(ak, sk, bk)
     zoo_launches = {
         "launches_inception_v1": zoo_bench["inception_v1"]["launches"],
         "launches_inception_v2": zoo_bench["inception_v2"]["launches"],
@@ -5403,6 +5769,7 @@ def main() -> int:
          "launches_observed_lm": obs_launches["flash_attention_fwd"],
          "launches_preempt_lm": preempt_launches["flash_attention_fwd"],
          "launches_fleet": fleet_launches["flash_attention_fwd"],
+         "launches_pipeline": pipe_launches["flash_attention_fwd"],
          "build": tc_build["flash_attention_fwd"]},
         {**CARRY_ROW, "launches": carry_launches, **carry_row,
          "design": DESIGN[torch.bfloat16],
@@ -5431,6 +5798,7 @@ def main() -> int:
            "zoo_shapes": zoo_rows[d],
            "launches_dp_ranks": [l[d] * dp_steps for l in dp_launches],
            "launches_elastic": elastic_launches[row["name"]],
+           "launches_pipeline": pipe_launches[row["name"]],
            **({"launches_int8_serving": int8_launches["bn_relu_fwd"],
                "launches_fleet": fleet_launches["bn_relu_fwd"]}
               if d == "fwd" else {}),
@@ -5440,6 +5808,7 @@ def main() -> int:
          "build": tc_build["stem_conv"], "status": "ok",
          "launches_int8_serving": int8_launches["stem_conv"],
          "launches_fleet": fleet_launches["stem_conv"],
+         "launches_pipeline": pipe_launches["stem_conv"],
          **{k: v["stem_conv"] for k, v in zoo_launches.items()},
          "zoo_shapes": zoo_rows["stem"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {

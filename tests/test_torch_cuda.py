@@ -14,7 +14,10 @@ sharing the card against one process on the whole batch; and the
 Wide&Deep sparse stack: `LookupTableSparse` and `SparseLinear` on the
 card against their CPU run (outputs and gradients within 1e-5 of the
 largest element, f32), `SparseLinear` and `IndicatorCol` given the
-card's index tensors.
+card's index tensors; and the pipelines: 1F1B over a "pipe" mesh that
+repeats the card against its microbatch oracle with kernels 6-7's
+launches a step, `MoE.expert_parallel_apply` against
+`dense_capacity_apply`, `DistriPredictor` against `LocalPredictor`.
 
 Every test here needs a CUDA device and skips without one. This file
 imports nothing of JAX, so it runs where JAX is not installed:
@@ -1046,3 +1049,88 @@ def test_feature_columns_take_the_card_s_index_tensors(cuda_device):
             ids.to(cuda_device))
         assert got.device.type == "cuda"
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+# ------------------------------------------- pipeline, experts, predictor
+
+
+def test_1f1b_on_the_card_matches_its_microbatch_oracle(cuda_device):
+    """CIFAR ResNet-8 split into 3 stages over a "pipe" mesh that repeats
+    the card, 4 microbatches: the 1F1B loss and gradients against the
+    microbatch oracle (f32, TF32 off: the same kernels in the same order,
+    within 1e-5 relative), kernel 6 at 4 sites x 4 microbatches x 2 (the F
+    tick and the B tick's recompute) and kernel 7 at 4 x 4 a step, and
+    every BN buffer unchanged."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.parallel import Mesh, PipelineStages, split_sequential
+    from bigdl_tpu_torch.tools.pipeline_resnet import microbatch_oracle
+    torch.backends.cudnn.allow_tf32 = False
+    model = ResNet(10, depth=8, data_set="cifar10", device=cuda_device)
+    stages = split_sequential(model, 3)
+    pipe = PipelineStages(stages, 4, torch.zeros(4, 32, 32, 3,
+                                                 device=cuda_device))
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.rand(16, 32, 32, 3, generator=g, device=cuda_device)
+    y = torch.randint(1, 11, (16,), generator=g, device=cuda_device)
+    buffers = [b.clone() for b in model.buffers()]
+    mesh = Mesh([cuda_device] * 3, ("pipe",))
+    crit = ClassNLLCriterion()
+    f0, b0 = tbk.bn_relu_forward.launches, tbk.bn_relu_backward.launches
+    loss, grads = pipe.train_step_1f1b(mesh, x, y, crit)
+    torch.cuda.synchronize()
+    assert tbk.bn_relu_forward.launches - f0 == 4 * 4 * 2
+    assert tbk.bn_relu_backward.launches - b0 == 4 * 4
+    oloss, ograds = microbatch_oracle(pipe, x, y, crit)
+    torch.testing.assert_close(loss, oloss, rtol=1e-5, atol=0)
+    for got, want in zip(grads, ograds):
+        for name in want:
+            torch.testing.assert_close(got[name], want[name], rtol=1e-5,
+                                       atol=1e-6 * float(
+                                           want[name].abs().max()))
+    for b, saved in zip(model.buffers(), buffers):
+        assert torch.equal(b, saved)
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_expert_parallel_on_the_card_matches_dense_capacity(cuda_device,
+                                                            top_k):
+    """4 expert positions on the card, a skewed router at capacity factor
+    1.25: the drop masks equal, outputs within 1e-5 relative (f32, TF32
+    off; the same expert products over other row sets)."""
+    from bigdl_tpu_torch.parallel import Mesh, MoE
+    moe = MoE(64, 128, 8, 1.25, top_k, device=cuda_device,
+              generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        moe.router.add_(torch.randn(64, 8, generator=torch.Generator()
+                                    .manual_seed(4)).to(cuda_device) * 0.5)
+    x = torch.randn(512, 64, generator=torch.Generator().manual_seed(5)
+                    ).to(cuda_device)
+    with torch.no_grad():
+        y, mask = moe.expert_parallel_apply(
+            Mesh([cuda_device] * 4, ("expert",)), x, return_mask=True)
+        want, want_mask = moe.dense_capacity_apply(x, 4, return_mask=True)
+    assert torch.equal(mask, want_mask) and int((~mask).sum()) > 0
+    torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+
+
+def test_distri_predictor_on_the_card_matches_local(cuda_device):
+    """A CIFAR ResNet-8 served over a "data" mesh that repeats the card:
+    rows equal `LocalPredictor`'s within 1e-5 relative of the row's
+    largest element, the same classes, one forward (kernel 6 once a fused
+    site) per batch, the ragged last batch padded."""
+    from bigdl_tpu_torch.optim import DistriPredictor, LocalPredictor
+    from bigdl_tpu_torch.parallel import Mesh
+    torch.backends.cudnn.allow_tf32 = False
+    model = ResNet(10, depth=8, data_set="cifar10", device=cuda_device)
+    x = np.random.RandomState(0).rand(21, 32, 32, 3).astype(np.float32)
+    local = LocalPredictor(model, 8, convert=False)
+    want = local.predict(x)
+    pred = DistriPredictor(model, 8, Mesh([cuda_device] * 2, ("data",)),
+                           convert=False)
+    f0 = tbk.bn_relu_forward.launches
+    got = pred.predict(x)
+    assert tbk.bn_relu_forward.launches - f0 == 4 * 3
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=1e-5 * np.abs(w).max(),
+                                   rtol=0)
+    assert pred.predict_class(x) == local.predict_class(x)
