@@ -196,13 +196,31 @@ def plain_route(flops: Callable[[], float], fn, *args, **kwargs):
     return out
 
 
-def count_flops(fn, *args, **kwargs) -> int:
-    """FLOPs of one call `fn(*args, **kwargs)` (which runs): matmuls and
-    convolutions as `FlopCounterMode` counts them, each hand-written kernel
-    by its formula, the same on the CPU (plain versions) as on the card.
-    Elementwise aten ops count nothing, as in `FlopCounterMode`."""
+def _op_counter():
+    """A dispatch mode that counts the aten ops of a call (the
+    counterpart of a jaxpr's equation count)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _OpCounter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    return _OpCounter()
+
+
+def count_costs(fn, *args, **kwargs) -> Tuple[int, int]:
+    """(FLOPs, aten ops) of one call `fn(*args, **kwargs)` (which runs),
+    in one dispatch walk: the FLOPs as `count_flops` counts them, and
+    every aten op the call dispatches (a kernel wrapper's plain version
+    included, so the op count of a call through a plain route is not the
+    card's)."""
     session = _Session()
-    with _counter() as counter:
+    with _counter() as counter, _op_counter() as ops:
         entry = (counter, session)
         _SESSIONS.append(entry)
         try:
@@ -210,4 +228,12 @@ def count_flops(fn, *args, **kwargs) -> int:
         finally:
             _SESSIONS.remove(entry)
     return (counter.get_total_flops() - session.hidden_flops
-            + session.kernel_flops)
+            + session.kernel_flops), ops.ops
+
+
+def count_flops(fn, *args, **kwargs) -> int:
+    """FLOPs of one call `fn(*args, **kwargs)` (which runs): matmuls and
+    convolutions as `FlopCounterMode` counts them, each hand-written kernel
+    by its formula, the same on the CPU (plain versions) as on the card.
+    Elementwise aten ops count nothing, as in `FlopCounterMode`."""
+    return count_costs(fn, *args, **kwargs)[0]

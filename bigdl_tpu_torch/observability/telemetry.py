@@ -15,9 +15,10 @@ attached sink. Record types:
   serving engines' records.
 
 Every record type's field contract is declared in `RECORD_SCHEMAS`, the
-reference's own, record for record (`compile`, `slo_status`,
-`serving_fleet`, `workload_replay` and the rest included, though nothing
-in the port emits those yet), checked by `validate_record`.
+reference's own, record for record (`compile`, `slo_status`, `alert`,
+`serving_fleet`, `workload_replay` and the rest included; the port does
+not emit `workload_replay` and `replay_summary` yet), checked by
+`validate_record`.
 
 Every record carries `time` (epoch seconds, absolute, so streams overlay
 on device traces). Durations inside records are measured on monotonic
@@ -151,8 +152,8 @@ class InMemorySink(TelemetrySink):
 class SummarySink(TelemetrySink):
     """Numeric fields of `step` records as `summary.add_scalar(tag,
     value, step)` calls under `telemetry/<field>` tags. `summary` is any
-    object with `add_scalar` and `close` (a TensorBoard writer, say): the
-    port has no `TrainSummary` yet."""
+    object with `add_scalar` and `close` (a `visualization.TrainSummary`,
+    say)."""
 
     _SKIP = ("step", "epoch", "time", "type")
 

@@ -165,7 +165,9 @@ import torch
 from bigdl_tpu_torch._device import resolve_device
 from bigdl_tpu_torch.nn.dropout import lend_generator
 from bigdl_tpu_torch.optim.bucketing import GradientBucketPlan
-from bigdl_tpu_torch.optim.local_optimizer import BaseOptimizer, _to_device
+from bigdl_tpu_torch.optim.local_optimizer import (BaseOptimizer,
+                                                   _to_device,
+                                                   meta_step_call)
 from bigdl_tpu_torch.optim.metrics import Timer
 from bigdl_tpu_torch.parallel import collectives
 from bigdl_tpu_torch.parallel.mesh import ProcessMesh
@@ -299,6 +301,18 @@ class DistriOptimizer(BaseOptimizer):
     @property
     def _lead_telemetry(self):
         return self.telemetry if collectives.rank() == 0 else None
+
+    @property
+    def _writes_summaries(self) -> bool:
+        return collectives.rank() == 0
+
+    def _summary_params(self) -> Dict[str, torch.Tensor]:
+        """Under a model axis the shards are gathered (every rank takes
+        part; rank 0 writes)."""
+        params = dict(self.model.named_parameters())
+        if self.sharded is None:
+            return params
+        return self.sharded.full_params(params, "unshard")
 
     @property
     def _loop_name(self) -> str:
@@ -678,11 +692,28 @@ class DistriOptimizer(BaseOptimizer):
         m.train()
         return m, self._loss_and_grads(m), dict(m.named_buffers()), m_buf0
 
+    def _build_bucket_add(self):
+        """The running sum's add of one shard's gradients
+        (`torch._foreach_add`): behind a `CompiledFunction` labelled
+        "distri.bucket_add" when this process writes telemetry, as the
+        reference's (one `compile` record a gradient layout)."""
+        def bucket_add(acc, g):
+            return torch._foreach_add(acc, g)
+
+        tel = self._lead_telemetry
+        if tel is None:
+            return bucket_add
+        from bigdl_tpu_torch.observability.compilation import \
+            CompiledFunction
+        return CompiledFunction(bucket_add, label="distri.bucket_add",
+                                telemetry=tel)
+
     def _elastic_step(self, plan, controller, registry, xs, ys,
-                      step_no: int, opt_state, lr):
+                      step_no: int, opt_state, lr, bucket_add):
         """One global step as `controller.logical_replicas` logical
         shards on `plan`'s slots, then the combine and the update on the
-        lead; returns the mean loss (a device tensor)."""
+        lead; returns the mean loss (a device tensor). `bucket_add` adds
+        a shard's gradients into the running sum (`_build_bucket_add`)."""
         R0 = controller.logical_replicas
         params = dict(self.model.named_parameters())
         names = list(params)
@@ -732,7 +763,7 @@ class DistriOptimizer(BaseOptimizer):
             states.append(ms_i)
             # into the running sum now, in logical order (a left fold)
             with torch.no_grad():
-                g = g_i if g is None else torch._foreach_add(g, g_i)
+                g = g_i if g is None else bucket_add(g, g_i)
         faults.fire("mesh.collective", step=step_no, n_active=plan.n_active)
         with torch.no_grad():
             g = torch._foreach_div(g, float(R0))
@@ -802,9 +833,22 @@ class DistriOptimizer(BaseOptimizer):
                 tel.event("bucket_plan", **self.bucket_plan.describe())
         loop_state = self.optim_method.state
         epoch_size = self._epoch_size()
-        data_iter = self._fast_forward_data(self.dataset.data(train=True),
+        data_iter = self._fast_forward_data(self._open_data_pipeline(),
                                             loop_state)
         self._init_cursor_positions()
+        bucket_add = self._build_bucket_add()
+
+        def global_step(x, y, plan, step_no, lr):
+            return self._elastic_step(
+                plan, controller, registry, controller.split_batch(x),
+                controller.split_batch(y), step_no, opt_state, lr,
+                bucket_add)
+
+        # the FLOPs of the whole global batch's step (as one step on the
+        # lead's device would run it), counted once a batch signature
+        step = self._step_fn = self._compiled(
+            global_step, lambda x, y, *rest: meta_step_call(self, x, y),
+            sig_argnums=(0, 1))
         stats = self.elastic_stats = {
             "shard_dispatches": 0, "commits": 0, "commit_s": 0.0,
             "recoveries": 0, "replayed_batches": 0}
@@ -871,14 +915,10 @@ class DistriOptimizer(BaseOptimizer):
                 faults.fire("mesh.device_loss", step=step_no,
                             n_active=plan.n_active)
                 lr = self.optim_method.current_lr()
-                if tel is not None:
-                    flops = self._step_flops(batch)
-                xs = controller.split_batch(batch.get_input())
-                ys = controller.split_batch(batch.get_target())
                 with self._span("step dispatch", step=step_no):
-                    loss = self._elastic_step(plan, controller, registry,
-                                              xs, ys, step_no, opt_state,
-                                              lr)
+                    loss = step(batch.get_input(), batch.get_target(), plan,
+                                step_no, lr)
+                flops = self._step_cost()
                 self.last_loss = loss
                 do_sync = step_no % sync_every == 0
                 if do_sync:
@@ -963,11 +1003,13 @@ class DistriOptimizer(BaseOptimizer):
                     f"{epoch_size}][Iteration {loop_state['neval']}] "
                     f"Training cost {loss_val}. Throughput is {throughput} "
                     f"records/second. ({plan.n_active} devices, elastic)")
+                self._write_train_summary(loop_state, loss_val, lr,
+                                          throughput)
             boundary = loop_state["recordsProcessedThisEpoch"] >= epoch_size
             if boundary:
                 loop_state["epoch"] += 1
                 loop_state["recordsProcessedThisEpoch"] = 0
-                self.dataset.shuffle()
+                self._shuffle_dataset()
             with self._span("validation"):
                 self._validate(loop_state)
             if self.checkpoint_trigger is not None \
@@ -1016,6 +1058,7 @@ class DistriOptimizer(BaseOptimizer):
         if not preempted:
             self._telemetry_run_end(loop_state)
         self.opt_state = None
+        self._step_fn = None
         self._replicas.clear()
         return self.model
 
@@ -1069,7 +1112,12 @@ class DistriOptimizer(BaseOptimizer):
         last_failure = time.time()
         while True:
             try:
-                return self._optimize_impl()
+                try:
+                    return self._optimize_impl()
+                finally:
+                    # each attempt joins its prefetch threads, finished
+                    # or failed, before a retry builds new ones
+                    self._close_data_pipeline()
             except (KeyboardInterrupt, SystemExit):
                 self._unplace(gather=False)
                 self._restore_pristine()

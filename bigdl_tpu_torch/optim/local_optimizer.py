@@ -69,12 +69,21 @@ Observability (`observability/`), as the reference's loop:
   writes it.
 - `set_telemetry(Telemetry)`: `run_start` (`backend` the device type,
   `n_devices` the ranks), one `step` record a sync point, `run_end` with
-  `metrics.as_dict()`, and a `run_abort` event on every failure. A step
-  record carries `flops_per_step` (`step_flops`, counted once for each
-  batch signature on a meta copy of the step) and `mfu`;
-  `bytes_accessed` is null, since nothing here models the bytes a step
-  moves. `Telemetry(grad_norms=True)` adds the global gradient and
-  parameter L2 norms.
+  `metrics.as_dict()`, and a `run_abort` event on every failure. With
+  telemetry the step runs behind a `CompiledFunction`
+  (`observability/compilation.py`, label `<loop>.step/<model>`): one
+  `compile` record a batch signature, whose `flops` (`step_flops`, a
+  count on a meta copy of the step, times the ranks) each step record
+  carries as `flops_per_step`, with `mfu`; `bytes_accessed` is null,
+  since nothing here models the bytes a step moves.
+  `Telemetry(grad_norms=True)` adds the global gradient and parameter L2
+  norms. Under `set_prefetch` a step record also carries the pipeline's
+  `prefetch_queue_depth`, `prefetch_fetch_wait_s` and
+  `prefetch_worker_busy`.
+- `set_train_summary(TrainSummary)` / `set_validation_summary(...)`
+  (`visualization/`): Loss, LearningRate and Throughput at each sync
+  point, the `Parameters` histograms when the summary's trigger fires,
+  and each validation method's score.
 - `set_health_monitors(...)` (`NanGuard`, `StragglerDetector`,
   `ThroughputMonitor`) observe each step record. With a `NanGuard` the
   step flags itself non-finite on the device (`~isfinite(loss) |
@@ -96,8 +105,15 @@ and `optimize()` returns without raising and without `run_end`. The
 handler is installed at the start of `optimize()` (its latch cleared) and
 the previous disposition is restored on every exit.
 
-Not ported (`ROADMAP.md` lists them): summaries, prefetch,
-graph optimisation, the compile records of `CompiledFunction`, and the
+`set_prefetch(depth, workers, deterministic, retry_policy)`
+(`dataset/prefetch.py`): the transformer chain runs in background
+threads, started with each `optimize()` and joined on every exit; the
+order is serial iteration's, the epoch shuffle takes the pipeline's
+source lock, and on a card the batches come pinned and are copied with
+`non_blocking=True`. A checkpoint under prefetch holds no data cursor
+(the stream runs ahead of the trained position), as the reference's.
+
+Not ported (`ROADMAP.md` lists them): graph optimisation, and the
 donation the JAX step uses (the port updates in place instead, and keeps a host
 snapshot of the model at the start of each run so that a failed run can
 put it back).
@@ -144,21 +160,22 @@ def _each(fn, x) -> Table:
     return Table(*[fn(v) for v in x])
 
 
-def _to_device(x, device: torch.device):
+def _to_device(x, device: torch.device, non_blocking: bool = False):
     """A batch's inputs or targets on `device`: numpy arrays are copied
     there, tensors moved (no copy when already there), string and bytes
     columns left on the host. A list or tuple of them (a multi-input
     batch) becomes the 1-based `Table` the model reads as `input[1]`,
-    `input[2]`, ..., as the reference's `_to_device` gives it."""
+    `input[2]`, ..., as the reference's `_to_device` gives it.
+    `non_blocking` copies a pinned host tensor without waiting for it."""
     if x is None:
         return None
     if isinstance(x, (list, tuple, Table)):
-        return _each(lambda v: _to_device(v, device), x)
+        return _each(lambda v: _to_device(v, device, non_blocking), x)
     if _host_column(x):
         return x
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(device)
+    return x.to(device, non_blocking=non_blocking)
 
 
 def _cast_floats(x, dtype: torch.dtype):
@@ -172,17 +189,6 @@ def _cast_floats(x, dtype: torch.dtype):
     if isinstance(x, torch.Tensor) and x.is_floating_point():
         return x.to(dtype)
     return x
-
-
-def _batch_signature(x):
-    """What a step's FLOP count depends on: the shapes and dtypes of a
-    batch's inputs or targets (a `Table` or list of them, host columns
-    included)."""
-    if x is None:
-        return None
-    if isinstance(x, (list, tuple, Table)):
-        return tuple(_batch_signature(v) for v in x)
-    return (tuple(x.shape), str(x.dtype))
 
 
 def _tensor_slots(node, out: List) -> List:
@@ -232,24 +238,45 @@ def _meta(model: torch.nn.Module) -> torch.nn.Module:
     return copy.deepcopy(model).to("meta")
 
 
-def step_flops(opt: "BaseOptimizer", batch=None) -> int:
-    """FLOPs of one training step of `opt` on `batch` (default: its
-    dataset's first batch): the step the optimizer runs (`_build_step`,
-    with its precision, accumulation, clipping and guards), counted by
-    `costs.count_flops` on a copy of the model and the method on the meta
-    device. Nothing runs and nothing launches (the kernel wrappers count
-    by their formulas), so the run itself is untouched, as the reference
-    lowers its step a second time without running it."""
+def meta_step_call(opt: "BaseOptimizer", x, y):
+    """(step, arguments): the step `opt` runs (`_build_step`, with its
+    precision, accumulation, clipping and guards) on a copy of the model
+    and the method on the meta device, and its arguments for the batch
+    inputs `x` and targets `y` (host arrays or tensors, moved to the meta
+    device). Calling it launches nothing (the kernel wrappers only count
+    there), so the run itself is untouched, as the reference lowers its
+    step a second time without running it."""
     twin = opt._meta_twin()
     params = dict(twin.model.named_parameters())
     opt_state = twin.optim_method.init_state_with_masters(params)
+    meta = torch.device("meta")
+    return twin._build_step(), (opt_state, _to_device(x, meta),
+                                _to_device(y, meta),
+                                twin.optim_method.current_lr())
+
+
+def step_flops(opt: "BaseOptimizer", batch=None) -> int:
+    """FLOPs of one training step of `opt` on `batch` (default: its
+    dataset's first batch): `costs.count_flops` of `meta_step_call`, the
+    count the loop's `compile` records and step records carry (times the
+    ranks of a data-parallel step)."""
     if batch is None:
         batch = next(iter(opt.dataset.data(train=False)))
-    meta = torch.device("meta")
-    x = _to_device(batch.get_input(), meta)
-    y = _to_device(batch.get_target(), meta)
-    return costs.count_flops(twin._build_step(), opt_state, x, y,
-                             twin.optim_method.current_lr())
+    fn, args = meta_step_call(opt, batch.get_input(), batch.get_target())
+    return costs.count_flops(fn, *args)
+
+
+def _flat_tree(tree, prefix: str = ""):
+    """(path, leaf) pairs of a nest of dicts and lists, the path's keys
+    joined by "/", dict keys in sorted order (the reference's flatten)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat_tree(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat_tree(v, f"{prefix}{i}/")
+    else:
+        yield prefix.rstrip("/"), tree
 
 
 def _micro_batches(x, steps: int):
@@ -322,8 +349,15 @@ class BaseOptimizer:
         #: the step's aux fields (`_build_step`): "nonfinite",
         #: "grad_norm", "param_norm", as armed
         self._aux_fields: List[str] = []
-        # a step's FLOPs by batch signature (`step_flops`)
-        self._flops: Dict = {}
+        #: the run's step as dispatched (a `CompiledFunction` with
+        #: telemetry attached; its `last_info` carries the step's FLOPs)
+        self._step_fn = None
+        # TensorBoard summaries (`visualization/`)
+        self.train_summary = None
+        self.validation_summary = None
+        # set_prefetch's settings (None: off) and the run's pipeline
+        self._prefetch: Optional[Dict] = None
+        self._active_pipeline = None
         # the armed `PreemptionHandler` (None: none)
         self._preemption = None
         #: worker id -> the `SpanTracer` of its lane (the elastic loop's
@@ -441,6 +475,90 @@ class BaseOptimizer:
         """Call `fn(loop_state)` after every iteration."""
         self.iteration_hook = fn
         return self
+
+    def set_train_summary(self, summary):
+        """Write training scalars to `summary` (a
+        `visualization.TrainSummary`) at every sync point: Loss,
+        LearningRate and Throughput; and, when its "Parameters" trigger
+        fires, a histogram of every parameter (the reference's tree paths
+        as tags, the JAX layout)."""
+        self.train_summary = summary
+        return self
+
+    setTrainSummary = set_train_summary
+
+    def set_validation_summary(self, summary):
+        """Write each validation method's score to `summary` (a
+        `visualization.ValidationSummary`) under the method's repr."""
+        self.validation_summary = summary
+        return self
+
+    setValidationSummary = set_validation_summary
+
+    def set_prefetch(self, depth: Optional[int] = None,
+                     workers: Optional[int] = None,
+                     deterministic: bool = True,
+                     retry_policy=None):
+        """Run the dataset's transformer chain in background threads
+        (`dataset/prefetch.py`): `workers` threads (default
+        `Engine.config["io_threads"]`) apply its element-wise prefix,
+        one more batches, and the loop only pops a queue. `depth` (the
+        total lookahead, ready and in flight) defaults to 4x workers.
+        `deterministic=True` keeps the batch order serial iteration
+        gives; `retry_policy` (a `resilience.RetryPolicy`) retries a
+        transient per-item failure in its worker without moving the
+        item. On a card the batches come pinned and are copied with
+        `non_blocking=True`. Across an epoch boundary the `shuffle()`
+        lands between pulls as the threads' timing has it, so a
+        multi-epoch stream (and its resume) is exact only without
+        prefetch. `depth=0` disables. The threads start with each
+        `optimize()` and are joined before it returns, failed or not."""
+        if depth == 0:
+            self._prefetch = None
+            return self
+        if workers is None:
+            from bigdl_tpu_torch.utils.engine import Engine
+            workers = int(Engine.config["io_threads"])
+        if workers < 1:
+            raise ValueError(f"workers must be >= 1, got {workers}")
+        if depth is None:
+            depth = 4 * workers
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        self._prefetch = {"depth": int(depth), "workers": int(workers),
+                          "deterministic": bool(deterministic),
+                          "retry_policy": retry_policy}
+        return self
+
+    setPrefetch = set_prefetch
+
+    def _open_data_pipeline(self):
+        """The run's training stream: the prefetching `InputPipeline`
+        when `set_prefetch` is armed (kept for the step records' gauges
+        and the close), else the dataset's own iterator."""
+        if self._prefetch is None:
+            self._active_pipeline = None
+            return self.dataset.data(train=True)
+        from bigdl_tpu_torch.dataset.prefetch import build_input_pipeline
+        self._active_pipeline = build_input_pipeline(
+            self.dataset, train=True, **self._prefetch,
+            pin_memory=self.device.type == "cuda")
+        return self._active_pipeline
+
+    def _close_data_pipeline(self):
+        """Join the run's pipeline threads (a no-op without one)."""
+        pipeline, self._active_pipeline = self._active_pipeline, None
+        if pipeline is not None:
+            pipeline.close()
+
+    def _shuffle_dataset(self):
+        """The epoch boundary's reshuffle; under prefetch it takes the
+        pipeline's source lock, so no worker is mid-pull meanwhile."""
+        if self._active_pipeline is not None:
+            with self._active_pipeline.source_guard():
+                self.dataset.shuffle()
+        else:
+            self.dataset.shuffle()
 
     def set_preemption_handler(self, handler=None, grace_s: float = 30.0):
         """Arm preemption handling (see the module docstring): a
@@ -703,10 +821,12 @@ class BaseOptimizer:
 
     def _data_cursor(self):
         """The dataset's cursor at the last trained batch (one pull behind
-        the loop's lookahead), or None when the dataset has none or the
+        the loop's lookahead), or None when the dataset has none, the
+        stream runs ahead of it (a replay, a prefetch pipeline) or the
         capture fails: a checkpoint never fails over its cursor."""
         cur = getattr(self.dataset, "cursor", None)
-        if cur is None or not self._cursor_valid:
+        if cur is None or not self._cursor_valid \
+                or self._active_pipeline is not None:
             return None
         try:
             return cur(position=self._cursor_prev_pos)
@@ -744,6 +864,7 @@ class BaseOptimizer:
         cold_resume, self._resumed = self._resumed, False
         cursor, self._resume_cursor = self._resume_cursor, None
         if cold_resume and cursor is not None \
+                and self._active_pipeline is None \
                 and hasattr(self.dataset, "restore_cursor"):
             try:
                 self.dataset.restore_cursor(cursor)
@@ -764,7 +885,7 @@ class BaseOptimizer:
                     return data_iter
                 seen += b.size()
             pending = next(data_iter, None)
-            self.dataset.shuffle()
+            self._shuffle_dataset()
         already = loop_state.get("recordsProcessedThisEpoch", 0)
         skipped = pending.size() if pending is not None else 0
         if pending is not None and skipped > already:
@@ -822,6 +943,10 @@ class BaseOptimizer:
             self.model.train()
         for m, r in zip(self.validation_methods, results):
             logger.info(f"{m!r} is {r!r}")
+            if self.validation_summary is not None and r is not None \
+                    and self._writes_summaries:
+                self.validation_summary.add_scalar(
+                    repr(m), r.result()[0], loop_state["neval"])
         if results and results[0] is not None:
             loop_state["score"] = results[0].result()[0]
             # feed Plateau-style schedules
@@ -1069,19 +1194,62 @@ class BaseOptimizer:
         twin.optim_method = copy.deepcopy(self.optim_method)
         return twin
 
-    def _step_flops(self, batch) -> Optional[int]:
-        """The FLOPs of a step on `batch`, over every device it runs on:
-        counted once for each batch signature (`step_flops`)."""
-        sig = (_batch_signature(batch.get_input()),
-               _batch_signature(batch.get_target()))
-        if sig not in self._flops:
-            try:
-                self._flops[sig] = step_flops(self, batch) \
-                    * self._step_batches
-            except Exception as e:  # attribution never fails a run
-                logger.warning("step FLOP count failed (%r)", e)
-                self._flops[sig] = None
-        return self._flops[sig]
+    def _compiled(self, step, meta, sig_argnums=(1, 2)):
+        """`step` behind a `CompiledFunction` when this process writes
+        telemetry (one `compile` record a batch signature, the step's
+        FLOPs in `last_info`: `meta`'s call on the meta device, times the
+        batches a step trains on); `step` itself otherwise, as the
+        reference keeps its plain path when nothing observes it."""
+        tel = self._lead_telemetry
+        if tel is None:
+            return step
+        from bigdl_tpu_torch.observability.compilation import \
+            CompiledFunction
+        return CompiledFunction(
+            step, label=f"{self._loop_name}.step/{type(self.model).__name__}",
+            telemetry=tel, sig_argnums=sig_argnums, meta=meta,
+            device=str(self.device), flops_scale=self._step_batches)
+
+    def _step_cost(self) -> Optional[int]:
+        """The FLOPs of the step just dispatched (None without
+        telemetry or when its count failed)."""
+        info = getattr(self._step_fn, "last_info", None)
+        return None if info is None else info.get("flops")
+
+    @property
+    def _writes_summaries(self) -> bool:
+        """Whether this process writes the summaries (the distributed
+        loop: rank 0)."""
+        return True
+
+    def _summary_params(self) -> Dict[str, torch.Tensor]:
+        """The whole parameters by name, for the "Parameters"
+        histograms."""
+        return dict(self.model.named_parameters())
+
+    def _write_train_summary(self, loop_state, loss_val, lr, throughput):
+        """A sync point's scalars, and the parameters' histograms when the
+        summary's "Parameters" trigger fires (the reference's
+        `saveSummary`)."""
+        summary = self.train_summary
+        if summary is None:
+            return
+        it = loop_state["neval"]
+        trig = getattr(summary, "get_summary_trigger",
+                       lambda _n: None)("Parameters")
+        fire = trig is not None and trig(loop_state)
+        named = self._summary_params() if fire else None
+        if not self._writes_summaries:
+            return
+        summary.add_scalar("Loss", loss_val, it)
+        summary.add_scalar("LearningRate", self._lr_scalar(lr), it)
+        summary.add_scalar("Throughput", throughput, it)
+        if fire:
+            from bigdl_tpu_torch.interop.jax_params import tree_from_named
+            with torch.no_grad():
+                tree = tree_from_named(self.model, named)
+            for tag, leaf in _flat_tree(tree):
+                summary.add_histogram(tag, leaf, it)
 
     def _device_kind(self) -> str:
         return torch.cuda.get_device_name(self.device) \
@@ -1118,6 +1286,10 @@ class BaseOptimizer:
             rec["mfu"] = costs.mfu(flops, step_time_s,
                                    device_kind=self._device_kind(),
                                    n_devices=self._n_compute_devices)
+        if self._active_pipeline is not None:
+            # the input pipeline's gauges: ready batches, the loop's
+            # cumulative wait, the worker pool's busy fraction
+            rec.update(self._active_pipeline.health())
         if aux_rows:
             fields = self._aux_fields
             if "nonfinite" in fields:
@@ -1309,13 +1481,19 @@ class BaseOptimizer:
             # device, as the skip's flag does
             opt_state = _counts_on(opt_state, self.device)
         self.opt_state = opt_state
-        step = self._build_step()
+        step = self._step_fn = self._compiled(
+            self._build_step(),
+            lambda opt_state, x, y, lr: meta_step_call(self, x, y))
         loop_state = self.optim_method.state
         epoch_size = self._epoch_size()
-        data_iter = self._fast_forward_data(self.dataset.data(train=True),
+        data_iter = self._fast_forward_data(self._open_data_pipeline(),
                                             loop_state)
         self._init_cursor_positions()
         tel = self._lead_telemetry
+        # a prefetched batch on a card comes pinned: copy it without
+        # waiting, behind the step in flight
+        non_blocking = self._active_pipeline is not None \
+            and self.device.type == "cuda"
 
         def fetch_and_place():
             """The next batch, its inputs and targets on the device."""
@@ -1327,8 +1505,11 @@ class BaseOptimizer:
                                    "the end trigger fired; stopping early")
                     return None
                 self._note_pull()
-                return (batch, _to_device(batch.get_input(), self.device),
-                        _to_device(batch.get_target(), self.device))
+                return (batch,
+                        _to_device(batch.get_input(), self.device,
+                                   non_blocking),
+                        _to_device(batch.get_target(), self.device,
+                                   non_blocking))
 
         sync_every = self.sync_interval
         self._telemetry_run_start()
@@ -1342,10 +1523,9 @@ class BaseOptimizer:
             batch, x, y = pending
             faults.fire("train.step", step=loop_state["neval"] + 1)
             lr = self.optim_method.current_lr()
-            if tel is not None:
-                flops = self._step_flops(batch)
             with self._span("step dispatch", step=loop_state["neval"] + 1):
                 loss, aux = step(opt_state, x, y, lr)
+            flops = self._step_cost()
             self.last_loss = loss
             if aux is not None:
                 aux_pending.append(aux)
@@ -1369,10 +1549,12 @@ class BaseOptimizer:
                     f"{epoch_size}][Iteration {loop_state['neval']}] "
                     f"Training cost {loss_val}. Throughput is {throughput} "
                     f"records/second.{self._log_suffix()}")
+                self._write_train_summary(loop_state, loss_val, lr,
+                                          throughput)
             if loop_state["recordsProcessedThisEpoch"] >= epoch_size:
                 loop_state["epoch"] += 1
                 loop_state["recordsProcessedThisEpoch"] = 0
-                self.dataset.shuffle()
+                self._shuffle_dataset()
             with self._span("validation"):
                 self._validate(loop_state)
             if self.checkpoint_trigger is not None \
@@ -1399,6 +1581,7 @@ class BaseOptimizer:
         if not preempted:  # a preempted run closed with run_abort
             self._telemetry_run_end(loop_state)
         self.opt_state = None
+        self._step_fn = None
         return self.model
 
 
@@ -1426,4 +1609,6 @@ class LocalOptimizer(BaseOptimizer):
             self._restore_pristine()
             raise
         finally:
+            # the prefetch threads are joined however the run ended
+            self._close_data_pipeline()
             self._disarm_preemption()

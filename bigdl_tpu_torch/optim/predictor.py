@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import copy
 import itertools
+import threading
 from collections import deque
 from typing import Iterable, List, Optional
 
@@ -33,7 +34,7 @@ import torch
 from bigdl_tpu_torch._device import resolve_device
 from bigdl_tpu_torch.dataset.sample import MiniBatch
 from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
-from bigdl_tpu_torch.optim.local_optimizer import _to_device
+from bigdl_tpu_torch.optim.local_optimizer import _meta, _to_device
 from bigdl_tpu_torch.utils.table import Table
 
 
@@ -60,6 +61,15 @@ class LocalPredictor:
         converts it for inference; otherwise it serves `model` itself,
         switched to eval mode.
     batch_size : rows per forward when `predict` batches the input.
+    instrument : route the forward through a `CompiledFunction`
+        (`observability/compilation.py`): one cost count on the meta
+        device and one `compile` record a batch signature, the FLOPs of
+        the last forward in `self._jitted.last_info` (the serving engines
+        read them).
+    label : the stem of the compile records' label when instrumented:
+        the records read `<label>/<class of the served model>`.
+    telemetry : where the compile records go when instrumented (default
+        none: the counts are kept, no record is emitted).
     device : where the predictor runs; the model must live there. Default
         CUDA (see `resolve_device`).
     """
@@ -68,7 +78,9 @@ class LocalPredictor:
     inflight = 4
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 32,
-                 convert: bool = True, *, device=None):
+                 convert: bool = True, instrument: bool = False, *,
+                 label: str = "predict.forward", telemetry=None,
+                 device=None):
         self.device = resolve_device(device)
         where = model_device(model)
         if where is not None and where != self.device:
@@ -80,14 +92,42 @@ class LocalPredictor:
                                             inference=True)
         self.model = model.eval()
         self.batch_size = batch_size
+        self._jitted = None
+        if instrument:
+            from bigdl_tpu_torch.observability.compilation import \
+                CompiledFunction
+            self._meta_lock = threading.Lock()
+            self._meta_model = None
+            self._jitted = CompiledFunction(
+                self._plain_forward,
+                label=f"{label}/{type(self.model).__name__}",
+                telemetry=telemetry, sig_argnums=(0,),
+                meta=self._meta_forward,
+                device=str(self.device))
+
+    def _plain_forward(self, x, model=None):
+        """One forward of `model` (default the served one) under
+        `torch.inference_mode()`; a `Table` output gives its first entry,
+        `y[1]`, the reference's convention."""
+        with torch.inference_mode():
+            y = (self.model if model is None else model)(x)
+        return y[1] if isinstance(y, Table) else y
+
+    def _meta_forward(self, x):
+        """The same forward on a meta copy of the served model (made at
+        the first count), for `CompiledFunction`'s cost count."""
+        from bigdl_tpu_torch.observability.compilation import to_meta
+        with self._meta_lock:
+            if self._meta_model is None:
+                self._meta_model = _meta(self.model)
+        return self._plain_forward, (to_meta(x), self._meta_model)
 
     def _forward(self, x):
-        """One forward of a batch already on the device. A model that
-        returns a `Table` (a `ConcatTable`) gives its first entry, `y[1]`,
-        the reference's convention for a `Table` output."""
-        with torch.inference_mode():
-            y = self.model(x)
-        return y[1] if isinstance(y, Table) else y
+        """One forward of a batch already on the device (through the
+        `CompiledFunction` when instrumented)."""
+        if self._jitted is not None:
+            return self._jitted(x)
+        return self._plain_forward(x)
 
     def _to_device(self, x):
         """A batch's inputs (or targets) on the predictor's device; a list

@@ -13,6 +13,8 @@ Sites the port instruments:
     ckpt.write.params / ckpt.write.state / ckpt.write.optim /
     ckpt.write.manifest / ckpt.commit      serialization/checkpoint.py
     train.step                             both optimizers' training loops
+    prefetch.worker                        dataset/prefetch.py workers (the
+                                           element-wise stage, per item)
     mesh.device_loss / mesh.collective     DistriOptimizer's elastic loop
     serve.forward                          serving/engine.py dispatch and
                                            generation.py prefill
@@ -24,8 +26,6 @@ Sites the port instruments:
     fs.remote_io                           utils/filesystem.py remote ops
     telemetry.sink                         observability/telemetry.py emit
 
-The reference's `prefetch.worker` belongs to a subsystem the port has not
-ported yet; a `FaultSpec` naming it raises, since it would never fire.
 An injector given a `Telemetry` emits a `fault_injected` event for each
 fault it raises; that emission does not fire the `telemetry.sink` site
 again.
@@ -54,7 +54,7 @@ KNOWN_SITES = (
     "ckpt.write.params", "ckpt.write.state", "ckpt.write.optim",
     "ckpt.write.manifest", "ckpt.commit",
     "train.step", "mesh.device_loss", "mesh.collective",
-    "serve.forward", "fs.remote_io", "telemetry.sink",
+    "prefetch.worker", "serve.forward", "fs.remote_io", "telemetry.sink",
 )
 
 _EXTRA_SITES: set = set()

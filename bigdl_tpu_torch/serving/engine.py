@@ -46,16 +46,17 @@ Costs: `stats()` carries `flops_per_step` (the mean FLOPs of a dispatched
 batch) and `mfu` (the lifetime FLOPs over the wall time since the engine
 started, against the card's registry peak; None on the CPU). The port has
 no compiler cost analysis: each (feature signature, bucket) forward is
-counted once, by `observability.costs.count_flops` on a meta-device copy
-of the served model (nothing launches; each kernel wrapper adds its
-formula), and cached. `bytes_accessed` is always None: `count_flops`
-counts operations, not bytes, and no executable reports its traffic.
+counted once, on a meta-device copy of the served model, by the
+predictor's `CompiledFunction` (`observability/compilation.py`: nothing
+launches; each kernel wrapper adds its formula; a `compile` record goes
+to the engine's stream under the label `serving.forward/<model>`).
+`bytes_accessed` is always None: the count is of operations, not bytes,
+and no executable reports its traffic.
 """
 
 from __future__ import annotations
 
 import contextlib
-import copy
 import itertools
 import logging
 import threading
@@ -72,7 +73,6 @@ import torch
 from bigdl_tpu_torch.dataset.sample import Sample
 from bigdl_tpu_torch.observability import costs
 from bigdl_tpu_torch.observability.spans import TraceContext
-from bigdl_tpu_torch.optim.local_optimizer import _meta
 from bigdl_tpu_torch.optim.predictor import LocalPredictor, to_numpy_rows
 from bigdl_tpu_torch.resilience import faults
 from bigdl_tpu_torch.resilience.breaker import (CLOSED, HALF_OPEN, OPEN,
@@ -208,11 +208,9 @@ class ServingEngine:
         self._breaker_cfg = dict(breaker) if breaker is not None else None
         self._breakers: Dict[tuple, CircuitBreaker] = {}  # under _slock
         self.replica_id = replica_id
-        # FLOPs of one forward per batch domain (None: the count failed),
-        # and the sum over dispatched batches, both under _slock
-        self._flops: Dict[tuple, Optional[int]] = {}
+        # the FLOPs of the dispatched batches (each forward's count from
+        # its `CompiledFunction`'s `last_info`), under _slock
         self._flops_total = 0.0
-        self._meta_model = None  # the meta-device copy the counts run on
         self._t0_mono = time.monotonic()
         # perf_counter twin of _t0_mono: a trace record's arrival offset
         self._t0_perf = time.perf_counter()
@@ -417,25 +415,11 @@ class ServingEngine:
         return br, br is not None and br.state == HALF_OPEN, False
 
     # ------------------------------------------------------------ costs
-    def _count_flops(self, key, fn) -> Optional[int]:
-        """FLOPs of one forward of batch domain `key`: `fn(meta_model)`
-        counted by `costs.count_flops` once, then cached. A failed count
-        is logged and kept as None (attribution never fails serving)."""
-        with self._slock:
-            if key in self._flops:
-                return self._flops[key]
-        try:
-            if self._meta_model is None:
-                self._meta_model = _meta(self.model)
-            n = costs.count_flops(fn, self._meta_model)
-        except Exception as e:
-            logger.warning("FLOP count of %s failed (%r)", key, e)
-            n = None
-        with self._slock:
-            self._flops[key] = n
-        return n
-
-    def _add_flops(self, n: Optional[int]):
+    def _add_flops(self, compiled):
+        """Add the FLOPs of the forward `compiled` (a `CompiledFunction`)
+        just ran on this thread (none when its count failed)."""
+        info = compiled.last_info
+        n = None if info is None else info.get("flops")
         if n:
             with self._slock:
                 self._flops_total += n
@@ -590,8 +574,12 @@ class InferenceEngine(ServingEngine):
             if len(set(buckets)) != len(buckets):
                 raise ValueError(f"buckets must be distinct, got {buckets}")
             max_batch_size = buckets[-1]
-        self._pred = LocalPredictor(model, batch_size=max_batch_size,
-                                    convert=convert, device=device)
+        # the forward's compile records go to this engine's stream under a
+        # serving label: bucket warm-ups and new shapes show up there
+        self._pred = LocalPredictor(
+            model, batch_size=max_batch_size, convert=convert,
+            instrument=True, telemetry=telemetry, device=device,
+            label="serving.forward")
         super().__init__(max_batch_size=max_batch_size,
                          queue_capacity=queue_capacity, admission=admission,
                          start=False, telemetry=telemetry, tracer=tracer,
@@ -651,7 +639,6 @@ class InferenceEngine(ServingEngine):
             to_numpy_rows(y)  # blocks until the forward has run
             with self._slock:
                 self._compiled.add((_signature(feats), b))
-            self._bucket_flops(_signature(feats), b, cols)
         return self.compile_count()
 
     def compile_count(self) -> int:
@@ -739,24 +726,15 @@ class InferenceEngine(ServingEngine):
             groups.setdefault(r.signature(), []).append(r)
         return list(groups.values())
 
-    def _forward_arrays(self, arrs: List[np.ndarray], pred=None):
+    def _forward_arrays(self, arrs: List[np.ndarray]):
         """One forward of the stacked feature columns: the 1-based `Table`
         of them when there is more than one, as the reference's engine
-        gives a multi-feature model. `pred` (default the engine's
-        predictor) may be a copy over another model (the FLOP count's)."""
-        pred = self._pred if pred is None else pred
+        gives a multi-feature model. The predictor's `CompiledFunction`
+        counts each (signature, bucket) forward once, on the meta
+        device."""
+        pred = self._pred
         return pred._forward(
             pred._to_device(arrs[0] if len(arrs) == 1 else arrs))
-
-    def _bucket_flops(self, sig, bucket: int, cols: List[np.ndarray]):
-        """FLOPs of one forward of the (signature, bucket) domain (counted
-        once, on the meta device)."""
-        def forward(meta_model):
-            twin = copy.copy(self._pred)
-            twin.model = meta_model
-            twin.device = torch.device("meta")
-            self._forward_arrays(cols, twin)
-        return self._count_flops((sig, bucket), forward)
 
     def _dispatch(self, reqs: List[_Request]):
         """Pad a group with its last row up to its bucket and launch one
@@ -811,7 +789,7 @@ class InferenceEngine(ServingEngine):
             self._n["bucket_hits"] += int(hit)
             self._n["rows"] += bucket
             self._n["padded_rows"] += bucket - n
-        self._add_flops(self._bucket_flops(sig, bucket, cols))
+        self._add_flops(self._pred._jitted)
         return reqs, y, br, probe, meta
 
     def _complete(self, batch):

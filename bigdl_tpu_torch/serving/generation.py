@@ -33,8 +33,10 @@ Resilience, as `ServingEngine`'s: `breaker=` arms one circuit breaker per
 with `ServingUnavailableError`, the stream's status "shed"), `health()`,
 `replica_id` and `generate(..., session=)` on the trace records, and the
 FLOPs / MFU stats (each prefill shape and the decode step counted once on
-the meta device; `flops_per_step` is the FLOPs of prefills and decode
-steps over the prefill batches, as the reference's). `max_wait_ms` holds
+the meta device by a `CompiledFunction`, labelled
+`serving.prefill/<model>` and `serving.decode/<model>` in the `compile`
+records; `flops_per_step` is the FLOPs of prefills and decode steps over
+the prefill batches, as the reference's). `max_wait_ms` holds
 an underfull prefill open for more arrivals, up to that long after its
 oldest request arrived.
 
@@ -59,6 +61,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch._device import resolve_device
+from bigdl_tpu_torch.optim.local_optimizer import _meta
 from bigdl_tpu_torch.observability.spans import TraceContext
 from bigdl_tpu_torch.resilience import faults
 from bigdl_tpu_torch.serving.engine import (EngineClosedError, ServingEngine,
@@ -332,6 +335,22 @@ class GenerationEngine(ServingEngine):
                    "prefill_requests": 0, "prefill_batches": 0,
                    "slot_joins": 0, "slot_leaves": 0,
                    "prefill_s": 0.0, "decode_s": 0.0}
+        # the model calls behind `CompiledFunction`s: each prefill shape
+        # and the decode step counted once on the meta device (the FLOPs
+        # `stats()` sums), with a `compile` record in the stream
+        from bigdl_tpu_torch.observability.compilation import \
+            CompiledFunction
+        mname = type(model).__name__
+        self._meta_lock = threading.Lock()
+        self._meta_model = None
+        self._prefill_cf = CompiledFunction(
+            self._prefill, label=f"serving.prefill/{mname}",
+            telemetry=telemetry, sig_argnums=(1,), meta=self._meta_prefill,
+            device=str(self.device))
+        self._decode_cf = CompiledFunction(
+            self._decode, label=f"serving.decode/{mname}",
+            telemetry=telemetry, sig_argnums=(1, 2), meta=self._meta_decode,
+            device=str(self.device))
         if start:
             self.start()
 
@@ -410,20 +429,21 @@ class GenerationEngine(ServingEngine):
         ledger's): one int32 row of `t_pad` tokens."""
         return (((t_pad,), "int32"),)
 
-    def _prefill_flops(self, t_pad: int, b: int) -> Optional[int]:
-        def forward(meta_model):
-            cache = meta_model.init_cache(self.slots, self.max_len)
-            self._prefill(cache, np.ones((b, t_pad), np.int32),
-                          np.zeros((b,), np.int32), np.ones((b,), np.int32),
-                          meta_model)
-        return self._count_flops((self._gen_sig(t_pad), b), forward)
+    def _meta_twin(self):
+        """(a meta copy of the model, made once; a cache of its own)."""
+        with self._meta_lock:
+            if self._meta_model is None:
+                self._meta_model = _meta(self.model)
+        return self._meta_model, self._meta_model.init_cache(self.slots,
+                                                             self.max_len)
 
-    def _decode_flops(self) -> Optional[int]:
-        def forward(meta_model):
-            cache = meta_model.init_cache(self.slots, self.max_len)
-            self._decode(cache, np.ones((self.slots,), np.int32),
-                         np.zeros((self.slots,), np.int32), meta_model)
-        return self._count_flops("decode", forward)
+    def _meta_prefill(self, cache, tokens, slot_ids, lengths):
+        model, meta_cache = self._meta_twin()
+        return self._prefill, (meta_cache, tokens, slot_ids, lengths, model)
+
+    def _meta_decode(self, cache, tokens, positions):
+        model, meta_cache = self._meta_twin()
+        return self._decode, (meta_cache, tokens, positions, model)
 
     def warmup(self, sample=None) -> int:
         """Run every prefill (batch bucket, seq bucket) shape and the
@@ -438,16 +458,14 @@ class GenerationEngine(ServingEngine):
         with torch.inference_mode():
             for t_pad in self.seq_buckets:
                 for b in self.buckets:
-                    self._prefill(scratch, np.ones((b, t_pad), np.int32),
-                                  np.zeros((b,), np.int32),
-                                  np.ones((b,), np.int32))
+                    self._prefill_cf(scratch, np.ones((b, t_pad), np.int32),
+                                     np.zeros((b,), np.int32),
+                                     np.ones((b,), np.int32))
                     with self._slock:
                         self._compiled.add((self._gen_sig(t_pad), b))
-                    self._prefill_flops(t_pad, b)
                     n += 1
-            self._decode(scratch, np.ones((self.slots,), np.int32),
-                         np.zeros((self.slots,), np.int32))
-            self._decode_flops()
+            self._decode_cf(scratch, np.ones((self.slots,), np.int32),
+                            np.zeros((self.slots,), np.int32))
         return n + 1
 
     # ------------------------------------------------------------ loop
@@ -570,15 +588,15 @@ class GenerationEngine(ServingEngine):
                             t_pad=t_pad):
                 faults.fire("serve.forward", bucket=bucket, n=n, sig=sig)
                 dispatched = True
-                first = self._prefill(self._cache, tokens, slot_ids,
-                                      lengths)
+                first = self._prefill_cf(self._cache, tokens, slot_ids,
+                                         lengths)
         except Exception as e:  # contain the failure to this group
             self._prefill_failed(rs, slots, free, br, probe, dispatched, e)
             return
         t1 = time.perf_counter()
         if br is not None:
             br.record_success(probe=probe)
-        self._add_flops(self._prefill_flops(t_pad, bucket))
+        self._add_flops(self._prefill_cf)
         with self._slock:
             hit = (sig, bucket) in self._compiled
             self._compiled.add((sig, bucket))
@@ -639,7 +657,7 @@ class GenerationEngine(ServingEngine):
         try:
             with self._span("generate decode", n=len(active)):
                 faults.fire(SITE_DECODE, n=len(active))
-                nxt = self._decode(self._cache, tokens, positions)
+                nxt = self._decode_cf(self._cache, tokens, positions)
         except Exception as e:  # contain: fail the streams, keep serving
             logger.warning("decode step failed (%r)", e)
             # each active stream is counted "failed" once, by _retire
@@ -647,7 +665,7 @@ class GenerationEngine(ServingEngine):
             return
         dt = time.perf_counter() - t0
         self.batch_sizes.record(len(active))
-        self._add_flops(self._decode_flops())
+        self._add_flops(self._decode_cf)
         with self._slock:
             self._g["decode_steps"] += 1
             self._g["decode_slot_steps"] += len(active)

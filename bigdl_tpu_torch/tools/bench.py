@@ -33,6 +33,9 @@ warm-up. The result also carries every step's loss.
     python -m bigdl_tpu_torch.tools.bench --model wide_n_deep --nproc 2
     python -m bigdl_tpu_torch.tools.bench --model lm --nproc 4 --model-axis 2
     python -m bigdl_tpu_torch.tools.bench --model lm --telemetry out/lm
+    python -m bigdl_tpu_torch.tools.bench --telemetry out/r --attribution
+    python -m bigdl_tpu_torch.tools.bench --model input_pipeline \
+        [--input-cost-ms 20] [--device cpu]
     python -m bigdl_tpu_torch.tools.bench --chaos [--chaos-crash-at N]
     python -m bigdl_tpu_torch.tools.bench --device-loss [--device cpu]
 
@@ -51,7 +54,17 @@ to `STEM.jsonl` (one `run_start`, a `step` record a sync point, a
 `run_end`; rank 0 of a data-parallel run), the spans to
 `STEM.trace.json` (other ranks: `STEM.rank<r>.trace.json`), which
 Perfetto opens. The timed numbers then include what the instrumentation
-costs.
+costs. `--attribution` adds `metrics_cli report` of each run's stream on
+stderr (and without `--telemetry` streams to `bench_attribution` in the
+working directory).
+
+`--model input_pipeline [--input-cost-ms X]` is the reference's input
+pipeline A/B (`bench_input_pipeline`): an MNIST-shaped MLP through
+`LocalOptimizer` over 16 seeded batches of 256, a sleep of X ms a batch
+in the transformer chain standing in for decode and augmentation, run in
+short serial and prefetched (`set_prefetch`) segments, strictly
+alternated; one JSON line with both rates and the median of the pairs'
+ratios.
 
 `--nproc N` (ResNet-50 or Wide&Deep) is the data-parallel configuration:
 it starts N ranks, one process each (`Engine.init(distributed=True)`,
@@ -238,6 +251,8 @@ def _timed_run(opt: DistriOptimizer, warmup: int, iters: int, sync: int,
 #: the environment variable `--telemetry STEM` sets (the ranks a
 #: data-parallel run starts inherit it)
 TELEMETRY_ENV = "BIGDL_TPU_TELEMETRY"
+#: set by `--attribution`: each telemetry-wired run prints its report
+ATTRIBUTION_ENV = "BIGDL_TPU_ATTRIBUTION"
 
 
 @contextlib.contextmanager
@@ -254,6 +269,7 @@ def _bench_telemetry(opt: DistriOptimizer):
         return
     from bigdl_tpu_torch.observability import (JsonlSink, SpanTracer,
                                                Telemetry)
+    attribution = os.environ.get(ATTRIBUTION_ENV)
     rank = collectives.rank()
     if rank:
         stem = f"{stem}.rank{rank}"
@@ -270,6 +286,11 @@ def _bench_telemetry(opt: DistriOptimizer):
         tracer.export(stem + ".trace.json")
         opt.set_telemetry(None)
         opt.set_tracer(None)
+        if attribution and telemetry is not None:
+            # --attribution: the run's report (step summary with MFU,
+            # the phase table, the compile records) on stderr
+            from bigdl_tpu_torch.tools import metrics_cli
+            metrics_cli.report(stem + ".jsonl", out=sys.stderr)
 
 
 def _device_name(device: torch.device) -> str:
@@ -1597,10 +1618,14 @@ def bench_serve_fleet(replicas: int = 3, clients: int = 6,
     30 s), warmed with the first of 32 seeded images, driven by
     `serve_fleet_drill`. The replicas share one device, so the figures are
     no scaling figures. With `$BIGDL_TPU_TELEMETRY` set to a stem the
-    stream also goes to `STEM.jsonl`. Prints and returns one JSON object:
-    the reference's keys (outcome tallies, reroutes, drains, MTTR,
-    degraded throughput, recovered) plus the wall time, requests/s, the
-    client-side p50/p99 latency and the device."""
+    stream also goes to `STEM.jsonl`, which `metrics_cli slo --check
+    --mttr-s 60 --latency-p99-ms DEADLINE_MS` replays as the gate of a
+    chaos run, the latency ceiling at the requests' deadline as in the
+    reference's replay drill (the default 100 ms is the ceiling of the
+    reference's MLP fleet, which ResNet-50 misses). Prints and returns
+    one JSON object: the reference's keys (outcome tallies, reroutes,
+    drains, MTTR, degraded throughput, recovered) plus the wall time,
+    requests/s, the client-side p50/p99 latency and the device."""
     from bigdl_tpu_torch.dataset import Sample
     from bigdl_tpu_torch.models.resnet import ResNet50
     from bigdl_tpu_torch.observability import (InMemorySink, JsonlSink,
@@ -1631,6 +1656,88 @@ def bench_serve_fleet(replicas: int = 3, clients: int = 6,
             fleet.close()
             telemetry.close()
     out["device"] = _device_name(device)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def bench_input_pipeline(input_cost_ms: float, batch_size: int = 256,
+                         segments: int = 40, seg_iters: int = 12,
+                         workers: Optional[int] = None, *,
+                         device=None) -> Dict:
+    """The reference's input-pipeline A/B (`bench_cli.py
+    bench_input_pipeline`): the serial transformer chain against the
+    prefetching pipeline (`set_prefetch`), with a sleep of `input_cost_ms`
+    a batch standing in for a chain slower than one step. An MNIST-shaped
+    MLP (784-256-256-10, tanh) trains through `LocalOptimizer` (SGD
+    0.01, momentum 0.9) over 16 seeded batches of `batch_size`.
+    `segments` short runs a mode, strictly alternated serial / prefetched
+    after a throwaway pair; each run's per-iteration wall times after 5
+    warm-up iterations are pooled, and the speedup is the median of the
+    pairs' ratios of median iteration times (drift between runs then hits
+    both modes alike). `workers` default: one a 5 ms of input cost, at
+    least 1, at most `Engine.config["io_threads"]`. Prints and returns
+    one JSON object (the reference's keys and the device)."""
+    import bigdl_tpu_torch.nn as nn
+    from bigdl_tpu_torch.dataset import FuncTransformer
+    from bigdl_tpu_torch.optim.local_optimizer import LocalOptimizer
+    from bigdl_tpu_torch.optim.trigger import max_iteration
+    from bigdl_tpu_torch.utils.engine import Engine
+    device = resolve_device(device)
+    if workers is None:
+        io = int(Engine.config["io_threads"])
+        workers = max(1, min(io, int(np.ceil(input_cost_ms / 5.0))))
+    rs = np.random.RandomState(0)
+    batches = [MiniBatch(rs.rand(batch_size, 28, 28).astype(np.float32),
+                         (rs.randint(0, 10, batch_size) + 1).astype(np.int64))
+               for _ in range(16)]
+
+    def mlp():
+        torch.manual_seed(0)
+        return (nn.Sequential().add(nn.Reshape([784]))
+                .add(nn.Linear(784, 256, device=device)).add(nn.Tanh())
+                .add(nn.Linear(256, 256, device=device)).add(nn.Tanh())
+                .add(nn.Linear(256, 10, device=device))
+                .add(nn.LogSoftMax()))
+
+    def augment(b):
+        if input_cost_ms > 0:
+            time.sleep(input_cost_ms / 1e3)
+        return b
+
+    def run(prefetch: bool, iters: int, warmup: int = 5):
+        ds = LocalDataSet(list(batches)).transform(FuncTransformer(augment))
+        opt = LocalOptimizer(mlp(), ds, nn.ClassNLLCriterion(), batch_size,
+                             device=device)
+        opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+        opt.set_end_when(max_iteration(warmup + iters))
+        if prefetch:
+            opt.set_prefetch(workers=workers)
+        times = []
+        opt.set_iteration_hook(lambda s: times.append(time.perf_counter()))
+        with _bench_telemetry(opt):
+            opt.optimize()
+        return list(np.diff(times)[warmup:])
+
+    run(False, 5)  # throwaway pair: first-use costs on both paths
+    run(True, 5)
+    ser, pair_ratios = [], []
+    for _ in range(segments):
+        s_seg = run(False, seg_iters)
+        p_seg = run(True, seg_iters)
+        ser += s_seg
+        pair_ratios.append(float(np.median(s_seg) / np.median(p_seg)))
+    serial = batch_size / float(np.median(ser))
+    speedup = float(np.median(pair_ratios))
+    out = {
+        "metric": "input_pipeline_ab",
+        "input_cost_ms": input_cost_ms,
+        "batch_size": batch_size,
+        "workers": workers,
+        "serial_records_per_sec": round(serial, 1),
+        "prefetch_records_per_sec": round(serial * speedup, 1),
+        "speedup": round(speedup, 3),
+        "device": _device_name(device),
+    }
     print(json.dumps(out), flush=True)
     return out
 
@@ -1764,8 +1871,15 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", choices=("resnet50", "serve", "serve_fleet",
                                        "lm", "attention", "ptb_lstm",
-                                       "wide_n_deep", "int8_serving", *ZOO),
+                                       "wide_n_deep", "int8_serving",
+                                       "input_pipeline", *ZOO),
                    default="resnet50")
+    p.add_argument("--input-cost-ms", type=float, default=20.0,
+                   help="with --model input_pipeline: the chain's sleep a "
+                   "batch")
+    p.add_argument("--attribution", action="store_true",
+                   help="print metrics_cli report of each run's stream "
+                   "on stderr")
     p.add_argument("--crash", action="store_true",
                    help="with --model serve_fleet: kill replica1 "
                    "mid-traffic (serve.replica_crash)")
@@ -1802,6 +1916,10 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     if args.telemetry:
         os.environ[TELEMETRY_ENV] = os.path.abspath(args.telemetry)
+    if args.attribution:
+        os.environ[ATTRIBUTION_ENV] = "1"
+        os.environ.setdefault(TELEMETRY_ENV,
+                              os.path.abspath("bench_attribution"))
     if args.dp_child:
         return _dp_child(args)
     if args.chaos or args.device_loss or args.chaos_crash_at is not None:
@@ -1828,6 +1946,11 @@ def main(argv=None) -> None:
         if args.profile:
             p.error("--model serve_fleet takes no --profile")
         bench_serve_fleet(crash=args.crash)
+        return
+    if args.model == "input_pipeline":
+        if args.profile:
+            p.error("--model input_pipeline takes no --profile")
+        bench_input_pipeline(args.input_cost_ms, device=args.device)
         return
     if args.model == "int8_serving":
         fn = profile_int8_serving if args.profile else bench_int8_serving

@@ -427,6 +427,44 @@ Phases:
    `predict_class`, kernels 5 and 6 once per batch per distinct device.
    (e) The phase's wall time. `python3 chip_smoke.py --phase21` runs
    phases 1, 2 and 21 alone.
+22. the operations stack (`observability/{slo,export,compilation}.py`,
+   `tools/metrics_cli.py`, `workload/diff.py`, `visualization/`,
+   `dataset/prefetch.py`), TF32 off. (a) ResNet-50 (1000 classes, s2d
+   stem, seed 0) at b128 224x224x3, bf16 with f32 masters, SGD momentum
+   0.9, 8 + 24 steps synced every 8 through `DistriOptimizer` under
+   `Deterministic`, fed by 8 seeded raw uint8 batches (256x256x3) in a
+   fixed cycle through a numpy chain (a random 224 crop and a flip drawn
+   from each batch's own seed, then normalize), once serial and once with
+   `set_prefetch(workers=4)` (pinned batches, `non_blocking` copies):
+   the two runs' losses bitwise equal, kernels 6 and 7 33 launches a step
+   each (the prefetched run's one validation forward adds 33 of kernel
+   6), no thread left; the prefetched run's step records carry the
+   `prefetch_*` gauges; its `TrainSummary` (a `Parameters` histogram
+   every 8 iterations) and `ValidationSummary` (Top1 on one held batch)
+   read back through `FileReader`, Loss equal to the step records' losses
+   in float32; its stream holds one `compile` record whose `flops` equal
+   `flops_per_step`, and `metrics_cli report` exits 0. Printed: ms a step
+   (the step records' sync windows after the warm-up) and images/s of
+   each run and the gauges. (b) Phase 20(a)'s drill with its crash (3
+   ResNet-50 replicas with breakers, kernels 5-6, the stem switch set),
+   four times on fresh fleets (P22_DRILLS): unwatched, then under a live
+   `SloEngine(default_slos())` and a `PrometheusTextSink` tracking every
+   replica behind a `MetricsServer` on 127.0.0.1:0, scraped with `urllib`
+   every 0.1 s during the drill and once after it (twice), then
+   unwatched again. A watched drill's last scrape holds the serving
+   counters, the per-bucket breaker gauges, the `serving_fleet_*` gauges
+   and an `slo_burn_rate` line for each objective. On every drill's JSONL
+   stream `metrics_cli slo --check --mttr-s 60 --latency-p99-ms
+   P22_DEADLINE_MS` (the drill's deadline) exits 0, and the default 100
+   ms ceiling's verdict is printed beside it; on the first watched
+   stream, cut after its `worker_lost`, the gate exits 1, and `metrics_cli
+   diff` of the stream with itself exits 0 and with one outcome changed
+   1; kernels 5 and 6 launch once a dispatched batch and once a warm-up
+   bucket. Printed: each drill's client and engine latency tail, so the
+   watched and unwatched drills compare. (c) (a)'s serial run again
+   with an `SloEngine` and a `PrometheusTextSink` on its telemetry: its
+   ms a step beside (a)'s. (d) The phase's wall time. `python3
+   chip_smoke.py --phase22` runs phases 1, 2 and 22 alone.
 
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
 measure ran: `tensor_cores` or `cuda_cores_f32` for rows 1-5, the octet
@@ -441,7 +479,8 @@ in phase 18(b), `launches_preempt_lm`; rows 6-7 with their launches in
 phase 18(a), `launches_elastic`; rows 5-6 with their launches in phase
 19(b)-(c), `launches_int8_serving`; rows 1, 5 and 6 with their
 launches in phase 20, `launches_fleet`; rows 1, 5, 6 and 7 with their
-launches on phase 21's paths, `launches_pipeline`),
+launches on phase 21's paths, `launches_pipeline`; rows 5, 6 and 7
+with their launches on phase 22's paths, `launches_ops`),
 then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
 """
@@ -457,6 +496,8 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import copy
 import functools
+import io
+import itertools
 import json
 import math
 import re
@@ -5584,6 +5625,507 @@ def pipeline_phase(ak, sk, bk):
             "bn_relu_bwd": {"1f1b": bn["bn_relu_bwd"]}}
 
 
+# 22: the operations stack. (a) ResNet-50 b128 from 8 seeded raw host
+# batches (uint8, 256x256x3) through a numpy chain (random 224 crop,
+# horizontal flip, normalize), serial and prefetched (`set_prefetch`,
+# P22_WORKERS threads); the same steps (8 warm-up + 24) and sync as
+# phase 6, under `Deterministic` so the two runs' losses may be compared
+# bit for bit. (b) phase 20(a)'s fleet drill watched by an `SloEngine`
+# and a `PrometheusTextSink` served on 127.0.0.1:0. (c) (a)'s serial run
+# with the `SloEngine` and the Prometheus sink attached.
+P22_BATCHES, P22_BATCH, P22_RAW, P22_CROP = 8, 128, 256, 224
+P22_WARMUP, P22_ITERS, P22_SYNC = 8, 24, 8
+P22_WORKERS = 4
+P22_PARAM_EVERY = 8
+# the mean and std of `normalize`, per channel (ImageNet's)
+P22_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+P22_STD = np.array([0.229, 0.224, 0.225], np.float32)
+# `slo_status` records this often in record time, so the last scrape
+# holds every objective's burn rate after the drill's recovery
+P22_SLO_EVERY_S = 0.05
+# 22(b)'s drills in order, watched or not: unwatched, watched, watched,
+# unwatched, so drift over the phase weighs on both kinds alike
+P22_DRILLS = (False, True, True, False)
+# each request's deadline in the drill, and the gate's latency ceiling
+# (`slo --check --latency-p99-ms`): the reference's replay drill holds its
+# fleet to `default_slos(latency_p99_ms=deadline_ms)`. The default 100 ms
+# is the ceiling of the reference's fleet of a 784-64-10 MLP; three f32
+# ResNet-50 replicas sharing one card with 24 requests in flight miss it,
+# so the phase prints that verdict beside the gate, and the engines' tail
+# (p50, p99, max, requests over 100 and 500 ms) of every drill
+P22_DEADLINE_MS = 15_000.0
+
+
+class _P22Source:
+    """The raw batches in a fixed cycle (`shuffle` keeps the order), so a
+    serial and a prefetched run see the same stream across epochs."""
+
+    def __init__(self, items):
+        self.items = items
+
+    def data(self, train):
+        return itertools.cycle(self.items) if train else iter(self.items)
+
+    def size(self):
+        return P22_BATCHES * P22_BATCH
+
+    def shuffle(self):
+        pass
+
+    def position(self):
+        return {}
+
+    def transform(self, transformer):
+        from bigdl_tpu_torch.dataset.dataset import _TransformedDataSet
+        return _TransformedDataSet(self, transformer)
+
+
+def _p22_crop_flip(item):
+    """(k, raw uint8 [B, 256, 256, 3], labels) -> the random 224 crop of
+    each image, half of them flipped; the draws from RandomState(k), so
+    a batch's crop is the same whichever thread makes it."""
+    k, raw, y = item
+    rs = np.random.RandomState(1000 + k)
+    off = rs.randint(0, P22_RAW - P22_CROP + 1, size=(len(raw), 2))
+    flip = rs.rand(len(raw)) < 0.5
+    out = np.empty((len(raw), P22_CROP, P22_CROP, 3), np.uint8)
+    for i, (oy, ox) in enumerate(off):
+        img = raw[i, oy:oy + P22_CROP, ox:ox + P22_CROP]
+        out[i] = img[:, ::-1] if flip[i] else img
+    return k, out, y
+
+
+def _p22_normalize(item):
+    """(x / 255 - mean) / std per channel, as f32, in two passes over
+    the batch after the cast."""
+    from bigdl_tpu_torch.dataset import MiniBatch
+    _, x, y = item
+    x = x.astype(np.float32)
+    x *= np.float32(1 / 255) / P22_STD
+    x -= P22_MEAN / P22_STD
+    return MiniBatch(x, y)
+
+
+@functools.lru_cache(maxsize=1)
+def _p22_items():
+    """The raw host batches: (k, uint8 images, 1-based labels), seed 22."""
+    rs = np.random.RandomState(22)
+    return tuple((k, rs.randint(0, 256, size=(P22_BATCH, P22_RAW, P22_RAW, 3),
+                                dtype=np.uint8),
+                  (rs.randint(0, 1000, P22_BATCH) + 1).astype(np.int32))
+                 for k in range(P22_BATCHES))
+
+
+def _p22_dataset():
+    from bigdl_tpu_torch.dataset import FuncTransformer
+    return _P22Source(list(_p22_items())).transform(
+        FuncTransformer(_p22_crop_flip) >> FuncTransformer(_p22_normalize))
+
+
+def _p22_run(bk, prefetch, tmp, watch=False, summaries=False):
+    """One (a) run: the losses, the records, the ms a step, the launches
+    of kernels 6-7, and the summaries' directory."""
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.observability import (InMemorySink, JsonlSink,
+                                               PrometheusTextSink, SloEngine,
+                                               Telemetry, default_slos)
+    from bigdl_tpu_torch.optim import (SGD, DistriOptimizer, Top1Accuracy,
+                                       max_iteration, several_iteration)
+    from bigdl_tpu_torch.visualization import TrainSummary, ValidationSummary
+    threads = threading.active_count()
+    model = ResNet50(class_num=1000, s2d_stem=True, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    opt = DistriOptimizer(model, _p22_dataset(), ClassNLLCriterion(),
+                          devices=["cuda"])
+    opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+    opt.set_compute_precision("bfloat16")
+    opt.set_sync_interval(P22_SYNC)
+    opt.set_end_when(max_iteration(P22_WARMUP + P22_ITERS))
+    sink = InMemorySink()
+    stream = os.path.join(tmp, f"train_{int(prefetch)}{int(watch)}.jsonl")
+    sinks = [sink, JsonlSink(stream)]
+    if watch:
+        sinks.append(PrometheusTextSink())
+    tel = Telemetry(*sinks, resources=False, flight=False)
+    if watch:
+        SloEngine(default_slos(), emit_every_s=P22_SLO_EVERY_S).attach(tel)
+    opt.set_telemetry(tel)
+    if prefetch:
+        opt.set_prefetch(workers=P22_WORKERS)
+    logdir = tag = None
+    if summaries:
+        from bigdl_tpu_torch.interop import params_tree
+        from bigdl_tpu_torch.optim.local_optimizer import _flat_tree
+        tag = next(_flat_tree(params_tree(model)))[0]
+        logdir = os.path.join(tmp, "tb")
+        ts = TrainSummary(logdir, "resnet50")
+        ts.set_summary_trigger("Parameters",
+                               several_iteration(P22_PARAM_EVERY))
+        vs = ValidationSummary(logdir, "resnet50")
+        opt.set_train_summary(ts).set_validation_summary(vs)
+        held = _p22_normalize(_p22_crop_flip(_p22_items()[0]))
+        opt.set_validation(several_iteration(P22_WARMUP + P22_ITERS),
+                           [held], [Top1Accuracy()])
+    losses, times = [], []
+
+    def hook(state):
+        losses.append(opt.last_loss)
+        if state["neval"] % P22_SYNC == 0:  # the device has drained here
+            times.append(time.perf_counter())
+
+    opt.set_iteration_hook(hook)
+    _reset_bn_counts(bk)
+    with Deterministic():
+        opt.optimize()
+    launches = (bk.bn_relu_forward.launches, bk.bn_relu_backward.launches)
+    tel.close()
+    if summaries:
+        ts.close()
+        vs.close()
+    # ms a step: the step records' windows after the warm-up (the sync
+    # window leaves out each sync point's tail: summaries, validation);
+    # the hook's drained points give the wall time with that tail
+    windows = [r["step_time_s"] for r in sink.records
+               if r["type"] == "step" and r["step"] > P22_WARMUP]
+    ms = float(np.median(windows)) * 1e3
+    wall_ms = float(np.median(np.diff(
+        times[P22_WARMUP // P22_SYNC - 1:]))) / P22_SYNC * 1e3
+    out = {"losses": [float(v) for v in losses], "records": sink.records,
+           "wall_ms_per_step": wall_ms,
+           "stream": stream, "ms_per_step": ms,
+           "imgs_per_sec": P22_BATCH / ms * 1e3, "launches": launches,
+           "threads_left": threading.active_count() - threads,
+           "logdir": logdir, "hist_tag": tag}
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def ops_training_phase(bk, tmp):
+    """22(a) and (c); returns kernels 6 and 7's launches over the runs."""
+    from bigdl_tpu_torch.tools import metrics_cli
+    from bigdl_tpu_torch.visualization import FileReader
+    steps = P22_WARMUP + P22_ITERS
+    serial = _p22_run(bk, False, tmp)
+    pre = _p22_run(bk, True, tmp, summaries=True)
+    watched = _p22_run(bk, False, tmp, watch=True)
+    out = {}
+    for name, r in (("serial", serial), ("prefetch", pre),
+                    ("serial_watched", watched)):
+        steps_recs = [x for x in r["records"] if x["type"] == "step"]
+        out[name] = {"ms_per_step": r["ms_per_step"],
+                     "imgs_per_sec": r["imgs_per_sec"],
+                     "wall_ms_per_step": r["wall_ms_per_step"],
+                     "launches": r["launches"],
+                     "threads_left": r["threads_left"],
+                     "loss_first": r["losses"][0],
+                     "loss_last": r["losses"][-1],
+                     "step_time_s": [x["step_time_s"] for x in steps_recs],
+                     "prefetch": [{k: v for k, v in x.items()
+                                   if k.startswith("prefetch_")}
+                                  for x in steps_recs]}
+    out["watch_cost_ms_per_step"] = \
+        watched["ms_per_step"] - serial["ms_per_step"]
+    recs = pre["records"]
+    compiles = [x for x in recs if x["type"] == "compile"]
+    steps_recs = [x for x in recs if x["type"] == "step"]
+    tb = os.path.join(pre["logdir"], "resnet50")
+    scalars = FileReader.read_scalar(os.path.join(tb, "train"), "Loss")
+    top1 = FileReader.read_scalar(os.path.join(tb, "validation"),
+                                  "Top1Accuracy")
+    report = metrics_cli.report(pre["stream"], out=io.StringIO())
+    out.update({"compile": compiles, "summary_loss": scalars,
+                "validation_top1": top1, "report_rc": report})
+    print("ops training " + json.dumps(out), flush=True)
+    check(serial["losses"] == pre["losses"]
+          and all(np.isfinite(serial["losses"])),
+          "ops: serial and prefetched losses differ: "
+          f"{serial['losses'][:4]} vs {pre['losses'][:4]}")
+    for name in ("serial", "prefetch", "serial_watched"):
+        # the prefetched run also validates one batch (kernel 6 only)
+        val = int(name == "prefetch")
+        check(out[name]["launches"] == (BN_SITES * (steps + val),
+                                        BN_SITES * steps),
+              f"ops {name}: kernels 6/7 launched {out[name]['launches']}, "
+              f"not {BN_SITES} x ({steps} + {val}) and {BN_SITES} x "
+              f"{steps}")
+        check(out[name]["threads_left"] == 0,
+              f"ops {name}: {out[name]['threads_left']} threads left")
+    check(all(set(p) == {"prefetch_queue_depth", "prefetch_fetch_wait_s",
+                         "prefetch_worker_busy"}
+              for p in out["prefetch"]["prefetch"]),
+          "ops: a prefetched step record lacks its gauges")
+    check(len(compiles) == 1 and compiles[0]["flops"]
+          == steps_recs[0]["flops_per_step"] > 0,
+          f"ops: compile records {compiles} against flops_per_step "
+          f"{steps_recs[0].get('flops_per_step')}")
+    check([v for _, v in scalars] ==
+          [float(np.float32(x["loss"])) for x in steps_recs]
+          and [s for s, _ in scalars] == [x["step"] for x in steps_recs],
+          f"ops: summary losses {scalars} against the step records")
+    n_hist = len(FileReader.read_histogram(os.path.join(tb, "train"),
+                                           pre["hist_tag"]))
+    check(n_hist == steps // P22_PARAM_EVERY,
+          f"ops: {n_hist} Parameters histograms of {pre['hist_tag']}")
+    check(len(top1) == 1, f"ops: validation scalars {top1}")
+    check(report == 0, f"ops: metrics_cli report exited {report}")
+    return {k: serial["launches"][i] + pre["launches"][i]
+            + watched["launches"][i]
+            for i, k in enumerate(("bn_relu_fwd", "bn_relu_bwd"))}
+
+
+def _scrape(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        return resp.read().decode()
+
+
+def _ops_drill(model, samples, tmp, tag, watched):
+    """One phase-20(a) drill with its crash over a fresh fleet of
+    FLEET_REPLICAS engines; the stream goes to `<tmp>/<tag>.jsonl`.
+    `watched` adds a live `SloEngine(default_slos())`, a
+    `PrometheusTextSink` tracking every replica and a `MetricsServer` on
+    127.0.0.1:0 scraped every 0.1 s during the drill and once after it;
+    nothing else differs between a watched and an unwatched drill."""
+    from bigdl_tpu_torch.observability import (InMemorySink, JsonlSink,
+                                               MetricsServer,
+                                               PrometheusTextSink, SloEngine,
+                                               Telemetry, default_slos)
+    from bigdl_tpu_torch.serving import InferenceEngine, ServingFleet
+    from bigdl_tpu_torch.tools.bench import serve_fleet_drill
+    stream = os.path.join(tmp, f"{tag}.jsonl")
+    sink = InMemorySink()
+    prom = PrometheusTextSink() if watched else None
+    tel = Telemetry(sink, JsonlSink(stream), *([prom] if watched else []),
+                    resources=False, flight=False)
+    slo = (SloEngine(default_slos(), emit_every_s=P22_SLO_EVERY_S)
+           .attach(tel) if watched else None)
+    engines = []
+
+    def factory(rid):
+        eng = InferenceEngine(model, max_batch_size=FLEET_BATCH,
+                              max_wait_ms=1.0, queue_capacity=256,
+                              admission="reject", telemetry=tel,
+                              replica_id=rid, emit_every=4,
+                              breaker={"failure_threshold": 5,
+                                       "reset_timeout_s": 30.0},
+                              device="cuda")
+        engines.append(eng)
+        if watched:
+            prom.track_engine(eng, name=rid)
+        return eng
+
+    live, stop, final = [], threading.Event(), None
+    server = (MetricsServer(prom, host="127.0.0.1", port=0)
+              if watched else None)
+
+    def scraper():
+        while not stop.is_set():
+            live.append(_scrape(server.url))
+            stop.wait(0.1)
+
+    try:
+        if watched:
+            # one scrape before the drill: the first use of this process's
+            # HTTP client (~60 ms of Python on a CPU) would otherwise land
+            # on the drill's first requests, and a deployment's scraper
+            # runs in another process
+            _scrape(server.url)
+        fleet = ServingFleet(engine_factory=factory,
+                             n_replicas=FLEET_REPLICAS,
+                             warmup_sample=samples[0], telemetry=tel,
+                             drain_grace_s=0.5, lease_s=30.0)
+        t = threading.Thread(target=scraper, daemon=True)
+        try:
+            if watched:
+                t.start()
+            out, rows = serve_fleet_drill(fleet, samples, sink,
+                                          FLEET_CLIENTS, FLEET_PER_CLIENT,
+                                          crash=True,
+                                          deadline_ms=P22_DEADLINE_MS)
+        finally:
+            stop.set()
+            if watched:
+                t.join(timeout=30)
+            fleet.close()
+        if watched:
+            slo.finalize()
+        tel.close()
+        if watched:
+            final = _scrape(server.url)
+    finally:
+        if watched:
+            server.close()
+    # the engines' own latencies, which the latency objective reads: one
+    # status-ok `trace` record a request, stamped when it resolved
+    traces = [r for r in sink.records
+              if r["type"] == "trace" and r.get("status") == "ok"]
+    lat = np.array([r["latency_ms"] for r in traces])
+    t_lost = next(r["time"] for r in sink.records
+                  if r.get("event") == "worker_lost")
+    t_first = min(r["time"] - r["latency_ms"] / 1e3 for r in traces)
+    worst = sorted(traces, key=lambda r: -r["latency_ms"])[:5]
+    tail = {"latency_ms_p50": float(np.percentile(lat, 50)),
+            "latency_ms_p99": float(np.percentile(lat, 99)),
+            "latency_ms_max": float(lat.max()),
+            "over_100ms": int((lat > 100).sum()),
+            "over_500ms": int((lat > 500).sum()),
+            # the five slowest: latency, and arrival (s) after the first
+            # request's and against the loss
+            "slowest": [(r["latency_ms"], round(t - t_first, 4),
+                         round(t - t_lost, 4))
+                        for r in worst
+                        for t in [r["time"] - r["latency_ms"] / 1e3]],
+            "loss_after_first_s": round(t_lost - t_first, 4)}
+    want = sum(e.stats()["batches"] + len(e.buckets) for e in engines)
+    return {"tag": tag, "watched": watched, "stream": stream, "out": out,
+            "rows": rows, "live": live, "final": final, "want": want,
+            "engine": tail, "slo": slo,
+            "compile_records": sum(r["type"] == "compile"
+                                   for r in sink.records)}
+
+
+def ops_fleet_phase(sk, bk, tmp):
+    """22(b): phase 20(a)'s drill, unwatched and watched live in the order
+    of P22_DRILLS; returns kernels 5 and 6's launches over the drills."""
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.tools import metrics_cli
+    images = _fleet_images()
+    model, ref = _fleet_model_and_ref(images)
+    samples = [Sample(x) for x in images]
+    os.environ[STEM_ENV] = "1"
+    _reset_stem_counts(sk, bk)
+    try:
+        drills = [_ops_drill(model, samples, tmp, f"drill{i}", w)
+                  for i, w in enumerate(P22_DRILLS)]
+    finally:
+        os.environ.pop(STEM_ENV, None)
+    launches = _stem_counts(sk, bk)
+    want = sum(d["want"] for d in drills)
+    # the gates: every drill's stream at the deadline's ceiling (the first
+    # watched drill's table printed); the cut and the diff on that stream
+    watched = next(d for d in drills if d["watched"])
+    stream = watched["stream"]
+    table, default = io.StringIO(), io.StringIO()
+    gates = {d["tag"]: metrics_cli.slo(
+        [d["stream"]], check=True, mttr_s=60.0,
+        latency_p99_ms=P22_DEADLINE_MS,
+        out=table if d is watched else io.StringIO()) for d in drills}
+    with open(stream) as f:
+        lines = f.readlines()
+    lost = next(i for i, line in enumerate(lines)
+                if '"worker_lost"' in line)
+    cut = os.path.join(tmp, "fleet_cut.jsonl")
+    with open(cut, "w") as f:
+        f.writelines(lines[:lost + 1])
+    changed = os.path.join(tmp, "fleet_changed.jsonl")
+    first_ok = next(i for i, line in enumerate(lines)
+                    if '"type": "trace"' in line and '"status": "ok"' in line)
+    with open(changed, "w") as f:
+        f.writelines(lines[:first_ok]
+                     + [lines[first_ok].replace('"status": "ok"',
+                                                '"status": "error"')]
+                     + lines[first_ok + 1:])
+    defaults = {d["tag"]: metrics_cli.slo(
+        [d["stream"]], check=True, mttr_s=60.0,
+        out=default if d is watched else io.StringIO()) for d in drills}
+    cut_table = io.StringIO()
+    gates.update({
+        "slo_check_cut": metrics_cli.slo([cut], check=True, mttr_s=60.0,
+                                         latency_p99_ms=P22_DEADLINE_MS,
+                                         out=cut_table),
+        "diff_self": metrics_cli.diff(stream, stream, out=io.StringIO()),
+        "diff_changed": metrics_cli.diff(stream, changed,
+                                         out=io.StringIO())})
+    families = {
+        "serving_counters": "bigdl_tpu_serving_completed_total",
+        "breaker_gauges": "bigdl_tpu_serving_breaker_state{bucket=",
+        "fleet_gauges": "bigdl_tpu_serving_fleet_replicas_alive",
+        **{f"burn_{s.name}": f'bigdl_tpu_slo_burn_rate{{slo="{s.name}"}}'
+           for s in watched["slo"].slos}}
+    per = {}
+    for d in drills:
+        out = d["out"]
+        per[d["tag"]] = {
+            "watched": d["watched"], "engine": d["engine"],
+            "compile_records": d["compile_records"],
+            **{k: out[k] for k in ("ok", "timed_out", "rerouted", "other",
+                                   "reroutes", "drains", "mttr_s",
+                                   "recovered", "wall_s",
+                                   "requests_per_sec", "latency_ms_p50",
+                                   "latency_ms_p99")}}
+        if d["watched"]:
+            per[d["tag"]].update({
+                "live_scrapes": len(d["live"]),
+                "live_holds": {k: any(v in text for text in d["live"])
+                               for k, v in families.items()},
+                "final_holds": {k: v in d["final"]
+                                for k, v in families.items()},
+                "slo_status": d["slo"].status()})
+    got = {"drills": per, "gates": gates,
+           "slo_check_default_ceiling": defaults,
+           "launches": {"stem_conv": launches[0],
+                        "bn_relu_fwd": launches[1]},
+           # the cost of watching the drill: each kind's client p99 and
+           # engine p99 (ms) and requests/s, in drill order
+           "watch_ab": {kind: {
+               "client_p99": [per[d["tag"]]["latency_ms_p99"]
+                              for d in drills if d["watched"] == w],
+               "engine_p99": [per[d["tag"]]["engine"]["latency_ms_p99"]
+                              for d in drills if d["watched"] == w],
+               "requests_per_sec": [per[d["tag"]]["requests_per_sec"]
+                                    for d in drills if d["watched"] == w]}
+               for kind, w in (("unwatched", False), ("watched", True))}}
+    print("ops fleet " + json.dumps(got), flush=True)
+    print("slo --check --mttr-s 60 (default 100 ms ceiling):\n"
+          + default.getvalue(), flush=True)
+    print(f"slo --check --mttr-s 60 --latency-p99-ms {P22_DEADLINE_MS}:"
+          f"\n" + table.getvalue(), flush=True)
+    total = FLEET_CLIENTS * FLEET_PER_CLIENT
+    for d in drills:
+        out = d["out"]
+        check(out["ok"] + out["timed_out"] + out["rerouted"] == total
+              and out["other"] == 0 and out["drains"] == 1
+              and out["recovered"], f"ops fleet {d['tag']}: outcomes {out}")
+        idx = [i for i, _ in d["rows"]]
+        _check_rows(np.stack([r for _, r in d["rows"]]), ref[idx],
+                    f"ops fleet {d['tag']}")
+        if d["watched"]:
+            p = per[d["tag"]]
+            check(p["live_scrapes"] >= 1 and p["live_holds"]["fleet_gauges"],
+                  f"ops fleet {d['tag']}: live scrapes "
+                  f"{p['live_scrapes']}, {p['live_holds']}")
+            check(all(p["final_holds"].values()),
+                  f"ops fleet {d['tag']}: the last scrape lacks "
+                  f"{p['final_holds']}")
+    check(gates == {**{d["tag"]: 0 for d in drills}, "slo_check_cut": 1,
+                    "diff_self": 0, "diff_changed": 1},
+          f"ops fleet: gates {gates}")
+    # the cut stream fails on the loss it never recovered from alone
+    check("VIOLATED: training_mttr\n" in cut_table.getvalue(),
+          f"ops fleet: the cut stream's table\n{cut_table.getvalue()}")
+    check(launches == (want, want),
+          f"ops fleet: launches (stem, BN+ReLU) {launches} != batches + "
+          f"warm-up buckets {want} over {len(drills)} fleets")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ops_phase(sk, bk):
+    """22: (a)-(c) and the phase's wall time; returns the launches of
+    kernels 5, 6 and 7 on its paths."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        train = ops_training_phase(bk, tmp)
+        stem, bn = ops_fleet_phase(sk, bk, tmp)
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"stem_conv": {"fleet": stem},
+            "bn_relu_fwd": {"training": train["bn_relu_fwd"], "fleet": bn},
+            "bn_relu_bwd": {"training": train["bn_relu_bwd"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5633,7 +6175,7 @@ def main() -> int:
     tc_build = build_phase(_build)
 
     if sys.argv[1:2] in (["--phase17"], ["--phase18"], ["--phase19"],
-                         ["--phase20"], ["--phase21"]):
+                         ["--phase20"], ["--phase21"], ["--phase22"]):
         if sys.argv[1] == "--phase17":
             observability_phase(ak, sk, bk)
         elif sys.argv[1] == "--phase18":
@@ -5642,8 +6184,10 @@ def main() -> int:
             quantization_phase(sk, bk)
         elif sys.argv[1] == "--phase20":
             fleet_phase(ak, sk, bk)
-        else:
+        elif sys.argv[1] == "--phase21":
             pipeline_phase(ak, sk, bk)
+        else:
+            ops_phase(sk, bk)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -5754,6 +6298,9 @@ def main() -> int:
 
     # 21. pipeline and expert parallelism, DistriPredictor
     pipe_launches = pipeline_phase(ak, sk, bk)
+
+    # 22. the operations stack
+    ops_launches = ops_phase(sk, bk)
     zoo_launches = {
         "launches_inception_v1": zoo_bench["inception_v1"]["launches"],
         "launches_inception_v2": zoo_bench["inception_v2"]["launches"],
@@ -5799,6 +6346,7 @@ def main() -> int:
            "launches_dp_ranks": [l[d] * dp_steps for l in dp_launches],
            "launches_elastic": elastic_launches[row["name"]],
            "launches_pipeline": pipe_launches[row["name"]],
+           "launches_ops": ops_launches[row["name"]],
            **({"launches_int8_serving": int8_launches["bn_relu_fwd"],
                "launches_fleet": fleet_launches["bn_relu_fwd"]}
               if d == "fwd" else {}),
@@ -5809,6 +6357,7 @@ def main() -> int:
          "launches_int8_serving": int8_launches["stem_conv"],
          "launches_fleet": fleet_launches["stem_conv"],
          "launches_pipeline": pipe_launches["stem_conv"],
+         "launches_ops": ops_launches["stem_conv"],
          **{k: v["stem_conv"] for k, v in zoo_launches.items()},
          "zoo_shapes": zoo_rows["stem"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {

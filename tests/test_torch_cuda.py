@@ -17,7 +17,10 @@ largest element, f32), `SparseLinear` and `IndicatorCol` given the
 card's index tensors; and the pipelines: 1F1B over a "pipe" mesh that
 repeats the card against its microbatch oracle with kernels 6-7's
 launches a step, `MoE.expert_parallel_apply` against
-`dense_capacity_apply`, `DistriPredictor` against `LocalPredictor`.
+`dense_capacity_apply`, `DistriPredictor` against `LocalPredictor`;
+and the operations stack: a run fed by `set_prefetch` (pinned batches,
+`non_blocking` copies) against the serial run bit for bit, with its
+`compile` record.
 
 Every test here needs a CUDA device and skips without one. This file
 imports nothing of JAX, so it runs where JAX is not installed:
@@ -1134,3 +1137,62 @@ def test_distri_predictor_on_the_card_matches_local(cuda_device):
         np.testing.assert_allclose(g, w, atol=1e-5 * np.abs(w).max(),
                                    rtol=0)
     assert pred.predict_class(x) == local.predict_class(x)
+
+
+def test_prefetched_pinned_batches_train_as_serial_on_the_card(cuda_device):
+    """The operations stack on the card: a CIFAR ResNet-8 fed by a
+    transformer chain through `set_prefetch(workers=3)` (pinned batches,
+    `non_blocking` copies) trains to the serial run's losses bit for bit
+    within an epoch, the batches arrive pinned, and the one `compile`
+    record names the card and carries the step records' FLOPs."""
+    from bigdl_tpu_torch.dataset import (FuncTransformer, LocalDataSet,
+                                         Sample, SampleToMiniBatch)
+    from bigdl_tpu_torch.dataset.prefetch import build_input_pipeline
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.observability import InMemorySink, Telemetry
+    from bigdl_tpu_torch.optim import (SGD, DistriOptimizer,
+                                       max_iteration)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    rs = np.random.RandomState(0)
+    samples = [Sample(rs.rand(32, 32, 3).astype(np.float32),
+                      np.int32(rs.randint(0, 10) + 1)) for _ in range(48)]
+
+    def ds():
+        # 6 steps of 8 are one epoch of 48 samples: the epoch's shuffle,
+        # whose place among a prefetch's pulls is timing's, comes last
+        return LocalDataSet(samples).transform(
+            FuncTransformer(lambda s: Sample(s.feature * 2.0, s.label))
+            >> SampleToMiniBatch(8))
+
+    pipe = build_input_pipeline(ds(), workers=2, depth=4, pin_memory=True)
+    assert next(pipe).get_input().is_pinned()
+    pipe.close()
+
+    def run(prefetch):
+        torch.manual_seed(0)
+        model = ResNet(10, depth=8, data_set="cifar10", device=cuda_device)
+        opt = DistriOptimizer(model, ds(), ClassNLLCriterion(),
+                              devices=[cuda_device])
+        opt.set_optim_method(SGD(learning_rate=0.05, momentum=0.9))
+        opt.set_end_when(max_iteration(6))
+        sink = InMemorySink()
+        opt.set_telemetry(Telemetry(sink, resources=False, flight=False))
+        if prefetch:
+            opt.set_prefetch(workers=3)
+        losses = []
+        opt.set_iteration_hook(lambda s: losses.append(s["loss"]))
+        opt.optimize()
+        return losses, sink.records
+
+    try:
+        serial, _ = run(False)
+        pre, recs = run(True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert pre == serial
+    (rec,) = [r for r in recs if r["type"] == "compile"]
+    steps = [r for r in recs if r["type"] == "step"]
+    assert rec["signature"].endswith("@cuda:0")
+    assert rec["flops"] == steps[0]["flops_per_step"] > 0
+    assert all("prefetch_queue_depth" in r for r in steps)

@@ -711,8 +711,11 @@ def test_the_skip_is_agreed_over_the_ranks(runs, name):
     for rec in recs:
         validate_record(rec)
     assert [r.get("event", r["type"]) for r in recs] == \
-        ["run_start", "step", "step", "nan_guard", "step", "run_end"]
+        ["run_start", "compile", "step", "step", "nan_guard", "step",
+         "run_end"]
     steps = [r for r in recs if r["type"] == "step"]
+    # the compile record counts the global step: both ranks' batches
+    assert recs[1]["flops"] == steps[0]["flops_per_step"]
     assert [r["nonfinite_steps"] for r in steps] == [0, 0, 1]
     assert recs[0]["loop"] == "distri" and recs[0]["n_devices"] == 2
     assert np.isnan(steps[2]["loss"])

@@ -891,6 +891,74 @@ def test_elastic_bn_net_shrink_and_grow_match_jax():
                                   np.zeros_like(got[path]["mean"]))
 
 
+class TestDegradedCapacityGauge:
+    """The reference's `TestDegradedCapacityGauge`
+    (`tests/test_elastic.py`): the membership and elastic events drive the
+    fleet-capacity gauges of `PrometheusTextSink`; each case also renders
+    the reference's sink over the reference's registry and events, to the
+    same gauge lines."""
+
+    @staticmethod
+    def _gauges(text):
+        return sorted(line for line in text.splitlines()
+                      if not line.startswith("#")
+                      and "telemetry_records_total" not in line)
+
+    @staticmethod
+    def _sinks():
+        from bigdl_tpu.observability.export import \
+            PrometheusTextSink as JPrometheusTextSink
+        from bigdl_tpu_torch.observability import PrometheusTextSink
+        prom, jprom = PrometheusTextSink(), JPrometheusTextSink()
+        return (prom, Telemetry(prom, resources=False, flight=False),
+                jprom, JTelemetry(jprom, resources=False, flight=False))
+
+    def test_fleet_events_render_as_gauges(self):
+        prom, tel, jprom, jtel = self._sinks()
+        texts = []
+        for reg in (WorkerRegistry(lease_s=100.0, telemetry=tel),
+                    jres.WorkerRegistry(lease_s=100.0, telemetry=jtel)):
+            reg.register("w0", ["d0"]).register("w1", ["d1"])
+            reg.mark_lost("w1", reason="preempted")
+        text = prom.render()
+        assert "bigdl_tpu_degraded_capacity 0.5" in text
+        assert "bigdl_tpu_workers_alive 1" in text
+        assert "bigdl_tpu_workers_total 2" in text
+        assert self._gauges(text) == self._gauges(jprom.render())
+
+    def test_heartbeat_restores_the_gauge(self):
+        prom, tel, _, _ = self._sinks()
+        reg = WorkerRegistry(lease_s=100.0, telemetry=tel)
+        reg.register("w0", ["d0"]).register("w1", ["d1"])
+        reg.mark_lost("w1", reason="preempted")
+        reg.heartbeat("w1")
+        assert "bigdl_tpu_degraded_capacity 0.0" in prom.render()
+
+    def test_elastic_events_feed_the_gauge_spelling(self):
+        prom, tel, jprom, jtel = self._sinks()
+        for t in (tel, jtel):
+            t.event("elastic_shrink", step=7, n_active_before=2, n_active=1,
+                    alive_workers=1, degraded_capacity=0.5)
+        text = prom.render()
+        assert "bigdl_tpu_degraded_capacity 0.5" in text
+        assert "bigdl_tpu_elastic_active_devices 1" in text
+        assert "bigdl_tpu_workers_alive 1" in text
+        assert self._gauges(text) == self._gauges(jprom.render())
+
+    def test_fleet_events_merge_so_no_gauge_flaps_out(self):
+        prom, tel, jprom, jtel = self._sinks()
+        for t in (tel, jtel):
+            t.event("worker_lost", worker="w1", devices=1, alive=1, total=2,
+                    degraded_capacity=0.5, reason="preempted")
+            t.event("elastic_shrink", step=7, n_active_before=2, n_active=1,
+                    alive_workers=1, degraded_capacity=0.5)
+        text = prom.render()
+        assert "bigdl_tpu_workers_total 2" in text
+        assert "bigdl_tpu_elastic_active_devices 1" in text
+        assert "bigdl_tpu_degraded_capacity 0.5" in text
+        assert self._gauges(text) == self._gauges(jprom.render())
+
+
 def test_bench_chaos_device_loss_reports_recovery(capsys):
     from bigdl_tpu_torch.tools.bench import bench_chaos_device_loss
     out = bench_chaos_device_loss(lose_at=3, rejoin_at=6, iters=10,

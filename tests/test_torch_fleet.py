@@ -1,6 +1,9 @@
 """Port parity: the serving fleet (`bigdl_tpu_torch/serving/fleet.py`),
-after the reference's `tests/test_fleet.py` (its SLO and Prometheus cases
-aside: `SloEngine` and `PrometheusTextSink` are not ported).
+after the reference's `tests/test_fleet.py`, its SLO and Prometheus cases
+included (the `serving_fleet_*` and membership gauges, the `SloEngine`'s
+MTTR and fleet-transient rules, close-time failures and a total outage
+burning the error budget, and the drill's stream passing `metrics_cli
+slo --check --mttr-s 60`).
 
 Most routing cases run over `SimEngine`, the reference's engine-protocol
 double (no dispatcher thread), copied here: routing, affinity across a
@@ -49,7 +52,9 @@ from bigdl_tpu_torch.dataset.sample import Sample
 from bigdl_tpu_torch.interop import (load_transformer_lm_params,
                                      module_params_tree)
 from bigdl_tpu_torch.models import TransformerLM
-from bigdl_tpu_torch.observability import (InMemorySink, Telemetry,
+from bigdl_tpu_torch.observability import (InMemorySink,
+                                           PrometheusTextSink, SloEngine,
+                                           Telemetry, default_slos,
                                            validate_record)
 from bigdl_tpu_torch.optim import LocalPredictor
 from bigdl_tpu_torch.resilience import (FaultInjector, FaultSpec,
@@ -672,6 +677,140 @@ class TestFleetObservability:
         finally:
             fleet.close()
 
+    def test_serving_fleet_record_validates_and_renders(self):
+        sink, prom = InMemorySink(), PrometheusTextSink()
+        tel = _telemetry(sink, prom)
+        fleet, engines = sim_fleet(3, telemetry=tel, drain_grace_s=0.0)
+        try:
+            engines["replica0"].mode = "hold"
+            sess = session_for(fleet, "replica0")
+            fut = fleet.submit("x", session=sess)
+            fleet.fail("replica0")
+            fut.result(5)
+            fleet.maintain()
+            for r in sink.records:
+                validate_record(r)
+            render = prom.render()
+            assert "bigdl_tpu_serving_fleet_replicas_alive 2" in render
+            assert "bigdl_tpu_serving_fleet_reroutes_total 1" in render
+            assert "bigdl_tpu_serving_fleet_drains_total 1" in render
+            assert 'serving_fleet_replica_queue_depth{replica="replica1"}' \
+                in render
+        finally:
+            fleet.close()
+
+    def test_worker_left_updates_fleet_gauges(self):
+        prom = PrometheusTextSink()
+        fleet, _ = sim_fleet(3, telemetry=_telemetry(prom))
+        try:
+            fleet.scale_down("replica0")
+            render = prom.render()
+            assert "bigdl_tpu_workers_alive 2" in render
+            assert "bigdl_tpu_workers_total 2" in render
+        finally:
+            fleet.close()
+
+    def test_slo_mttr_recovers_on_ok_trace(self):
+        engine = SloEngine(default_slos(mttr_s=60.0))
+        t0 = 1000.0
+        engine.emit({"type": "event", "event": "worker_lost",
+                     "worker": "replica1", "role": "serving", "time": t0})
+        engine.emit({"type": "trace", "trace_id": "ab", "status": "ok",
+                     "kind": "serving_request", "latency_ms": 5.0,
+                     "time": t0 + 3.0})
+        engine.finalize()
+        mttr = next(s for s in engine.status()
+                    if s["slo"] == "training_mttr")
+        assert (mttr["good"], mttr["bad"]) == (1, 0)
+        engine2 = SloEngine(default_slos(mttr_s=60.0))
+        engine2.emit({"type": "event", "event": "worker_lost",
+                      "worker": "replica1", "role": "serving", "time": t0})
+        engine2.finalize()
+        assert "training_mttr" in engine2.violated()
+
+    def test_slo_mttr_recovery_proof_matches_worker_domain(self):
+        t0 = 1000.0
+        eng = SloEngine(default_slos(mttr_s=60.0))
+        eng.emit({"type": "event", "event": "worker_lost",
+                  "worker": "worker0", "time": t0})
+        eng.emit({"type": "trace", "trace_id": "x", "status": "ok",
+                  "kind": "serving_request", "latency_ms": 5.0,
+                  "time": t0 + 1.0})
+        eng.finalize()
+        assert "training_mttr" in eng.violated()
+        eng2 = SloEngine(default_slos(mttr_s=60.0))
+        eng2.emit({"type": "event", "event": "worker_lost",
+                   "worker": "replica1", "role": "serving", "time": t0})
+        eng2.emit({"type": "step", "step": 5, "time": t0 + 1.0})
+        eng2.finalize()
+        assert "training_mttr" in eng2.violated()
+
+    def test_slo_skips_fleet_transient_engine_records_only(self):
+        engine = SloEngine(default_slos())
+        engine.emit({"type": "trace", "trace_id": "a1", "status": "ok",
+                     "kind": "serving_request", "latency_ms": 5.0,
+                     "time": 1.0})
+        for i, status in enumerate(("cancelled", "shed", "timeout")):
+            engine.emit({"type": "trace", "trace_id": f"a{2 + i}",
+                         "status": status, "kind": "serving_request",
+                         "replica_id": "replica0", "latency_ms": 5.0,
+                         "time": 2.0 + i})
+        err = next(s for s in engine.status()
+                   if s["slo"] == "serving_errors")
+        assert (err["good"], err["bad"]) == (1, 0)
+        engine.emit({"type": "trace", "trace_id": "a5", "status": "error",
+                     "kind": "serving_request", "replica_id": "replica0",
+                     "latency_ms": 5.0, "time": 5.0})
+        engine.emit({"type": "trace", "trace_id": "a6", "status": "timeout",
+                     "kind": "fleet_request", "replica_id": "replica0",
+                     "latency_ms": 5.0, "time": 6.0})
+        engine.emit({"type": "trace", "trace_id": "a7",
+                     "status": "cancelled", "kind": "serving_request",
+                     "latency_ms": 5.0, "time": 7.0})
+        err = next(s for s in engine.status()
+                   if s["slo"] == "serving_errors")
+        assert (err["good"], err["bad"]) == (1, 3)
+
+    def test_close_time_failures_visible_to_slo(self):
+        """The SLO half of the case below: callers failed by a drainless
+        close burn the error budget (the engines' cancelled records are
+        skipped, the router's count)."""
+        sink = InMemorySink()
+        tel = _telemetry(sink)
+        fleet, engines = sim_fleet(2, telemetry=tel)
+        engines["replica0"].mode = "hold"
+        engines["replica1"].mode = "hold"
+        futs = [fleet.submit(f"p{i}") for i in range(4)]
+        fleet.close(drain=False)
+        for f in futs:
+            with pytest.raises(EngineClosedError):
+                f.result(5)
+        slo_eng = SloEngine(default_slos())
+        for r in sink.records:
+            slo_eng.emit(r)
+        err = next(s for s in slo_eng.status()
+                   if s["slo"] == "serving_errors")
+        assert err["bad"] == 4
+
+    def test_total_admission_outage_visible_to_slo(self):
+        sink = InMemorySink()
+        tel = _telemetry(sink)
+        fleet, _ = sim_fleet(2, telemetry=tel, drain_grace_s=0.0)
+        try:
+            fleet.fail("replica0")
+            fleet.fail("replica1")
+            with pytest.raises(ServingUnavailableError):
+                fleet.submit("x")
+        finally:
+            fleet.close()
+        slo_eng = SloEngine(default_slos())
+        for r in sink.records:
+            slo_eng.emit(r)
+        slo_eng.finalize()
+        err = next(s for s in slo_eng.status()
+                   if s["slo"] == "serving_errors")
+        assert err["bad"] == 1 and "serving_errors" in slo_eng.violated()
+
     def test_close_time_failures_are_traced(self):
         sink = InMemorySink()
         tel = _telemetry(sink)
@@ -889,6 +1028,39 @@ class TestRealEngineFleet:
                  if e.get("name") == "process_name"}
         assert {"serving:replica0", "serving:replica1"} <= names
         assert len({e["pid"] for e in doc["traceEvents"]}) >= 2
+
+    def test_bench_serve_fleet_contract(self, tmp_path, monkeypatch):
+        """The reference's contract over the port's drill (its served
+        ResNet-50, at 32x32 on the CPU) with a crash: every request
+        resolves, one drain, and the stream it writes under
+        `$BIGDL_TPU_TELEMETRY` passes the gate a chaos run is held to,
+        with the latency ceiling at the drill's deadline, as the
+        reference's replay drill arms `default_slos(latency_p99_ms=
+        deadline_ms)`. The default 100 ms ceiling is the one of the
+        reference's fleet of a 784-64-10 MLP; at it the ResNet-50 drill
+        fails on latency alone."""
+        import io
+
+        from bigdl_tpu_torch.tools import bench
+        from bigdl_tpu_torch.tools.metrics_cli import slo
+        stem = str(tmp_path / "serve_fleet")
+        monkeypatch.setenv(bench.TELEMETRY_ENV, stem)
+        deadline_ms = 15_000.0
+        out = bench.bench_serve_fleet(replicas=3, clients=3,
+                                      requests_per_client=20, crash=True,
+                                      deadline_ms=deadline_ms,
+                                      device="cpu", image_hw=32)
+        assert out["metric"] == "serve_fleet"
+        assert out["recovered"] is True
+        assert out["ok"] + out["timed_out"] + out["rerouted"] \
+            == out["requests"]
+        assert out["drains"] == 1
+        assert slo([stem + ".jsonl"], check=True, mttr_s=60.0,
+                   latency_p99_ms=deadline_ms, out=io.StringIO()) == 0
+        table = io.StringIO()
+        assert slo([stem + ".jsonl"], check=True, mttr_s=60.0,
+                   out=table) == 1
+        assert "VIOLATED: serving_latency_p99\n" in table.getvalue()
 
     def test_a_replica_that_fails_to_build_closes_the_built_ones(self):
         built = []

@@ -54,6 +54,17 @@ from bigdl_tpu_torch.interop import (lm_params_tree,
 from bigdl_tpu_torch.models import TransformerLM
 from bigdl_tpu_torch.nn.attention import TransformerBlock, dropout
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: this file runs JAX beside torch, and under the
+    suite's parallel workers torch's intra-op pool and JAX's threads
+    oversubscribe the cores (see tests/test_torch_recurrent.py)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 VOCAB, EMBED, LAYERS, HEADS = 64, 32, 2, 4
 
 

@@ -523,9 +523,9 @@ def _port_run(carried, loop, batches, iters, monitors=(), sync=1, bn=False,
 
 
 def _compare_streams(got, want):
-    """The same record types in order (the reference's compile records
-    aside), the same step numbers, and loss and norms within RTOL."""
-    want = [r for r in want if r["type"] != "compile"]
+    """The same record types in order (compile records included: one a
+    step signature in both), the same step numbers, and loss and norms
+    within RTOL."""
     for r in got:
         validate_record(r)
     assert [r["type"] for r in got] == [r["type"] for r in want]
@@ -566,7 +566,7 @@ def test_stream_and_trace_match_the_reference(carried, loop, tmp_path):
     assert start["loop"] == loop and start["backend"] == "cpu"
     assert start["n_devices"] == 1 and start["sync_interval"] == 1
     assert end["step"] == 5 and "computing time average" in end["metrics"]
-    for r in got[1:-1]:
+    for r in got[2:-1]:
         assert r["lr"] == pytest.approx(0.05) and r["records"] == 32
         assert r["throughput"] > 0 and r["step_time_s"] > 0
         assert r["flops_per_step"] > 0 and r["bytes_accessed"] is None
@@ -587,7 +587,10 @@ def test_step_flops_equal_the_counted_step(carried):
     """A step record's `flops_per_step` is `step_flops` of the batch."""
     from bigdl_tpu_torch.optim.local_optimizer import step_flops
     got, opt = _port_run(carried, "local", _toy_batches(), 2)
-    assert got[1]["flops_per_step"] == step_flops(opt) > 0
+    steps = [r for r in got if r["type"] == "step"]
+    (compile_,) = [r for r in got if r["type"] == "compile"]
+    assert steps[0]["flops_per_step"] == step_flops(opt) > 0
+    assert compile_["flops"] == steps[0]["flops_per_step"]
 
 
 @pytest.mark.parametrize("loop,method,bn", [
@@ -704,8 +707,7 @@ def test_raise_stream_matches_the_reference(carried, tmp_path):
     with pytest.raises(TrainingHealthError):
         opt.optimize()
     got = sink.records
-    assert [r["type"] for r in got] == \
-        [r["type"] for r in jsink.records if r["type"] != "compile"]
+    assert [r["type"] for r in got] == [r["type"] for r in jsink.records]
     assert got[-1]["event"] == "run_abort"
     assert "TrainingHealthError" in got[-1]["error"]
     assert sorted(p.rsplit("_", 1)[-1] for p in
@@ -784,8 +786,8 @@ def test_bench_telemetry_writes_the_stream_and_the_trace(tmp_path,
         recs = [json.loads(line) for line in f]
     for r in recs:
         validate_record(r)
-    assert [r["type"] for r in recs] == ["run_start", "step", "step",
-                                         "run_end"]
+    assert [r["type"] for r in recs] == ["run_start", "compile", "step",
+                                         "step", "run_end"]
     assert all(r["grad_norm"] > 0 for r in recs if r["type"] == "step")
     with open(stem + ".trace.json") as f:
         names = {e["name"] for e in json.load(f)["traceEvents"]}

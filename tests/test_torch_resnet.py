@@ -35,6 +35,20 @@ from bigdl_tpu_torch.interop import (load_module_params, module_params_tree,
 from bigdl_tpu_torch.models import ResNet as TResNet
 from bigdl_tpu_torch.ops import bn_relu_kernel as tbk
 
+
+@pytest.fixture
+def one_thread():
+    """One torch thread for a whole-model case: this file runs JAX beside
+    torch, and under the suite's parallel workers torch's intra-op pool
+    and JAX's threads oversubscribe the cores (see
+    tests/test_torch_recurrent.py). The layer cases keep the default
+    pool: their f32 sums are held to an absolute 1e-5 in the order it
+    gives."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 ATOL = 1e-5
 
 
@@ -293,7 +307,7 @@ class TestWholeModels:
                              shortcut_type="A", device="cpu"),
                      _x(2, 16, 16, 3, seed=2), 10)
 
-    def test_resnet50_s2d_forward_and_grads(self, monkeypatch):
+    def test_resnet50_s2d_forward_and_grads(self, monkeypatch, one_thread):
         from bigdl_tpu.models.resnet import ResNet50 as JResNet50
         from bigdl_tpu_torch.models import ResNet50 as TResNet50
         calls = _count_fused(monkeypatch)

@@ -45,6 +45,17 @@ from bigdl_tpu_torch.parallel import (Mesh, SequenceParallelAttention,
                                       zigzag_inverse, zigzag_order,
                                       zigzag_ring_attention)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: this file runs JAX beside torch, and under the
+    suite's parallel workers torch's intra-op pool and JAX's threads
+    oversubscribe the cores (see tests/test_torch_recurrent.py)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 REPO = Path(__file__).resolve().parents[1]
 PALLAS_TOL = 3e-5
 GRAD_TOL = 3e-4

@@ -51,6 +51,17 @@ from bigdl_tpu_torch.models import ResNet as TResNet
 from bigdl_tpu_torch.models import VggForCifar10
 from bigdl_tpu_torch.resilience import FaultInjector, FaultSpec, RetryPolicy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: this file runs JAX beside torch, and under the
+    suite's parallel workers torch's intra-op pool and JAX's threads
+    oversubscribe the cores (see tests/test_torch_recurrent.py)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 STEPS, BATCH = 5, 8
 
 

@@ -52,6 +52,17 @@ from bigdl_tpu_torch.observability import costs
 from bigdl_tpu_torch.ops import bn_relu_kernel as tbk
 from bigdl_tpu_torch.tools import bench
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: this file runs JAX beside torch, and under the
+    suite's parallel workers torch's intra-op pool and JAX's threads
+    oversubscribe the cores (see tests/test_torch_recurrent.py)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 ATOL = 1e-5
 #: the absolute floor of the relative comparisons: a convolution's bias
 #: before a BN has a zero gradient in exact arithmetic, so both packages
