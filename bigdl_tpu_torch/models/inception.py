@@ -223,8 +223,10 @@ def inception_layer_v2(n_in, c1, c3, d3, pool, name="", *, device=None,
 
 
 def _v2_stem(b: Builder, name: str) -> nn.Sequential:
-    return (nn.Sequential(name=name)
-            .add(_conv_bn(b, 3, 64, 7, 2, 3, name="conv1/7x7_s2"))
+    m = nn.Sequential()
+    m.name = name  # named after construction, as the reference's (its
+    # model file records no name argument)
+    return (m.add(_conv_bn(b, 3, 64, 7, 2, 3, name="conv1/7x7_s2"))
             .add(nn.SpatialMaxPooling(3, 3, 2, 2).ceil())
             .add(_conv_bn(b, 64, 64, 1, name="conv2/3x3_reduce"))
             .add(_conv_bn(b, 64, 192, 3, pad=1, name="conv2/3x3"))

@@ -11,7 +11,8 @@ from bigdl_tpu_torch.nn.containers import (CAddTable, Concat, ConcatTable,
                                            Container, Identity, Sequential)
 from bigdl_tpu_torch.nn.conv import (SpaceToDepthStemConvolution,
                                      SpatialConvolution,
-                                     SpatialDilatedConvolution)
+                                     SpatialDilatedConvolution,
+                                     SpatialShareConvolution)
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion, MSECriterion,
                                           TimeDistributedCriterion,
                                           TimeDistributedMaskCriterion)
@@ -38,6 +39,8 @@ from bigdl_tpu_torch.nn.recurrent import (LSTM, LSTM2, Cell, LSTMCell,
                                           TimeDistributed)
 from bigdl_tpu_torch.nn.shape_ops import DenseToSparse, Mean, Reshape
 
+RNN = RnnCell  # the reference's alias (its model files name RnnCell "RNN")
+
 __all__ = ["BatchNormalization", "CAddTable", "Cell", "ClassNLLCriterion",
            "Concat", "ConcatTable", "Container", "DenseToSparse", "Dropout",
            "Identity",
@@ -46,14 +49,14 @@ __all__ = ["BatchNormalization", "CAddTable", "Cell", "ClassNLLCriterion",
            "Module",
            "MsraFiller", "MultiHeadAttention", "MultiRNNCell", "Pooler",
            "Mean", "QuantizedLinear", "QuantizedSpatialConvolution",
-           "QuantizedSpatialDilatedConvolution", "Quantizer",
+           "QuantizedSpatialDilatedConvolution", "Quantizer", "RNN",
            "RandomNormal", "RandomUniform", "ReLU", "Recurrent",
            "Reshape",
            "RnnCell", "ScaledDotProductAttention", "Sequential", "Sigmoid",
            "SpaceToDepthStemConvolution", "SparseJoinTable", "SparseLinear",
            "SpatialAveragePooling",
            "SpatialBatchNormalization", "SpatialConvolution",
-           "SpatialDilatedConvolution",
+           "SpatialDilatedConvolution", "SpatialShareConvolution",
            "SpatialCrossMapLRN", "SpatialMaxPooling", "Tanh",
            "TimeDistributed", "TimeDistributedCriterion",
            "TimeDistributedMaskCriterion", "TransformerBlock",

@@ -26,21 +26,30 @@ class ReLU(Module):
         return torch.relu(x)
 
 
-class LogSoftMax(Module):
+class _Elementwise(Module):
+    """An activation with no parameters of its own; its constructor is the
+    reference's `_Elementwise` one, so its `_ctor_spec` is recorded as
+    there."""
+
+    def __init__(self, name: Optional[str] = None):
+        super().__init__(name)
+
+
+class LogSoftMax(_Elementwise):
     """log(softmax(x)) over the last axis."""
 
     def forward(self, x):
         return torch.log_softmax(x, dim=-1)
 
 
-class Tanh(Module):
+class Tanh(_Elementwise):
     """Hyperbolic tangent."""
 
     def forward(self, x):
         return torch.tanh(x)
 
 
-class Sigmoid(Module):
+class Sigmoid(_Elementwise):
     """1 / (1 + exp(-x))."""
 
     def forward(self, x):

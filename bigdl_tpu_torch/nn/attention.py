@@ -21,6 +21,7 @@ from torch import nn
 
 from bigdl_tpu_torch._device import resolve_device
 from bigdl_tpu_torch.nn.initialization import Xavier, default_generator
+from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.nn.normalization import LayerNormalization
 from bigdl_tpu_torch.ops.attention_kernel import (flash_attention,
                                                   naive_attention)
@@ -83,13 +84,14 @@ def dropout(x, p: float, generator: torch.Generator):
     return x * kept.to(x.dtype) / keep
 
 
-class ScaledDotProductAttention(nn.Module):
+class ScaledDotProductAttention(Module):
     """attention(q, k, v) with an optional causal mask; q, k, v
     [B, H, T, D]."""
 
     def __init__(self, causal: bool = False, use_flash: bool = True,
-                 sm_scale: Optional[float] = None):
-        super().__init__()
+                 sm_scale: Optional[float] = None,
+                 name: Optional[str] = None):
+        super().__init__(name)
         self.causal, self.use_flash, self.sm_scale = causal, use_flash, \
             sm_scale
 
@@ -99,7 +101,7 @@ class ScaledDotProductAttention(nn.Module):
         return naive_attention(q, k, v, self.causal, self.sm_scale)
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Module):
     """Multi-head attention with separate q/k/v projections.
 
     Input: [B, T, E] (self-attention) or a pair (query [B, Tq, E],
@@ -110,8 +112,9 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, embed_dim: int, n_head: int, causal: bool = False,
                  with_bias: bool = True, use_rope: bool = False,
                  use_flash: bool = True, kv_embed_dim: Optional[int] = None,
-                 *, device=None, generator: Optional[torch.Generator] = None):
-        super().__init__()
+                 name: Optional[str] = None, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(name)
         if embed_dim % n_head:
             raise ValueError(f"embed_dim {embed_dim} % n_head {n_head} != 0")
         device = resolve_device(device)
@@ -185,7 +188,7 @@ class MultiHeadAttention(nn.Module):
         return self._finish(o), k_cache, v_cache
 
 
-class TransformerBlock(nn.Module):
+class TransformerBlock(Module):
     """Pre-norm transformer block: x + MHA(LN(x)); x + MLP(LN(x)), with
     the tanh-approximated GELU (`jax.nn.gelu`'s default).
 
@@ -197,10 +200,11 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, embed_dim: int, n_head: int, mlp_ratio: int = 4,
                  causal: bool = False, use_rope: bool = False,
-                 use_flash: bool = True, dropout: float = 0.0, *,
-                 device=None, generator: Optional[torch.Generator] = None,
+                 use_flash: bool = True, dropout: float = 0.0,
+                 name: Optional[str] = None, *, device=None,
+                 generator: Optional[torch.Generator] = None,
                  dropout_generator: Optional[torch.Generator] = None):
-        super().__init__()
+        super().__init__(name)
         if not 0.0 <= dropout < 1.0:
             raise ValueError(f"dropout must be in [0, 1), got {dropout}")
         device = resolve_device(device)

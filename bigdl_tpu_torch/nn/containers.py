@@ -22,6 +22,9 @@ from bigdl_tpu_torch.utils.table import T
 class Container(Module):
     """Holds child modules in order, keyed `"<index>_<name>"`."""
 
+    def __init__(self, name: Optional[str] = None):
+        super().__init__(name)
+
     def add(self, module: Module) -> "Container":
         self.add_module(f"{len(self._modules)}_{module.name}", module)
         return self

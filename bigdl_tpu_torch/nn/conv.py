@@ -1,8 +1,8 @@
 """Convolution layers (counterpart of `bigdl_tpu/nn/conv.py`).
 
-Ported: `SpatialConvolution`, `SpatialDilatedConvolution` and
-`SpaceToDepthStemConvolution` (with the route to the stem kernel,
-`ops/stem_kernel.py`).
+Ported: `SpatialConvolution` (and its alias `SpatialShareConvolution`),
+`SpatialDilatedConvolution` and `SpaceToDepthStemConvolution` (with the
+route to the stem kernel, `ops/stem_kernel.py`).
 
 Layout. Like the JAX package, the layers take and return NHWC tensors.
 The weight is stored OIHW (PyTorch's layout; the carry from the JAX HWIO
@@ -158,6 +158,11 @@ def s2d_kernel(w_oihw):
     wk = F.pad(w_oihw.permute(2, 3, 1, 0), (0, 0, 0, 0, 1, 0, 1, 0))
     return (wk.reshape(kt, 2, kt, 2, c, o).permute(0, 2, 1, 3, 4, 5)
             .reshape(kt, kt, 4 * c, o).contiguous())
+
+
+# the reference's alias: its memory-sharing variant computes the same
+# convolution
+SpatialShareConvolution = SpatialConvolution
 
 
 class SpaceToDepthStemConvolution(SpatialConvolution):

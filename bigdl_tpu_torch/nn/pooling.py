@@ -39,8 +39,13 @@ class _Pool2d(Module):
         self.ceil_mode = ceil_mode
 
     def ceil(self):
-        """Ceil mode on, the reference's builder; returns the layer."""
+        """Ceil mode on, the reference's builder; returns the layer. The
+        constructor record gains `ceil_mode=True`, so a model file keeps
+        the mode (the reference's record leaves it out, and its loaded
+        Inception-v2 pools in floor mode: `ROADMAP.md`, reference-side
+        state)."""
         self.ceil_mode = True
+        self._record_ctor_arg("ceil_mode", True)
         return self
 
     def _same(self) -> bool:

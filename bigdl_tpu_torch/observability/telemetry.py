@@ -16,8 +16,7 @@ attached sink. Record types:
 
 Every record type's field contract is declared in `RECORD_SCHEMAS`, the
 reference's own, record for record (`compile`, `slo_status`, `alert`,
-`serving_fleet`, `workload_replay` and the rest included; the port does
-not emit `workload_replay` and `replay_summary` yet), checked by
+`serving_fleet`, `workload_replay` and the rest included), checked by
 `validate_record`.
 
 Every record carries `time` (epoch seconds, absolute, so streams overlay

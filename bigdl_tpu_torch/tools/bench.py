@@ -24,6 +24,8 @@ warm-up. The result also carries every step's loss.
     python -m bigdl_tpu_torch.tools.bench --model attention [--profile]
     python -m bigdl_tpu_torch.tools.bench --model serve [--profile]
     python -m bigdl_tpu_torch.tools.bench --model serve_fleet [--crash]
+    python -m bigdl_tpu_torch.tools.bench --model replay_invariance \
+        [--replay-model mlp|resnet50] [--device cpu]
     python -m bigdl_tpu_torch.tools.bench --model int8_serving [--profile]
     python -m bigdl_tpu_torch.tools.bench --model inception_v1 [--profile]
     python -m bigdl_tpu_torch.tools.bench --model lenet|inception_v2|vgg16
@@ -1660,6 +1662,240 @@ def bench_serve_fleet(replicas: int = 3, clients: int = 6,
     return out
 
 
+def _replay_mlp(device: torch.device) -> torch.nn.Module:
+    """The reference's replay-drill MLP (784-32-10 over 28x28 samples),
+    weights from seed 0."""
+    import bigdl_tpu_torch.nn as nn
+    g = torch.Generator().manual_seed(0)
+    return (nn.Sequential().add(nn.Reshape([784]))
+            .add(nn.Linear(784, 32, device=device, generator=g))
+            .add(nn.Tanh())
+            .add(nn.Linear(32, 10, device=device, generator=g))
+            .add(nn.LogSoftMax()))
+
+
+def replay_workload(make_fleet, workload, seed: int,
+                    deadline_ms: float = 60_000.0,
+                    stream: Optional[str] = None) -> Dict:
+    """Replay `workload` once on a fresh fleet from `make_fleet(None)`
+    (closed after) under a `VirtualClock`, with its chaos plan drawn at
+    `seed` and an `SloEngine(default_slos(latency_p99_ms=deadline_ms))`
+    on the replay's telemetry; with `stream` the canonical stream is also
+    written there. Returns the seed, the wall time, requests/s, the
+    latency p50/p99 of the canonical trace records (wall clock, which the
+    diff ignores), the outcome tallies, `chaos_fired`, the stream path,
+    the replayer's summary and the canonical records."""
+    from bigdl_tpu_torch.observability import (InMemorySink, JsonlSink,
+                                               Telemetry)
+    from bigdl_tpu_torch.observability.slo import SloEngine, default_slos
+    from bigdl_tpu_torch.workload import (ChaosSchedule, VirtualClock,
+                                          WorkloadReplayer)
+    sink = InMemorySink()
+    sinks = [sink]
+    if stream:
+        sinks.append(JsonlSink(stream, append=False))
+    tel = Telemetry(*sinks, resources=False, flight=False)
+    SloEngine(default_slos(latency_p99_ms=deadline_ms),
+              emit_every_s=0.25).attach(tel)
+    target = make_fleet(None)
+    t0 = time.perf_counter()
+    try:
+        summary = WorkloadReplayer(
+            target, workload,
+            chaos=ChaosSchedule.from_dicts(workload.chaos, seed=seed),
+            seed=seed, telemetry=tel, clock=VirtualClock(),
+            progress_every=max(1, len(workload) // 5)).run()
+    finally:
+        wall = time.perf_counter() - t0
+        target.close()
+        tel.close()
+    lat = np.asarray([r["latency_ms"] for r in sink.records
+                      if r["type"] == "trace" and "latency_ms" in r])
+    return {"seed": seed, "wall_s": wall,
+            "requests_per_sec": len(workload) / wall,
+            "latency_ms_p50": float(np.percentile(lat, 50))
+            if lat.size else None,
+            "latency_ms_p99": float(np.percentile(lat, 99))
+            if lat.size else None,
+            "outcomes": {k: summary.get(k) for k in
+                         ("ok", "errors", "timeouts", "shed")},
+            "chaos_fired": summary.get("chaos_fired"),
+            "stream": stream, "summary": summary,
+            "records": sink.records}
+
+
+def replay_invariance_drill(make_fleet, samples: Sequence, requests: int = 90,
+                            sessions: int = 6, seed: int = 7,
+                            deadline_ms: float = 60_000.0,
+                            tel_dir: Optional[str] = None) -> Dict:
+    """The reference's replay-invariance drill over fleets that
+    `make_fleet(telemetry)` builds (a fresh `ServingFleet` each call, its
+    engines reporting to `telemetry`, which may be None; the drill closes
+    it): record `requests` live requests over `sessions` sessions
+    (`idempotent=True`, `deadline_ms`; replica1 failed at request
+    `requests // 3` and restored at `2 * requests // 3`) into a
+    `WorkloadRecorder`, save the workload with the seeded chaos plan (kill
+    after `requests // 3` entries, restore after `2 * requests // 3`,
+    targets left to the schedule's rng) and load it back, then
+    `replay_workload` it on fresh fleets: at `seed`, at `seed` again and
+    at `seed + 1`. With `tel_dir` the three canonical streams go to
+    `replay_invariance_{a,b,perturbed}_<pid>.jsonl` there and the
+    workload file to `replay_workload_<pid>.jsonl` (else to a temporary
+    directory, removed after). Returns the reference's keys, plus each
+    replay's `replay_workload` result under its tag."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.observability import Telemetry
+    from bigdl_tpu_torch.workload import (ChaosAction, Workload,
+                                          WorkloadRecorder, compare_streams)
+    if tel_dir:
+        os.makedirs(tel_dir, exist_ok=True)
+    wl_dir = tel_dir or tempfile.mkdtemp(prefix="replay_drill_")
+
+    # record a live run, with a kill and restore mid-run (rerouting noise
+    # the recorder distils away)
+    recorder = WorkloadRecorder(name="ci_fleet_run", seed=seed)
+    rec_tel = Telemetry(recorder, resources=False, flight=False)
+    t0 = time.perf_counter()
+    fleet = make_fleet(rec_tel)
+    try:
+        futs = []
+        for i in range(requests):
+            futs.append(fleet.submit(samples[i % len(samples)],
+                                     deadline_ms=deadline_ms,
+                                     session=f"s{i % sessions}",
+                                     idempotent=True))
+            if i == requests // 3:
+                fleet.fail("replica1", reason="recorded chaos kill")
+            elif i == (2 * requests) // 3:
+                fleet.restore("replica1")
+        for f in futs:
+            try:
+                f.result(timeout=60.0)
+            except Exception:
+                pass  # outcomes are the replay's to re-derive
+    finally:
+        fleet.close()
+        rec_tel.close()
+    record_s = time.perf_counter() - t0
+    chaos_plan = [ChaosAction("kill", after_entries=requests // 3),
+                  ChaosAction("restore", after_entries=(2 * requests) // 3)]
+    workload = recorder.workload(chaos=[a.to_dict() for a in chaos_plan])
+    wl_path = os.path.join(wl_dir, f"replay_workload_{os.getpid()}.jsonl")
+    workload.save(wl_path)
+    workload = Workload.load(wl_path)  # replay what a gate would replay
+
+    replays = []
+    try:
+        for tag, replay_seed in (("a", seed), ("b", seed),
+                                 ("perturbed", seed + 1)):
+            stream = (os.path.join(
+                tel_dir, f"replay_invariance_{tag}_{os.getpid()}.jsonl")
+                if tel_dir else None)
+            replays.append({"tag": tag, **replay_workload(
+                make_fleet, workload, replay_seed, deadline_ms, stream)})
+    finally:
+        if not tel_dir:
+            shutil.rmtree(wl_dir, ignore_errors=True)
+    a, b, p = replays
+    same = compare_streams(a["records"], b["records"])
+    perturbed = compare_streams(a["records"], p["records"])
+    return {
+        "metric": "replay_invariance",
+        "workload_entries": len(workload),
+        "replicas": a["summary"].get("replicas"),
+        "seed": seed,
+        "chaos_fired": a["summary"].get("chaos_fired"),
+        "outcomes": a["outcomes"],
+        "invariant": not same.divergent,
+        "invariance_break": same.first,
+        "perturbation_detected": perturbed.divergent,
+        "perturbation_pointer": perturbed.first,
+        "streams": [r["stream"] for r in replays if r["stream"]],
+        "workload_file": wl_path if tel_dir else None,
+        "record_s": record_s,
+        "replays": replays,
+    }
+
+
+def bench_replay_invariance(replicas: int = 3, requests: int = 90,
+                            sessions: int = 6, seed: int = 7,
+                            deadline_ms: float = 60_000.0, *,
+                            model: str = "mlp", device=None) -> Dict:
+    """The reference's replay-invariance drill (`--model
+    replay_invariance`, the gate behind `metrics_cli diff`), run by
+    `replay_invariance_drill` over fleets of `replicas` `InferenceEngine`s
+    (max batch 8, `max_wait_ms` 1, queue 256, reject on full; drain grace
+    0.5 s, lease 30 s, ring seed 0) serving `model`:
+
+    - "mlp": the reference's MLP (784-32-10) on 16 seeded 28x28 samples;
+    - "resnet50": the served ResNet-50 of `--model serve` (1000 classes,
+      `s2d_stem=True`, seed 0, f32, TF32 off, `BIGDL_TPU_PALLAS_STEM` set:
+      kernels 5 and 6 in every batch) on 16 seeded 224x224x3 images, its
+      engines with breakers (5 failures, 30 s reset) as the serving
+      fleet's drill has them.
+
+    Every fleet serves the same weights. With `$BIGDL_TPU_TELEMETRY`
+    naming a directory, the three canonical streams and the workload file
+    land there, for `metrics_cli diff` and `metrics_cli slo --check`.
+    Prints and returns ONE JSON object: the reference's keys (`invariant`
+    and `perturbation_detected` must both hold) plus each replay's wall
+    time, requests/s and latency p50/p99, the engines the drill built
+    (its four fleets and their restores), their dispatched batches and
+    warm-up buckets, and the device."""
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.serving import InferenceEngine, ServingFleet
+    device = resolve_device(device)
+    rs = np.random.RandomState(0)
+    engine_kwargs = {"max_batch_size": 8, "max_wait_ms": 1.0,
+                     "queue_capacity": 256, "admission": "reject",
+                     "device": device}
+    if model == "mlp":
+        net = _replay_mlp(device)
+        samples = [Sample(rs.rand(28, 28).astype(np.float32))
+                   for _ in range(16)]
+        settings = contextlib.nullcontext()
+    elif model == "resnet50":
+        from bigdl_tpu_torch.models.resnet import ResNet50
+        net = ResNet50(class_num=1000, s2d_stem=True, device=device,
+                       generator=torch.Generator().manual_seed(0))
+        samples = [Sample(rs.rand(224, 224, 3).astype(np.float32))
+                   for _ in range(16)]
+        engine_kwargs["breaker"] = {"failure_threshold": 5,
+                                    "reset_timeout_s": 30.0}
+        settings = _serving_settings(True)
+    else:
+        raise ValueError(f"model must be 'mlp' or 'resnet50', got {model!r}")
+    engines = []  # every engine of the four fleets, restores included
+
+    def make_fleet(telemetry):
+        def factory(rid):
+            eng = InferenceEngine(net, telemetry=telemetry, replica_id=rid,
+                                  **engine_kwargs)
+            engines.append(eng)
+            return eng
+        return ServingFleet(engine_factory=factory, n_replicas=replicas,
+                            warmup_sample=samples[0], telemetry=telemetry,
+                            drain_grace_s=0.5, lease_s=30.0, seed=0)
+
+    with settings:
+        res = replay_invariance_drill(
+            make_fleet, samples, requests, sessions, seed, deadline_ms,
+            tel_dir=os.environ.get(TELEMETRY_ENV))
+    out = {k: v for k, v in res.items() if k != "replays"}
+    out.update({"model": model, "device": _device_name(device),
+                "replays": [{k: r[k] for k in (
+                    "tag", "seed", "wall_s", "requests_per_sec",
+                    "latency_ms_p50", "latency_ms_p99", "outcomes",
+                    "chaos_fired")} for r in res["replays"]],
+                "engines_built": len(engines),
+                "batches": sum(e.stats()["batches"] for e in engines),
+                "warmup_buckets": sum(len(e.buckets) for e in engines)})
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def bench_input_pipeline(input_cost_ms: float, batch_size: int = 256,
                          segments: int = 40, seg_iters: int = 12,
                          workers: Optional[int] = None, *,
@@ -1872,7 +2108,8 @@ def main(argv=None) -> None:
     p.add_argument("--model", choices=("resnet50", "serve", "serve_fleet",
                                        "lm", "attention", "ptb_lstm",
                                        "wide_n_deep", "int8_serving",
-                                       "input_pipeline", *ZOO),
+                                       "input_pipeline",
+                                       "replay_invariance", *ZOO),
                    default="resnet50")
     p.add_argument("--input-cost-ms", type=float, default=20.0,
                    help="with --model input_pipeline: the chain's sleep a "
@@ -1885,6 +2122,9 @@ def main(argv=None) -> None:
                    "mid-traffic (serve.replica_crash)")
     p.add_argument("--profile", action="store_true",
                    help="device time by kind of kernel (torch.profiler)")
+    p.add_argument("--replay-model", choices=("mlp", "resnet50"),
+                   default="mlp",
+                   help="with --model replay_invariance: the served model")
     p.add_argument("--nproc", type=int, default=1,
                    help="ResNet-50 or Wide&Deep data parallel over this "
                    "many ranks")
@@ -1911,8 +2151,8 @@ def main(argv=None) -> None:
         p.add_argument(flag, type=int, default=default,
                        help=argparse.SUPPRESS)
     p.add_argument("--device", default="cuda",
-                   help="torch device of --chaos / --device-loss "
-                   "(default: the card)")
+                   help="torch device of --chaos / --device-loss / "
+                   "--model replay_invariance (default: the card)")
     args = p.parse_args(argv)
     if args.telemetry:
         os.environ[TELEMETRY_ENV] = os.path.abspath(args.telemetry)
@@ -1946,6 +2186,11 @@ def main(argv=None) -> None:
         if args.profile:
             p.error("--model serve_fleet takes no --profile")
         bench_serve_fleet(crash=args.crash)
+        return
+    if args.model == "replay_invariance":
+        if args.profile:
+            p.error("--model replay_invariance takes no --profile")
+        bench_replay_invariance(model=args.replay_model, device=args.device)
         return
     if args.model == "input_pipeline":
         if args.profile:

@@ -11,11 +11,9 @@ full-int8 twin. It prints the f32 and int8 accuracies on the training
 images, their top-1 agreement and the size ratio, and requires an
 agreement above 0.95 and a ratio above 2.5, as the reference does.
 
-The size ratio compares the `params.pkl` of the two models' checkpoints
-(`serialization.save_checkpoint`, format v2: the parameters in the JAX
-tree layout, the int8 weights as int8). The reference compares its
-`ModuleSerializer` files; `ModuleSerializer` is not ported yet
-(`ROADMAP.md` queue 1 item 9).
+The size ratio compares the two models' `ModuleSerializer` files, as the
+reference's does (the int8 weights stored as int8, the file's module tree
+and scales beside them).
 
     python -m bigdl_tpu_torch.tools.quantized_inference              # card
     python -m bigdl_tpu_torch.tools.quantized_inference --device cpu
@@ -52,12 +50,11 @@ def build_model(n_class: int, device=None):
             .add(nn.LogSoftMax()))
 
 
-def _params_pkl_bytes(root: str, tag: str, model, method) -> int:
-    from bigdl_tpu_torch.interop.jax_params import module_state, params_tree
-    from bigdl_tpu_torch.serialization.checkpoint import save_checkpoint
-    d = save_checkpoint(root, model, params_tree(model), module_state(model),
-                        method, tag=tag)
-    return os.path.getsize(os.path.join(d, "params.pkl"))
+def _model_file_bytes(root: str, tag: str, model) -> int:
+    from bigdl_tpu_torch.serialization import ModuleSerializer
+    path = os.path.join(root, f"{tag}.bigdl")
+    ModuleSerializer.save(model, path)
+    return os.path.getsize(path)
 
 
 def main(argv=None) -> Dict[str, float]:
@@ -83,8 +80,7 @@ def main(argv=None) -> Dict[str, float]:
     model = build_model(n_class, device)
     opt = Optimizer(model, (x, y), ClassNLLCriterion(), batch_size=32,
                     local=True, device=device)
-    method = Adam(learning_rate=3e-3)
-    opt.set_optim_method(method)
+    opt.set_optim_method(Adam(learning_rate=3e-3))
     opt.set_end_when(max_epoch(args.max_epoch))
     opt.optimize()
 
@@ -97,8 +93,8 @@ def main(argv=None) -> Dict[str, float]:
            "int8_acc": float(((q_top + 1) == y).mean()),
            "top1_agreement": float((q_top == f32_top).mean())}
     with tempfile.TemporaryDirectory() as d:
-        res["size_ratio"] = (_params_pkl_bytes(d, "fp32", model, method)
-                             / _params_pkl_bytes(d, "int8", qmodel, method))
+        res["size_ratio"] = (_model_file_bytes(d, "fp32", model)
+                             / _model_file_bytes(d, "int8", qmodel))
     print(f"fp32 acc={res['fp32_acc']:.3f}  int8 acc={res['int8_acc']:.3f}  "
           f"top-1 agreement={res['top1_agreement']:.3f}  size ratio "
           f"fp32/int8={res['size_ratio']:.2f}x")

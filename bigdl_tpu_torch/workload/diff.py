@@ -21,9 +21,8 @@ deterministic — never wall-clock:
 Latency values, record `time` stamps, trace ids, and error text are
 deliberately IGNORED — they vary run to run without meaning anything.
 `metrics_cli diff` wraps this for the CLI (exit 0 identical /
-1 divergent / 2 malformed); the reference's `WorkloadReplayer` also
-uses it to stamp `replay_summary.divergent` (the port's `workload/`
-holds this module alone so far: `ROADMAP.md` queue 1 item 9).
+1 divergent / 2 malformed) and `WorkloadReplayer(baseline=...)` uses
+it to stamp `replay_summary.divergent` for the Prometheus gauge.
 Standalone streams work too (two `slo --check`'d JSONL files): the
 replay-only sections are empty on both sides and compare equal.
 """

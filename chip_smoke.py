@@ -465,6 +465,42 @@ Phases:
    with an `SloEngine` and a `PrometheusTextSink` on its telemetry: its
    ms a step beside (a)'s. (d) The phase's wall time. `python3
    chip_smoke.py --phase22` runs phases 1, 2 and 22 alone.
+23. workload record, chaos and replay (`workload/{record,chaos,replay}
+   .py`) and the model-file format (`serialization/module_serializer.py`,
+   `proto/bigdl_model.py`), TF32 off. (a) The reference's
+   replay-invariance drill (`tools/bench.py replay_invariance_drill`)
+   over phase 20(a)'s served ResNet-50 (3 replicas with breakers, f32,
+   the stem switch set): 90 requests over 6 sessions (idempotent, 60 s
+   deadlines) recorded into a `WorkloadRecorder` with replica1 killed at
+   request 30 and restored at 60; the workload saved with its seeded
+   chaos plan (kill after 30 entries, restore after 60, targets drawn by
+   the seed) and loaded back, then replayed on fresh fleets under a
+   `VirtualClock` and `SloEngine(default_slos(latency_p99_ms=60000))` at
+   seeds 7, 7 and 8: the seed-7 pair's canonical streams identical under
+   `compare_streams`, the seed-8 one divergent with a pointer; 2 chaos
+   actions and 90 ok outcomes in each; on the written streams
+   `metrics_cli diff` exits 0 and 1 and `metrics_cli slo --check
+   --latency-p99-ms 60000` 0; every recorded shape (224, 224, 3); kernels
+   5 and 6 once a dispatched batch and once a warm-up bucket over the
+   four fleets. Printed: outcomes, requests/s and p50/p99 of each replay.
+   (b) A `fleet_generate` workload synthesized from seeded
+   `poisson_arrivals(40, 0.6)` (256-token prompts, 16 new tokens, 4
+   sessions, 60 s deadlines; a kill after a third of the entries and a
+   restore after two thirds), replayed twice at one seed over fresh
+   fleets of 2 `GenerationEngine`s serving phase 1's LM: the canonical
+   streams identical, every stream finished, kernel 1 4 times a prefill
+   batch (warm-up included). (c) Inception-v2 (1000 classes, seed 0,
+   phase 12's zoo cell) saved with `ModuleSerializer` and loaded on the
+   card (and on the CPU: every tensor equal); the eval forward of a
+   seeded b32 224x224x3 batch bitwise equal to the original's; one SGD
+   step of each (bf16 compute, f32 masters, momentum 0.9, under
+   `Deterministic`) on one seeded batch: losses and every parameter and
+   buffer bitwise equal, kernels 6 and 7 69 launches each a step; the
+   reference's `tests/resources/golden_model_v1.bigdl` within rtol 1e-5
+   / atol 1e-6 of its stored output; `ResNet50` refused with the
+   reference's `TypeError`. Printed: file MB, save and load seconds, the
+   ops `Deterministic` warned about. (d) The phase's wall time. `python3
+   chip_smoke.py --phase23` runs phases 1, 2 and 23 alone.
 
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
 measure ran: `tensor_cores` or `cuda_cores_f32` for rows 1-5, the octet
@@ -480,7 +516,9 @@ phase 18(a), `launches_elastic`; rows 5-6 with their launches in phase
 19(b)-(c), `launches_int8_serving`; rows 1, 5 and 6 with their
 launches in phase 20, `launches_fleet`; rows 1, 5, 6 and 7 with their
 launches on phase 21's paths, `launches_pipeline`; rows 5, 6 and 7
-with their launches on phase 22's paths, `launches_ops`),
+with their launches on phase 22's paths, `launches_ops`; rows 1, 5, 6
+and 7 with their launches on phase 23's replays, `launches_replay`, and
+its model-file training steps, `launches_model_file`),
 then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
 """
@@ -5040,13 +5078,18 @@ def _fleet_images():
         FLEET_IMAGES, SERVE_HW, SERVE_HW, 3).astype(np.float32)
 
 
+def _fleet_model():
+    """Phase 10(b)'s served ResNet-50 (f32, seed 0)."""
+    from bigdl_tpu_torch.models import ResNet50
+    return ResNet50(class_num=1000, s2d_stem=True, device="cuda",
+                    generator=torch.Generator().manual_seed(0))
+
+
 def _fleet_model_and_ref(images):
     """Phase 10(b)'s served ResNet-50 (f32, seed 0) and the cuDNN-stem
     twin's rows for `images`."""
-    from bigdl_tpu_torch.models import ResNet50
     from bigdl_tpu_torch.optim import LocalPredictor
-    model = ResNet50(class_num=1000, s2d_stem=True, device="cuda",
-                     generator=torch.Generator().manual_seed(0))
+    model = _fleet_model()
     os.environ.pop(STEM_ENV, None)
     twin = LocalPredictor(model, batch_size=FLEET_BATCH, device="cuda")
     twin.model.get_submodule("0_conv1").pallas_stem = False
@@ -6126,6 +6169,283 @@ def ops_phase(sk, bk):
             "bn_relu_bwd": {"training": train["bn_relu_bwd"]}}
 
 
+# --------------------------------------------------------------------------
+# 23. workload record, chaos and replay; the model-file format
+# --------------------------------------------------------------------------
+
+# (a) the reference's replay-invariance drill (`bench_cli.py:1446`) at its
+# own settings: 90 requests over 6 sessions, idempotent, each with the
+# 60 s deadline (a fresh fleet's first wave waits 0.3-0.6 s on the card,
+# far inside it), a kill at request 30 and a restore at 60; three replays
+# at seeds 7, 7 and 8. Sixteen of the fleet's seeded images are the
+# samples, as the reference draws sixteen.
+P23_REQUESTS, P23_SESSIONS, P23_SEED = 90, 6, 7
+P23_DEADLINE_MS = 60_000.0
+# (b) generate traffic: seeded Poisson arrivals at 40/s for 0.6 s (~24),
+# 256-token prompts, 16 new tokens, 4 sessions, over 2 LM replicas
+P23_GEN_RATE, P23_GEN_S = 40.0, 0.6
+P23_GEN_PROMPT, P23_GEN_NEW, P23_GEN_SESSIONS = 256, 16, 4
+P23_GEN_REPLICAS, P23_GEN_MAX_LEN = 2, 512
+# (c) Inception-v2 through a model file: the eval forward's batch and the
+# training step's (phase 12's zoo cell: b32, bf16 compute, f32 masters)
+P23_V2_BATCH = 32
+# the reference's golden file against its stored output
+P23_GOLDEN_RTOL, P23_GOLDEN_ATOL = 1e-5, 1e-6
+GOLDEN_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "resources", "golden_model_v1")
+
+
+def replay_drill_phase(sk, bk, tmp):
+    """23(a): `tools/bench.py bench_replay_invariance(model="resnet50")`,
+    the drill behind `--model replay_invariance --replay-model resnet50`,
+    with `$BIGDL_TPU_TELEMETRY` naming `tmp`: phase 20(a)'s served
+    ResNet-50 (3 replicas with breakers, f32, the stem switch set),
+    recorded, saved with the seeded chaos plan, loaded and replayed at
+    seeds 7, 7 and 8 on fresh fleets. Returns kernels 5 and 6's
+    launches."""
+    from bigdl_tpu_torch.tools import metrics_cli
+    from bigdl_tpu_torch.tools.bench import (TELEMETRY_ENV,
+                                             bench_replay_invariance)
+    from bigdl_tpu_torch.workload import Workload
+    saved = os.environ.get(TELEMETRY_ENV)
+    os.environ[TELEMETRY_ENV] = tmp
+    _reset_stem_counts(sk, bk)
+    try:
+        out = bench_replay_invariance(
+            FLEET_REPLICAS, P23_REQUESTS, P23_SESSIONS, P23_SEED,
+            P23_DEADLINE_MS, model="resnet50", device="cuda")
+    finally:
+        os.environ.pop(TELEMETRY_ENV, None)
+        if saved is not None:
+            os.environ[TELEMETRY_ENV] = saved
+    launches = _stem_counts(sk, bk)
+    want = out["batches"] + out["warmup_buckets"]
+    streams = dict(zip(("a", "b", "perturbed"), out["streams"]))
+    gates = {"diff_same_seed": metrics_cli.diff(
+                 streams["a"], streams["b"], out=io.StringIO()),
+             "diff_perturbed": metrics_cli.diff(
+                 streams["a"], streams["perturbed"], out=io.StringIO()),
+             **{f"slo_check_{tag}": metrics_cli.slo(
+                 [path], check=True, latency_p99_ms=P23_DEADLINE_MS,
+                 out=io.StringIO()) for tag, path in streams.items()}}
+    shapes = {tuple(e.shape) for e in Workload.load(out["workload_file"])}
+    print("replay drill " + json.dumps({
+        "recorded_shapes": sorted(shapes), "gates": gates,
+        "launches": {"stem_conv": launches[0], "bn_relu_fwd": launches[1]},
+        "launches_want": want}), flush=True)
+    n = out["workload_entries"]
+    check(out["invariant"] and out["invariance_break"] is None,
+          f"replay drill: the same-seed replays diverge at "
+          f"{out['invariance_break']}")
+    check(out["perturbation_detected"] and out["perturbation_pointer"],
+          "replay drill: the seed-8 replay is not reported divergent")
+    check(all(r["chaos_fired"] == 2 and r["outcomes"]["ok"] == n
+              for r in out["replays"]) and n == P23_REQUESTS,
+          f"replay drill: replays {out['replays']}")
+    check(shapes == {(SERVE_HW, SERVE_HW, 3)},
+          f"replay drill: recorded shapes {shapes}")
+    check(gates == {"diff_same_seed": 0, "diff_perturbed": 1,
+                    "slo_check_a": 0, "slo_check_b": 0,
+                    "slo_check_perturbed": 0},
+          f"replay drill: gates {gates}")
+    check(launches == (want, want),
+          f"replay drill: launches (stem, BN+ReLU) {launches} != batches + "
+          f"warm-up buckets {want} over {out['engines_built']} engines")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def replay_generate_phase(ak, tmp):
+    """23(b): a synthesized `fleet_generate` workload with a kill and a
+    restore, replayed twice at one seed over fresh fleets of
+    P23_GEN_REPLICAS `GenerationEngine`s serving phase 1's LM. Returns
+    kernel 1's launches."""
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.serving import GenerationEngine, ServingFleet
+    from bigdl_tpu_torch.tools.bench import replay_workload
+    from bigdl_tpu_torch.workload import (ChaosAction, compare_streams,
+                                          poisson_arrivals, synthesize)
+    cfg = dict(vocab_size=1024, embed_dim=512, n_layer=LM_LAYERS, n_head=8)
+    model = TransformerLM(**cfg, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+    arrivals = poisson_arrivals(P23_GEN_RATE, P23_GEN_S, seed=P23_SEED)
+    n = len(arrivals)
+    wl = synthesize("lm_generate", arrivals, seed=P23_SEED,
+                    kind="fleet_generate", prompt_tokens=P23_GEN_PROMPT,
+                    max_new_tokens=P23_GEN_NEW, sessions=P23_GEN_SESSIONS,
+                    deadline_ms=P23_DEADLINE_MS,
+                    chaos=[ChaosAction("kill", after_entries=n // 3)
+                           .to_dict(),
+                           ChaosAction("restore", after_entries=2 * n // 3)
+                           .to_dict()])
+    engines = []
+
+    def factory(rid):
+        eng = GenerationEngine(model, slots=8, max_len=P23_GEN_MAX_LEN,
+                               prefill_batch=4, max_new_tokens=P23_GEN_NEW,
+                               replica_id=rid, device="cuda")
+        engines.append(eng)
+        return eng
+
+    def make_fleet(tel):
+        return ServingFleet(engine_factory=factory,
+                            n_replicas=P23_GEN_REPLICAS,
+                            warmup_sample=np.ones(P23_GEN_PROMPT, np.int32),
+                            telemetry=tel, drain_grace_s=0.0, seed=0)
+
+    ak.flash_attention_forward.launches = 0
+    runs = [replay_workload(make_fleet, wl, P23_SEED, P23_DEADLINE_MS,
+                            os.path.join(tmp, f"gen_{tag}.jsonl"))
+            for tag in ("a", "b")]
+    launches = ak.flash_attention_forward.launches
+    gstats = [e.generation_stats() for e in engines]
+    warmups = sum(len(e.seq_buckets) * len(e.buckets) for e in engines)
+    prefills = sum(g["prefill_batches"] for g in gstats) + warmups
+    same = compare_streams(runs[0]["records"], runs[1]["records"])
+    out = {"entries": n, "engines_built": len(engines),
+           "invariant": not same.divergent, "break": same.first,
+           "replays": [{k: r[k] for k in ("wall_s", "requests_per_sec",
+                                           "latency_ms_p50", "latency_ms_p99",
+                                           "outcomes", "chaos_fired")}
+                       for r in runs],
+           "prefill_batches": [g["prefill_batches"] for g in gstats],
+           "warmup_prefills": warmups, "kernel_launches": launches}
+    print("replay generate " + json.dumps(out), flush=True)
+    check(out["invariant"], f"replay generate: diverges at {same.first}")
+    check(all(r["outcomes"]["ok"] == n and r["chaos_fired"] == 2
+              for r in out["replays"]),
+          f"replay generate: replays {out['replays']}")
+    check(launches == prefills * LM_LAYERS,
+          f"replay generate: kernel 1 launched {launches}, not {prefills} "
+          f"prefill batches (warm-up included) x {LM_LAYERS} layers")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _one_step(model, x, y):
+    """One SGD step of phase 12's zoo recipe (`tools/bench.py`'s resident
+    optimizer: momentum 0.9, bf16 compute with f32 masters); the loss."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.tools.bench import _resident_optimizer
+    opt = _resident_optimizer(model, x, y, ClassNLLCriterion(),
+                              torch.device("cuda"))
+    opt.set_end_when(max_iteration(1))
+    opt.optimize()
+    return float(opt.last_loss)
+
+
+def _tensors_equal(a, b):
+    """Names of the parameters and buffers that differ bit for bit."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return sorted(k for k in sa if not torch.equal(sa[k], sb[k].to(
+        sa[k].device)))
+
+
+def model_file_phase(bk, tmp):
+    """23(c): Inception-v2 saved and loaded on the card, its eval forward
+    and one training step against the original's, bit for bit; the
+    reference's golden file; ResNet-50's refusal. Returns kernels 6 and
+    7's launches."""
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.serialization import ModuleSerializer
+    from bigdl_tpu_torch.tools.bench import zoo_model
+    path = os.path.join(tmp, "inception_v2.bigdl")
+    model = zoo_model("inception_v2", "cuda",
+                      generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ModuleSerializer.save(model, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = ModuleSerializer.load(path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    on_cpu = ModuleSerializer.load(path, device="cpu")
+    cpu_diff = _tensors_equal(model, on_cpu)
+    del on_cpu
+    rs = np.random.RandomState(23)
+    x = rs.rand(P23_V2_BATCH, 224, 224, 3).astype(np.float32)
+    y = (rs.randint(0, 1000, P23_V2_BATCH) + 1).astype(np.int32)
+    xc = torch.from_numpy(x).cuda()
+    _reset_bn_counts(bk)
+    with Deterministic() as det_eval, torch.no_grad():
+        a = model.eval()(xc)
+        b = loaded.eval()(xc)
+    eval_launches = bk.bn_relu_forward.launches
+    eval_equal = bool(torch.equal(a, b))
+    steps = []
+    with Deterministic() as det:
+        for m in (model, loaded):
+            _reset_bn_counts(bk)
+            loss = _one_step(m.train(), x, y)
+            steps.append({"loss": loss,
+                          "bn_relu_fwd": bk.bn_relu_forward.launches,
+                          "bn_relu_bwd": bk.bn_relu_backward.launches})
+    trained_diff = _tensors_equal(model, loaded)
+    golden = ModuleSerializer.load(GOLDEN_FILE + ".bigdl", device="cuda")
+    gx = torch.from_numpy(np.linspace(-1, 1, 2 * 8 * 8 * 3).reshape(
+        2, 8, 8, 3).astype(np.float32)).cuda()
+    with torch.no_grad():
+        gout = golden.eval()(gx).cpu().numpy()
+    gwant = np.load(GOLDEN_FILE + "_out.npy")
+    golden_err = float(np.abs(gout - gwant).max())
+    golden_ok = bool(np.allclose(gout, gwant, rtol=P23_GOLDEN_RTOL,
+                                 atol=P23_GOLDEN_ATOL))
+    try:
+        ModuleSerializer.save(ResNet50(class_num=1000, device="cuda"),
+                              os.path.join(tmp, "resnet50.bigdl"))
+        refusal = None
+    except TypeError as e:
+        refusal = str(e)
+    out = {"file_mb": os.path.getsize(path) / 2 ** 20, "save_s": save_s,
+           "load_s": load_s, "cpu_load_differs": cpu_diff,
+           "eval_batch": P23_V2_BATCH, "eval_bitwise": eval_equal,
+           "eval_bn_relu_fwd": eval_launches, "steps": steps,
+           "trained_differs": trained_diff,
+           "deterministic_warned_ops": sorted(set(det.ops)
+                                              | set(det_eval.ops)),
+           "golden_max_abs_err": golden_err, "golden_ok": golden_ok,
+           "resnet50_refusal": refusal and refusal[:120]}
+    print("model file " + json.dumps(out), flush=True)
+    check(not cpu_diff, f"model file: the CPU load differs at {cpu_diff}")
+    check(eval_equal, "model file: the loaded model's eval forward differs")
+    check(steps[0]["loss"] == steps[1]["loss"] and not trained_diff,
+          f"model file: one step apart: losses "
+          f"{[s['loss'] for s in steps]}, tensors {trained_diff[:5]}")
+    check(all(s["bn_relu_fwd"] == V2_SITES and s["bn_relu_bwd"] == V2_SITES
+              for s in steps),
+          f"model file: kernel 6/7 launches {steps}, want {V2_SITES} each")
+    check(golden_ok, f"model file: the golden file's output is "
+          f"{golden_err} off")
+    check(refusal is not None and "cannot serialize constructor argument "
+          "of type" in refusal and "MsraFiller" in refusal,
+          f"model file: ResNet-50 saved, or refused with {refusal!r}")
+    del model, loaded
+    torch.cuda.empty_cache()
+    return {"bn_relu_fwd": sum(s["bn_relu_fwd"] for s in steps),
+            "bn_relu_bwd": sum(s["bn_relu_bwd"] for s in steps)}
+
+
+def replay_phase(ak, sk, bk):
+    """23: (a)-(c) and the phase's wall time; returns the launches of
+    kernels 1, 5, 6 and 7 on the replay paths and the model-file path."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        stem, bn = replay_drill_phase(sk, bk, tmp)
+        flash = replay_generate_phase(ak, tmp)
+        mf = model_file_phase(bk, tmp)
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches_replay": {"flash_attention_fwd": flash,
+                                "stem_conv": stem, "bn_relu_fwd": bn,
+                                "bn_relu_bwd": 0},
+            "launches_model_file": {"flash_attention_fwd": 0,
+                                    "stem_conv": 0,
+                                    "bn_relu_fwd": mf["bn_relu_fwd"],
+                                    "bn_relu_bwd": mf["bn_relu_bwd"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6175,7 +6495,8 @@ def main() -> int:
     tc_build = build_phase(_build)
 
     if sys.argv[1:2] in (["--phase17"], ["--phase18"], ["--phase19"],
-                         ["--phase20"], ["--phase21"], ["--phase22"]):
+                         ["--phase20"], ["--phase21"], ["--phase22"],
+                         ["--phase23"]):
         if sys.argv[1] == "--phase17":
             observability_phase(ak, sk, bk)
         elif sys.argv[1] == "--phase18":
@@ -6186,8 +6507,10 @@ def main() -> int:
             fleet_phase(ak, sk, bk)
         elif sys.argv[1] == "--phase21":
             pipeline_phase(ak, sk, bk)
-        else:
+        elif sys.argv[1] == "--phase22":
             ops_phase(sk, bk)
+        else:
+            replay_phase(ak, sk, bk)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -6301,6 +6624,9 @@ def main() -> int:
 
     # 22. the operations stack
     ops_launches = ops_phase(sk, bk)
+
+    # 23. workload record, chaos and replay; the model-file format
+    p23 = replay_phase(ak, sk, bk)
     zoo_launches = {
         "launches_inception_v1": zoo_bench["inception_v1"]["launches"],
         "launches_inception_v2": zoo_bench["inception_v2"]["launches"],
@@ -6317,6 +6643,7 @@ def main() -> int:
          "launches_preempt_lm": preempt_launches["flash_attention_fwd"],
          "launches_fleet": fleet_launches["flash_attention_fwd"],
          "launches_pipeline": pipe_launches["flash_attention_fwd"],
+         **{k: v["flash_attention_fwd"] for k, v in p23.items()},
          "build": tc_build["flash_attention_fwd"]},
         {**CARRY_ROW, "launches": carry_launches, **carry_row,
          "design": DESIGN[torch.bfloat16],
@@ -6347,6 +6674,7 @@ def main() -> int:
            "launches_elastic": elastic_launches[row["name"]],
            "launches_pipeline": pipe_launches[row["name"]],
            "launches_ops": ops_launches[row["name"]],
+           **{k: v[row["name"]] for k, v in p23.items()},
            **({"launches_int8_serving": int8_launches["bn_relu_fwd"],
                "launches_fleet": fleet_launches["bn_relu_fwd"]}
               if d == "fwd" else {}),
@@ -6358,6 +6686,7 @@ def main() -> int:
          "launches_fleet": fleet_launches["stem_conv"],
          "launches_pipeline": pipe_launches["stem_conv"],
          "launches_ops": ops_launches["stem_conv"],
+         **{k: v["stem_conv"] for k, v in p23.items()},
          **{k: v["stem_conv"] for k, v in zoo_launches.items()},
          "zoo_shapes": zoo_rows["stem"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {

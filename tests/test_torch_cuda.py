@@ -20,7 +20,9 @@ launches a step, `MoE.expert_parallel_apply` against
 `dense_capacity_apply`, `DistriPredictor` against `LocalPredictor`;
 and the operations stack: a run fed by `set_prefetch` (pinned batches,
 `non_blocking` copies) against the serial run bit for bit, with its
-`compile` record.
+`compile` record; model files written on the card and loaded on the CPU
+and the other way round, and a fleet replay's canonical streams
+identical at one seed.
 
 Every test here needs a CUDA device and skips without one. This file
 imports nothing of JAX, so it runs where JAX is not installed:
@@ -1196,3 +1198,83 @@ def test_prefetched_pinned_batches_train_as_serial_on_the_card(cuda_device):
     assert rec["signature"].endswith("@cuda:0")
     assert rec["flops"] == steps[0]["flops_per_step"] > 0
     assert all("prefetch_queue_depth" in r for r in steps)
+
+
+def test_model_file_crosses_between_the_card_and_the_cpu(cuda_device,
+                                                          tmp_path):
+    """A model file written on the card loads on the CPU, and one written
+    on the CPU loads on the card: every parameter and BN buffer bit for
+    bit, on the device asked for, and the same forward (f32, TF32 off:
+    within 1e-5 of the largest output element)."""
+    from bigdl_tpu_torch.models import VggForCifar10
+    from bigdl_tpu_torch.serialization import ModuleSerializer
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(4, 32, 32, 3, generator=g)
+    for src, dst in ((cuda_device, torch.device("cpu")),
+                     (torch.device("cpu"), cuda_device)):
+        model = VggForCifar10(10, device=src).eval()
+        with torch.no_grad():
+            for name, buf in model.named_buffers():
+                if name.endswith(("mean", "var")):
+                    buf.copy_(torch.rand(buf.shape, generator=g) + 0.5)
+        path = str(tmp_path / f"{src.type}.bigdl")
+        ModuleSerializer.save(model, path)
+        loaded = ModuleSerializer.load(path, device=dst)
+        want, got = model.state_dict(), loaded.state_dict()
+        assert set(want) == set(got)
+        for k in want:
+            assert got[k].device.type == dst.type, k
+            assert torch.equal(got[k].cpu(), want[k].cpu()), k
+        with torch.no_grad():
+            a = model(x.to(src)).cpu()
+            b = loaded.eval()(x.to(dst)).cpu()
+        torch.testing.assert_close(b, a, rtol=0,
+                                   atol=1e-5 * a.abs().max().item())
+
+
+def test_fleet_replay_is_invariant_on_the_card(cuda_device):
+    """A workload with a kill and a restore replayed twice at one seed
+    over fresh fleets of 2 `InferenceEngine`s serving a CIFAR ResNet-8 on
+    the card: the canonical streams identical under `compare_streams`,
+    every request ok, both chaos actions fired."""
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.observability import InMemorySink, Telemetry
+    from bigdl_tpu_torch.serving import ServingFleet
+    from bigdl_tpu_torch.workload import (ChaosAction, ChaosSchedule,
+                                          VirtualClock, WorkloadReplayer,
+                                          compare_streams, poisson_arrivals,
+                                          synthesize)
+    model = ResNet(10, depth=8, data_set="cifar10", device=cuda_device)
+    arrivals = poisson_arrivals(40.0, 1.0, seed=3)
+    n = len(arrivals)
+    wl = synthesize("card", arrivals, seed=3, shape=[32, 32, 3],
+                    deadline_ms=60_000.0, sessions=3,
+                    chaos=[ChaosAction("kill", after_entries=n // 3)
+                           .to_dict(),
+                           ChaosAction("restore", after_entries=2 * n // 3)
+                           .to_dict()])
+
+    def replay():
+        sink = InMemorySink()
+        tel = Telemetry(sink, resources=False, flight=False)
+        fleet = ServingFleet(
+            model, n_replicas=2,
+            warmup_sample=Sample(np.zeros((32, 32, 3), np.float32)),
+            drain_grace_s=0.5, seed=0,
+            engine_kwargs={"max_batch_size": 8, "max_wait_ms": 1.0,
+                           "device": cuda_device})
+        try:
+            summary = WorkloadReplayer(
+                fleet, wl, chaos=ChaosSchedule.from_dicts(wl.chaos, seed=3),
+                seed=3, clock=VirtualClock(), telemetry=tel,
+                progress_every=10).run()
+        finally:
+            fleet.close()
+            tel.close()
+        return sink.records, summary
+
+    a, summary = replay()
+    b, _ = replay()
+    assert not compare_streams(a, b).divergent
+    assert summary["ok"] == n and summary["chaos_fired"] == 2
