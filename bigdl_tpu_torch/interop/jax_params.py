@@ -24,6 +24,19 @@ model (`nn/quantized.py`) carries the same way: its int8 weights keep
 the JAX layout (HWIO, [in, out]) and are copied as they are, and come
 back as int8.
 
+A `Graph` keys its nodes `"<module name>_<id>"` from a per-package,
+per-process counter, so the JAX twin of a port graph has other keys.
+`load_module_params` pairs a graph's nodes with the tree's entries by
+position: the JAX tree's dict order is its `exec_order` (`Container.init`
+fills it so), as the port's registration order is. Each pair's module
+names (the key without its id) must agree, and each leaf's shape; a
+mismatch raises. `module_params_tree(model, like=tree)` and
+`module_state(model, like=tree)` give the port's tensors under the keys of
+`tree` (a JAX parameter tree, its leaves unused) the same way. A tree
+whose dicts were rebuilt in sorted key order (`jax.tree_util.tree_map`
+does so) no longer lists a graph in `exec_order`: convert its leaves with
+a dict comprehension.
+
 The trees are the JAX package's nested dicts, with their leaves converted
 by the caller to numpy arrays (`np.asarray`), so nothing here needs JAX.
 The `TransformerLM` tree:
@@ -119,26 +132,69 @@ def _copy(targets: Mapping, tree: Mapping, path: str):
         dst.copy_(t)
 
 
-def _module_targets(module) -> Dict:
+def _node_name(key: str) -> str:
+    """A graph node key without its id: the module's name."""
+    return key.rsplit("_", 1)[0]
+
+
+def _child_keys(module, keys, like) -> list:
+    """The keys `module`'s children (port keys `keys`) take in the tree
+    `like`: the same, except in a `Graph` whose keys differ from the
+    tree's, where they pair by position (module names checked)."""
+    from bigdl_tpu_torch.nn.containers import Graph
+    if not isinstance(module, Graph) or not isinstance(like, Mapping):
+        return list(keys)
+    have = list(like)
+    if set(have) == set(keys):
+        return list(keys)
+    if len(have) != len(keys):
+        raise KeyError(f"graph {module.name!r} has {len(keys)} nodes, the "
+                       f"tree {len(have)} entries")
+    for k, h in zip(keys, have):
+        if _node_name(k) != _node_name(h):
+            raise ValueError(f"graph {module.name!r}: node {k!r} pairs with "
+                             f"the tree's {h!r} by position, and their "
+                             "module names differ")
+    return have
+
+
+def _module_targets(module, like: Optional[Mapping] = None) -> Dict:
     """A module's parameters arranged as the JAX tree: its own parameters
     by name, then each child's subtree under the child's key (a
-    container's `"<index>_<name>"`, a recurrent layer's `cell`,
-    `cell0`, ..., a `TimeDistributed`'s `layer`)."""
+    container's `"<index>_<name>"`, a graph node's key, a recurrent
+    layer's `cell`, `cell0`, ..., a `TimeDistributed`'s `layer`); a
+    graph's nodes under the keys of `like` where given (`_child_keys`)."""
     from bigdl_tpu_torch.nn.conv import SpatialConvolution
     out = {}
     for name, p in module.named_parameters(recurse=False):
         conv_w = isinstance(module, SpatialConvolution) and name == "weight"
         out[name] = _HwioToOihw(p) if conv_w else p
-    for key, child in module.named_children():
-        out[key] = _module_targets(child)
+    children = list(module.named_children())
+    keys = _child_keys(module, [k for k, _ in children], like)
+    for key, (_, child) in zip(keys, children):
+        out[key] = _module_targets(
+            child, like.get(key) if isinstance(like, Mapping) else None)
     return out
 
 
-def _bn_modules(model) -> Dict[Tuple[str, ...], torch.nn.Module]:
+def _bn_modules(model, like: Optional[Mapping] = None
+                ) -> Dict[Tuple[str, ...], torch.nn.Module]:
+    """{module path: BN module}, the paths under the keys of `like` where
+    given (`_child_keys`), in module order."""
     from bigdl_tpu_torch.nn.normalization import BatchNormalization
-    return {tuple(name.split(".")) if name else (): m
-            for name, m in model.named_modules()
-            if isinstance(m, BatchNormalization)}
+    out = {}
+
+    def walk(m, path, sub):
+        if isinstance(m, BatchNormalization):
+            out[path] = m
+        children = list(m.named_children())
+        keys = _child_keys(m, [k for k, _ in children], sub)
+        for key, (_, child) in zip(keys, children):
+            walk(child, path + (key,),
+                 sub.get(key) if isinstance(sub, Mapping) else None)
+
+    walk(model, (), like)
+    return out
 
 
 def load_module_params(model, params: Mapping,
@@ -146,13 +202,15 @@ def load_module_params(model, params: Mapping,
     """Fill `model` (built from the port's containers, e.g. a port
     `ResNet`) in place from the JAX model's parameter tree `params`
     (nested dicts of numpy arrays) and BN state `state` ({module-path
-    tuple: {"mean", "var"}}; None leaves the running stats alone). Raises
-    on a missing or extra key, path or stat, and on a shape mismatch."""
+    tuple: {"mean", "var"}}; None leaves the running stats alone). A
+    graph's nodes pair with the tree's entries by position (module names
+    checked). Raises on a missing or extra key, path or stat, and on a
+    shape mismatch."""
     with torch.no_grad():
-        _copy(_module_targets(model), params, "")
+        _copy(_module_targets(model, params), params, "")
         if state is None:
             return
-        bns = _bn_modules(model)
+        bns = _bn_modules(model, params)
         if set(bns) != set(state):
             raise KeyError(f"BN state paths differ: model-only "
                            f"{sorted(set(bns) - set(state))}, tree-only "
@@ -196,18 +254,23 @@ def _leaf(grad: bool):
     return leaf
 
 
-def module_params_tree(model, grad: bool = False) -> Dict:
+def module_params_tree(model, grad: bool = False,
+                       like: Optional[Mapping] = None) -> Dict:
     """The model's parameters (or, with `grad=True`, their `.grad`) as the
     JAX package's tree: nested dicts of f32 numpy arrays (a quantized
-    layer's int8 weight stays int8), conv kernels HWIO. The inverse of `load_module_params`, for comparing the two."""
-    return _export(_module_targets(model), _leaf(grad))
+    layer's int8 weight stays int8), conv kernels HWIO; a graph's nodes
+    under the keys of the JAX tree `like` where given. The inverse of
+    `load_module_params`, for comparing the two."""
+    return _export(_module_targets(model, like), _leaf(grad))
 
 
-def module_state(model) -> Dict[Tuple[str, ...], Dict[str, np.ndarray]]:
-    """The BN running stats as the JAX package's state dict."""
+def module_state(model, like: Optional[Mapping] = None
+                 ) -> Dict[Tuple[str, ...], Dict[str, np.ndarray]]:
+    """The BN running stats as the JAX package's state dict (a graph's
+    nodes under the keys of the JAX parameter tree `like` where given)."""
     return {path: {"mean": bn.mean.detach().cpu().numpy(),
                    "var": bn.var.detach().cpu().numpy()}
-            for path, bn in _bn_modules(model).items()}
+            for path, bn in _bn_modules(model, like).items()}
 
 
 # --------------------------------------------------------------------------

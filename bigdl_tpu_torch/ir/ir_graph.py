@@ -18,14 +18,18 @@ with the reference's passes:
   4 input planes) becomes a `SpaceToDepthStemConvolution` holding the same
   `Parameter` objects under the same name.
 
-The walks follow `Sequential` and `ConcatTable` (every `Container`). The
-`Graph` container is not ported yet, so its branch waits for it, as does
-the serializer hook `_patch_ctor_kwargs`.
+The walks follow every `Container`. In a `Graph` they follow
+`exec_order`, and a pass that swaps a node's module swaps the node's and
+the registered child together (`Graph.set_node_module`), under the node's
+key. `_fold_batchnorm` skips a `Graph` (and what it holds), as the
+reference's does: a served graph keeps its BNs, and their fused sites run
+kernel 6. `_is_orphan_state` says whether a state path still names a
+module (`nn.module.functional_apply` ignores one that does not).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -62,11 +66,14 @@ class IRGraph:
 
     def elements(self) -> List[IRElement]:
         """The leaf modules in execution order."""
-        from bigdl_tpu_torch.nn.containers import Container
+        from bigdl_tpu_torch.nn.containers import Container, Graph
         out: List[IRElement] = []
 
         def walk(m):
-            if isinstance(m, Container):
+            if isinstance(m, Graph):
+                for n in m.exec_order:
+                    walk(n.module)
+            elif isinstance(m, Container):
                 for c in m.children_in_order():
                     walk(c)
             else:
@@ -108,9 +115,16 @@ _NOISE = ("Dropout", "GaussianNoise", "GaussianDropout", "SpatialDropout1D",
 
 def _drop_inference_noise(ir: IRGraph):
     """Replace noise layers with `Identity`, keeping their names and keys."""
-    from bigdl_tpu_torch.nn.containers import Container, Identity
+    from bigdl_tpu_torch.nn.containers import Container, Graph, Identity
 
     def walk(m):
+        if isinstance(m, Graph):
+            for i, n in enumerate(m.exec_order):
+                if type(n.module).__name__ in _NOISE:
+                    m.set_node_module(i, Identity(name=n.module.name))
+                elif isinstance(n.module, Container):
+                    walk(n.module)
+            return
         for key, c in list(m._modules.items()):
             if type(c).__name__ in _NOISE:
                 m._modules[key] = Identity(name=c.name)
@@ -149,14 +163,16 @@ def _fold_pair(prev, bn):
 def _fold_batchnorm(ir: IRGraph):
     """Fold each BN that directly follows a plain conv or Linear in a
     `Sequential` into it (the parameter-changing half of the reference's
-    conv+bn fusion). The BN becomes an `Identity` of the same name."""
-    from bigdl_tpu_torch.nn.containers import Container, Identity, Sequential
+    conv+bn fusion). The BN becomes an `Identity` of the same name. A
+    `Graph` is left whole, as the reference leaves it."""
+    from bigdl_tpu_torch.nn.containers import (Container, Graph, Identity,
+                                               Sequential)
     from bigdl_tpu_torch.nn.conv import SpatialConvolution
     from bigdl_tpu_torch.nn.linear import Linear
     from bigdl_tpu_torch.nn.normalization import BatchNormalization
 
     def walk(m):
-        if not isinstance(m, Container):
+        if not isinstance(m, Container) or isinstance(m, Graph):
             return
         if isinstance(m, Sequential):
             keys = list(m._modules)
@@ -197,10 +213,17 @@ def _restate(c) -> Module:
 def _restate_s2d_stem(ir: IRGraph):
     """Re-express an eligible stem convolution as a
     `SpaceToDepthStemConvolution` (the same function and parameters); the
-    container key keeps the module's name."""
-    from bigdl_tpu_torch.nn.containers import Container
+    container key keeps the module's name (a graph node its key)."""
+    from bigdl_tpu_torch.nn.containers import Container, Graph
 
     def walk(m):
+        if isinstance(m, Graph):
+            for i, n in enumerate(m.exec_order):
+                if _stem_eligible(n.module):
+                    m.set_node_module(i, _restate(n.module))
+                elif isinstance(n.module, Container):
+                    walk(n.module)
+            return
         for key, c in list(m._modules.items()):
             if _stem_eligible(c):
                 m._modules[key] = _restate(c)
@@ -209,3 +232,19 @@ def _restate_s2d_stem(ir: IRGraph):
 
     if isinstance(ir.root, Container):
         walk(ir.root)
+
+
+def _is_orphan_state(root, path: Tuple[str, ...]) -> bool:
+    """Whether the state path `path` (module keys from `root`: a graph's
+    node keys, a container's child keys) names no module of the tree."""
+    from bigdl_tpu_torch.nn.containers import Graph
+    m = root
+    for part in path:
+        if isinstance(m, Graph):
+            m = next((n.module for n in m.exec_order if n.key == part),
+                     None)
+        else:
+            m = m._modules.get(part)
+        if m is None:
+            return True
+    return False

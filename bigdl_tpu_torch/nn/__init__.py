@@ -1,14 +1,19 @@
 """Layers (counterpart of `bigdl_tpu.nn`): the transformer, the ResNet,
-the feed-forward model zoo's, the recurrent and the Wide&Deep paths, and
-the int8 quantized layers."""
+the feed-forward model zoo's, the recurrent and the Wide&Deep paths, the
+int8 quantized layers, the table containers and the static `Graph` with
+its node DSL."""
 
 from bigdl_tpu_torch.nn.activation import LogSoftMax, ReLU, Sigmoid, Tanh
 from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
                                           ScaledDotProductAttention,
                                           TransformerBlock, cache_commit,
                                           cache_write, rope)
-from bigdl_tpu_torch.nn.containers import (CAddTable, Concat, ConcatTable,
-                                           Container, Identity, Sequential)
+from bigdl_tpu_torch.nn.containers import (
+    BifurcateSplitTable, Bottle, CAddTable, CAveTable, CDivTable, CMaxTable,
+    CMinTable, CMulTable, Concat, ConcatTable, Container, CSubTable, Echo,
+    FlattenTable, Graph, Identity, Input, InputNode, JoinTable, MapTable,
+    MixtureTable, NarrowTable, ParallelTable, SelectTable, Sequential,
+    SplitTable, StaticGraph)
 from bigdl_tpu_torch.nn.conv import (SpaceToDepthStemConvolution,
                                      SpatialConvolution,
                                      SpatialDilatedConvolution,
@@ -24,7 +29,9 @@ from bigdl_tpu_torch.nn.fusion import (fusible_activation, fusible_bn,
 from bigdl_tpu_torch.nn.initialization import (MsraFiller, RandomNormal,
                                                RandomUniform, Xavier, Zeros)
 from bigdl_tpu_torch.nn.linear import Linear
-from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.nn.module import (Activity, ApplyContext, Module, Node,
+                                      functional_apply, merge_state,
+                                      param_count, topo_sort)
 from bigdl_tpu_torch.nn.normalization import (BatchNormalization,
                                               LayerNormalization,
                                               SpatialBatchNormalization)
@@ -41,9 +48,15 @@ from bigdl_tpu_torch.nn.shape_ops import DenseToSparse, Mean, Reshape
 
 RNN = RnnCell  # the reference's alias (its model files name RnnCell "RNN")
 
-__all__ = ["BatchNormalization", "CAddTable", "Cell", "ClassNLLCriterion",
+__all__ = ["Activity", "ApplyContext", "BatchNormalization",
+           "BifurcateSplitTable", "Bottle", "CAddTable", "CAveTable",
+           "CDivTable", "CMaxTable", "CMinTable", "CMulTable", "CSubTable",
+           "Cell", "ClassNLLCriterion",
            "Concat", "ConcatTable", "Container", "DenseToSparse", "Dropout",
-           "Identity",
+           "Echo", "FlattenTable", "Graph", "Identity", "Input", "InputNode",
+           "JoinTable", "MapTable", "MixtureTable", "NarrowTable", "Node",
+           "ParallelTable", "SelectTable", "SplitTable", "StaticGraph",
+           "functional_apply", "merge_state", "param_count", "topo_sort",
            "LSTM", "LSTM2", "LSTMCell", "LayerNormalization", "Linear",
            "LogSoftMax", "LookupTable", "LookupTableSparse", "MSECriterion",
            "Module",

@@ -353,7 +353,8 @@ class Quantizer:
         (the reference clones before converting). Exactly `Linear`,
         `SpatialConvolution` and `SpatialDilatedConvolution` convert (by
         type: `SpaceToDepthStemConvolution` stays float); a converted
-        container child's key becomes `"<i>_Quantized<name>"`, in place.
+        container child's key becomes `"<i>_Quantized<name>"`, in place
+        (a graph node keeps its key).
         A convertible top-level layer comes back converted.
         `weight_only=True` stores int8 weights and keeps the compute in
         x's dtype (`WeightOnlyQuantizedLinear`)."""
@@ -384,8 +385,17 @@ class Quantizer:
     def _walk(container, weight_only: bool = False) -> None:
         """Converts `container`'s children in place, recursing into child
         containers; a converted child is re-keyed `"<i>_<its name>"` at
-        its position."""
-        from bigdl_tpu_torch.nn.containers import Container
+        its position, except in a `Graph`, where the node keeps its key
+        (the reference's: graph keys are written to model files)."""
+        from bigdl_tpu_torch.nn.containers import Container, Graph
+        if isinstance(container, Graph):
+            for i, node in enumerate(container.exec_order):
+                q = Quantizer._convert(node.module, None, weight_only)
+                if q is not None:
+                    container.set_node_module(i, q)
+                elif isinstance(node.module, Container):
+                    Quantizer._walk(node.module, weight_only)
+            return
         children = list(container._modules.items())
         container._modules.clear()
         for i, (key, child) in enumerate(children):

@@ -1098,6 +1098,7 @@ class DistriOptimizer(BaseOptimizer):
     def optimize(self) -> torch.nn.Module:
         self._check_devices()
         self._check_dataset()
+        self._maybe_optimize_graph()
         self._start_run()
         self._arm_preemption()
         try:

@@ -113,10 +113,16 @@ source lock, and on a card the batches come pinned and are copied with
 `non_blocking=True`. A checkpoint under prefetch holds no data cursor
 (the stream runs ahead of the trained position), as the reference's.
 
-Not ported (`ROADMAP.md` lists them): graph optimisation, and the
-donation the JAX step uses (the port updates in place instead, and keeps a host
-snapshot of the model at the start of each run so that a failed run can
-put it back).
+`set_graph_optimizations(True)` runs the IR's restatement passes
+(`ConversionUtils.apply_tpu_restatements`: the space-to-depth stem) over
+the model, a `Sequential` or a `Graph`, at the start of each
+`optimize()`, before the step is built; the parameters stay the same
+objects under the same names, so checkpoints and optimizer slots are
+unchanged.
+
+Not ported (`ROADMAP.md` lists it): the donation the JAX step uses (the
+port updates in place instead, and keeps a host snapshot of the model at
+the start of each run so that a failed run can put it back).
 """
 
 from __future__ import annotations
@@ -358,6 +364,7 @@ class BaseOptimizer:
         # set_prefetch's settings (None: off) and the run's pipeline
         self._prefetch: Optional[Dict] = None
         self._active_pipeline = None
+        self.graph_optimizations = False
         # the armed `PreemptionHandler` (None: none)
         self._preemption = None
         #: worker id -> the `SpanTracer` of its lane (the elastic loop's
@@ -664,6 +671,20 @@ class BaseOptimizer:
         return self
 
     setHealthMonitors = set_health_monitors
+
+    def set_graph_optimizations(self, enable: bool = True):
+        """Run the IR restatement passes over the model before the step is
+        built (`ir.ConversionUtils.apply_tpu_restatements`): rewrites that
+        keep every parameter, its value and its name (the space-to-depth
+        stem, kernel 5 behind `BIGDL_TPU_PALLAS_STEM`), so checkpoints
+        stay interchangeable. Off by default."""
+        self.graph_optimizations = enable
+        return self
+
+    def _maybe_optimize_graph(self):
+        if self.graph_optimizations:
+            from bigdl_tpu_torch.ir import ConversionUtils
+            self.model = ConversionUtils.apply_tpu_restatements(self.model)
 
     def export_trace(self, path: str) -> str:
         """Write one Chrome trace to `path`: the tracer's lane and every
@@ -1597,6 +1618,7 @@ class LocalOptimizer(BaseOptimizer):
         self.batch_size = batch_size
 
     def optimize(self) -> torch.nn.Module:
+        self._maybe_optimize_graph()
         self._start_run()
         self._arm_preemption()
         try:

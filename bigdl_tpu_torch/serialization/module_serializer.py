@@ -17,14 +17,20 @@ and generator keywords left out), its children, its `name` and its mode
 - one storage per tensor object: a tied `nn.Parameter` is written once.
 
 So the two packages read each other's files for the module types both
-register. Loading matches a saved path against the paths of the model it
+register. A `Graph` is written as the reference writes it: no
+constructor arguments, its nodes in `exec_order` in the `graph` field,
+each with its key, its module and its inputs' indices. Loading rebuilds
+the nodes with the saved keys, so parameter paths survive the load
+(node ids, per-process counters, differ); a `graph` field on a type that
+is not a graph is ignored, as the reference ignores it. Loading matches
+a saved path against the paths of the model it
 rebuilds, so a layer name holding "/" (Inception's "conv1/7x7_s2") finds
 its place; a saved leaf with no place is dropped with the reference's
 warning. Refused as the reference refuses: an unregistered class
 (`ValueError`), a constructor argument of a type the format has no field
 for (`TypeError`, so `ResNet50`'s `MsraFiller` and Inception-v1's `Xavier`
-refuse). A type the reference registers but the port lacks, and a `Graph`
-file, raise `NotImplementedError` (`ROADMAP.md` queue 1 item 5).
+refuse). A type the reference registers but the port lacks raises
+`NotImplementedError` (`ROADMAP.md` queue 1 item 5).
 
     ModuleSerializer.save(model, "m.bigdl")
     model = ModuleSerializer.load("m.bigdl", device="cpu")   # default: CUDA
@@ -219,10 +225,16 @@ def _decode_attr(av: pb.AttrValue, ctx: _LoadCtx):
 
 # ------------------------------------------------------------------ modules
 def _encode_module(module, bm: pb.BigDLModule, ctx: _SaveCtx):
-    from bigdl_tpu_torch.nn.containers import Container
+    from bigdl_tpu_torch.nn.containers import Container, Graph
     bm.module_type = _type_name(module)
     bm.name = module.name
     bm.evaluating = not module.training
+    if isinstance(module, Graph):
+        # the wiring goes in the GraphDef; the (inputs, outputs) arguments
+        # are nodes, not attributes
+        bm.graph = pb.GraphDef()
+        _encode_graph(module, bm.graph, ctx)
+        return
     _, args, kwargs = getattr(module, "_ctor_spec",
                               (type(module).__name__, (), {}))
     for a in args:
@@ -235,6 +247,31 @@ def _encode_module(module, bm: pb.BigDLModule, ctx: _SaveCtx):
         # itself built are skipped by count
         for child in module.children_in_order():
             _encode_module(child, bm.children.add(), ctx)
+
+
+def _encode_graph(graph, gd: pb.GraphDef, ctx: _SaveCtx):
+    index = {id(n): i for i, n in enumerate(graph.exec_order)}
+    for n in graph.exec_order:
+        gn = gd.nodes.add(key=n.key, module=pb.BigDLModule())
+        _encode_module(n.module, gn.module, ctx)
+        gn.prev.extend(index[id(p)] for p in n.prev)
+    gd.input_nodes.extend(index[id(n)] for n in graph.input_nodes)
+    gd.output_nodes.extend(index[id(n)] for n in graph.output_nodes)
+
+
+def _decode_graph(cls, bm: pb.BigDLModule, ctx: "_LoadCtx"):
+    from bigdl_tpu_torch.nn.module import Node
+    nodes: List[Node] = []
+    for gn in bm.graph.nodes:
+        node = Node(_decode_module(gn.module, ctx),
+                    [nodes[i] for i in gn.prev])
+        node.key = gn.key  # the saved key: parameter paths survive
+        nodes.append(node)
+    graph = cls([nodes[i] for i in bm.graph.input_nodes],
+                [nodes[i] for i in bm.graph.output_nodes])
+    graph.name = bm.name
+    graph.training = not bm.evaluating
+    return graph
 
 
 def _takes_device(cls) -> bool:
@@ -253,14 +290,10 @@ def _takes_device(cls) -> bool:
 
 
 def _decode_module(bm: pb.BigDLModule, ctx: _LoadCtx):
-    from bigdl_tpu_torch.nn.containers import Container
+    from bigdl_tpu_torch.nn.containers import Container, Graph
     from bigdl_tpu_torch.serialization._reference_modules import (
         REFERENCE_ONLY)
     _ensure_registry()
-    if bm.HasField("graph") or bm.module_type in ("Graph", "StaticGraph"):
-        raise NotImplementedError(
-            f"{bm.module_type} '{bm.name}': Graph models are not ported yet "
-            f"({_ITEM5}: nn.Graph)")
     if bm.module_type not in _REGISTRY:
         if bm.module_type in REFERENCE_ONLY:
             raise NotImplementedError(
@@ -268,6 +301,8 @@ def _decode_module(bm: pb.BigDLModule, ctx: _LoadCtx):
                 f"ported yet ({_ITEM5})")
         raise ValueError(f"unknown module type: {bm.module_type}")
     cls = _REGISTRY[bm.module_type]
+    if bm.HasField("graph") and issubclass(cls, Graph):
+        return _decode_graph(cls, bm, ctx)
     args = [_decode_attr(a, ctx) for a in bm.ctor_args]
     kwargs = {k: _decode_attr(v, ctx) for k, v in bm.ctor_kwargs.items()}
     if _takes_device(cls):

@@ -501,6 +501,35 @@ Phases:
    reference's `TypeError`. Printed: file MB, save and load seconds, the
    ops `Deterministic` warned about. (d) The phase's wall time. `python3
    chip_smoke.py --phase23` runs phases 1, 2 and 23 alone.
+24. `nn.Graph` and the node DSL (`nn/containers.py`, `nn/module.py`), TF32
+   off. ResNet-50 (1000 classes) as a Graph: a `copy.deepcopy` of the
+   port's `ResNet50` with every leaf wrapped in a `Node` (a `ConcatTable`
+   a fan-out, a `CAddTable` a node with both branches as inputs), so the
+   graph holds the Sequential's weights bit for bit. (a) Phase 6's
+   configuration (b128 224x224x3, bf16 compute with f32 masters, SGD
+   momentum 0.9, one seeded resident batch), 4 steps under
+   `Deterministic` with `set_graph_optimizations(True)` and
+   `BIGDL_TPU_PALLAS_STEM=1`, for the graph and its Sequential twin: the
+   graph's fusion plan has 33 sites, kernels 6 and 7 run 33 times and
+   kernel 5 once a step in both, the losses and every parameter and
+   buffer after the steps bitwise equal (a difference names the first
+   tensor); the ms a step of both (`tools/bench.py`'s median). (b) A
+   graph of a seeded ResNet-50 (f32, randomized BN state, the stem switch
+   set) through `InferenceEngine(max_batch_size=32, max_wait_ms=2)`, a
+   burst of 96: the conversion restates the stem inside the graph and
+   folds no BN (53 kept), kernel 5 once and kernel 6 33 times a forward
+   (batches and warm-up buckets), every row within phase 10(b)'s limits
+   of the Sequential served with its BNs folded; requests/s and
+   p50/p99. (c) The trained graph saved with `ModuleSerializer` (its
+   layers' initializer objects left out of their constructor records:
+   the format has no field for them) and loaded on the card: the node
+   keys equal, a b32 eval forward and one training step bitwise the
+   original's, kernels 6-7 33 times each; the file's MB, save and load
+   seconds. (d) `Graph.quantize()` (full int8) against the int8
+   Sequential twin: a b32 forward bitwise, kernel 6 33 times each (run
+   right after (a): (c)'s step trains the graph past its twin). (e)
+   The phase's wall time (target under 60 s). `python3 chip_smoke.py
+   --phase24` runs phases 1, 2 and 24 alone.
 
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
 measure ran: `tensor_cores` or `cuda_cores_f32` for rows 1-5, the octet
@@ -518,7 +547,8 @@ launches in phase 20, `launches_fleet`; rows 1, 5, 6 and 7 with their
 launches on phase 21's paths, `launches_pipeline`; rows 5, 6 and 7
 with their launches on phase 22's paths, `launches_ops`; rows 1, 5, 6
 and 7 with their launches on phase 23's replays, `launches_replay`, and
-its model-file training steps, `launches_model_file`),
+its model-file training steps, `launches_model_file`; rows 5, 6 and 7
+with their launches on phase 24's graph models, `launches_graph`),
 then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
 """
@@ -6446,6 +6476,327 @@ def replay_phase(ak, sk, bk):
                                     "bn_relu_bwd": mf["bn_relu_bwd"]}}
 
 
+P24_BATCH = 128
+P24_STEPS = 4
+P24_QUANT_BATCH = 32
+P24_TARGET_S = 60.0
+
+
+def resnet_graph(seq):
+    """The port's ResNet `seq` (a `Sequential`) as an `nn.Graph` over a
+    `copy.deepcopy` of its leaves, built with the node DSL: every leaf a
+    node, a `Sequential` a chain, a `ConcatTable` a fan-out, the node after
+    it (the `CAddTable`) one with both branches as inputs. The graph holds
+    the Sequential's weights bit for bit, its nodes in the Sequential's
+    leaf order."""
+    from bigdl_tpu_torch.nn import ConcatTable, Graph, InputNode, Sequential
+
+    def chain(m, node):
+        if isinstance(m, Sequential):
+            for c in m.children_in_order():
+                node = chain(c, node)
+            return node
+        if isinstance(m, ConcatTable):
+            return [chain(c, node) for c in m.children_in_order()]
+        return m.inputs(node)
+
+    inp = InputNode()
+    return Graph([inp], [chain(copy.deepcopy(seq), inp)])
+
+
+def _graph_names(seq, graph):
+    """{graph state-dict name: the Sequential's}: the graph's nodes follow
+    the Sequential's leaves in order (checked by type)."""
+    leaves = [(name, m) for name, m in seq.named_modules() if not m._modules]
+    nodes = graph.exec_order[1:]  # the Input node first
+    check(len(leaves) == len(nodes) and all(
+        type(m) is type(n.module) for (_, m), n in zip(leaves, nodes)),
+        "the graph's nodes do not follow the Sequential's leaves")
+    return {f"{n.key}.{k}": f"{name}.{k}"
+            for (name, m), n in zip(leaves, nodes) for k in m.state_dict()}
+
+
+def _first_difference(seq, graph, names):
+    """The Sequential's name of the first tensor (parameter or buffer)
+    whose bits differ from the graph's, or None."""
+    ss, gs = seq.state_dict(), graph.state_dict()
+    if len(ss) != len(gs) or len(gs) != len(names):
+        return f"<{len(gs)} graph tensors, {len(ss)} sequential>"
+    for gname, sname in names.items():
+        if not torch.equal(gs[gname], ss[sname]):
+            return sname
+    return None
+
+
+def _p24_counts(sk, bk):
+    return {"stem_conv": sk.stem_conv_forward.launches,
+            "bn_relu_fwd": bk.bn_relu_forward.launches,
+            "bn_relu_bwd": bk.bn_relu_backward.launches}
+
+
+def _p24_reset(sk, bk):
+    sk.stem_conv_forward.launches = 0
+    _reset_bn_counts(bk)
+
+
+def graph_training_phase(sk, bk, tally):
+    """24(a): ResNet-50 as a Graph and its Sequential twin, 4 steps each of
+    phase 6's configuration under `Deterministic`, with
+    `set_graph_optimizations(True)` and the stem switch set: 33 fused
+    sites, kernels 6-7 33 times and kernel 5 once a step in both, and the
+    losses, parameters and buffers bitwise equal. Returns (sequential,
+    graph, the batch)."""
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.tools.bench import _resident_optimizer, _timed_run
+    rs = np.random.RandomState(24)
+    x = rs.rand(P24_BATCH, 224, 224, 3).astype(np.float32)
+    y = (rs.randint(0, 1000, P24_BATCH) + 1).astype(np.int32)
+    seq = ResNet50(class_num=1000, device="cuda",
+                   generator=torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    graph = resnet_graph(seq)
+    build_s = time.perf_counter() - t0
+    names = _graph_names(seq, graph)
+    sites = len(graph._fusion_plan()[0])
+    check(sites == BN_SITES,
+          f"graph: the fusion plan has {sites} sites, not {BN_SITES}")
+    check(_first_difference(seq, graph, names) is None,
+          "graph: the graph's weights are not the Sequential's")
+    runs = {}
+    os.environ[STEM_ENV] = "1"
+    try:
+        with Deterministic() as det:
+            for label, model in (("sequential", seq), ("graph", graph)):
+                opt = _resident_optimizer(model, x, y, ClassNLLCriterion(),
+                                          torch.device("cuda"))
+                opt.set_graph_optimizations(True)
+                _p24_reset(sk, bk)
+                step_s, losses = _timed_run(opt, 1, P24_STEPS - 1, 1)
+                runs[label] = {"losses": losses, "ms_per_step": 1e3 * step_s,
+                               "launches": _p24_counts(sk, bk)}
+    finally:
+        os.environ.pop(STEM_ENV, None)
+    diff = _first_difference(seq, graph, names)
+    stem = graph.exec_order[1].module
+    out = {"batch": P24_BATCH, "steps": P24_STEPS, "nodes":
+           len(graph.exec_order), "fused_sites": sites,
+           "graph_build_s": build_s, "stem": type(stem).__name__,
+           "first_difference": diff,
+           "deterministic_warned_ops": det.ops, **runs}
+    print("graph training " + json.dumps(out), flush=True)
+    want = {"stem_conv": P24_STEPS, "bn_relu_fwd": BN_SITES * P24_STEPS,
+            "bn_relu_bwd": BN_SITES * P24_STEPS}
+    for label, run in runs.items():
+        check(run["launches"] == want,
+              f"graph training: {label} launched {run['launches']}, want "
+              f"{want}")
+        check(len(run["losses"]) == P24_STEPS
+              and all(np.isfinite(run["losses"])),
+              f"graph training: {label} losses {run['losses']}")
+    check(type(stem).__name__ == "SpaceToDepthStemConvolution",
+          f"graph training: the stem is {type(stem).__name__}")
+    check(runs["graph"]["losses"] == runs["sequential"]["losses"],
+          f"graph training: losses {runs['graph']['losses']} vs the "
+          f"Sequential's {runs['sequential']['losses']}")
+    check(diff is None, f"graph training: {diff} differs from the "
+          "Sequential twin's after the steps")
+    for k in tally:
+        tally[k] += runs["graph"]["launches"][k]
+    return seq, graph, x, y
+
+
+def graph_serving_phase(sk, bk, tally):
+    """24(b): a ResNet-50 Graph (f32, randomized BN state, the stem switch
+    set) served through `InferenceEngine`: the conversion restates the
+    stem inside the graph and folds no BN, kernel 5 once and kernel 6 33
+    times a forward, rows within phase 10(b)'s limits of the Sequential
+    served with its BNs folded."""
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.nn import BatchNormalization
+    from bigdl_tpu_torch.nn import SpaceToDepthStemConvolution as S2D
+    from bigdl_tpu_torch.optim import LocalPredictor
+    from bigdl_tpu_torch.serving import InferenceEngine
+    seq = ResNet50(class_num=1000, device="cuda",
+                   generator=torch.Generator().manual_seed(1))
+    _randomize_bn_state(seq, 2)
+    graph = resnet_graph(seq)
+    images = np.random.RandomState(0).rand(
+        SERVE_BURST, SERVE_HW, SERVE_HW, 3).astype(np.float32)
+    got = [None] * SERVE_BURST
+    os.environ[STEM_ENV] = "1"
+    try:
+        twin = LocalPredictor(seq, batch_size=SERVE_BATCH, device="cuda")
+        ref = np.stack(twin.predict(images))
+        twin_bns = sum(isinstance(m, BatchNormalization)
+                       for m in twin.model.modules())
+        with InferenceEngine(graph, max_batch_size=SERVE_BATCH,
+                             max_wait_ms=2.0, device="cuda") as eng:
+            served = eng._pred.model
+            _p24_reset(sk, bk)
+            eng.warmup(images[0])
+            t0 = time.perf_counter()
+            futs = [eng.submit(img) for img in images]
+            for i, f in enumerate(futs):
+                got[i] = f.result(300)
+            wall = time.perf_counter() - t0
+            counts = _p24_counts(sk, bk)
+            stats = eng.stats()
+            buckets = len(eng.buckets)
+    finally:
+        os.environ.pop(STEM_ENV, None)
+    bns = sum(isinstance(m, BatchNormalization) for m in served.modules())
+    stem = served.exec_order[1].module
+    share, clear = _check_rows(np.stack(got), ref, "graph serving")
+    forwards = stats["batches"] + buckets
+    out = {"requests": SERVE_BURST, "wall_s": wall,
+           "requests_per_sec": SERVE_BURST / wall,
+           **{k: stats.get(k) for k in (
+               "latency_ms_p50", "latency_ms_p95", "latency_ms_p99",
+               "batch_size_p50", "batches", "completed", "failed")},
+           "warmup_buckets": buckets, "served_stem": type(stem).__name__,
+           "served_bns": bns, "twin_bns": twin_bns, "launches": counts,
+           "max_share_of_limit": share, "argmax_rows_checked": clear}
+    print("graph serving " + json.dumps(out), flush=True)
+    check(type(stem) is S2D and stem.bias is None,
+          f"graph serving: the served stem is {type(stem).__name__}")
+    check(bns == 53 and twin_bns == 0,
+          f"graph serving: {bns} BNs served (53 kept), {twin_bns} in the "
+          "folded twin")
+    check(stats["completed"] == SERVE_BURST and stats["failed"] == 0,
+          f"graph serving: {stats['completed']} of {SERVE_BURST} served")
+    check(counts["stem_conv"] == forwards
+          and counts["bn_relu_fwd"] == BN_SITES * forwards,
+          f"graph serving: launches {counts} for {stats['batches']} batches "
+          f"and {buckets} warm-up buckets")
+    tally["stem_conv"] += counts["stem_conv"]
+    tally["bn_relu_fwd"] += counts["bn_relu_fwd"]
+    del seq, graph, twin, served
+    torch.cuda.empty_cache()
+
+
+def _without_initializers(model):
+    """Leave the initializer objects (`MsraFiller`) out of each layer's
+    constructor record: the file format has no field for them (the
+    reference refuses `ResNet50` so, phase 23(c)), and a trained model's
+    file holds its weights."""
+    for m in model.modules():
+        spec = m.__dict__.get("_ctor_spec")
+        if spec and any(k in spec[2] for k in ("weight_init", "bias_init")):
+            m._ctor_spec = (spec[0], spec[1], {
+                k: v for k, v in spec[2].items()
+                if k not in ("weight_init", "bias_init")})
+
+
+def graph_model_file_phase(sk, bk, graph, x, y, tmp, tally):
+    """24(c): the trained Graph saved with `ModuleSerializer` and loaded on
+    the card: the node keys equal, an eval forward and one training step
+    bitwise the original's, kernels 6-7 33 times each a step."""
+    from bigdl_tpu_torch.serialization import ModuleSerializer
+    path = os.path.join(tmp, "resnet50_graph.bigdl")
+    _without_initializers(graph)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ModuleSerializer.save(graph, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = ModuleSerializer.load(path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    keys_equal = [n.key for n in loaded.exec_order] == \
+        [n.key for n in graph.exec_order]
+    xc = torch.from_numpy(x[:P24_QUANT_BATCH]).cuda()
+    steps = []
+    os.environ[STEM_ENV] = "1"
+    try:
+        with Deterministic() as det, torch.no_grad():
+            a = graph.eval()(xc)
+            b = loaded.eval()(xc)
+        eval_equal = bool(torch.equal(a, b))
+        with Deterministic() as det_step:
+            for m in (graph, loaded):
+                _p24_reset(sk, bk)
+                loss = _one_step(m.train(), x, y)
+                steps.append({"loss": loss, **_p24_counts(sk, bk)})
+    finally:
+        os.environ.pop(STEM_ENV, None)
+    trained_diff = _tensors_equal(graph, loaded)
+    out = {"file_mb": os.path.getsize(path) / 2 ** 20, "save_s": save_s,
+           "load_s": load_s, "nodes": len(loaded.exec_order),
+           "keys_equal": keys_equal, "eval_batch": P24_QUANT_BATCH,
+           "eval_bitwise": eval_equal, "steps": steps,
+           "trained_differs": trained_diff,
+           "deterministic_warned_ops": sorted(set(det.ops)
+                                              | set(det_step.ops))}
+    print("graph model file " + json.dumps(out), flush=True)
+    check(keys_equal, "graph model file: the loaded node keys differ")
+    check(eval_equal, "graph model file: the loaded eval forward differs")
+    check(steps[0]["loss"] == steps[1]["loss"] and not trained_diff,
+          f"graph model file: one step apart: losses "
+          f"{[s['loss'] for s in steps]}, tensors {trained_diff[:5]}")
+    check(all(s["bn_relu_fwd"] == BN_SITES and s["bn_relu_bwd"] == BN_SITES
+              for s in steps),
+          f"graph model file: kernel 6/7 launches {steps}, want "
+          f"{BN_SITES} each")
+    for k in tally:
+        tally[k] += steps[0][k]
+    del loaded
+    torch.cuda.empty_cache()
+
+
+def graph_quantized_phase(bk, seq, graph, x, tally):
+    """24(d): `Graph.quantize()` (full int8) against the int8 Sequential: a
+    b32 eval forward bitwise, kernel 6 33 times in each (phase 19's
+    count)."""
+    xc = torch.from_numpy(x[:P24_QUANT_BATCH]).cuda()
+    outs, counts, kinds = [], [], None
+    with Deterministic(), torch.no_grad():
+        for m in (graph, seq):
+            q = m.quantize().eval()
+            if m is graph:
+                kinds = sorted({type(n.module).__name__
+                                for n in q.exec_order
+                                if "Quantized" in type(n.module).__name__})
+            _reset_bn_counts(bk)
+            outs.append(q(xc))
+            counts.append(bk.bn_relu_forward.launches)
+            del q
+    equal = bool(torch.equal(outs[0], outs[1]))
+    out = {"batch": P24_QUANT_BATCH, "bitwise": equal,
+           "bn_relu_fwd": counts, "quantized_kinds": kinds,
+           "max_abs_err": float((outs[0] - outs[1]).abs().max())}
+    print("graph quantized " + json.dumps(out), flush=True)
+    check(kinds == ["QuantizedLinear", "QuantizedSpatialConvolution"],
+          f"graph quantized: kinds {kinds}")
+    check(equal and bool(torch.isfinite(outs[0]).all()),
+          f"graph quantized: the int8 graph's forward is "
+          f"{out['max_abs_err']} off the int8 Sequential's")
+    check(counts == [BN_SITES, BN_SITES],
+          f"graph quantized: kernel 6 launched {counts}, want {BN_SITES}")
+    tally["bn_relu_fwd"] += counts[0]
+    torch.cuda.empty_cache()
+
+
+def graph_phase(sk, bk):
+    """24: (a)-(d) and the phase's wall time; returns kernels 5, 6 and 7's
+    launches on the graph models' paths."""
+    t0 = time.perf_counter()
+    tally = {"stem_conv": 0, "bn_relu_fwd": 0, "bn_relu_bwd": 0}
+    seq, graph, x, y = graph_training_phase(sk, bk, tally)
+    # (d) before (c): (c)'s step trains the graph past its twin
+    graph_quantized_phase(bk, seq, graph, x, tally)
+    del seq
+    graph_serving_phase(sk, bk, tally)
+    with tempfile.TemporaryDirectory() as tmp:
+        graph_model_file_phase(sk, bk, graph, x, y, tmp, tally)
+    del graph
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"phase 24: {wall:.1f} s (target {P24_TARGET_S:.0f} s)",
+          flush=True)
+    return tally
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6496,7 +6847,7 @@ def main() -> int:
 
     if sys.argv[1:2] in (["--phase17"], ["--phase18"], ["--phase19"],
                          ["--phase20"], ["--phase21"], ["--phase22"],
-                         ["--phase23"]):
+                         ["--phase23"], ["--phase24"]):
         if sys.argv[1] == "--phase17":
             observability_phase(ak, sk, bk)
         elif sys.argv[1] == "--phase18":
@@ -6509,8 +6860,10 @@ def main() -> int:
             pipeline_phase(ak, sk, bk)
         elif sys.argv[1] == "--phase22":
             ops_phase(sk, bk)
-        else:
+        elif sys.argv[1] == "--phase23":
             replay_phase(ak, sk, bk)
+        else:
+            graph_phase(sk, bk)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -6627,6 +6980,9 @@ def main() -> int:
 
     # 23. workload record, chaos and replay; the model-file format
     p23 = replay_phase(ak, sk, bk)
+
+    # 24. nn.Graph: ResNet-50 as a Graph trained, served, saved, quantized
+    graph_launches = graph_phase(sk, bk)
     zoo_launches = {
         "launches_inception_v1": zoo_bench["inception_v1"]["launches"],
         "launches_inception_v2": zoo_bench["inception_v2"]["launches"],
@@ -6675,6 +7031,7 @@ def main() -> int:
            "launches_pipeline": pipe_launches[row["name"]],
            "launches_ops": ops_launches[row["name"]],
            **{k: v[row["name"]] for k, v in p23.items()},
+           "launches_graph": graph_launches[row["name"]],
            **({"launches_int8_serving": int8_launches["bn_relu_fwd"],
                "launches_fleet": fleet_launches["bn_relu_fwd"]}
               if d == "fwd" else {}),
@@ -6687,6 +7044,7 @@ def main() -> int:
          "launches_pipeline": pipe_launches["stem_conv"],
          "launches_ops": ops_launches["stem_conv"],
          **{k: v["stem_conv"] for k, v in p23.items()},
+         "launches_graph": graph_launches["stem_conv"],
          **{k: v["stem_conv"] for k, v in zoo_launches.items()},
          "zoo_shapes": zoo_rows["stem"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {

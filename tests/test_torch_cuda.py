@@ -22,7 +22,9 @@ and the operations stack: a run fed by `set_prefetch` (pinned batches,
 `non_blocking` copies) against the serial run bit for bit, with its
 `compile` record; model files written on the card and loaded on the CPU
 and the other way round, and a fleet replay's canonical streams
-identical at one seed.
+identical at one seed; and `nn.Graph`: a ResNet-8 as a Graph launching
+kernels 6-7 at its Sequential's count with the same bits, and
+`set_graph_optimizations` putting kernel 5 into a Graph's training.
 
 Every test here needs a CUDA device and skips without one. This file
 imports nothing of JAX, so it runs where JAX is not installed:
@@ -1278,3 +1280,89 @@ def test_fleet_replay_is_invariant_on_the_card(cuda_device):
     b, _ = replay()
     assert not compare_streams(a, b).divergent
     assert summary["ok"] == n and summary["chaos_fired"] == 2
+
+
+def _graph_of(seq):
+    """A port ResNet `Sequential` as an `nn.Graph` over a deep copy of its
+    leaves (a `ConcatTable` a fan-out, the node after it taking both
+    branches)."""
+    import copy
+
+    from bigdl_tpu_torch.nn import ConcatTable, Graph, InputNode, Sequential
+
+    def chain(m, node):
+        if isinstance(m, Sequential):
+            for c in m.children_in_order():
+                node = chain(c, node)
+            return node
+        if isinstance(m, ConcatTable):
+            return [chain(c, node) for c in m.children_in_order()]
+        return m.inputs(node)
+
+    inp = InputNode()
+    return Graph([inp], [chain(copy.deepcopy(seq), inp)])
+
+
+def test_graph_fused_sites_launch_kernels_6_7_as_its_sequential(
+        cuda_device):
+    """A CIFAR ResNet-8 and its Graph, one forward and backward each
+    (f32, deterministic cuDNN): kernels 6 and 7 launch at the
+    Sequential's count (4 fused sites) and the outputs and input
+    gradients are the same bits."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        seq = ResNet(10, depth=8, data_set="cifar10", device=cuda_device)
+        graph = _graph_of(seq)
+        assert len(graph._fusion_plan()[0]) == 4
+        x = torch.rand(4, 32, 32, 3, generator=torch.Generator()
+                       .manual_seed(0)).to(cuda_device)
+        runs = []
+        for model in (seq, graph):
+            tbk.bn_relu_forward.launches = tbk.bn_relu_backward.launches = 0
+            xi = x.clone().requires_grad_()
+            out = model.train()(xi)
+            out.sum().backward()
+            runs.append((out.detach(), xi.grad, tbk.bn_relu_forward.launches,
+                         tbk.bn_relu_backward.launches))
+        (o1, g1, f1, b1), (o2, g2, f2, b2) = runs
+        assert (f1, b1) == (f2, b2) == (4, 4)
+        assert torch.equal(o1, o2) and torch.equal(g1, g2)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def test_set_graph_optimizations_launches_kernel_5_in_a_graph(cuda_device,
+                                                              monkeypatch):
+    """A Graph with a 7x7/s2 stem trained 2 steps through `LocalOptimizer`
+    with the stem switch set: with `set_graph_optimizations(True)` the
+    stem is restated in the graph and kernel 5 launches once a step;
+    without it, never."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import LocalDataSet, MiniBatch
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, max_iteration
+    monkeypatch.setenv("BIGDL_TPU_PALLAS_STEM", "1")
+    rs = np.random.RandomState(0)
+    x = rs.rand(8, 32, 32, 3).astype(np.float32)
+    y = (rs.randint(0, 4, size=8) + 1).astype(np.int32)
+    for optimize in (True, False):
+        inp = nn.InputNode()
+        h = nn.SpatialConvolution(3, 16, 7, 7, 2, 2, 3, 3, with_bias=False,
+                                  device=cuda_device).inputs(inp)
+        h = nn.ReLU().inputs(nn.SpatialBatchNormalization(
+            16, device=cuda_device).inputs(h))
+        out = nn.LogSoftMax().inputs(nn.Linear(
+            16, 4, device=cuda_device).inputs(nn.Pooler().inputs(h)))
+        graph = nn.Graph([inp], [out])
+        opt = LocalOptimizer(graph, LocalDataSet([MiniBatch(x, y)]),
+                             nn.ClassNLLCriterion(), device=cuda_device)
+        opt.set_graph_optimizations(optimize)
+        opt.set_optim_method(SGD(learning_rate=0.01))
+        opt.set_end_when(max_iteration(2))
+        tsk.stem_conv_forward.launches = 0
+        tbk.bn_relu_forward.launches = 0
+        opt.optimize()
+        stem = graph.exec_order[1].module
+        assert type(stem).__name__ == ("SpaceToDepthStemConvolution"
+                                       if optimize else "SpatialConvolution")
+        assert tsk.stem_conv_forward.launches == (2 if optimize else 0)
+        assert tbk.bn_relu_forward.launches == 2

@@ -414,6 +414,53 @@ SPECS = {
     "Substr": (lambda: tops.Substr(1, 2), lambda: jops.Substr(1, 2),
                np.array(["hello", "xyz"])),
 }
+
+
+def _graph(nn, **kw):
+    """Linear -> BN -> ReLU fanned out to ReLU and Tanh, joined: a diamond
+    with a fused site."""
+    inp = nn.InputNode()
+    h = nn.Linear(4, 6, **kw).inputs(inp)
+    b = nn.BatchNormalization(6, **kw).inputs(h)
+    r = nn.ReLU().inputs(b)
+    out = nn.JoinTable(1).inputs(nn.ReLU().inputs(r), nn.Tanh().inputs(r))
+    return nn.Graph([inp], [out])
+
+
+GATES = np.array([[0.25, 0.75], [0.6, 0.4]], np.float32)
+SPECS.update({
+    "Input": (lambda: tnn.Input(), lambda: jnn.Input(), MAT),
+    "ParallelTable": (
+        lambda: tnn.ParallelTable().add(tnn.Linear(4, 2, **_cpu()))
+        .add(tnn.Linear(4, 3, **_cpu())),
+        lambda: jnn.ParallelTable().add(jnn.Linear(4, 2))
+        .add(jnn.Linear(4, 3)), PAIR),
+    "MapTable": (lambda: tnn.MapTable().add(tnn.Linear(4, 3, **_cpu())),
+                 lambda: jnn.MapTable().add(jnn.Linear(4, 3)), PAIR),
+    "Bottle": (lambda: tnn.Bottle(tnn.Linear(4, 3, **_cpu()), 2),
+               lambda: jnn.Bottle(jnn.Linear(4, 3), 2), SEQ),
+    **{name: (lambda name=name: getattr(tnn, name)(),
+              lambda name=name: getattr(jnn, name)(), PAIR)
+       for name in ("CSubTable", "CMulTable", "CDivTable", "CMaxTable",
+                    "CMinTable", "CAveTable")},
+    "JoinTable": (lambda: tnn.JoinTable(1), lambda: jnn.JoinTable(1), PAIR),
+    "SplitTable": (lambda: tnn.SplitTable(1), lambda: jnn.SplitTable(1),
+                   SEQ),
+    "FlattenTable": (lambda: tnn.FlattenTable(),
+                     lambda: jnn.FlattenTable(),
+                     ("table", MAT, ("table", MAT * 2, (MAT - 1)))),
+    "SelectTable": (lambda: tnn.SelectTable(2), lambda: jnn.SelectTable(2),
+                    PAIR),
+    "NarrowTable": (lambda: tnn.NarrowTable(1, 2),
+                    lambda: jnn.NarrowTable(1, 2), PAIR),
+    "MixtureTable": (lambda: tnn.MixtureTable(), lambda: jnn.MixtureTable(),
+                     ("table", GATES, ("table", MAT, MAT * 0.5))),
+    "Echo": (lambda: tnn.Echo(), lambda: jnn.Echo(), MAT),
+    "BifurcateSplitTable": (lambda: tnn.BifurcateSplitTable(1),
+                            lambda: jnn.BifurcateSplitTable(1), MAT),
+    "Graph": (lambda: _graph(tnn, **_cpu()), lambda: _graph(jnn), MAT),
+})
+SPECS["StaticGraph"] = SPECS["Graph"]  # the reference's alias of Graph
 SPECS["RNN"] = SPECS["RnnCell"]  # the reference's alias of RnnCell
 SPECS["SpatialShareConvolution"] = SPECS["SpatialConvolution"]  # an alias
 for _q, _x in (("QuantizedLinear", MAT), ("WeightOnlyQuantizedLinear", MAT),
@@ -513,14 +560,23 @@ def _np_tree(t):
         else np.array(t)
 
 
+def _keys_like(jm):
+    """The JAX model's tree keys in its own order (a graph's node keys in
+    `exec_order`, which differ from the port twin's ids)."""
+    if hasattr(jm, "_child_keys"):
+        return {k: _keys_like(c) for k, c in zip(jm._child_keys, jm.children)}
+    return {}
+
+
 def _jax_twin(name, m):
     """The JAX layer of `name` holding `m`'s parameters and BN state (no
-    JAX init: set from the port's trees)."""
+    JAX init: set from the port's trees, a graph's nodes by position)."""
     jm = SPECS[name][1]()
-    jm.set_params(jax.tree_util.tree_map(jnp.asarray,
-                                         _np_tree(module_params_tree(m))))
+    like = _keys_like(jm)
+    jm.set_params(jax.tree_util.tree_map(
+        jnp.asarray, _np_tree(module_params_tree(m, like=like))))
     jm._state = {k: {s: jnp.asarray(v) for s, v in d.items()}
-                 for k, d in module_state(m).items()}
+                 for k, d in module_state(m, like=like).items()}
     return jm
 
 
@@ -736,29 +792,61 @@ def test_transformer_lm_refuses_as_the_reference(tmp_path):
                               str(tmp_path / "lm.bigdl"))
 
 
-def test_a_graph_file_refuses_naming_the_roadmap(tmp_path):
-    inp = jnn.InputNode()
-    h = jnn.Linear(6, 4).inputs(inp)
-    g = jnn.Graph([inp], [jnn.ReLU().inputs(h)])
-    g.set_params(_graph_params(g))
-    g._state = {}
+def test_a_graph_file_loads_across_packages(tmp_path):
+    # a JAX-written graph loads in the port with its keys, the JAX output
+    m = _graph(tnn, **_cpu())
+    _settle(m)
+    jg = _jax_twin("Graph", m)
     path = str(tmp_path / "g.bigdl")
-    JS.save(g, path)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ModuleSerializer.load(path, device="cpu")
-    # a graph nested in a container refuses too
-    mp = P.ModelProto(module=P.BigDLModule(module_type="Sequential"))
-    mp.module.children.add(module_type="Sequential", graph=P.GraphDef())
+    JS.save(jg, path)
+    loaded = ModuleSerializer.load(path, device="cpu")
+    assert type(loaded) is tnn.Graph
+    assert [n.key for n in loaded.exec_order] == \
+        [n.key for n in jg.exec_order] == list(loaded._modules)
+    _assert_outputs(_forward(loaded, MAT), _jax_forward(jg, MAT))
+    # a port-written graph loads in the JAX package, its keys kept
+    path = str(tmp_path / "t.bigdl")
+    ModuleSerializer.save(m, path)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # no dropped leaf
+        jl = JS.load(path)
+    assert [n.key for n in jl.exec_order] == [n.key for n in m.exec_order]
+    _assert_outputs(_jax_forward(jl, MAT), _forward(m, MAT))
+    # a graph field on a type that is no graph is ignored, as the
+    # reference ignores it
+    seq = SPECS["Sequential"][0]()
+    ModuleSerializer.save(seq, path)
+    with open(path, "rb") as f:
+        mp = P.ModelProto.FromString(f.read())
+    mp.module.graph = P.GraphDef(input_nodes=[0])
     with open(path, "wb") as f:
         f.write(mp.SerializeToString())
-    with pytest.raises(NotImplementedError, match="Graph.*item 5"):
-        ModuleSerializer.load(path, device="cpu")
+    for load in (lambda: ModuleSerializer.load(path, device="cpu"),
+                 lambda: JS.load(path)):
+        got = load()
+        assert type(got).__name__ == "Sequential"
+        _assert_outputs(_forward(got, MAT) if isinstance(got, torch.nn.Module)
+                        else _jax_forward(got, MAT), _forward(seq, MAT))
 
 
-def _graph_params(g):
-    shapes = jax.eval_shape(g.init, jax.random.PRNGKey(0))
-    return jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype),
-                                  shapes)
+def test_graph_wiring_and_keys_round_trip(tmp_path):
+    """`tests/test_serialization.py:69` on the port: a diamond keeps its
+    wiring, and the parameter keys survive the load."""
+    inp = tnn.InputNode()
+    h = tnn.Linear(6, 4, **_cpu()).inputs(inp)
+    a = tnn.ReLU().inputs(h)
+    b = tnn.Tanh().inputs(h)
+    g = tnn.Graph([inp], [tnn.JoinTable(1).inputs(a, b)])
+    x = np.random.RandomState(1).randn(3, 6).astype(np.float32)
+    path = str(tmp_path / "g.bigdl")
+    ModuleSerializer.save(g, path)
+    loaded = ModuleSerializer.load(path, device="cpu")
+    assert set(dict(loaded.named_parameters())) == \
+        set(dict(g.named_parameters()))
+    assert [[loaded.exec_order.index(p) for p in n.prev]
+            for n in loaded.exec_order] == \
+        [[g.exec_order.index(p) for p in n.prev] for n in g.exec_order]
+    _assert_outputs(_forward(loaded, x), _forward(g, x), exact=True)
 
 
 def test_a_reference_only_type_refuses_naming_the_roadmap(tmp_path):
