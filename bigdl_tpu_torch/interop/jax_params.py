@@ -158,6 +158,19 @@ def _child_keys(module, keys, like) -> list:
     return have
 
 
+def _named_children(module) -> list:
+    """(key, child) of `module`'s children in the JAX tree: all of them,
+    except in a `DynamicGraph`, whose JAX tree holds only the nodes with
+    parameters (the reference's `DynamicGraph.init` drops the empty
+    subtrees)."""
+    from bigdl_tpu_torch.nn.dynamic_graph import DynamicGraph
+    children = list(module.named_children())
+    if isinstance(module, DynamicGraph):
+        children = [(k, c) for k, c in children
+                    if next(c.parameters(), None) is not None]
+    return children
+
+
 def _module_targets(module, like: Optional[Mapping] = None) -> Dict:
     """A module's parameters arranged as the JAX tree: its own parameters
     by name, then each child's subtree under the child's key (a
@@ -169,7 +182,7 @@ def _module_targets(module, like: Optional[Mapping] = None) -> Dict:
     for name, p in module.named_parameters(recurse=False):
         conv_w = isinstance(module, SpatialConvolution) and name == "weight"
         out[name] = _HwioToOihw(p) if conv_w else p
-    children = list(module.named_children())
+    children = _named_children(module)
     keys = _child_keys(module, [k for k, _ in children], like)
     for key, (_, child) in zip(keys, children):
         out[key] = _module_targets(
@@ -187,7 +200,7 @@ def _bn_modules(model, like: Optional[Mapping] = None
     def walk(m, path, sub):
         if isinstance(m, BatchNormalization):
             out[path] = m
-        children = list(m.named_children())
+        children = _named_children(m)
         keys = _child_keys(m, [k for k, _ in children], sub)
         for key, (_, child) in zip(keys, children):
             walk(child, path + (key,),

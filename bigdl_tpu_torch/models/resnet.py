@@ -8,8 +8,12 @@ at gamma = 0 (`zero_gamma`). Every BN immediately followed by a ReLU in a
 `Sequential` runs as the fused tail (`nn/fusion.py`): in ResNet-50, the
 stem's BN and bn1/bn2 of each of the 16 bottlenecks, 33 sites.
 
-Not ported: `remat` (the reference's `nn.Remat`, activation
-recomputation), which this path does not use.
+`remat=True` wraps every residual block in `nn.Remat`, as the reference
+does: the blocks' activations are recomputed in the backward instead of
+stored, so a training step runs each block's forward twice (32 of
+ResNet-50's fused sites launch kernel 6 twice a step) for a lower peak
+of memory. The CIFAR branch returns before it reads `remat`, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -124,12 +128,8 @@ def ResNet(class_num: int = 1000, depth: int = 50, shortcut_type: str = "B",
     `device` (default CUDA; `device="cpu"` for the CPU), weights drawn from
     `generator` (default seed 0). `s2d_stem=True` builds the stem as
     `SpaceToDepthStemConvolution` (same parameters and function as the
-    plain 7x7/s2 stem). The reference's `remat=True` (activation
-    recomputation per residual block) is not ported and raises."""
-    if remat:
-        raise NotImplementedError(
-            "ResNet(remat=True) is not ported: the port stores every "
-            "block's activations")
+    plain 7x7/s2 stem). `remat=True` wraps every residual block in
+    `nn.Remat` (ImageNet depths only, as the reference)."""
     b = _Builder(device, generator)
     if data_set.lower() in ("cifar10", "cifar-10"):
         return _cifar_resnet(class_num, depth, shortcut_type,
@@ -149,15 +149,16 @@ def ResNet(class_num: int = 1000, depth: int = 50, shortcut_type: str = "B",
         for i in range(r):
             stride = 2 if (stage > 0 and i == 0) else 1
             if kind == "bottleneck":
-                model.add(bottleneck(n_in, w, stride, shortcut_type,
-                                     zero_gamma, device=b.device,
-                                     generator=b.g))
+                block = bottleneck(n_in, w, stride, shortcut_type,
+                                   zero_gamma, device=b.device,
+                                   generator=b.g)
                 n_in = w * 4
             else:
-                model.add(basic_block(n_in, w, stride, shortcut_type,
-                                      zero_gamma, device=b.device,
-                                      generator=b.g))
+                block = basic_block(n_in, w, stride, shortcut_type,
+                                    zero_gamma, device=b.device,
+                                    generator=b.g)
                 n_in = w
+            model.add(nn.Remat(block) if remat else block)
     model.add(nn.Pooler())
     model.add(nn.Linear(n_in, class_num, name="fc", device=b.device,
                         generator=b.g))

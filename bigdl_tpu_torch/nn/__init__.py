@@ -1,7 +1,8 @@
 """Layers (counterpart of `bigdl_tpu.nn`): the transformer, the ResNet,
 the feed-forward model zoo's, the recurrent and the Wide&Deep paths, the
-int8 quantized layers, the table containers and the static `Graph` with
-its node DSL."""
+int8 quantized layers, the table containers, `Remat`, the static `Graph`
+with its node DSL, the `DynamicGraph` with its control ops, the
+`linear.py` family and the tree LSTMs."""
 
 from bigdl_tpu_torch.nn.activation import LogSoftMax, ReLU, Sigmoid, Tanh
 from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
@@ -12,7 +13,7 @@ from bigdl_tpu_torch.nn.containers import (
     BifurcateSplitTable, Bottle, CAddTable, CAveTable, CDivTable, CMaxTable,
     CMinTable, CMulTable, Concat, ConcatTable, Container, CSubTable, Echo,
     FlattenTable, Graph, Identity, Input, InputNode, JoinTable, MapTable,
-    MixtureTable, NarrowTable, ParallelTable, SelectTable, Sequential,
+    MixtureTable, NarrowTable, ParallelTable, Remat, SelectTable, Sequential,
     SplitTable, StaticGraph)
 from bigdl_tpu_torch.nn.conv import (SpaceToDepthStemConvolution,
                                      SpatialConvolution,
@@ -22,13 +23,19 @@ from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion, MSECriterion,
                                           TimeDistributedCriterion,
                                           TimeDistributedMaskCriterion)
 from bigdl_tpu_torch.nn.dropout import Dropout, lend_generator
+from bigdl_tpu_torch.nn.dynamic_graph import (
+    DEAD, ControlOps, ControlTrigger, DynamicGraph, Enter, Exit, FrameManager,
+    LoopCondOps, MergeOps, NextIteration, Scheduler, SwitchOps, switch_port)
 from bigdl_tpu_torch.nn.embedding import (LookupTable, LookupTableSparse,
                                            SparseJoinTable, SparseLinear)
 from bigdl_tpu_torch.nn.fusion import (fusible_activation, fusible_bn,
                                       fusion_enabled, fusion_scope, set_fusion)
 from bigdl_tpu_torch.nn.initialization import (MsraFiller, RandomNormal,
                                                RandomUniform, Xavier, Zeros)
-from bigdl_tpu_torch.nn.linear import Linear
+from bigdl_tpu_torch.nn.linear import (Add, AddConstant, Bilinear, CAdd,
+                                      CMul, Cosine, Euclidean, Highway,
+                                      Linear, Maxout, Mul, MulConstant,
+                                      Scale)
 from bigdl_tpu_torch.nn.module import (Activity, ApplyContext, Module, Node,
                                       functional_apply, merge_state,
                                       param_count, topo_sort)
@@ -41,10 +48,12 @@ from bigdl_tpu_torch.nn.quantized import (
     QuantizedLinear, QuantizedSpatialConvolution,
     QuantizedSpatialDilatedConvolution, Quantizer, WeightOnlyQuantizedLinear,
     WeightOnlyQuantizedSpatialConvolution)
-from bigdl_tpu_torch.nn.recurrent import (LSTM, LSTM2, Cell, LSTMCell,
-                                          MultiRNNCell, Recurrent, RnnCell,
-                                          TimeDistributed)
+from bigdl_tpu_torch.nn.recurrent import (
+    GRU, LSTM, LSTM2, BiRecurrent, Cell, ConvLSTMPeephole,
+    ConvLSTMPeephole3D, GRUCell, LSTMCell, LSTMPeephole, LSTMPeepholeCell,
+    MultiRNNCell, Recurrent, RecurrentDecoder, RnnCell, TimeDistributed)
 from bigdl_tpu_torch.nn.shape_ops import DenseToSparse, Mean, Reshape
+from bigdl_tpu_torch.nn.tree import BinaryTreeLSTM, TreeLSTM
 
 RNN = RnnCell  # the reference's alias (its model files name RnnCell "RNN")
 
@@ -63,7 +72,7 @@ __all__ = ["Activity", "ApplyContext", "BatchNormalization",
            "MsraFiller", "MultiHeadAttention", "MultiRNNCell", "Pooler",
            "Mean", "QuantizedLinear", "QuantizedSpatialConvolution",
            "QuantizedSpatialDilatedConvolution", "Quantizer", "RNN",
-           "RandomNormal", "RandomUniform", "ReLU", "Recurrent",
+           "RandomNormal", "RandomUniform", "ReLU", "Recurrent", "Remat",
            "Reshape",
            "RnnCell", "ScaledDotProductAttention", "Sequential", "Sigmoid",
            "SpaceToDepthStemConvolution", "SparseJoinTable", "SparseLinear",
@@ -75,6 +84,13 @@ __all__ = ["Activity", "ApplyContext", "BatchNormalization",
            "TimeDistributedMaskCriterion", "TransformerBlock",
            "WeightOnlyQuantizedLinear",
            "WeightOnlyQuantizedSpatialConvolution", "Xavier",
-           "Zeros", "cache_commit", "cache_write", "fusible_activation",
-           "fusible_bn", "fusion_enabled",
+           "Zeros", "Add", "AddConstant", "Bilinear", "CAdd", "CMul",
+           "Cosine", "Euclidean", "Highway", "Maxout", "Mul", "MulConstant",
+           "Scale", "DEAD", "ControlOps", "ControlTrigger", "DynamicGraph",
+           "Enter", "Exit", "FrameManager", "LoopCondOps", "MergeOps",
+           "NextIteration", "Scheduler", "SwitchOps", "switch_port", "GRU",
+           "GRUCell", "LSTMPeephole", "LSTMPeepholeCell", "ConvLSTMPeephole",
+           "ConvLSTMPeephole3D", "BiRecurrent", "RecurrentDecoder",
+           "TreeLSTM", "BinaryTreeLSTM", "cache_commit", "cache_write",
+           "fusible_activation", "fusible_bn", "fusion_enabled",
            "fusion_scope", "lend_generator", "rope", "set_fusion"]

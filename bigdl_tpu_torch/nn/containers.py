@@ -4,8 +4,8 @@
 `ParallelTable`, `MapTable` and `Bottle`; the table layers (`CAddTable`
 and its family, `JoinTable`, `SplitTable`, `FlattenTable`,
 `SelectTable`, `NarrowTable`, `MixtureTable`, `BifurcateSplitTable`),
-`Identity` and `Echo`; and the static graph, `Graph` (alias
-`StaticGraph`) with `Input` / `InputNode`. Not ported yet: `Remat`.
+`Identity` and `Echo`; `Remat` (activation recomputation); and the
+static graph, `Graph` (alias `StaticGraph`) with `Input` / `InputNode`.
 
 Children are registered under the reference's keys, `"<index>_<child
 name>"` (a `Graph`: each node's `key`), so a module's path in the port
@@ -17,6 +17,7 @@ reference's.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -126,6 +127,95 @@ class Bottle(Container):
         lead = shape[:len(shape) - trail]
         y = child(x.reshape((-1,) + shape[len(shape) - trail:]))
         return y.reshape(lead + tuple(y.shape[1:]))
+
+
+class Remat(Container):
+    """Recompute the wrapped module's activations in the backward instead
+    of storing them (the reference's `jax.checkpoint` wrapper): training
+    mode with grad enabled runs the child under
+    `torch.utils.checkpoint.checkpoint(use_reentrant=False)`, which keeps
+    only the child's input; eval mode or no grad runs it directly.
+
+    The reference recomputes a pure function; the port's recompute
+    re-runs modules that write state and draw random numbers, so it
+    replays the forward as it was (`_Replay`): the parameter tensors the
+    forward used (a `functional_call`'s bf16 copies, say, which are gone
+    from the modules by the backward), each module's training flag, and
+    the lent dropout generator's state before the forward, put back
+    afterwards as the forward left it; and it writes the buffers of
+    throwaway copies, so BN's running statistics move once a step, as
+    without `Remat`. The result is the unwrapped module's, bit for bit,
+    its kernel launches aside (the recompute launches the forward's
+    again)."""
+
+    def __init__(self, module: Module, name: Optional[str] = None):
+        super().__init__(name)
+        self.add(module)
+
+    def forward(self, x):
+        child = self.children_in_order()[0]
+        if not (self.training and torch.is_grad_enabled()):
+            return child(x)
+        from torch.utils.checkpoint import checkpoint
+        replay = _Replay(child)
+        return checkpoint(replay.run, x, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=replay.contexts)
+
+
+class _Replay:
+    """What one `Remat` forward ran with, for its recompute: the child's
+    parameter and buffer tensors, the sub-modules' training flags, and the
+    state of the lent dropout generator before the forward (taken only
+    when an active `Dropout` in the child will draw)."""
+
+    def __init__(self, child: Module):
+        from bigdl_tpu_torch.nn import dropout
+        self.child = child
+        self.params = dict(child.named_parameters())
+        self.buffers = dict(child.named_buffers())
+        self.modes = [(m, m.training) for m in child.modules()]
+        self.generator = self.state = None
+        if dropout._LENT and any(isinstance(m, dropout.Dropout)
+                                 and m.training and m.p > 0.0
+                                 for m in child.modules()):
+            self.generator = dropout._lent()
+            self.state = self.generator.get_state()
+        self.recomputing = False
+
+    def run(self, x):
+        if not self.recomputing:
+            return self.child(x)
+        from torch.func import functional_call
+        tensors = {**self.params,
+                   **{k: b.clone() for k, b in self.buffers.items()}}
+        return functional_call(self.child, tensors, (x,))
+
+    def contexts(self):
+        return contextlib.nullcontext(), self._recompute()
+
+    @contextlib.contextmanager
+    def _recompute(self):
+        from bigdl_tpu_torch.nn.dropout import lend_generator
+        now = [(m, m.training) for m, _ in self.modes]
+        gen = self.generator
+        after = gen.get_state() if gen is not None else None
+        for m, mode in self.modes:
+            m.training = mode
+        self.recomputing = True
+        try:
+            if gen is None:
+                yield
+            else:
+                gen.set_state(self.state)
+                with lend_generator(gen):
+                    yield
+        finally:
+            self.recomputing = False
+            for m, mode in now:
+                m.training = mode
+            if gen is not None:
+                gen.set_state(after)
 
 
 class _TableReduce(Module):

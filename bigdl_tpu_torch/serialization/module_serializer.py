@@ -22,7 +22,10 @@ constructor arguments, its nodes in `exec_order` in the `graph` field,
 each with its key, its module and its inputs' indices. Loading rebuilds
 the nodes with the saved keys, so parameter paths survive the load
 (node ids, per-process counters, differ); a `graph` field on a type that
-is not a graph is ignored, as the reference ignores it. Loading matches
+is not a graph is ignored, as the reference ignores it. A `DynamicGraph`
+is written so too, and refused on load: the format has no field for a
+consumer's Switch port, and the reference cannot read its own such file
+(its nodes come before their inputs). Loading matches
 a saved path against the paths of the model it
 rebuilds, so a layer name holding "/" (Inception's "conv1/7x7_s2") finds
 its place; a saved leaf with no place is dropped with the reference's
@@ -302,6 +305,13 @@ def _decode_module(bm: pb.BigDLModule, ctx: _LoadCtx):
         raise ValueError(f"unknown module type: {bm.module_type}")
     cls = _REGISTRY[bm.module_type]
     if bm.HasField("graph") and issubclass(cls, Graph):
+        from bigdl_tpu_torch.nn.dynamic_graph import DynamicGraph
+        if issubclass(cls, DynamicGraph):
+            raise NotImplementedError(
+                "a DynamicGraph file cannot be read back: the format has "
+                "no field for the Switch port each consumer reads "
+                "(switch_port), and its nodes come before their inputs, "
+                "which the reference's own load fails on too")
         return _decode_graph(cls, bm, ctx)
     args = [_decode_attr(a, ctx) for a in bm.ctor_args]
     kwargs = {k: _decode_attr(v, ctx) for k, v in bm.ctor_kwargs.items()}

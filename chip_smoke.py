@@ -530,6 +530,31 @@ Phases:
    right after (a): (c)'s step trains the graph past its twin). (e)
    The phase's wall time (target under 60 s). `python3 chip_smoke.py
    --phase24` runs phases 1, 2 and 24 alone.
+25. `nn.Remat` and the rest of `nn/`'s graph and recurrent families, TF32
+   off. (a) ResNet-50 (1000 classes, s2d stem, seed 0) with
+   `remat=True`, every bottleneck in a `Remat`, and its `remat=False`
+   twin from the same weights, 4 steps each of phase 24's recipe (b128
+   224x224x3, bf16 with f32 masters, SGD momentum 0.9) under
+   `Deterministic` with the stem switch set: the losses, every parameter
+   and every BN buffer bitwise (or, where an op `Deterministic` names
+   breaks the bits, each tensor within 1e-5 of its largest element);
+   kernels 5/6/7 1/65/33 a step with remat (the 32 in-block sites run
+   kernel 6 again in the recompute) and 1/33/33 without; each model's ms
+   a step and peak `max_memory_allocated`, remat's below the twin's.
+   Both then served in eval mode through `InferenceEngine`, 3 full
+   batches of 32 under `Deterministic`: the rows bitwise equal, kernels
+   5 and 6 once a forward in both, kernel 7 never (no recompute). (b)
+   Each new module (`Recurrent` of `GRUCell`, `LSTMPeepholeCell`,
+   `ConvLSTMPeephole` and its 3-D form; `BiRecurrent(LSTMCell)` with each
+   merge; `RecurrentDecoder(LSTMCell)`; `BinaryTreeLSTM`; the twelve
+   `linear.py` layers; a `DynamicGraph` cond both ways and while loop) on
+   the card against itself on the CPU with the same weights, f32: the
+   output and every gradient within 1e-5 of the tensor's largest
+   element; the Switches' host syncs (8 for the loop, 1 a cond). (c)
+   `tools/treelstm_sentiment.py` on the card at the reference test's
+   settings (128 sentences, 80 iterations): train accuracy above 0.8.
+   (d) The phase's wall time (target under 60 s). `python3 chip_smoke.py
+   --phase25` runs phases 1, 2 and 25 alone.
 
 Prints a `{"kernels": [...]}` line (each row with the `design` its main
 measure ran: `tensor_cores` or `cuda_cores_f32` for rows 1-5, the octet
@@ -548,7 +573,8 @@ launches on phase 21's paths, `launches_pipeline`; rows 5, 6 and 7
 with their launches on phase 22's paths, `launches_ops`; rows 1, 5, 6
 and 7 with their launches on phase 23's replays, `launches_replay`, and
 its model-file training steps, `launches_model_file`; rows 5, 6 and 7
-with their launches on phase 24's graph models, `launches_graph`),
+with their launches on phase 24's graph models, `launches_graph`, and
+on phase 25's remat model, `launches_remat`),
 then as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero.
 """
@@ -6797,6 +6823,405 @@ def graph_phase(sk, bk):
     return tally
 
 
+P25_BATCH = 128
+P25_STEPS = 4
+P25_TARGET_S = 60.0
+#: remat's kernel 6 launches a step: the 33 sites once, the 32 inside the
+#: 16 bottlenecks again in the recompute (the stem's site is outside)
+P25_REMAT_BN_FWD = BN_SITES + 32
+#: (b): card against CPU, each tensor within this share of its largest
+#: element (f32, TF32 off; cuDNN / cuBLAS and oneDNN sum in other orders)
+P25_RTOL = 1e-5
+#: (a): a tensor off the twin's bits passes only within this share of its
+#: largest element, and only if `Deterministic` named an op
+P25_BITS_RTOL = 1e-5
+#: (b)'s widths: the recurrent cells at PTB's b32 T20 with 256 units; the
+#: conv LSTMs on 32x32 maps of 16 -> 32 channels (3-D: 8x16x16, 8 -> 16);
+#: the tree LSTM at the reference example's GloVe width (300 -> 150) over
+#: 12-token sentences; the linear family at b256 x 512
+P25_SEQ = (32, 20, 128, 256)          # batch, steps, input, hidden
+P25_CONV = (4, 6, 32, 16, 32)         # batch, steps, side, c_in, c_out
+P25_CONV3D = (2, 4, 8, 16, 8, 16)     # batch, steps, depth, side, in, out
+P25_TREE = (64, 12, 300, 150)         # sentences, tokens, input, hidden
+P25_WIDE = (256, 512)                 # batch, width
+P25_TREE_ARGS = ["--sentences", "128", "--max-iteration", "80"]
+
+
+def _twin_name(name):
+    """A remat ResNet's tensor name as its twin's: "<i>_Remat.0_Sequential"
+    -> "<i>_Sequential"."""
+    head, _, rest = name.partition(".")
+    if head.endswith("_Remat"):
+        return head[:-len("Remat")] + "Sequential." + rest.partition(".")[2]
+    return name
+
+
+def _p25_difference(remat, twin, rtol=None):
+    """The first tensor (parameter or buffer, by the twin's name) that
+    differs bit for bit (with `rtol`: by more than rtol of its largest
+    element), or None."""
+    rs = {_twin_name(k): v for k, v in remat.state_dict().items()}
+    ts = twin.state_dict()
+    if rs.keys() != ts.keys():
+        return f"<names differ: {sorted(rs.keys() ^ ts.keys())[:3]}>"
+    for k, t in ts.items():
+        r = rs[k]
+        if rtol is None:
+            if not torch.equal(r, t):
+                return k
+        elif t.is_floating_point() and float((r - t).abs().max()) > \
+                rtol * max(float(t.abs().max()), 1e-30):
+            return k
+    return None
+
+
+def remat_training_phase(sk, bk, tally):
+    """25(a): ResNet-50 with `remat=True` and its `remat=False` twin from
+    the same weights, 4 steps each of phase 24's recipe under
+    `Deterministic`: losses, parameters and BN buffers bitwise; kernels
+    5/6/7 1/65/33 a step with remat, 1/33/33 without; each one's ms a step
+    and peak memory, remat's the lower. Returns the two models and
+    whether they ended bit for bit equal."""
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, Remat
+    from bigdl_tpu_torch.tools.bench import _resident_optimizer, _timed_run
+    rs = np.random.RandomState(25)
+    x = rs.rand(P25_BATCH, 224, 224, 3).astype(np.float32)
+    y = (rs.randint(0, 1000, P25_BATCH) + 1).astype(np.int32)
+    models = {label: ResNet50(class_num=1000, s2d_stem=True,
+                              remat=label == "remat", device="cuda",
+                              generator=torch.Generator().manual_seed(0))
+              for label in ("remat", "twin")}
+    wrapped = sum(isinstance(m, Remat) for m in models["remat"].modules())
+    check(wrapped == 16, f"remat: {wrapped} blocks wrapped, not 16")
+    check(_p25_difference(models["remat"], models["twin"]) is None,
+          "remat: the twin's weights differ before training")
+    runs = {}
+    os.environ[STEM_ENV] = "1"
+    try:
+        with Deterministic() as det:
+            for label, model in models.items():
+                opt = _resident_optimizer(model, x, y, ClassNLLCriterion(),
+                                          torch.device("cuda"))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _p24_reset(sk, bk)
+                step_s, losses = _timed_run(opt, 1, P25_STEPS - 1, 1)
+                torch.cuda.synchronize()
+                runs[label] = {
+                    "losses": losses, "ms_per_step": 1e3 * step_s,
+                    "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                    "launches": _p24_counts(sk, bk)}
+                del opt
+                torch.cuda.empty_cache()
+    finally:
+        os.environ.pop(STEM_ENV, None)
+    diff = _p25_difference(models["remat"], models["twin"])
+    near = _p25_difference(models["remat"], models["twin"], P25_BITS_RTOL)
+    out = {"batch": P25_BATCH, "steps": P25_STEPS, "remat_blocks": wrapped,
+           "first_difference": diff, "beyond_rtol": near,
+           "deterministic_warned_ops": det.ops,
+           "step_ratio": runs["remat"]["ms_per_step"]
+           / runs["twin"]["ms_per_step"],
+           "peak_ratio": runs["remat"]["peak_mib"]
+           / runs["twin"]["peak_mib"], **runs}
+    print("remat training " + json.dumps(out), flush=True)
+    fwd = {"remat": P25_REMAT_BN_FWD, "twin": BN_SITES}
+    for label, run in runs.items():
+        want = {"stem_conv": P25_STEPS,
+                "bn_relu_fwd": fwd[label] * P25_STEPS,
+                "bn_relu_bwd": BN_SITES * P25_STEPS}
+        check(run["launches"] == want,
+              f"remat training: {label} launched {run['launches']}, want "
+              f"{want}")
+        check(len(run["losses"]) == P25_STEPS
+              and all(np.isfinite(run["losses"])),
+              f"remat training: {label} losses {run['losses']}")
+    if diff is None:
+        check(runs["remat"]["losses"] == runs["twin"]["losses"],
+              f"remat training: losses {runs['remat']['losses']} vs the "
+              f"twin's {runs['twin']['losses']}")
+    else:
+        check(bool(det.ops) and near is None,
+              f"remat training: {diff} differs from the twin's bits "
+              f"({near} beyond {P25_BITS_RTOL} of its largest element; "
+              f"ops Deterministic named: {det.ops})")
+    check(runs["remat"]["peak_mib"] < runs["twin"]["peak_mib"],
+          f"remat training: peak {runs['remat']['peak_mib']:.0f} MiB, not "
+          f"below the twin's {runs['twin']['peak_mib']:.0f}")
+    for k in tally:
+        tally[k] += runs["remat"]["launches"][k]
+    return models, diff is None
+
+
+def remat_serving_phase(sk, bk, models, bitwise, tally):
+    """25(a), serving: both trained models in eval mode through
+    `InferenceEngine` (BNs folded but the stem's), in full batches of 32
+    under `Deterministic`: the rows bitwise equal (within phase 10(b)'s
+    limits where (a) passed off the bits), kernels 5 and 6 once a forward
+    in both (batches + warm-up buckets), kernel 7 never (no backward, no
+    recompute)."""
+    from bigdl_tpu_torch.nn import Remat
+    from bigdl_tpu_torch.serving import InferenceEngine
+    images = np.random.RandomState(0).rand(
+        SERVE_BURST, SERVE_HW, SERVE_HW, 3).astype(np.float32)
+    runs, rows = {}, {}
+    os.environ[STEM_ENV] = "1"
+    try:
+        with Deterministic():
+            for label, model in models.items():
+                with InferenceEngine(model, max_batch_size=SERVE_BATCH,
+                                     max_wait_ms=1000.0,
+                                     device="cuda") as eng:
+                    served = eng._pred.model
+                    _p24_reset(sk, bk)
+                    eng.warmup(images[0])
+                    got = []
+                    t0 = time.perf_counter()
+                    for s in range(0, SERVE_BURST, SERVE_BATCH):
+                        futs = [eng.submit(img)
+                                for img in images[s:s + SERVE_BATCH]]
+                        got.extend(f.result(300) for f in futs)
+                    wall = time.perf_counter() - t0
+                    stats = eng.stats()
+                    runs[label] = {
+                        "requests_per_sec": SERVE_BURST / wall,
+                        "batches": stats["batches"],
+                        "completed": stats["completed"],
+                        "warmup_buckets": len(eng.buckets),
+                        "served_remat_blocks": sum(
+                            isinstance(m, Remat) for m in served.modules()),
+                        "launches": _p24_counts(sk, bk)}
+                rows[label] = np.stack(got)
+    finally:
+        os.environ.pop(STEM_ENV, None)
+    equal = bool(np.array_equal(rows["remat"], rows["twin"]))
+    out = {"requests": SERVE_BURST, "rows_bitwise": equal,
+           "max_abs_err": float(np.abs(rows["remat"] - rows["twin"]).max()),
+           **runs}
+    print("remat serving " + json.dumps(out), flush=True)
+    for label, run in runs.items():
+        forwards = run["batches"] + run["warmup_buckets"]
+        check(run["completed"] == SERVE_BURST
+              and run["batches"] == SERVE_BURST // SERVE_BATCH,
+              f"remat serving: {label} served {run['completed']} in "
+              f"{run['batches']} batches")
+        check(run["launches"] == {"stem_conv": forwards,
+                                  "bn_relu_fwd": forwards,
+                                  "bn_relu_bwd": 0},
+              f"remat serving: {label} launched {run['launches']} for "
+              f"{forwards} forwards")
+    check(runs["remat"]["served_remat_blocks"] == 16,
+          "remat serving: the served copy lost its Remat levels")
+    if bitwise:
+        check(equal and np.isfinite(rows["twin"]).all(),
+              f"remat serving: rows {out['max_abs_err']} off the twin's")
+    else:
+        _check_rows(rows["remat"], rows["twin"], "remat serving")
+    tally["stem_conv"] += runs["remat"]["launches"]["stem_conv"]
+    tally["bn_relu_fwd"] += runs["remat"]["launches"]["bn_relu_fwd"]
+
+
+def _p25_loop(n, device, generator):
+    """while c < 3: x = tanh(Linear(x)); c += 1 (two loop variables, one
+    LoopCond read by two Switches: 2 host reads an iteration and 2 at the
+    exit)."""
+    from bigdl_tpu_torch import nn
+
+    class Less(nn.Module):
+        """c < 3, the loop predicate."""
+
+        def forward(self, c):
+            return c < 3.0
+
+    x_in, c_in = nn.InputNode(), nn.InputNode()
+    merge_x = nn.MergeOps().inputs(nn.Enter().inputs(x_in))
+    merge_c = nn.MergeOps().inputs(nn.Enter().inputs(c_in))
+    cond = nn.LoopCondOps().inputs(Less().inputs(merge_c))
+    sw_x = nn.SwitchOps().inputs(merge_x, cond)
+    sw_c = nn.SwitchOps().inputs(merge_c, cond)
+    lin = nn.switch_port(nn.Linear(n, n, device=device,
+                                   generator=generator).inputs(sw_x), sw_x, 1)
+    merge_x.prev.append(nn.NextIteration().inputs(nn.Tanh().inputs(lin)))
+    c_next = nn.switch_port(nn.AddConstant(1.0).inputs(sw_c), sw_c, 1)
+    merge_c.prev.append(nn.NextIteration().inputs(c_next))
+    out = nn.switch_port(nn.Exit().inputs(sw_x), sw_x, 0)
+    return nn.DynamicGraph([x_in, c_in], [out])
+
+
+def _p25_cond(n, device, generator):
+    """if pred: Linear(x) else: x + 10."""
+    from bigdl_tpu_torch import nn
+    x_in, p_in = nn.InputNode(), nn.InputNode()
+    sw = nn.SwitchOps().inputs(x_in, p_in)
+    t = nn.switch_port(nn.Linear(n, n, device=device,
+                                 generator=generator).inputs(sw), sw, 1)
+    f = nn.switch_port(nn.AddConstant(10.0).inputs(sw), sw, 0)
+    return nn.DynamicGraph([x_in, p_in], [nn.MergeOps().inputs(t, f)])
+
+
+def _p25_cases():
+    """name -> (factory(device, generator), the inputs as numpy arrays,
+    which of them take a gradient)."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.tools.treelstm_sentiment import right_branching_tree
+    rs = np.random.RandomState(25)
+    b, t, d, h = P25_SEQ
+    seq = rs.randn(b, t, d).astype(np.float32)
+    cb, ct, side, ci, co = P25_CONV
+    maps = rs.randn(cb, ct, side, side, ci).astype(np.float32)
+    vb, vt, vd, vs, vi, vo = P25_CONV3D
+    vols = rs.randn(vb, vt, vd, vs, vs, vi).astype(np.float32)
+    tb, tt, td, th = P25_TREE
+    emb = rs.randn(tb, tt, td).astype(np.float32)
+    tree = np.ascontiguousarray(np.broadcast_to(
+        right_branching_tree(tt), (tb, 2 * tt - 1, 3)))
+    wb, ww = P25_WIDE
+    wide = rs.randn(wb, ww).astype(np.float32)
+    wide2 = rs.randn(wb, ww).astype(np.float32)
+    cases = {
+        "Recurrent(GRUCell)": (lambda dev, g: nn.Recurrent(nn.GRUCell(
+            d, h, device=dev, generator=g)), [seq], [True]),
+        "Recurrent(LSTMPeepholeCell)": (lambda dev, g: nn.Recurrent(
+            nn.LSTMPeepholeCell(d, h, device=dev, generator=g)), [seq],
+            [True]),
+        **{f"BiRecurrent(LSTMCell, {m})": (
+            lambda dev, g, m=m: nn.BiRecurrent(nn.LSTMCell(
+                d, h, device=dev, generator=g), None, m, generator=g),
+            [seq], [True]) for m in ("concat", "sum", "mul", "ave")},
+        "RecurrentDecoder(LSTMCell)": (lambda dev, g: nn.RecurrentDecoder(
+            nn.LSTMCell(h, h, device=dev, generator=g), t),
+            [rs.randn(b, h).astype(np.float32)], [True]),
+        "Recurrent(ConvLSTMPeephole)": (lambda dev, g: nn.Recurrent(
+            nn.ConvLSTMPeephole(ci, co, device=dev, generator=g)), [maps],
+            [True]),
+        "Recurrent(ConvLSTMPeephole3D)": (lambda dev, g: nn.Recurrent(
+            nn.ConvLSTMPeephole3D(vi, vo, device=dev, generator=g)),
+            [vols], [True]),
+        "BinaryTreeLSTM": (lambda dev, g: nn.BinaryTreeLSTM(
+            td, th, device=dev, generator=g), [emb, tree], [True, False]),
+        "Bilinear": (lambda dev, g: nn.Bilinear(ww, ww, ww // 4, device=dev,
+                                                generator=g),
+                     [wide, wide2], [True, True]),
+        "CMul": (lambda dev, g: nn.CMul((1, ww), device=dev, generator=g),
+                 [wide], [True]),
+        "CAdd": (lambda dev, g: nn.CAdd((1, ww), device=dev, generator=g),
+                 [wide], [True]),
+        "Mul": (lambda dev, g: nn.Mul(device=dev, generator=g), [wide],
+                [True]),
+        "Add": (lambda dev, g: nn.Add(ww, device=dev, generator=g), [wide],
+                [True]),
+        "MulConstant": (lambda dev, g: nn.MulConstant(2.5), [wide], [True]),
+        "AddConstant": (lambda dev, g: nn.AddConstant(-1.5), [wide],
+                        [True]),
+        "Maxout": (lambda dev, g: nn.Maxout(ww, ww // 2, 4, device=dev,
+                                            generator=g), [wide], [True]),
+        "Highway": (lambda dev, g: nn.Highway(ww, device=dev, generator=g),
+                    [wide], [True]),
+        "Scale": (lambda dev, g: nn.Scale((1, ww), device=dev, generator=g),
+                  [wide], [True]),
+        "Cosine": (lambda dev, g: nn.Cosine(ww, ww // 2, device=dev,
+                                            generator=g), [wide], [True]),
+        "Euclidean": (lambda dev, g: nn.Euclidean(ww, ww // 2, device=dev,
+                                                  generator=g),
+                      [wide], [True]),
+        "DynamicGraph cond (true)": (
+            lambda dev, g: _p25_cond(ww, dev, g),
+            [wide, np.asarray(True)], [True, False]),
+        "DynamicGraph cond (false)": (
+            lambda dev, g: _p25_cond(ww, dev, g),
+            [wide, np.asarray(False)], [True, False]),
+        "DynamicGraph while": (
+            lambda dev, g: _p25_loop(ww, dev, g),
+            [wide, np.asarray(0.0, np.float32)], [True, False]),
+    }
+    return cases
+
+
+def _p25_run(module, inputs, grads, device, w):
+    """Output, input gradients and parameter gradients of sum(out * w) in
+    training mode on `device`."""
+    from bigdl_tpu_torch.utils import T
+    xs = [torch.from_numpy(a).to(device).requires_grad_(g)
+          for a, g in zip(inputs, grads)]
+    out = module.train()(xs[0] if len(xs) == 1 else T(*xs))
+    (out * torch.from_numpy(w).to(device)).sum().backward()
+    return [out.detach()] + [x.grad for x, g in zip(xs, grads) if g] + \
+        [p.grad for p in module.parameters()]
+
+
+def card_vs_cpu_phase():
+    """25(b): each new module on the card against itself on the CPU, the
+    same weights (built on the CPU from a seed, then copied), f32, TF32
+    off: the output and every gradient within P25_RTOL of its tensor's
+    largest element. The while loop's host syncs printed."""
+    from bigdl_tpu_torch.nn import SwitchOps
+    from bigdl_tpu_torch.utils import T
+    errs, syncs = {}, {}
+    for name, (make, inputs, grads) in _p25_cases().items():
+        cpu = make("cpu", torch.Generator().manual_seed(0))
+        card = copy.deepcopy(cpu).to("cuda")
+        xs = [torch.from_numpy(a) for a in inputs]
+        with torch.no_grad():
+            shape = cpu.eval()(xs[0] if len(xs) == 1 else T(*xs)).shape
+        w = np.random.RandomState(7).randn(*shape).astype(np.float32)
+        want = _p25_run(cpu, inputs, grads, "cpu", w)
+        SwitchOps.host_syncs = 0
+        got = _p25_run(card, inputs, grads, "cuda", w)
+        torch.cuda.synchronize()
+        syncs[name] = SwitchOps.host_syncs
+        # a parameter of a branch that did not run has no gradient on
+        # either device
+        check(len(got) == len(want) and all(
+            (g is None) == (c is None) for g, c in zip(got, want)),
+              f"card vs CPU: {name}'s gradients differ in which exist")
+        errs[name] = max(
+            float((g.cpu() - c).abs().max())
+            / max(float(c.abs().max()), 1e-30)
+            for g, c in zip(got, want) if c is not None)
+    out = {"rtol": P25_RTOL, "max_share_of_largest": errs,
+           "switch_host_syncs": {k: v for k, v in syncs.items()
+                                 if k.startswith("DynamicGraph")}}
+    print("new modules card vs cpu " + json.dumps(out), flush=True)
+    bad = {k: v for k, v in errs.items() if not v <= P25_RTOL}
+    check(not bad, f"card vs CPU: beyond {P25_RTOL}: {bad}")
+    check(syncs["DynamicGraph while"] == 8
+          and syncs["DynamicGraph cond (true)"] == 1
+          and syncs["DynamicGraph cond (false)"] == 1,
+          f"card vs CPU: Switch host syncs {syncs}, want 8 for the while "
+          "loop (2 Switches x 4 decisions) and 1 a cond")
+
+
+def tree_example_phase():
+    """25(c): `tools/treelstm_sentiment.py` on the card at the reference
+    test's settings: train accuracy above 0.8."""
+    from bigdl_tpu_torch.tools import treelstm_sentiment
+    t0 = time.perf_counter()
+    acc = treelstm_sentiment.main(P25_TREE_ARGS + ["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    print("tree example " + json.dumps({"args": P25_TREE_ARGS,
+                                        "train_accuracy": acc,
+                                        "wall_s": wall}), flush=True)
+    check(acc > 0.8, f"tree example: train accuracy {acc} <= 0.8")
+
+
+def remat_phase(sk, bk):
+    """25: (a)-(c) and the phase's wall time; returns kernels 5, 6 and 7's
+    launches on the remat model's paths."""
+    t0 = time.perf_counter()
+    tally = {"stem_conv": 0, "bn_relu_fwd": 0, "bn_relu_bwd": 0}
+    models, bitwise = remat_training_phase(sk, bk, tally)
+    remat_serving_phase(sk, bk, models, bitwise, tally)
+    del models
+    torch.cuda.empty_cache()
+    card_vs_cpu_phase()
+    tree_example_phase()
+    wall = time.perf_counter() - t0
+    print(f"phase 25: {wall:.1f} s (target {P25_TARGET_S:.0f} s)",
+          flush=True)
+    return tally
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6847,7 +7272,7 @@ def main() -> int:
 
     if sys.argv[1:2] in (["--phase17"], ["--phase18"], ["--phase19"],
                          ["--phase20"], ["--phase21"], ["--phase22"],
-                         ["--phase23"], ["--phase24"]):
+                         ["--phase23"], ["--phase24"], ["--phase25"]):
         if sys.argv[1] == "--phase17":
             observability_phase(ak, sk, bk)
         elif sys.argv[1] == "--phase18":
@@ -6862,8 +7287,10 @@ def main() -> int:
             ops_phase(sk, bk)
         elif sys.argv[1] == "--phase23":
             replay_phase(ak, sk, bk)
-        else:
+        elif sys.argv[1] == "--phase24":
             graph_phase(sk, bk)
+        else:
+            remat_phase(sk, bk)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -6983,6 +7410,9 @@ def main() -> int:
 
     # 24. nn.Graph: ResNet-50 as a Graph trained, served, saved, quantized
     graph_launches = graph_phase(sk, bk)
+
+    # 25. Remat: ResNet-50 remat=True against its twin; the other new modules
+    remat_launches = remat_phase(sk, bk)
     zoo_launches = {
         "launches_inception_v1": zoo_bench["inception_v1"]["launches"],
         "launches_inception_v2": zoo_bench["inception_v2"]["launches"],
@@ -7032,6 +7462,7 @@ def main() -> int:
            "launches_ops": ops_launches[row["name"]],
            **{k: v[row["name"]] for k, v in p23.items()},
            "launches_graph": graph_launches[row["name"]],
+           "launches_remat": remat_launches[row["name"]],
            **({"launches_int8_serving": int8_launches["bn_relu_fwd"],
                "launches_fleet": fleet_launches["bn_relu_fwd"]}
               if d == "fwd" else {}),
@@ -7045,6 +7476,7 @@ def main() -> int:
          "launches_ops": ops_launches["stem_conv"],
          **{k: v["stem_conv"] for k, v in p23.items()},
          "launches_graph": graph_launches["stem_conv"],
+         "launches_remat": remat_launches["stem_conv"],
          **{k: v["stem_conv"] for k, v in zoo_launches.items()},
          "zoo_shapes": zoo_rows["stem"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {

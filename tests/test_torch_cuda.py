@@ -24,7 +24,10 @@ and the operations stack: a run fed by `set_prefetch` (pinned batches,
 and the other way round, and a fleet replay's canonical streams
 identical at one seed; and `nn.Graph`: a ResNet-8 as a Graph launching
 kernels 6-7 at its Sequential's count with the same bits, and
-`set_graph_optimizations` putting kernel 5 into a Graph's training.
+`set_graph_optimizations` putting kernel 5 into a Graph's training; and
+`Remat`: a ResNet-18 with `remat=True` the same bits as its twin, kernel
+6 launching again for the in-block sites in the recompute, and a GRU on
+the card against the CPU (1e-5 of each tensor's largest element).
 
 Every test here needs a CUDA device and skips without one. This file
 imports nothing of JAX, so it runs where JAX is not installed:
@@ -1366,3 +1369,66 @@ def test_set_graph_optimizations_launches_kernel_5_in_a_graph(cuda_device,
                                        if optimize else "SpatialConvolution")
         assert tsk.stem_conv_forward.launches == (2 if optimize else 0)
         assert tbk.bn_relu_forward.launches == 2
+
+
+def test_remat_resnet_matches_its_twin_on_the_card(cuda_device):
+    """ResNet-18 (10 classes, 64x64, b4, f32, deterministic cuDNN) with
+    `remat=True` against its `remat=False` twin from the same weights, one
+    training forward and backward each: the outputs, every gradient and
+    every BN buffer the same bits; kernel 6 launches 9 + 8 times with
+    remat (its 8 in-block sites run again in the recompute), 9 without,
+    and kernel 7 9 times in both."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        x = torch.rand(4, 64, 64, 3, generator=torch.Generator()
+                       .manual_seed(0)).to(cuda_device)
+        runs = []
+        for remat in (True, False):
+            model = ResNet(10, depth=18, remat=remat, device=cuda_device,
+                           generator=torch.Generator().manual_seed(0))
+            tbk.bn_relu_forward.launches = tbk.bn_relu_backward.launches = 0
+            out = model.train()(x)
+            (out * torch.arange(10, device=cuda_device)).sum().backward()
+            state = {}
+            for k, v in model.state_dict().items():
+                head, _, rest = k.partition(".")
+                if head.endswith("_Remat"):
+                    k = head[:-5] + "Sequential." + rest.partition(".")[2]
+                state[k] = v
+            grads = [p.grad for p in model.parameters()]
+            runs.append((out.detach(), grads, state,
+                         tbk.bn_relu_forward.launches,
+                         tbk.bn_relu_backward.launches))
+        (o1, g1, s1, f1, b1), (o2, g2, s2, f2, b2) = runs
+        assert (f1, b1, f2, b2) == (17, 9, 9, 9)
+        assert torch.equal(o1, o2)
+        assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+        assert s1.keys() == s2.keys()
+        assert all(torch.equal(s1[k], s2[k]) for k in s2)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def test_gru_on_the_card_matches_the_cpu(cuda_device):
+    """`Recurrent(GRUCell(64, 128))` over b8 T12 on the card against the
+    same weights on the CPU, f32, TF32 off: the output and every gradient
+    within 1e-5 of its tensor's largest element (cuBLAS and oneDNN sum in
+    other orders)."""
+    import copy
+
+    from bigdl_tpu_torch import nn
+    cpu = nn.Recurrent(nn.GRUCell(64, 128, device="cpu",
+                                  generator=torch.Generator().manual_seed(1)))
+    card = copy.deepcopy(cpu).to(cuda_device)
+    x = torch.randn(8, 12, 64, generator=torch.Generator().manual_seed(2))
+    w = torch.randn(8, 12, 128, generator=torch.Generator().manual_seed(3))
+    runs = []
+    for model, dev in ((cpu, "cpu"), (card, cuda_device)):
+        xi = x.to(dev, copy=True).requires_grad_()
+        out = model(xi)
+        (out * w.to(dev)).sum().backward()
+        runs.append([out.detach().cpu(), xi.grad.cpu()]
+                    + [p.grad.cpu() for p in model.parameters()])
+    for want, got in zip(*runs):
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())

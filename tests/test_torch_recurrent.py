@@ -479,3 +479,203 @@ def test_language_model_example_learns_the_corpus():
     x, y = language_model.batchify(np.arange(41, dtype=np.int32), 20)
     assert x.shape == y.shape == (2, 20) and x.dtype == np.float32
     assert x[0, 0] == 1 and y[0, 0] == 2  # 1-based, next-token targets
+
+
+# --------------------------------------------------------------------------
+# The rest of the file: peephole, GRU, convolutional cells, BiRecurrent,
+# RecurrentDecoder (held as above: atol 1e-5 on outputs and the input's
+# gradient, 1e-4 of each tensor's largest element on parameter gradients)
+# --------------------------------------------------------------------------
+
+#: kind -> (JAX Recurrent, port Recurrent, input shape [B, T, ...])
+NEW_RECURRENT = {
+    "peephole": (lambda: jnn.Recurrent(jnn.LSTMPeepholeCell(3, 5)),
+                 lambda: tnn.Recurrent(tnn.LSTMPeepholeCell(3, 5,
+                                                            device="cpu")),
+                 (2, 4, 3)),
+    "peephole_alias_last": (
+        lambda: jnn.Recurrent(jnn.LSTMPeephole(3, 5), False, True),
+        lambda: tnn.Recurrent(tnn.LSTMPeephole(3, 5, device="cpu"), False,
+                              True), (2, 4, 3)),
+    "gru": (lambda: jnn.Recurrent(jnn.GRUCell(3, 5)),
+            lambda: tnn.Recurrent(tnn.GRUCell(3, 5, device="cpu")),
+            (2, 4, 3)),
+    "gru_alias_reverse": (
+        lambda: jnn.Recurrent(jnn.GRU(3, 5), True, True),
+        lambda: tnn.Recurrent(tnn.GRU(3, 5, device="cpu"), True, True),
+        (2, 4, 3)),
+    "gru_in_a_stack": (
+        lambda: jnn.Recurrent(jnn.MultiRNNCell([jnn.GRUCell(3, 4),
+                                                jnn.LSTMPeepholeCell(4, 5)])),
+        lambda: tnn.Recurrent(tnn.MultiRNNCell([
+            tnn.GRUCell(3, 4, device="cpu"),
+            tnn.LSTMPeepholeCell(4, 5, device="cpu")])), (2, 4, 3)),
+    "conv_lstm": (lambda: jnn.Recurrent(jnn.ConvLSTMPeephole(2, 3)),
+                  lambda: tnn.Recurrent(tnn.ConvLSTMPeephole(2, 3,
+                                                             device="cpu")),
+                  (2, 3, 5, 5, 2)),
+    "conv_lstm_no_peephole_k5": (
+        lambda: jnn.Recurrent(jnn.ConvLSTMPeephole(2, 3, 5, 3, 1, False)),
+        lambda: tnn.Recurrent(tnn.ConvLSTMPeephole(2, 3, 5, 3, 1, False,
+                                                   device="cpu")),
+        (2, 3, 5, 5, 2)),
+    "conv_lstm_3d": (lambda: jnn.Recurrent(jnn.ConvLSTMPeephole3D(2, 3)),
+                     lambda: tnn.Recurrent(tnn.ConvLSTMPeephole3D(
+                         2, 3, device="cpu")), (1, 3, 4, 4, 4, 2)),
+}
+
+
+def _nonzero_peepholes(params):
+    """The conv cells init their bias and peepholes at zero: give them
+    values so the test sees them."""
+    rs = np.random.RandomState(11)
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict) else (
+            (rs.randn(*v.shape) * 0.3).astype(np.float32)
+            if k.startswith("peep") or k == "bias" else v)
+            for k, v in t.items()}
+    return walk(params)
+
+
+@pytest.mark.parametrize("kind", sorted(NEW_RECURRENT))
+def test_new_cells_in_recurrent_match_the_reference(kind):
+    jf, tf, shape = NEW_RECURRENT[kind]
+    jm, tm = jf(), tf()
+    params = _nonzero_peepholes(_np(jm.init(jax.random.PRNGKey(2))))
+    load_module_params(tm, params)
+    assert set(dict(tm.named_parameters())) == {
+        ".".join(p) for p in _paths(params)}
+    _check(jm, tm, _x(*shape, seed=8), params)
+
+
+def _paths(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,)
+
+
+def test_gru_is_the_reference_s_variant_not_torch_s():
+    """The port's GRU applies the reset gate before its hidden product, as
+    the reference's (Cho et al.): it matches the JAX GRU, and the same
+    weights in `torch.nn.GRU`'s formulation, r * (h @ W_hn + b_hn), do not
+    (their gap is far above the tolerance)."""
+    jm = jnn.Recurrent(jnn.GRUCell(3, 4))
+    tm = tnn.Recurrent(tnn.GRUCell(3, 4, device="cpu"))
+    params = _np(jm.init(jax.random.PRNGKey(6)))
+    load_module_params(tm, params)
+    x = _x(2, 6, 3, seed=6)
+    got = _check(jm, tm, x, params)
+    p = params["cell"]
+    tg = torch.nn.GRU(3, 4, batch_first=True)
+    with torch.no_grad():
+        # torch's gate order r, z, n; weights [3h, in]; h @ W_hn + b_hn
+        # inside r's product, b_n as the input bias, b_hn = 0
+        tg.weight_ih_l0.copy_(torch.from_numpy(np.concatenate(
+            [p["wi_rz"], p["wi_n"]], 1).T))
+        tg.weight_hh_l0.copy_(torch.from_numpy(np.concatenate(
+            [p["wh_rz"], p["wh_n"]], 1).T))
+        tg.bias_ih_l0.copy_(torch.from_numpy(np.concatenate(
+            [p["b_rz"], p["b_n"]])))
+        tg.bias_hh_l0.zero_()
+        torch_variant, _ = tg(torch.from_numpy(x))
+    gap = float(np.abs(torch_variant.numpy() - got).max())
+    assert gap > 100 * ATOL
+
+
+@pytest.mark.parametrize("merge", ["concat", "sum", "mul", "ave"])
+def test_birecurrent_merges_match_the_reference(merge):
+    jm = jnn.BiRecurrent(jnn.LSTMCell(3, 4), None, merge)
+    tm = tnn.BiRecurrent(tnn.LSTMCell(3, 4, device="cpu"), None, merge)
+    params = _np(jm.init(jax.random.PRNGKey(4)))
+    assert set(params) == {"fwd", "bwd"}
+    load_module_params(tm, params)
+    out = _check(jm, tm, _x(2, 5, 3, seed=3), params)
+    assert out.shape == ((2, 5, 8) if merge == "concat" else (2, 5, 4))
+
+
+def test_birecurrent_with_its_own_backward_cell():
+    jm = jnn.BiRecurrent(jnn.GRUCell(3, 4), jnn.LSTMPeepholeCell(3, 4),
+                         "sum")
+    tm = tnn.BiRecurrent(tnn.GRUCell(3, 4, device="cpu"),
+                         tnn.LSTMPeepholeCell(3, 4, device="cpu"), "sum")
+    params = _np(jm.init(jax.random.PRNGKey(5)))
+    load_module_params(tm, params)
+    _check(jm, tm, _x(2, 5, 3, seed=4), params)
+
+
+def test_birecurrent_draws_a_fresh_backward_cell():
+    """Without `cell_bwd` the backward half is a copy of the forward cell
+    with parameters of its own (the reference inits the copy from its
+    own key); an unknown merge raises the reference's ValueError."""
+    cell = tnn.LSTMCell(3, 4, device="cpu")
+    bi = tnn.BiRecurrent(cell, generator=torch.Generator().manual_seed(7))
+    assert bi.fwd.cell is cell and type(bi.bwd.cell) is tnn.LSTMCell
+    assert bi.bwd.reverse and not bi.fwd.reverse
+    for (na, a), (nb, b) in zip(bi.fwd.named_parameters(),
+                                bi.bwd.named_parameters()):
+        assert na == nb and a.shape == b.shape and not torch.equal(a, b)
+    with pytest.raises(ValueError, match="unknown merge"):
+        tnn.BiRecurrent(cell, None, "max")(torch.zeros(1, 2, 3))
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_recurrent_decoder_matches_the_reference(cell):
+    make = {"lstm": lambda pkg, kw: pkg.LSTMCell(5, 5, **kw),
+            "gru": lambda pkg, kw: pkg.GRUCell(5, 5, **kw)}[cell]
+    jm = jnn.RecurrentDecoder(make(jnn, {}), 4)
+    tm = tnn.RecurrentDecoder(make(tnn, {"device": "cpu"}), 4)
+    params = _np(jm.init(jax.random.PRNGKey(7)))
+    load_module_params(tm, params)
+    out = _check(jm, tm, _x(3, 5, seed=5), params)
+    assert out.shape == (3, 4, 5)
+
+
+@pytest.mark.parametrize("kind", ["peephole", "gru", "conv_lstm"])
+def test_new_cell_single_step_through_a_table(kind):
+    """forward(T(x, state)) -> T(out, new_state), as the reference's
+    apply."""
+    make = {"peephole": lambda pkg, kw: pkg.LSTMPeepholeCell(3, 5, **kw),
+            "gru": lambda pkg, kw: pkg.GRUCell(3, 5, **kw),
+            "conv_lstm": lambda pkg, kw: pkg.ConvLSTMPeephole(3, 5, **kw)}
+    jc, tc = make[kind](jnn, {}), make[kind](tnn, {"device": "cpu"})
+    params = _nonzero_peepholes(_np(jc.init(jax.random.PRNGKey(8))))
+    load_module_params(tc, params)
+    lead = (2, 4, 4) if kind == "conv_lstm" else (2,)
+    x = _x(*lead, 3, seed=9)
+    h = _x(*lead, 5, seed=10)
+    state = h if kind == "gru" else (h, _x(*lead, 5, seed=11))
+    jstate = jax.tree_util.tree_map(jnp.asarray, state)
+    tstate = jax.tree_util.tree_map(torch.from_numpy, state)
+    out_j, _ = functional_apply(jc, params, JT(jnp.asarray(x), jstate))
+    out_t = tc(T(torch.from_numpy(x), tstate))
+    np.testing.assert_allclose(out_t[1].detach().numpy(),
+                               np.asarray(out_j[1]), atol=ATOL, rtol=0)
+    got_s = jax.tree_util.tree_map(lambda t: t.detach().numpy(), out_t[2])
+    _close_tree(got_s, _np(out_j[2]), rtol=ATOL)
+
+
+def test_cells_reset_their_parameters_from_a_generator():
+    """`reset_parameters(g)` redraws every leaf with the constructor's
+    shapes; the same seed gives the same leaves."""
+    for make in (lambda: tnn.GRUCell(3, 4, device="cpu"),
+                 lambda: tnn.LSTMPeepholeCell(3, 4, device="cpu"),
+                 lambda: tnn.ConvLSTMPeephole3D(2, 3, device="cpu"),
+                 lambda: tnn.MultiRNNCell([tnn.RnnCell(3, 4, device="cpu"),
+                                           tnn.LSTMCell(4, 4,
+                                                        device="cpu")])):
+        a, b = make(), make()
+        a.reset_parameters(torch.Generator().manual_seed(3))
+        b.reset_parameters(torch.Generator().manual_seed(3))
+        for (n, pa), (_, pb) in zip(a.named_parameters(),
+                                    b.named_parameters()):
+            assert torch.equal(pa, pb), n
+        assert [p.shape for p in a.parameters()] == \
+            [p.shape for p in make().parameters()]
+
+
+def test_conv_lstm_refuses_a_stride():
+    with pytest.raises(NotImplementedError, match="stride"):
+        tnn.ConvLSTMPeephole(2, 3, 3, 3, 2, device="cpu")

@@ -295,8 +295,8 @@ def test_average_pool_rejects_nchw():
 
 
 def test_resnet_remat_is_sixth_and_s2d_stem_seventh():
-    with pytest.raises(NotImplementedError, match="remat"):
-        ResNet(10, 18, "B", "ImageNet", True, True, device="cpu")
+    m = ResNet(10, 18, "B", "ImageNet", True, True, device="cpu")
+    assert sum(isinstance(c, tnn.Remat) for c in m.modules()) == 8
     m = ResNet(10, 18, "B", "ImageNet", True, False, True, device="cpu")
     assert any(isinstance(c, tnn.SpaceToDepthStemConvolution)
                for c in m.modules())
